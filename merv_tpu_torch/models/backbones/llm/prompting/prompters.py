@@ -1,0 +1,112 @@
+"""Prompt builders (counterpart of ``merv_tpu/models/backbones/llm/prompting/prompters.py``).
+
+The generic table-driven builder and the ``PurePromptBuilder`` style that the
+main path's ``llama2-7b-pure`` LLM uses; the chat styles wait with the other
+LLM families (ROADMAP A10). Emitted strings match ``merv_tpu`` exactly, since
+they feed tokenization.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+MERV_VL_SYSTEM_PROMPT = (
+    "You are a helpful language and vision assistant. "
+    "You are able to understand the visual content that the user provides, "
+    "and assist the user with a variety of tasks using natural language."
+)
+
+SYS_PROMPTS: Dict[str, str] = {"merv": MERV_VL_SYSTEM_PROMPT}
+
+
+@dataclass(frozen=True)
+class PromptStyle:
+    """Static description of one chat format."""
+
+    wrap_human: Callable[[str], str]
+    wrap_gpt: Callable[[str], str]
+    # How the system prompt enters the stream:
+    #   'first-human'  -> prepended inside the first human wrap (llama2 chat)
+    #   'prefix-human' -> plain-text prefix before the first human wrap (vicuna)
+    #   'seed'         -> emitted once into the prompt at construction (llama3.1, qwen2)
+    #   'none'         -> no system prompt (pure models)
+    system_mode: str = "none"
+    system_formatter: Callable[[str], str] = lambda s: s
+    bos: str = "<s>"
+    eos: str = "</s>"
+    strip_image_sentinel: bool = True
+    rstrip_output: bool = True
+
+
+class PromptBuilder:
+    """Stateful multi-turn builder; one instance per conversation."""
+
+    def __init__(self, style: PromptStyle, model_family: str, system_prompt: Optional[str] = None) -> None:
+        self.style = style
+        self.model_family = model_family
+        self.turn_count = 0
+        self.prompt = ""
+
+        if style.system_mode == "none":
+            self.system_prompt = system_prompt
+        else:
+            raw = self._default_system_prompt() if system_prompt is None else system_prompt
+            self.system_prompt = style.system_formatter(raw)
+            if style.system_mode == "seed":
+                self.prompt = self.system_prompt
+
+    def _default_system_prompt(self) -> str:
+        return SYS_PROMPTS[self.model_family]
+
+    # -- core API (reference base_prompter.py:18-25) --------------------------------
+
+    def add_turn(self, role: str, message: str) -> str:
+        assert (role == "human") if (self.turn_count % 2 == 0) else (role == "gpt")
+        if self.style.strip_image_sentinel:
+            message = message.replace("<image>", "").strip()
+
+        wrapped = self._wrap(role, message, first=self.turn_count == 0)
+        self.prompt += wrapped
+        self.turn_count += 1
+        return wrapped
+
+    def get_potential_prompt(self, message: str) -> str:
+        # Always assumes it is the human's turn next.
+        candidate = self.prompt + self._wrap("human", message, first=self.turn_count == 0)
+        return self._finalize(candidate)
+
+    def get_prompt(self) -> str:
+        return self._finalize(self.prompt)
+
+    # -- helpers ---------------------------------------------------------------------
+
+    def _wrap(self, role: str, message: str, first: bool) -> str:
+        if role == "human":
+            if first and self.style.system_mode == "first-human":
+                return self.style.wrap_human(self.system_prompt + message)
+            if first and self.style.system_mode == "prefix-human":
+                return self.system_prompt + self.style.wrap_human(message)
+            return self.style.wrap_human(message)
+        return self.style.wrap_gpt(message)
+
+    def _finalize(self, prompt: str) -> str:
+        # Leading BOS removed because the tokenizer re-adds it (reference
+        # base_prompter.py:71-73); header-style formats keep everything.
+        if not self.style.rstrip_output:
+            return prompt
+        return prompt.removeprefix(self.style.bos).rstrip()
+
+
+def _pure_style() -> PromptStyle:
+    eos = "</s>"
+    return PromptStyle(
+        wrap_human=lambda msg: f"In: {msg}\nOut: ",
+        wrap_gpt=lambda msg: f"{msg if msg != '' else ' '}{eos}",
+        system_mode="none",
+    )
+
+
+class PurePromptBuilder(PromptBuilder):
+    def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
+        super().__init__(_pure_style(), model_family, system_prompt)

@@ -1,0 +1,252 @@
+"""Llama-family causal decoder (counterpart of
+``merv_tpu/models/backbones/llm/transformer.py``), main-path subset: the
+no-cache forward, the cache prefill with a scalar write pointer, and T=1
+decode, with RoPE, GQA and a bf16 KV cache.
+
+Differences from ``merv_tpu``, all in idiom, not in function:
+- layers are an ``nn.ModuleList`` run in a Python loop (``lax.scan`` there);
+- the KV cache is written IN PLACE (slice assignment into the preallocated
+  ``[L, B, H_kv, max_len, D]`` buffers), where JAX returns a new buffer. The
+  returned :class:`KVCache` shares the tensors, with ``length`` advanced;
+- attention goes through :func:`merv_tpu_torch.ops.attention.attention`: every
+  call with T > 1 (no-cache forward and cache prefill) runs the flash kernel,
+  T = 1 decode runs plain torch.
+
+Int8 KV and int8 weights, per-slot pointers, ring/pipeline paths and
+``pack_serving_params`` wait for later slices (ROADMAP A4/A9/A12).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from merv_tpu_torch.nn.core import Embed, Linear, RMSNorm
+from merv_tpu_torch.ops.attention import attention
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    max_position_embeddings: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+    initializer_range: float = 0.02
+    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+@dataclass
+class KVCache:
+    """Preallocated cache for all layers; ``length`` is the shared write pointer."""
+
+    k: torch.Tensor  # [L, B, H_kv, max_len, D]
+    v: torch.Tensor  # [L, B, H_kv, max_len, D]
+    length: int
+
+    @classmethod
+    def create(
+        cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
+    ) -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def _rope(cos_sin: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding (HF half-split). x [B, H, T, D]; cos/sin [B, T, D]."""
+    cos, sin = cos_sin[0][:, None], cos_sin[1][:, None]
+    d2 = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
+    return x * cos + rotated * sin
+
+
+def _rope_tables(cfg: DecoderConfig, positions: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for positions [B, T] -> ([B, T, D], [B, T, D])."""
+    d2 = cfg.head_dim // 2
+    inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(0, d2, dtype=torch.float32, device=positions.device) / d2))
+    freqs = positions[..., None].float() * inv_freq[None, None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def _linear(c: DecoderConfig, i: int, o: int, bias: bool, device) -> Linear:
+    return Linear(i, o, use_bias=bias, param_dtype=c.param_dtype, device=device, init_std=c.initializer_range)
+
+
+class _Attn(nn.Module):
+    def __init__(self, c: DecoderConfig, device) -> None:
+        super().__init__()
+        self.q_proj = _linear(c, c.hidden_size, c.q_dim, c.attention_bias, device)
+        self.k_proj = _linear(c, c.hidden_size, c.kv_dim, c.attention_bias, device)
+        self.v_proj = _linear(c, c.hidden_size, c.kv_dim, c.attention_bias, device)
+        self.o_proj = _linear(c, c.q_dim, c.hidden_size, False, device)
+
+
+class _MLP(nn.Module):
+    def __init__(self, c: DecoderConfig, device) -> None:
+        super().__init__()
+        self.gate_proj = _linear(c, c.hidden_size, c.intermediate_size, False, device)
+        self.up_proj = _linear(c, c.hidden_size, c.intermediate_size, False, device)
+        self.down_proj = _linear(c, c.intermediate_size, c.hidden_size, False, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, c: DecoderConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = c
+        self.attn = _Attn(c, device)
+        self.mlp = _MLP(c, device)
+        self.input_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
+        self.post_attn_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
+
+    def forward(
+        self,
+        h: torch.Tensor,
+        cos_sin: Tuple[torch.Tensor, torch.Tensor],
+        kv_mask: Optional[torch.Tensor],
+        cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],
+        attn_impl: str,
+    ) -> torch.Tensor:
+        c = self.cfg
+        B, T, _ = h.shape
+        x = self.input_norm(h)
+        q = self.attn.q_proj(x).view(B, T, c.num_heads, c.head_dim).transpose(1, 2)
+        k = self.attn.k_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
+        v = self.attn.v_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
+        q = _rope(cos_sin, q).contiguous()
+        k = _rope(cos_sin, k)
+        q_offset = None
+        if cache is not None:
+            ck, cv, start = cache  # this layer's [B, H_kv, max_len, D] buffers
+            ck[:, :, start : start + T] = k.to(ck.dtype)
+            cv[:, :, start : start + T] = v.to(cv.dtype)
+            k, v, q_offset = ck.to(q.dtype), cv.to(q.dtype), start
+        out = attention(
+            q, k.contiguous(), v.contiguous(), causal=True, kv_mask=kv_mask, q_offset=q_offset, impl=attn_impl
+        )
+        h = h + self.attn.o_proj(out.transpose(1, 2).reshape(B, T, c.q_dim))
+        return h + self.mlp(self.post_attn_norm(h))
+
+
+class LlamaDecoder(nn.Module):
+    def __init__(self, cfg: DecoderConfig, device=None) -> None:
+        super().__init__()
+        c = self.cfg = cfg
+        self.embed_tokens = Embed(c.vocab_size, c.hidden_size, param_dtype=c.param_dtype, device=device)
+        self.layers = nn.ModuleList([DecoderLayer(c, device) for _ in range(c.num_layers)])
+        self.final_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
+        if not c.tie_word_embeddings:
+            self.lm_head = _linear(c, c.hidden_size, c.vocab_size, False, device)
+
+    def embed_input_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids, dtype=self.cfg.compute_dtype)
+
+    def forward(
+        self,
+        *,
+        input_ids: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,  # [B, T_kv] valid kv positions
+        positions: Optional[torch.Tensor] = None,  # [B, T]
+        kv_cache: Optional[KVCache] = None,
+        attn_impl: str = "auto",
+        logits_indices: Optional[torch.Tensor] = None,  # [B] positions to project
+    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """Causal decoder forward.
+
+        Without cache, ``attention_mask`` must be a right-padding prefix mask:
+        it gives positions only, and no kv mask is applied (causality already
+        keeps every valid query off the padded keys). With a cache, the T new
+        keys/values are written at ``kv_cache.length`` and attention spans the
+        whole buffer with ``kv_pos < length + T`` AND ``attention_mask`` as
+        the key mask."""
+        c = self.cfg
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_input_ids(input_ids)
+        h = inputs_embeds.to(c.compute_dtype)
+        B, T, _ = h.shape
+        dev = h.device
+
+        if kv_cache is not None:
+            start = kv_cache.length
+            max_len = kv_cache.k.shape[3]
+            if start + T > max_len:
+                raise ValueError(f"KV cache overflow: {start} + {T} > {max_len}")
+            if positions is None:
+                positions = (start + torch.arange(T, device=dev))[None].expand(B, T)
+            kv_mask = (torch.arange(max_len, device=dev) < start + T)[None].expand(B, max_len)
+            if attention_mask is not None:
+                am = attention_mask.bool()
+                if am.shape[1] != max_len:
+                    am = torch.cat([am, torch.ones((B, max_len - am.shape[1]), dtype=torch.bool, device=dev)], dim=1)
+                kv_mask = kv_mask & am
+        else:
+            if positions is None:
+                if attention_mask is not None:
+                    positions = (attention_mask.long().cumsum(dim=1) - 1).clamp(min=0)
+                else:
+                    positions = torch.arange(T, device=dev)[None].expand(B, T)
+            if attention_mask is not None:
+                am = attention_mask.bool()
+                if not bool((am[:, 1:] <= am[:, :-1]).all()):
+                    raise ValueError(
+                        "decoder no-cache forward requires a right-padding prefix attention_mask "
+                        "([1]*n + [0]*pad per row); other masks would silently attend masked keys"
+                    )
+            kv_mask = None
+
+        cos_sin = _rope_tables(c, positions, h.dtype)
+        for li, layer in enumerate(self.layers):
+            cache = None if kv_cache is None else (kv_cache.k[li], kv_cache.v[li], kv_cache.length)
+            h = layer(h, cos_sin, kv_mask, cache, attn_impl)
+        new_cache = None if kv_cache is None else KVCache(kv_cache.k, kv_cache.v, kv_cache.length + T)
+
+        h = self.final_norm(h)
+        if logits_indices is not None:
+            h = h[torch.arange(B, device=dev), logits_indices.long()][:, None]
+        return self.lm_head_apply(h), new_cache
+
+    def lm_head_apply(self, h: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_word_embeddings:
+            return h @ self.embed_tokens.weight.to(h.dtype).T
+        return self.lm_head(h)
+
+
+LLAMA2_7B = DecoderConfig(
+    vocab_size=32064,  # 32000 + <PAD> resized to a multiple of 64
+    hidden_size=4096, intermediate_size=11008, num_layers=32,
+    num_heads=32, num_kv_heads=32, head_dim=128,
+    max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+)
+
+
+def tiny_decoder_config(**overrides) -> DecoderConfig:
+    base = dict(
+        vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=16, max_position_embeddings=512,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)

@@ -1,0 +1,346 @@
+"""MERV: the multi-encoder video-language model (counterpart of
+``merv_tpu/models/vidlms/merv.py``), main-path subset.
+
+- arch grammar ``{,no-align}+3davg{,+frame{N}}+linear`` selects one
+  :class:`AveragePooling3DProjector` per encoder, with the token-consistency
+  asserts of ``merv_tpu``; fusion ``cross_attention*`` (or ``first``).
+  Other resamplers, MLP projectors and fusions raise ``NotImplementedError``
+  naming ROADMAP A10.
+- multimodal splice: visual tokens after BOS; text-only rows keep their text
+  followed by zero embeddings with a False mask.
+- generation: towers -> projectors -> fusion -> splice -> cache prefill ->
+  decode, eagerly (the JAX package jits the whole pipeline).
+
+``generate`` takes a raw uint8 ``[T, H, W, C]`` video or ``None``; decoding a
+video from a path waits for the FFmpeg decoder (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from merv_tpu_torch.device import resolve_device
+from merv_tpu_torch.models.backbones.llm.base_llm import LLMBackbone
+from merv_tpu_torch.models.backbones.video.base_video import VideoBackbone
+from merv_tpu_torch.models.generation import GenerationConfig, _sync, generate as _generate
+from merv_tpu_torch.models.vidlms.base_vidlm import IGNORE_INDEX, VidLM
+from merv_tpu_torch.nn.fusion import CrossAttentionAdapterLearnableQuery
+from merv_tpu_torch.nn.projectors import AveragePooling3DProjector
+from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.preprocessing.transforms import subsample_frames
+
+overwatch = initialize_overwatch(__name__)
+
+
+def _extract_frame_number(query: str) -> int:
+    return int(re.search(r"frame(\d+)", query).group(1))
+
+
+class MERV(VidLM):
+    def __init__(
+        self,
+        model_id: str,
+        video_backbones: List[VideoBackbone],
+        llm_backbone: LLMBackbone,
+        arch_specifier: str = "gelu-mlp",
+        feature_fusion: Optional[str] = None,
+        projector_token_length: int = 64,
+        visual_feature_length: int = 512,
+        text_embedding_dim: int = 3072,
+        param_dtype: torch.dtype = torch.float32,
+        device: Optional[torch.device] = None,
+    ) -> None:
+        super().__init__("merv", model_id, video_backbones, llm_backbone)
+        device = resolve_device(device)
+        self.feature_fusion_type = feature_fusion
+        self.arch_specifier = arch_specifier
+        llm_dim = llm_backbone.embed_dim
+
+        if not arch_specifier.endswith("linear"):
+            raise NotImplementedError(
+                f"arch_specifier {arch_specifier!r}: only '+linear' projectors are ported (ROADMAP A10)"
+            )
+        parts = arch_specifier.split("+")
+        if "3davg" not in parts:
+            raise NotImplementedError(
+                f"arch_specifier {arch_specifier!r}: only the 3davg resampler is ported (ROADMAP A10)"
+            )
+        factor = _extract_frame_number(arch_specifier) if "frame" in arch_specifier else 1
+        output_size = math.isqrt(projector_token_length)
+        if projector_token_length != output_size ** 2:
+            raise ValueError("projector_token_length should be a square number")
+        self.projectors = nn.ModuleList([
+            AveragePooling3DProjector(
+                vb.embed_dim, llm_dim, vb.temporal_resolution // factor, output_size, "linear",
+                param_dtype=param_dtype, device=device,
+            )
+            for vb in video_backbones
+        ])
+
+        if len(video_backbones) > 1:
+            lengths = [p.output_token_length * p.output_frame_length for p in self.projectors]
+            assert all(n in (1, visual_feature_length) for n in lengths), (
+                f"Output token length is not consistent across all projectors! visual_feature_length="
+                f"{visual_feature_length}, projector outputs {lengths}"
+            )
+        else:
+            correct = self.projectors[0].output_token_length * self.projectors[0].output_frame_length
+            if correct != visual_feature_length:
+                overwatch.info(
+                    f"Visual feature length {visual_feature_length} is not consistent with the output token "
+                    f"length of the projector! Changing to {correct}", ctx_level=1,
+                )
+                visual_feature_length = correct
+        self.visual_feature_length = visual_feature_length
+
+        if feature_fusion is not None and "cross_attention" in feature_fusion:
+            self.feature_fusion = CrossAttentionAdapterLearnableQuery(
+                embed_dim=text_embedding_dim, llm_dim=llm_dim, token_length=visual_feature_length,
+                averagetoken="avg" in feature_fusion, num_encoder=len(video_backbones),
+                positional_embedding="pe" in feature_fusion, param_dtype=param_dtype, device=device,
+            )
+        elif feature_fusion in (None, "first"):
+            self.feature_fusion = None
+        else:
+            raise NotImplementedError(f"feature_fusion {feature_fusion!r} is not ported yet (ROADMAP A10)")
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    # ------------------------------------------------------------------------------
+    # Forward pieces
+    # ------------------------------------------------------------------------------
+
+    def encode_videos(self, video_values: Sequence[torch.Tensor], impl: str = "auto") -> List[torch.Tensor]:
+        """Run every tower -> list of [B, num_patches_i, embed_dim_i]."""
+        return [vb(v, impl=impl) for vb, v in zip(self.video_backbones, video_values)]
+
+    def project_and_fuse(self, video_features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Per-encoder projection + fusion -> ([B, V, llm_dim], mixer weights)."""
+        feats = [
+            f.reshape(f.shape[0], vb.temporal_resolution, vb.spatial_resolution, f.shape[-1])
+            for f, vb in zip(video_features, self.video_backbones)
+        ]
+        projected = [p(f) for p, f in zip(self.projectors, feats)]
+        if self.feature_fusion is None:
+            return projected[0], None
+        return self.feature_fusion(projected)
+
+    def embed_multimodal(
+        self,
+        input_ids: torch.Tensor,  # [B, T] right-padded
+        attention_mask: torch.Tensor,  # [B, T]
+        visual_embeds: torch.Tensor,  # [B, V, llm_dim]
+        labels: Optional[torch.Tensor] = None,
+        is_multimodal: Optional[torch.Tensor] = None,  # [B] bool
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """Multimodal rows: [text[:bos] | visual | text[bos:]]; unimodal rows:
+        [text | zero-pad] with False mask / IGNORE labels."""
+        nbos = self.llm_backbone.bos_token_length
+        embeds = self.llm_backbone.embed_input_ids(input_ids)
+        B, T, E = embeds.shape
+        V = visual_embeds.shape[1]
+        visual_embeds = visual_embeds.to(embeds.dtype)
+        dev = embeds.device
+
+        mm_embeds = torch.cat([embeds[:, :nbos], visual_embeds, embeds[:, nbos:]], dim=1)
+        am = attention_mask.bool()
+        mm_mask = torch.cat([am[:, :nbos], torch.ones((B, V), dtype=torch.bool, device=dev), am[:, nbos:]], dim=1)
+        if is_multimodal is None:
+            fused_embeds, fused_mask = mm_embeds, mm_mask
+        else:
+            uni_embeds = torch.cat([embeds, torch.zeros((B, V, E), dtype=embeds.dtype, device=dev)], dim=1)
+            uni_mask = torch.cat([am, torch.zeros((B, V), dtype=torch.bool, device=dev)], dim=1)
+            sel = is_multimodal.bool().to(dev)
+            fused_embeds = torch.where(sel[:, None, None], mm_embeds, uni_embeds)
+            fused_mask = torch.where(sel[:, None], mm_mask, uni_mask)
+
+        fused_labels = None
+        if labels is not None:
+            ign = torch.full((B, V), IGNORE_INDEX, dtype=labels.dtype, device=dev)
+            mm_labels = torch.cat([labels[:, :nbos], ign, labels[:, nbos:]], dim=1)
+            if is_multimodal is None:
+                fused_labels = mm_labels
+            else:
+                uni_labels = torch.cat([labels, ign], dim=1)
+                fused_labels = torch.where(is_multimodal.bool().to(dev)[:, None], mm_labels, uni_labels)
+        return fused_embeds, fused_mask, fused_labels
+
+    @torch.inference_mode()
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        video_values: Sequence[torch.Tensor],
+        labels: Optional[torch.Tensor] = None,
+        is_multimodal: Optional[torch.Tensor] = None,
+        attn_impl: str = "auto",
+    ) -> Dict[str, Any]:
+        """Full multimodal forward (no cache). Returns dict(logits, loss, mixer, attention_mask, labels)."""
+        visual, mixer = self.project_and_fuse(self.encode_videos(video_values, attn_impl))
+        embeds, mask, fused_labels = self.embed_multimodal(input_ids, attention_mask, visual, labels, is_multimodal)
+        logits, _ = self.llm_backbone.decoder(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl)
+        loss = None if fused_labels is None else causal_lm_loss(logits, fused_labels)
+        return {"logits": logits, "loss": loss, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
+
+    # ------------------------------------------------------------------------------
+    # Generation
+    # ------------------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def build_inputs_embeds(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        video_values: Sequence[torch.Tensor],
+        is_multimodal: Optional[torch.Tensor] = None,
+        attn_impl: str = "auto",
+        timings: Optional[Dict[str, float]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Towers -> projectors -> fusion -> splice: (embeds [B, T+V, E], mask [B, T+V]).
+        ``timings`` (optional) receives ``towers_s`` and ``project_fuse_s``."""
+        dev = input_ids.device
+        t0 = _sync(dev) if timings is not None else 0.0
+        feats = self.encode_videos(video_values, attn_impl)
+        if timings is not None:
+            t1 = _sync(dev)
+            timings["towers_s"] = t1 - t0
+        visual, _ = self.project_and_fuse(feats)
+        embeds, mask, _ = self.embed_multimodal(input_ids, attention_mask, visual, None, is_multimodal)
+        if timings is not None:
+            timings["project_fuse_s"] = _sync(dev) - t1
+        return embeds, mask
+
+    @torch.inference_mode()
+    def generate_ids(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        video_values: Sequence[torch.Tensor],
+        is_multimodal: Optional[torch.Tensor] = None,
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_length: int = 1,
+        generator: Optional[torch.Generator] = None,
+        attn_impl: str = "auto",
+        timings: Optional[Dict[str, float]] = None,
+    ) -> torch.Tensor:
+        """Batched multimodal generation -> new token ids [B, max_new_tokens].
+        Inputs must lie on the model's device."""
+        dev = self.device
+        for t in (input_ids, attention_mask, *video_values):
+            if t.device != dev:
+                raise ValueError(f"generate_ids: input on {t.device}, model on {dev}")
+        cfg = GenerationConfig(
+            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature, top_p=top_p,
+            top_k=top_k, min_length=min_length,
+            eos_token_id=self.llm_backbone.stop_token_id, pad_token_id=self.llm_backbone.pad_token_id,
+        )
+        embeds, mask = self.build_inputs_embeds(
+            input_ids, attention_mask, video_values, is_multimodal, attn_impl, timings
+        )
+        return _generate(
+            self.llm_backbone.decoder, inputs_embeds=embeds, attention_mask=mask.long(), config=cfg,
+            generator=generator, attn_impl=attn_impl, timings=timings,
+        )
+
+    def _prepare_batch_inputs(
+        self,
+        videos: Sequence[Any],
+        prompt_texts: Sequence[str],
+        num_frames: Optional[List[int]] = None,
+        length_bucket: int = 64,
+    ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]:
+        """Tokenize + right-pad prompts to a ``length_bucket`` multiple, and
+        subsample + transform each video per encoder, on the model's device.
+        A ``None`` video gives a text-only row (zero video tensors)."""
+        dev = self.device
+        if num_frames is None:
+            num_frames = [vb.num_frames for vb in self.video_backbones]
+        B = len(videos)
+        if len(prompt_texts) != B:
+            raise ValueError("one prompt per video")
+        tok = self.llm_backbone.tokenizer
+        id_lists = [tok(p, truncation=True).input_ids for p in prompt_texts]
+        T = max(len(ids) for ids in id_lists)
+        if length_bucket > 1:
+            cap = self.llm_backbone.llm_max_length
+            T = min(-(-T // length_bucket) * length_bucket, max(cap, T))
+        input_ids = np.full((B, T), self.llm_backbone.pad_token_id, np.int64)
+        attention_mask = np.zeros((B, T), np.int64)
+        for b, ids in enumerate(id_lists):
+            input_ids[b, : len(ids)] = ids
+            attention_mask[b, : len(ids)] = 1
+
+        per_encoder: List[List[torch.Tensor]] = [[] for _ in self.video_backbones]
+        is_mm = []
+        for video in videos:
+            if video is None:
+                for e, vb in enumerate(self.video_backbones):
+                    per_encoder[e].append(torch.zeros(vb.default_video_resolution, dtype=torch.float32, device=dev))
+                is_mm.append(False)
+                continue
+            if isinstance(video, str) or hasattr(video, "__fspath__"):
+                raise NotImplementedError("decoding a video from a path waits for the FFmpeg decoder (ROADMAP A7)")
+            frames_all = torch.as_tensor(np.asarray(video)).to(dev)  # uint8 [T, H, W, C], one copy to the card
+            for e, (vb, nf) in enumerate(zip(self.video_backbones, num_frames)):
+                per_encoder[e].append(vb.get_video_transform()(subsample_frames(frames_all, nf)))
+            is_mm.append(True)
+        vids = [torch.stack(v) for v in per_encoder]
+        return (
+            torch.as_tensor(input_ids, device=dev), torch.as_tensor(attention_mask, device=dev),
+            vids, torch.as_tensor(is_mm, device=dev),
+        )
+
+    def generate(
+        self,
+        video: Any,
+        prompt_text: str,
+        num_frames: Optional[List[int]] = None,
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_length: int = 1,
+        generator: Optional[torch.Generator] = None,
+        attn_impl: str = "auto",
+        timings: Optional[Dict[str, float]] = None,
+    ) -> str:
+        """Single-example API: ``video`` is a uint8 [T, H, W, C] array or None (text only)."""
+        t0 = time.perf_counter()
+        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs([video], [prompt_text], num_frames)
+        if timings is not None:
+            timings["prepare_s"] = _sync(self.device) - t0
+        tokens = self.generate_ids(
+            input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+            do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
+            generator=generator, attn_impl=attn_impl, timings=timings,
+        )
+        out = tokens[0].tolist()
+        stop = self.llm_backbone.stop_token_id
+        if stop in out:
+            out = out[: out.index(stop)]
+        return self.llm_backbone.tokenizer.decode(out, skip_special_tokens=True).strip()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token CE with IGNORE_INDEX masking (HF CausalLM loss semantics)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)

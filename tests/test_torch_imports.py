@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither JAX nor merv_tpu, and its entry
+points never carry on on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "merv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+_RUN_TINY_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np, torch
+from merv_tpu_torch.device import make_generator
+from merv_tpu_torch.models.backbones.llm.base_llm import tiny_llm_backbone
+from merv_tpu_torch.models.backbones.video import DinoV2VideoBackbone
+from merv_tpu_torch.models.backbones.video.vit import tiny_vit_config
+from merv_tpu_torch.models.vidlms import MERV
+from merv_tpu_torch.nn.core import init_weights
+import merv_tpu_torch.bridge, merv_tpu_torch.models.materialize, merv_tpu_torch.conf
+
+tower = DinoV2VideoBackbone("dinov2-video-all-tokens", "resize-naive", 32, 4,
+                            vit_config=tiny_vit_config(num_cls_tokens=1, num_register_tokens=4), device="cpu")
+model = MERV("tiny", [tower], tiny_llm_backbone(device="cpu"), arch_specifier="3davg+linear",
+             projector_token_length=4, visual_feature_length=16, device="cpu")
+init_weights(model, make_generator(torch.device("cpu"), 0))
+video = np.random.default_rng(0).integers(0, 256, size=(8, 40, 48, 3), dtype=np.uint8)
+text = model.generate(video, "In: hi\nOut:", max_new_tokens=4)
+assert isinstance(text, str)
+loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_TINY_WITHOUT_JAX], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_merv_tpu_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "merv_tpu")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    from merv_tpu_torch.device import resolve_device
+    from merv_tpu_torch.models.backbones.llm.base_llm import tiny_llm_backbone
+    from merv_tpu_torch.models.materialize import get_llm_backbone_and_tokenizer, get_video_backbone_and_transform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        get_video_backbone_and_transform(["dinov2-video-all-tokens"], "resize-naive", [16])
+    with pytest.raises(RuntimeError):
+        get_llm_backbone_and_tokenizer("llama2-7b-pure")
+    with pytest.raises(RuntimeError):
+        tiny_llm_backbone()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
