@@ -1,14 +1,16 @@
 """Model configurations of the main path (counterpart of ``merv_tpu/conf/models.py``).
 
-Only the fields the inference path reads are kept: which towers and LLM to
-build, the projector grammar, the fusion and the token lengths. The training
-hyperparameters and the draccus-style CLI registry wait for the training slice.
+The fields of ``merv_tpu``'s ``ModelConfig`` (names, defaults and the
+``merv-base`` / ``merv-full`` values): the towers and LLM, the projector
+grammar, the fusion, the token lengths and the two stages' training recipes.
+The draccus-style CLI registry and the single-encoder variants wait (ROADMAP
+A1, A10).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Union
+from typing import List, Optional, Union
 
 
 @dataclass
@@ -23,6 +25,34 @@ class ModelConfig:
     num_frames: Union[int, List[int]]
     projector_token_length: int
     visual_feature_length: int
+
+    # align stage
+    align_epochs: int
+    align_max_steps: Optional[int]
+    align_global_batch_size: int
+    align_per_device_batch_size: int
+    align_learning_rate: float
+    align_weight_decay: float
+    align_max_grad_norm: float
+    align_lr_scheduler_type: str
+    align_warmup_ratio: float
+    align_train_strategy: str
+
+    # finetune stage
+    finetune_epochs: int
+    finetune_max_steps: Optional[int]
+    finetune_global_batch_size: int
+    finetune_per_device_batch_size: int
+    finetune_learning_rate: float
+    finetune_weight_decay: float
+    finetune_max_grad_norm: float
+    finetune_lr_scheduler_type: str
+    finetune_warmup_ratio: float
+    finetune_train_strategy: str
+
+    enable_gradient_checkpointing: bool = True  # per-layer activation checkpointing of the LLM
+    save_checkpoint_after: int = 512  # optimizer steps between checkpoints
+    enable_mixed_precision_training: bool = True  # bf16 compute (the port has no fp32 compute path)
 
     def __post_init__(self) -> None:
         if isinstance(self.num_frames, int):
@@ -49,9 +79,33 @@ class MERV_Base(ModelConfig):
     projector_token_length: int = 64
     visual_feature_length: int = 1024
 
+    align_epochs: int = 1
+    align_max_steps: Optional[int] = None
+    align_global_batch_size: int = 256
+    align_per_device_batch_size: int = 16
+    align_learning_rate: float = 1e-3
+    align_weight_decay: float = 0.0
+    align_max_grad_norm: float = 1.0
+    align_lr_scheduler_type: str = "linear-warmup+cosine-decay"
+    align_warmup_ratio: float = 0.03
+    align_train_strategy: str = "fsdp-shard-grad-op"
+
+    finetune_epochs: int = 1
+    finetune_max_steps: Optional[int] = None
+    finetune_global_batch_size: int = 128
+    finetune_per_device_batch_size: int = 8
+    finetune_learning_rate: float = 2e-5
+    finetune_weight_decay: float = 0.1
+    finetune_max_grad_norm: float = 1.0
+    finetune_lr_scheduler_type: str = "linear-warmup+cosine-decay"
+    finetune_warmup_ratio: float = 0.03
+    finetune_train_strategy: str = "fsdp-full-shard"
+
 
 @dataclass
 class MERV_Full(MERV_Base):
     model_id: str = "merv-full"
     arch_specifier: str = "3davg+linear"
+    align_train_strategy: str = "fsdp-full-shard"
+    align_learning_rate: float = 1e-4
 

@@ -3,7 +3,10 @@
 // h / (H/Hk)), bf16, contiguous, D in {64, 128}; optional [B, Tk] key mask
 // (1 byte per key, nonzero = valid); optional causal mask aligned to the
 // right: query i sits at key position q_offset + i and sees keys <= that.
-// Rows with no valid key write exactly 0.
+// Rows with no valid key write exactly 0. Optionally writes the per-row
+// log-sum-exp lse [B, H, Tq] fp32 (m + log l, in scaled-score units) that the
+// backward (flash_bwd.cu) recomputes P from; a row with no valid key gets
+// +inf there, so every P of that row is exactly 0 in the backward.
 //
 // Replaces merv_tpu/ops/attention.py::_flash_forward (_flash_fwd_kernel,
 // pallas_call :376) and the forward of the library kernel the TPU used at
@@ -35,7 +38,8 @@ constexpr int kVS = kBK + 8;  // V^T row stride (36 words: conflict-free)
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                         const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                                                        bf16* __restrict__ o, int H, int Hk, int Tq, int Tk,
+                                                        bf16* __restrict__ o, float* __restrict__ lse, int H, int Hk,
+                                                        int Tq, int Tk,
                                                         int causal, int q_offset, float scale) {
   constexpr int KS = D + 8;  // (D+8)/2 == 4 (mod 32) words for D = 64, 128
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -175,6 +179,11 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(const bf16* __restrict__
   lb = quad_sum(lb);
   const float ia = la == 0.f ? 0.f : 1.f / la;  // rows with no valid key write 0
   const float ib = lb == 0.f ? 0.f : 1.f / lb;
+  if (lse != nullptr && t == 0) {
+    float* lh = lse + static_cast<size_t>(bh) * Tq;
+    if (ra < Tq) lh[ra] = la == 0.f ? __int_as_float(0x7f800000) : ma + logf(la);
+    if (rb < Tq) lh[rb] = lb == 0.f ? __int_as_float(0x7f800000) : mb + logf(lb);
+  }
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int c = dn * 8 + 2 * t;
@@ -188,8 +197,8 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(const bf16* __restrict__
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H, int Hk, int Tq,
-           int Tk, int causal, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse, int B, int H, int Hk,
+           int Tq, int Tk, int causal, int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(kBK) * (D + 8) + static_cast<size_t>(D) * kVS) * sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -197,18 +206,21 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   const dim3 grid(B * H, (Tq + kRows - 1) / kRows);
   flash_fwd_kernel<D><<<grid, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), H, Hk, Tq, Tk, causal, q_offset, scale);
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(o), static_cast<float*>(lse), H, Hk, Tq, Tk, causal,
+      q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: device pointers (bf16, contiguous); mask: [B, Tk] bytes or null.
-MERV_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H,
-                               int Hk, int Tq, int Tk, int D, int causal, int q_offset, float scale, void* stream) {
+// q, k, v, o: device pointers (bf16, contiguous); mask: [B, Tk] bytes or null;
+// lse: [B, H, Tq] fp32 or null.
+MERV_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                               int B, int H, int Hk, int Tq, int Tk, int D, int causal, int q_offset, float scale,
+                               void* stream) {
   if (B <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 || Tq <= 0 || Tk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, mask, o, B, H, Hk, Tq, Tk, causal, q_offset, scale, s);
-  if (D == 128) return launch<128>(q, k, v, mask, o, B, H, Hk, Tq, Tk, causal, q_offset, scale, s);
+  if (D == 64) return launch<64>(q, k, v, mask, o, lse, B, H, Hk, Tq, Tk, causal, q_offset, scale, s);
+  if (D == 128) return launch<128>(q, k, v, mask, o, lse, B, H, Hk, Tq, Tk, causal, q_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

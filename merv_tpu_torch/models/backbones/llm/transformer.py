@@ -1,7 +1,9 @@
 """Llama-family causal decoder (counterpart of
 ``merv_tpu/models/backbones/llm/transformer.py``), main-path subset: the
-no-cache forward, the cache prefill with a scalar write pointer, and T=1
-decode, with RoPE, GQA and a bf16 KV cache.
+no-cache forward (with per-layer activation checkpointing, ``remat``, and the
+post-norm hidden states, ``return_hidden``, for training), the cache prefill
+with a scalar write pointer, and T=1 decode, with RoPE, GQA and a bf16 KV
+cache.
 
 Differences from ``merv_tpu``, all in idiom, not in function:
 - layers are an ``nn.ModuleList`` run in a Python loop (``lax.scan`` there);
@@ -10,7 +12,10 @@ Differences from ``merv_tpu``, all in idiom, not in function:
   returned :class:`KVCache` shares the tensors, with ``length`` advanced;
 - attention goes through :func:`merv_tpu_torch.ops.attention.attention`: every
   call with T > 1 (no-cache forward and cache prefill) runs the flash kernel,
-  T = 1 decode runs plain torch.
+  T = 1 decode runs plain torch. The no-cache forward is differentiable
+  through the flash backward kernel;
+- ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around each layer,
+  where ``merv_tpu`` wraps its layer scan body in ``jax.checkpoint``.
 
 Int8 KV and int8 weights, per-slot pointers, ring/pipeline paths and
 ``pack_serving_params`` wait for later slices (ROADMAP A4/A9/A12).
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from merv_tpu_torch.nn.core import Embed, Linear, RMSNorm
 from merv_tpu_torch.ops.attention import attention
@@ -174,16 +180,24 @@ class LlamaDecoder(nn.Module):
         kv_cache: Optional[KVCache] = None,
         attn_impl: str = "auto",
         logits_indices: Optional[torch.Tensor] = None,  # [B] positions to project
+        remat: bool = False,
+        return_hidden: bool = False,
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-        """Causal decoder forward.
+        """Causal decoder forward -> (logits, new cache), or (the post-norm
+        hidden states, new cache) with ``return_hidden``.
 
         Without cache, ``attention_mask`` must be a right-padding prefix mask:
         it gives positions only, and no kv mask is applied (causality already
         keeps every valid query off the padded keys). With a cache, the T new
         keys/values are written at ``kv_cache.length`` and attention spans the
         whole buffer with ``kv_pos < length + T`` AND ``attention_mask`` as
-        the key mask."""
+        the key mask. ``remat`` recomputes each layer in the backward instead
+        of keeping its activations (no-cache forward only)."""
         c = self.cfg
+        if remat and kv_cache is not None:
+            raise ValueError(
+                "remat=True is not supported with a kv_cache (training never runs a cache; serving never needs remat)"
+            )
         if inputs_embeds is None:
             inputs_embeds = self.embed_input_ids(input_ids)
         h = inputs_embeds.to(c.compute_dtype)
@@ -219,12 +233,18 @@ class LlamaDecoder(nn.Module):
             kv_mask = None
 
         cos_sin = _rope_tables(c, positions, h.dtype)
+        remat = remat and torch.is_grad_enabled()
         for li, layer in enumerate(self.layers):
             cache = None if kv_cache is None else (kv_cache.k[li], kv_cache.v[li], kv_cache.length)
-            h = layer(h, cos_sin, kv_mask, cache, attn_impl)
+            if remat:
+                h = checkpoint(layer, h, cos_sin, kv_mask, cache, attn_impl, use_reentrant=False)
+            else:
+                h = layer(h, cos_sin, kv_mask, cache, attn_impl)
         new_cache = None if kv_cache is None else KVCache(kv_cache.k, kv_cache.v, kv_cache.length + T)
 
         h = self.final_norm(h)
+        if return_hidden:
+            return h, new_cache
         if logits_indices is not None:
             h = h[torch.arange(B, device=dev), logits_indices.long()][:, None]
         return self.lm_head_apply(h), new_cache

@@ -66,6 +66,11 @@ class VideoBackbone(nn.Module):
     def default_video_resolution(self) -> Tuple[int, int, int, int]: ...
 
     @property
+    def half_precision_dtype(self) -> torch.dtype:
+        """The dtype a frozen tower is stored in for training."""
+        return torch.bfloat16
+
+    @property
     def embed_dim(self) -> int:
         return self.vit_config.hidden_size
 

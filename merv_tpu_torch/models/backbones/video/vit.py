@@ -9,8 +9,10 @@
 
 Patch/tubelet embedding is a reshape plus one matmul (stride == kernel).
 Frame attention at tower lengths (224..512 tokens) runs the
-``small_attention_kt`` kernel with q/v written ``[B, H, S, Dh]`` and k written
-``[B, H, Dh, S]`` straight out of their projections; other lengths go through
+``small_attention_kt`` kernel (through its autograd Function,
+:class:`~merv_tpu_torch.ops.attention.SmallAttentionKt`) with q/v written
+``[B, H, S, Dh]`` and k written ``[B, H, Dh, S]`` straight out of their
+projections; other lengths go through
 :func:`merv_tpu_torch.ops.attention.attention`. The penultimate-layer feature
 tap is "run the first L-1 layers". Parameter names follow the JAX tree
 (``layers.<i>.attn.q_proj``, ``ls1.gamma``, ...), so the bridge maps by name.
@@ -24,13 +26,7 @@ import torch
 from torch import nn
 
 from merv_tpu_torch.nn.core import ACT2FN, LayerNorm, Linear, normal_, trunc_normal_
-from merv_tpu_torch.ops.attention import (
-    DEFAULT_MASK_VALUE,
-    attention,
-    dispatch_plan,
-    small_attention_kt,
-    small_attention_kt_plain,
-)
+from merv_tpu_torch.ops.attention import DEFAULT_MASK_VALUE, SmallAttentionKt, attention, dispatch_plan
 
 
 @dataclass(frozen=True)
@@ -164,9 +160,7 @@ class ViTLayer(nn.Module):
             kt = torch.matmul(ap.k_proj.weight.to(x.dtype), x.transpose(1, 2))
             if ap.k_proj.bias is not None:
                 kt = kt + ap.k_proj.bias.to(x.dtype)[:, None]
-            kt = kt.view(B, H, Dh, S)
-            fn = small_attention_kt_plain if impl == "plain" else small_attention_kt
-            out = fn(q, kt, v, Dh ** -0.5)
+            out = SmallAttentionKt.apply(q, kt.view(B, H, Dh, S), v, Dh ** -0.5, impl)
         else:
             q = ap.q_proj(x).view(B, S, H, Dh).transpose(1, 2)
             k = ap.k_proj(x).view(B, S, H, Dh).transpose(1, 2)

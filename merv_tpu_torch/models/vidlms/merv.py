@@ -10,6 +10,12 @@
   followed by zero embeddings with a False mask.
 - generation: towers -> projectors -> fusion -> splice -> cache prefill ->
   decode, eagerly (the JAX package jits the whole pipeline).
+- training: :meth:`MERV.forward` is differentiable (the towers, frozen in
+  every stage, run under ``torch.no_grad``, the counterpart of
+  ``stop_gradient``);
+  :meth:`MERV.freeze_backbones` realises a stage's trainable modules as
+  ``requires_grad``; the loss is :func:`causal_lm_loss` or, with
+  ``loss_chunk_size``, :func:`chunked_causal_lm_loss`.
 
 ``generate`` takes a raw uint8 ``[T, H, W, C]`` video or ``None``; decoding a
 video from a path waits for the FFmpeg decoder (ROADMAP A7).
@@ -25,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from merv_tpu_torch.device import resolve_device
 from merv_tpu_torch.models.backbones.llm.base_llm import LLMBackbone
@@ -111,6 +118,8 @@ class MERV(VidLM):
         else:
             raise NotImplementedError(f"feature_fusion {feature_fusion!r} is not ported yet (ROADMAP A10)")
 
+        self.trainable_module_keys: List[str] = []
+
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
@@ -120,8 +129,10 @@ class MERV(VidLM):
     # ------------------------------------------------------------------------------
 
     def encode_videos(self, video_values: Sequence[torch.Tensor], impl: str = "auto") -> List[torch.Tensor]:
-        """Run every tower -> list of [B, num_patches_i, embed_dim_i]."""
-        return [vb(v, impl=impl) for vb, v in zip(self.video_backbones, video_values)]
+        """Run every tower -> list of [B, num_patches_i, embed_dim_i], under
+        ``torch.no_grad``: the towers are frozen in every stage."""
+        with torch.no_grad():
+            return [vb(v, impl=impl) for vb, v in zip(self.video_backbones, video_values)]
 
     def project_and_fuse(self, video_features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Per-encoder projection + fusion -> ([B, V, llm_dim], mixer weights)."""
@@ -174,7 +185,6 @@ class MERV(VidLM):
                 fused_labels = torch.where(is_multimodal.bool().to(dev)[:, None], mm_labels, uni_labels)
         return fused_embeds, fused_mask, fused_labels
 
-    @torch.inference_mode()
     def forward(
         self,
         input_ids: torch.Tensor,
@@ -183,13 +193,58 @@ class MERV(VidLM):
         labels: Optional[torch.Tensor] = None,
         is_multimodal: Optional[torch.Tensor] = None,
         attn_impl: str = "auto",
+        remat: bool = False,
+        loss_chunk_size: Optional[int] = None,
+        timings: Optional[Dict[str, float]] = None,
     ) -> Dict[str, Any]:
-        """Full multimodal forward (no cache). Returns dict(logits, loss, mixer, attention_mask, labels)."""
-        visual, mixer = self.project_and_fuse(self.encode_videos(video_values, attn_impl))
+        """Full multimodal forward (no cache), differentiable. Returns
+        dict(logits, loss, mixer, attention_mask, labels).
+
+        ``remat`` checkpoints each decoder layer. ``loss_chunk_size`` (with
+        labels) streams the loss over token blocks through the lm_head and
+        never materialises the [B, T, vocab] logits (``logits`` is None then).
+        ``timings`` (optional) adds the towers' time, between two device
+        syncs, to ``towers_s``."""
+        t0 = _sync(input_ids.device) if timings is not None else 0.0
+        feats = self.encode_videos(video_values, attn_impl)
+        if timings is not None:
+            timings["towers_s"] = timings.get("towers_s", 0.0) + _sync(input_ids.device) - t0
+        visual, mixer = self.project_and_fuse(feats)
         embeds, mask, fused_labels = self.embed_multimodal(input_ids, attention_mask, visual, labels, is_multimodal)
-        logits, _ = self.llm_backbone.decoder(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl)
-        loss = None if fused_labels is None else causal_lm_loss(logits, fused_labels)
-        return {"logits": logits, "loss": loss, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
+        dec = self.llm_backbone.decoder
+        out = {"logits": None, "loss": None, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
+        if fused_labels is not None and loss_chunk_size:
+            hidden, _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat,
+                            return_hidden=True)
+            out["loss"] = chunked_causal_lm_loss(dec, hidden, fused_labels, block=loss_chunk_size)
+            return out
+        out["logits"], _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat)
+        if fused_labels is not None:
+            out["loss"] = causal_lm_loss(out["logits"], fused_labels)
+        return out
+
+    # ------------------------------------------------------------------------------
+    # Stage freezing
+    # ------------------------------------------------------------------------------
+
+    def freeze_backbones(self, stage: str) -> None:
+        """Record the stage's trainable modules and set ``requires_grad`` to
+        match; the video towers are always frozen."""
+        if stage in ("align", "second_align"):
+            self.trainable_module_keys = ["projectors", "feature_fusion"]
+        elif stage in ("finetune", "full-align", "second_finetune", "full-finetune"):
+            self.trainable_module_keys = ["llm_backbone", "projectors", "feature_fusion"]
+        else:
+            raise ValueError(f"Stage {stage} is not supported!")
+        for name, trainable in self.trainable_mask().items():
+            self.get_parameter(name).requires_grad_(trainable)
+        overwatch.info(f"Stage {stage}: trainable modules = {self.trainable_module_keys}")
+
+    def trainable_mask(self) -> Dict[str, bool]:
+        """{parameter name: trainable} from the trainable module keys (by
+        default the projectors and the fusion), as ``merv_tpu`` masks its tree."""
+        keys = set(self.trainable_module_keys or ["projectors", "feature_fusion"])
+        return {name: name.split(".", 1)[0] in keys for name, _ in self.named_parameters()}
 
     # ------------------------------------------------------------------------------
     # Generation
@@ -333,6 +388,39 @@ class MERV(VidLM):
         if stop in out:
             out = out[: out.index(stop)]
         return self.llm_backbone.tokenizer.decode(out, skip_special_tokens=True).strip()
+
+
+def _block_nll(decoder: Any, h_blk: torch.Tensor, l_blk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = decoder.lm_head_apply(h_blk).float()
+    valid = l_blk != IGNORE_INDEX
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, l_blk, 0)[..., None])[..., 0]
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
+
+
+def chunked_causal_lm_loss(
+    decoder: Any,
+    hidden: torch.Tensor,  # [B, T, E] post-final-norm hidden states
+    labels: torch.Tensor,  # [B, T]
+    block: int = 256,
+) -> torch.Tensor:
+    """Next-token CE without materialising [B, T, vocab] logits: a loop over
+    token blocks, each projected through the lm_head with its fp32
+    log-softmax NLL under ``torch.utils.checkpoint``, so the backward
+    recomputes a block's logits instead of keeping them. Per-row math is that
+    of :func:`causal_lm_loss`; only the cross-block summation order differs."""
+    B, T, _ = hidden.shape
+    shifted = torch.cat([labels[:, 1:], torch.full((B, 1), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)], 1)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.long, device=hidden.device)
+    for i in range(0, T, block):
+        h_blk, l_blk = hidden[:, i : i + block], shifted[:, i : i + block]
+        if torch.is_grad_enabled() and hidden.requires_grad:
+            s, c = checkpoint(_block_nll, decoder, h_blk, l_blk, use_reentrant=False)
+        else:
+            s, c = _block_nll(decoder, h_blk, l_blk)
+        nll_sum, count = nll_sum + s, count + c
+    return nll_sum / count.clamp(min=1)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,9 @@ device: the geometry (resize / shortest-edge resize + center crop /
 letterbox) runs as one ``torch.nn.functional.interpolate`` with antialiasing,
 the counterpart of ``jax.image.resize`` (also antialiased when it shrinks),
 then scale and normalize. So the video goes to the card once, as uint8.
+:meth:`VideoTransform.device_finish` is the training path's second half: a
+batch of uint8 frames already at the tower's geometry is scaled, normalised
+and transposed on the card.
 """
 
 from __future__ import annotations
@@ -75,6 +78,19 @@ class VideoTransform:
         x = (x - mean) / std
         if self.channels_first_time:
             x = x.transpose(0, 1)  # [C, T, S, S]
+        return x.contiguous()
+
+    def device_finish(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8/float ``[..., T, S, S, C]`` (already at this tower's geometry)
+        -> normalized float32 ``[..., T, C, S, S]`` (``[..., C, T, S, S]`` for
+        ``channels_first_time``), batched, on ``x``'s device."""
+        mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
+        std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
+        x = (x.float() / 255.0 - mean) / std
+        nd = x.dim()
+        x = x.permute(*range(nd - 4), nd - 4, nd - 1, nd - 3, nd - 2)  # [..., T, C, S, S]
+        if self.channels_first_time:
+            x = x.transpose(nd - 4, nd - 3)
         return x.contiguous()
 
 

@@ -1,0 +1,148 @@
+"""Checkpoint save / load / resume (counterpart of ``merv_tpu/training/checkpointing.py``).
+
+The layout and names of ``merv_tpu``: ``<run_dir>/checkpoints/
+step-{:06d}-epoch-{:02d}-loss={:.4f}/`` with a ``meta.json`` (step, epoch,
+loss, module keys) and a ``latest-checkpoint`` symlink, written last so it
+never points at a torn directory. The port's format inside the directory is
+its own: one ``torch.save`` file, ``checkpoint.pt``, holding ``model`` (the
+state dicts of the trainable top-level modules, by module key) and
+``optimizer`` (the optimizer's state dict). Saves are blocking. Reading
+``merv_tpu``'s Orbax checkpoints waits for the importers (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from merv_tpu_torch.overwatch import initialize_overwatch
+
+overwatch = initialize_overwatch(__name__)
+
+_CKPT_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=([0-9.]+)")
+CKPT_FILE = "checkpoint.pt"
+
+
+def save_checkpoint(
+    run_dir: Path,
+    step: int,
+    epoch: int,
+    loss: float,
+    model: nn.Module,
+    trainable_keys: List[str],
+    optimizer: Optional[Any] = None,
+) -> Path:
+    """Write ``checkpoints/step-...-loss=.../`` and point ``latest-checkpoint`` at it."""
+    ckpt_root = Path(run_dir) / "checkpoints"
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    target = ckpt_root / f"step-{step:06d}-epoch-{epoch:02d}-loss={loss:.4f}"
+    modules = {k: m for k, m in model.named_children() if k in trainable_keys}
+    tree: Dict[str, Any] = {"model": {k: {n: t.detach().cpu() for n, t in m.state_dict().items()}
+                                      for k, m in modules.items()}}
+    if optimizer is not None:
+        tree["optimizer"] = optimizer.state_dict()
+    if target.exists():
+        shutil.rmtree(target)
+    target.mkdir()
+    torch.save(tree, target / CKPT_FILE)
+    with open(target / "meta.json", "w") as f:
+        json.dump({"step": step, "epoch": epoch, "loss": loss, "module_keys": sorted(modules)}, f)
+    latest = ckpt_root / "latest-checkpoint"
+    if latest.is_symlink() or latest.exists():
+        latest.unlink() if latest.is_symlink() else shutil.rmtree(latest)
+    latest.symlink_to(target.name)
+    overwatch.info(f"Saved checkpoint {target}")
+    return target
+
+
+def parse_checkpoint_name(path: Path) -> Tuple[int, int]:
+    """(step, epoch) from the checkpoint's directory name, else its meta.json."""
+    m = _CKPT_RE.search(Path(path).name)
+    if m is None:
+        meta = Path(path) / "meta.json"
+        if meta.exists():
+            d = json.loads(meta.read_text())
+            return int(d["step"]), int(d["epoch"])
+        raise ValueError(f"cannot parse step/epoch from {path}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def latest_checkpoint(run_dir: Path) -> Optional[Path]:
+    """The ``latest-checkpoint`` target, else the last directory with a meta.json."""
+    latest = Path(run_dir) / "checkpoints" / "latest-checkpoint"
+    if latest.exists():
+        return latest.resolve()
+    candidates = sorted(
+        (p for p in Path(run_dir, "checkpoints").glob("step-*") if (p / "meta.json").exists()),
+        key=lambda p: p.name,
+    )
+    return candidates[-1] if candidates else None
+
+
+def load_checkpoint(path: Path, map_location: Any = "cpu") -> Dict[str, Any]:
+    """A checkpoint directory -> {"model": {key: state dict}, "optimizer": ..., "step", "epoch"}."""
+    path = Path(path).resolve()
+    out = dict(torch.load(path / CKPT_FILE, map_location=map_location, weights_only=True))
+    out["step"], out["epoch"] = parse_checkpoint_name(path)
+    return out
+
+
+def discover_align_checkpoint(run_dir: Path) -> Path:
+    """The latest checkpoint of the align run beside a finetune run directory
+    (``<model>+<scale>+...+stage-align+<seed>``)."""
+    run_dir = Path(run_dir)
+    model, scale, _, seed = run_dir.name.split("+")
+    align_dirs = [
+        d for d in run_dir.parent.iterdir()
+        if d.name.startswith(f"{model}+{scale}") and d.name.endswith(f"+stage-align+{seed}")
+    ]
+    assert len(align_dirs) == 1, "Multiple or No Valid Pretrained Directories Exist -- Double Check `runs`!"
+    ckpt = latest_checkpoint(align_dirs[0])
+    if ckpt is None:
+        raise ValueError(f"Could not find valid `align` checkpoint under {align_dirs[0]}!")
+    return ckpt
+
+
+def load_stage_weights(model: Any, stage: str, run_dir: Path, pretrained_checkpoint: Optional[Path] = None) -> None:
+    """Stage hand-off, in place: load the modules a stage starts from (the
+    align projectors for a finetune run; the fusion and LLM too for
+    ``second_finetune`` from an explicit checkpoint)."""
+    assert stage in {"align", "second_align", "full-align", "finetune", "full-finetune", "second_finetune"}, (
+        f"Stage {stage} is not supported!"
+    )
+
+    def load(key: str, restored: Dict[str, Any]) -> None:
+        getattr(model, key).load_state_dict(restored[key], strict=True)
+
+    if stage == "second_align":
+        if pretrained_checkpoint is not None:
+            restored = load_checkpoint(Path(pretrained_checkpoint))["model"]
+            load("projectors", restored)
+            if "feature_fusion" in restored and model.feature_fusion is not None:
+                load("feature_fusion", restored)
+        else:
+            overwatch.info("Stage `second_align` without pretrained_checkpoint =>> fresh projector init", ctx_level=1)
+        return
+    if model.arch_specifier.startswith("no-align"):
+        overwatch.info(f"MERV with arch_specifier = {model.arch_specifier!r} does not require pretrained weights!",
+                       ctx_level=1)
+        return
+    if stage in ("align", "full-align"):
+        overwatch.info("Stage `align` does not require pretrained weights =>> Starting Training", ctx_level=1)
+        return
+
+    overwatch.info("Stage `finetune` requires `align` pretrained weights", ctx_level=1)
+    ckpt_path = Path(pretrained_checkpoint) if pretrained_checkpoint is not None else discover_align_checkpoint(run_dir)
+    restored = load_checkpoint(ckpt_path)["model"]
+    load("projectors", restored)
+    if stage == "second_finetune" and pretrained_checkpoint is not None:
+        assert "llm_backbone" in restored, "second_finetune expects `llm_backbone` in the checkpoint!"
+        load("llm_backbone", restored)
+        if model.feature_fusion is not None and "feature_fusion" in restored:
+            load("feature_fusion", restored)

@@ -146,4 +146,189 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     out = TA.attention(q, k, v, causal=True)  # planned 'flash'
     ref = TA.attention_reference(q, k, v, causal=True)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=FP32_TOL, rtol=0)
-    assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0}
+    assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0}
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+BWD_FP32_TOL = 1e-5
+# bf16: P and dS (port) or dP (merv_tpu's reference VJP) are rounded to bf16 before their products, and each
+# gradient once more: <= 2e-2 absolute plus 2e-2 relative (one bf16 ulp is 0.03 at |g| in [4, 8), which the
+# early keys' dK and dV reach when ~100 causal queries sum onto them)
+BWD_BF16_TOL = 2e-2
+
+# (name, B, H, Hk, T, D, causal, mask kind): Tq == Tk as in training; every row keeps a valid key
+BWD_CASES = [
+    ("causal_ragged_T200", 1, 2, 2, 200, 64, True, None),
+    ("causal_gqa_4_to_2", 1, 4, 2, 96, 128, True, None),
+    ("kv_mask_d64", 2, 2, 2, 80, 64, False, "random"),
+    ("causal_kv_mask_d128", 2, 4, 2, 72, 128, True, "right_pad_short"),
+]
+
+
+def _bwd_mask(kind, B, T):
+    if kind == "right_pad_short":
+        m = np.ones((B, T), bool)
+        m[1, T - 20:] = False
+        return m
+    return _mask(kind, B, T)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_flash_backward_plain_matches_jax_grad(case, dtype):
+    """flash_attention_backward_plain (from the plain forward's o and lse)
+    against jax.vjp of merv_tpu's _flash_attention custom VJP in interpret mode."""
+    import jax
+
+    name, B, H, Hk, T, D, causal, mask_kind = case
+    q, k, v = _qkv(6, B, H, Hk, T, T, D)
+    do = np.random.RandomState(7).randn(B, H, T, D).astype(np.float32)
+    mask = _bwd_mask(mask_kind, B, T)
+    scale = D ** -0.5
+    jmask = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda q, k, v: A._flash_attention(q, k, v, causal, scale, 128, 128, mask is not None, jmask),
+                     _to_jax(q, dtype), _to_jax(k, dtype), _to_jax(v, dtype))
+    refs = vjp(_to_jax(do, dtype))
+    tq, tk, tv = (_to_torch(x, dtype) for x in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o, lse = TA.flash_attention_forward_plain(tq, tk, tv, causal=causal, kv_mask=tmask, scale=scale, return_lse=True)
+    grads = TA.flash_attention_backward(tq, tk, tv, o, lse, _to_torch(do, dtype), causal=causal, kv_mask=tmask,
+                                        scale=scale)
+    tol = dict(atol=BWD_FP32_TOL, rtol=0) if dtype == "float32" else dict(atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL)
+    for gname, out, ref, x in zip(("dq", "dk", "dv"), grads, refs, (tq, tk, tv)):
+        assert out.shape == x.shape and out.dtype == x.dtype
+        np.testing.assert_allclose(_np(out), _np(ref), **tol, err_msg=gname)
+
+
+@pytest.mark.parametrize("Hk,mask_kind", [(2, None), (1, "row1_empty")])
+def test_flash_autograd_function_matches_plain_autograd(Hk, mask_kind):
+    """attention() (the 'flash' plan) and flash_attention() on the CPU, through FlashAttention, against
+    torch.autograd of the plain forward, fp32; a row with no valid key has a
+    zero gradient (merv_tpu's reference VJP would average V there instead)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, 2, 4, Hk, 48, 48, 64))
+    mask = _mask(mask_kind, 2, 48)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    g = torch.from_numpy(np.random.RandomState(9).randn(2, 4, 48, 64).astype(np.float32))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fn = TA.attention if mask is None else TA.flash_attention  # attention() plans a short masked call 'plain'
+    out = fn(*leaves, causal=mask is None, kv_mask=tmask)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(g)
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    TA.flash_attention_forward_plain(*ref_leaves, causal=mask is None, kv_mask=tmask).backward(g)
+    for a, b in zip(leaves, ref_leaves):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=FP32_TOL, rtol=0)
+    if mask_kind == "row1_empty":
+        assert all(not x.grad[1].any() for x in leaves)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_attention_kt_grad_matches_jax(dtype):
+    """SmallAttentionKt (its backward recomputes through attention_reference)
+    against jax.vjp of merv_tpu's small_attention_kt in interpret mode."""
+    import jax
+
+    q, k, v = _qkv(10, 1, 2, 2, 40, 40, 64)
+    kt = np.ascontiguousarray(k.transpose(0, 1, 3, 2))
+    g = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    scale = 64 ** -0.5
+    _, vjp = jax.vjp(lambda q, kt, v: A.small_attention_kt(q, kt, v, scale), *(_to_jax(x, dtype) for x in (q, kt, v)))
+    refs = vjp(_to_jax(g, dtype))
+    leaves = [_to_torch(x, dtype).requires_grad_() for x in (q, kt, v)]
+    TA.SmallAttentionKt.apply(*leaves, scale, "auto").backward(_to_torch(g, dtype))
+    tol = dict(atol=FP32_TOL, rtol=0) if dtype == "float32" else dict(atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL)
+    for leaf, ref in zip(leaves, refs):
+        np.testing.assert_allclose(_np(leaf.grad), _np(ref), **tol)
+
+
+def test_q_offset_refuses_a_gradient():
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(12, 1, 2, 2, 8, 40, 64))
+    with pytest.raises(ValueError, match="inference-only"):
+        TA.attention(q, k, v, causal=True, q_offset=30)
+    with torch.no_grad():  # the KV-cache path itself still runs
+        out = TA.attention(q, k, v, causal=True, q_offset=30)
+    assert out.shape == q.shape
+
+
+def _kernel_stand_ins(monkeypatch):
+    """Make the wrappers behave as they do for CUDA tensors: a kernel fills a
+    fresh tensor, so its output carries no autograd history."""
+    small, fwd, bwd = TA.small_attention_kt, TA.flash_attention_forward, TA.flash_attention_backward
+    monkeypatch.setattr(TA, "small_attention_kt", lambda *a: small(*a).detach())
+
+    def flash_detached(*a, **kw):
+        out = fwd(*a, **kw)
+        return tuple(x.detach() for x in out) if isinstance(out, tuple) else out.detach()
+
+    monkeypatch.setattr(TA, "flash_attention_forward", flash_detached)
+    monkeypatch.setattr(TA, "flash_attention_backward", lambda *a, **kw: tuple(x.detach() for x in bwd(*a, **kw)))
+
+
+@pytest.mark.parametrize("module", ["tower_small_kt", "decoder_flash"])
+def test_gradient_through_kernel_wrappers_matches_plain(module, monkeypatch):
+    """With the wrappers' outputs detached, as a kernel's are, the gradient
+    with respect to a tower's video (K1 frames, 230 tokens) and a decoder's
+    input embeddings (K2, causal) still equals the all-plain path's: each
+    kernel sits inside its autograd Function."""
+    from test_torch_merv import _port_tower
+
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.models.backbones.llm.transformer import LlamaDecoder, tiny_decoder_config
+    from merv_tpu_torch.nn.core import init_weights
+
+    _kernel_stand_ins(monkeypatch)
+    rng = np.random.RandomState(13)
+    if module == "tower_small_kt":
+        net = _port_tower("dinov2_kt")
+        x = torch.from_numpy(rng.randn(1, 2, 3, 120, 120).astype(np.float32))
+        run = lambda inp, impl: net(inp, impl=impl)  # noqa: E731
+    else:
+        net = LlamaDecoder(tiny_decoder_config(compute_dtype=torch.float32), device="cpu")
+        x = torch.from_numpy(rng.randn(2, 24, 64).astype(np.float32))
+        run = lambda inp, impl: net(inputs_embeds=inp, attn_impl=impl)[0]  # noqa: E731
+    init_weights(net, make_generator(torch.device("cpu"), 13))
+    grads = []
+    for impl in ("auto", "plain"):
+        inp = x.clone().requires_grad_()
+        out = run(inp, impl)
+        out.backward(torch.from_numpy(np.random.RandomState(14).randn(*out.shape).astype(np.float32)))
+        grads.append(inp.grad)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_lse_is_the_masked_logsumexp(causal):
+    """The plain forward's lse (the reference the card holds K2's against) is
+    logsumexp of the visible scaled scores, within 1e-5 in fp32, and +inf on
+    exactly the rows with no valid key."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 2, 4, 2, 37, 45, 64))
+    mask = torch.ones((2, 45), dtype=torch.bool)
+    mask[0, 30:] = False
+    mask[1] = False
+    _, lse = TA.flash_attention_forward_plain(q, k, v, causal=causal, kv_mask=mask, return_lse=True)
+    s = torch.matmul(q, k.repeat_interleave(2, 1).transpose(-1, -2)) * 64 ** -0.5
+    s = s.masked_fill(~TA._visible(2, 37, 45, causal, mask, 45 - 37, q.device), float("-inf"))
+    torch.testing.assert_close(lse[0], torch.logsumexp(s[0], -1), rtol=0, atol=FP32_TOL)
+    assert bool(torch.isposinf(lse[1]).all())
+
+
+def test_lse_hold_catches_an_offset_and_other_empty_rows():
+    """chip_smoke.hold_lse, the card's check of K2's lse: it passes the plain
+    lse against itself and fails an offset of 0.05, a finite value on a row
+    with no valid key, and a NaN."""
+    from chip_smoke import LSE_PLANTED_OFFSET, hold_lse
+
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 2, 2, 2, 40, 40, 64))
+    mask = torch.ones((2, 40), dtype=torch.bool)
+    mask[1] = False
+    _, lse = TA.flash_attention_forward_plain(q, k, v, causal=True, kv_mask=mask, return_lse=True)
+    h = hold_lse(lse, lse)
+    assert h["ok"] and h["empty_rows"] == 2 * 40
+    assert not hold_lse(lse + LSE_PLANTED_OFFSET, lse)["ok"]
+    finite_empty, nan = lse.clone(), lse.clone()
+    finite_empty[1, 0, 3] = 0.0
+    nan[0, 1, 7] = float("nan")
+    assert not hold_lse(finite_empty, lse)["ok"] and not hold_lse(nan, lse)["ok"]

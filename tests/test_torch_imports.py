@@ -24,6 +24,8 @@ from merv_tpu_torch.models.backbones.video.vit import tiny_vit_config
 from merv_tpu_torch.models.vidlms import MERV
 from merv_tpu_torch.nn.core import init_weights
 import merv_tpu_torch.bridge, merv_tpu_torch.models.materialize, merv_tpu_torch.conf
+import merv_tpu_torch.training, merv_tpu_torch.training.checkpointing, merv_tpu_torch.training.train_step
+import merv_tpu_torch.util.batching_utils, merv_tpu_torch.util.data_utils, merv_tpu_torch.util.seed_utils
 
 tower = DinoV2VideoBackbone("dinov2-video-all-tokens", "resize-naive", 32, 4,
                             vit_config=tiny_vit_config(num_cls_tokens=1, num_register_tokens=4), device="cpu")

@@ -7,7 +7,8 @@ without them:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -m cuda
 
 Each output is held by ``chip_smoke.hold``, element by element and on the
-mean, under the limit stated there.
+mean, under the limit stated there; the flash forward's log-sum-exp by
+``chip_smoke.hold_lse``, row by row.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 import merv_tpu_torch.ops.attention as A
-from chip_smoke import hold
+from chip_smoke import LSE_PLANTED_OFFSET, backward_mags, hold, hold_from_plain_forward, hold_lse
 
 
 @pytest.fixture
@@ -61,6 +62,12 @@ def test_flash_forward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, q_offset):
     kw = dict(causal=causal, kv_mask=mask, q_offset=q_offset)
     out = A.flash_attention_forward(q, k, v, **kw)
     _assert_close(out, A.flash_attention_forward_plain(q, k, v, **kw), A.flash_attention_forward_plain(q, k, v.abs(), **kw))
+    out_lse, lse = A.flash_attention_forward(q, k, v, return_lse=True, **kw)
+    _, lse_ref = A.flash_attention_forward_plain(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out_lse, out)
+    h = hold_lse(lse, lse_ref)
+    assert h["ok"], f"lse outside the limit: {h}"
+    assert not hold_lse(lse + LSE_PLANTED_OFFSET, lse_ref)["ok"]
 
 
 @pytest.mark.cuda
@@ -69,8 +76,9 @@ def test_flash_forward_fully_masked_row_is_zero(cuda):
     q, k, v = (_bf16(rng, (2, 2, 64, 64), cuda) for _ in range(3))
     mask = torch.ones((2, 64), dtype=torch.bool, device=cuda)
     mask[1] = False
-    out = A.flash_attention_forward(q, k, v, causal=False, kv_mask=mask)
+    out, lse = A.flash_attention_forward(q, k, v, causal=False, kv_mask=mask, return_lse=True)
     assert out[1].abs().max().item() == 0.0
+    assert bool(torch.isposinf(lse[1]).all()) and bool(torch.isfinite(lse[0]).all())
 
 
 @pytest.mark.cuda
@@ -80,3 +88,64 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         A.flash_attention_forward(q, q, q, causal=False)  # head dim 32
     with pytest.raises(ValueError):
         A.small_attention_kt(q.float(), q.float().transpose(-1, -2), q.float(), 1.0)  # fp32
+
+
+def _assert_backward_close(q, k, v, mask, causal):
+    """Forward kernel -> (o, lse); the backward kernel against the plain
+    backward on those same inputs, each gradient under ``hold``'s limit with
+    the magnitudes of ``chip_smoke.backward_mags``; the lse against the plain
+    forward's, and the gradients against the plain backward on the plain
+    forward's o and lse (``chip_smoke.hold_from_plain_forward``)."""
+    rng = np.random.default_rng(q.shape[2] * 7 + k.shape[2])
+    o, lse = A.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask, return_lse=True)
+    do = _bf16(rng, tuple(q.shape), q.device)
+    kw = dict(causal=causal, kv_mask=mask)
+    grads = A.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    refs = A.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    mags = backward_mags(q, k, v, lse, do, **kw)
+    for name, out, ref, mag in zip(("dq", "dk", "dv"), grads, refs, mags):
+        h = hold(out, ref, mag)
+        assert h["ok"], f"{name} outside the limit: {h}"
+    fp = hold_from_plain_forward(q, k, v, lse, do, grads, **kw)
+    assert fp["lse"]["ok"], f"lse outside the limit: {fp['lse']}"
+    assert fp["backward"]["ok"], f"against the plain forward's o and lse: {fp['backward']['per_grad']}"
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "H,Hk,Tq,Tk,D,causal,masked",
+    [(4, 4, 200, 200, 64, True, False), (4, 2, 130, 130, 128, True, False), (4, 1, 77, 150, 128, False, True),
+     (2, 2, 40, 100, 64, True, True), (4, 4, 64, 64, 128, False, False)],
+)
+def test_flash_backward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, masked):
+    rng = np.random.default_rng(H * Tq + Tk)
+    q = _bf16(rng, (2, H, Tq, D), cuda)
+    k, v = (_bf16(rng, (2, Hk, Tk, D), cuda) for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones((2, Tk), dtype=torch.bool, device=cuda)
+        mask[1, Tk // 3:] = False
+    _assert_backward_close(q, k, v, mask, causal)
+
+
+@pytest.mark.cuda
+def test_flash_backward_fully_masked_row_has_zero_gradient(cuda):
+    rng = np.random.default_rng(1)
+    q, k, v = (_bf16(rng, (2, 2, 70, 64), cuda) for _ in range(3))
+    mask = torch.ones((2, 70), dtype=torch.bool, device=cuda)
+    mask[1] = False
+    dq, dk, dv = _assert_backward_close(q, k, v, mask, False)
+    assert dq[1].abs().max().item() == 0.0 and dk[1].abs().max().item() == 0.0 and dv[1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_backward_kernel(cuda):
+    rng = np.random.default_rng(2)
+    q, k, v = (_bf16(rng, (1, 2, 96, 64), cuda).requires_grad_() for _ in range(3))
+    A.reset_launch_counts()
+    out = A.attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    counts = A.launch_counts()
+    assert counts["flash_attention_forward"] == 1 and counts["flash_attention_backward"] == 1, counts
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
