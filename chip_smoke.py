@@ -14,7 +14,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the shape's lower bound on this card. The flash forward's log-sum-exp is
    held row by row against the plain version's; the backward kernel is held
    twice: against the plain backward on the forward kernel's o and lse, and
-   against the plain backward on the plain forward's.
+   against the plain backward on the plain forward's. The towers' opt-in
+   kernels (B3 ``small_attention``, B5 ``packed_temporal_attention``, B6
+   ``fused_vit_attn_block``) at merv-base's shapes, with SDPA (B3, B5; for
+   B5 also the backend SDPA picks and each backend's time) or the default
+   route's composed attention half-layer (B6) as the yardstick, and planted
+   faults that the same check must catch. B6 is held end to end and stage by
+   stage (``hold_fused``), and timed with its whole-head and its key-tiled
+   attention stage, interleaved, where both take the shape.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -26,6 +33,17 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    prefill against its plain version on the call's own inputs, compares the
    greedy tokens, and reports what both checks give for a few planted
    kernel faults.
+4a. tower routes: each tower of that model at merv-base's batch shapes under
+   the default route and under each of the towers' switches
+   (``MERV_TPU_TOWER_ATTN=xla`` / ``xla_kt``, ``MERV_TPU_TEMPORAL_KERNEL=1``,
+   ``MERV_TPU_FUSED_VIT_BLOCK=1``): ms per tower, the output against the same
+   route with ``impl="plain"``, every B3/B5/B6 call held against its plain
+   version (B6 stage by stage), launches per tower; planted B5 and B6 faults
+   must be caught.
+4b. two more requests: request 0 served with ``MERV_TPU_TOWER_ATTN=xla`` and
+   ``MERV_TPU_TEMPORAL_KERNEL=1`` (B3, B5, K2), and with
+   ``MERV_TPU_FUSED_VIT_BLOCK=1`` (B6, K2), launches as predicted in
+   ``SWITCHED_REQUESTS``, each held against its plain rerun as request 0 is.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -43,7 +61,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    per-device batch runs under ``torch.profiler`` for the device time by
    kernel group and the device's idle share.
 6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
-   from the training path, ``launches_serving`` from the serving path), and
+   from the training path for K1-K3 and from the switched request of 4b for
+   B3, B5 and B6, ``launches_serving`` from the default serving path), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -54,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -88,6 +108,9 @@ LOGITS_REL_TOL = 5e-2
 # row's P, and its gradients, by exp(-d).
 LSE_REL_TOL = 1e-4
 LSE_PLANTED_OFFSET = 0.05
+# B6's LN statistics against the plain version's, row by row: fp32 sums of
+# the same bf16 row in different orders (about 1e-7 relative)
+STATS_REL_TOL = 1e-5
 # training path (merv-base align stage): the recipe's global batch 32 over 3
 # steps (the first at lr 0, untimed), the streamed loss's token block, the
 # kernel launches one micro-step makes (K1: 23 DINOv2 + 23 LanguageBind
@@ -98,7 +121,8 @@ LSE_PLANTED_OFFSET = 0.05
 TRAIN_GLOBAL_BATCH = 32
 TRAIN_STEPS = 3
 TRAIN_LOSS_CHUNK = 256
-TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32}
+TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32,
+                                 "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 0.1
 
@@ -115,7 +139,8 @@ def hold(out, ref, mag) -> dict:
     r = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(), mean_abs_ref=ref.abs().mean().item(),
              mean_limit=limit.mean().item(), worst_share_of_limit=share[i].item(),
              worst_at=dict(err=err.flatten()[i].item(), ref=ref.flatten()[i].item(), mag=mag.flatten()[i].item()))
-    r["ok"] = r["worst_share_of_limit"] <= 1.0 and r["mean_abs_err"] <= KERNEL_MEAN_SHARE * r["mean_limit"]
+    r["mean_share"] = r["mean_abs_err"] / r["mean_limit"]
+    r["ok"] = r["worst_share_of_limit"] <= 1.0 and r["mean_share"] <= KERNEL_MEAN_SHARE
     return r
 
 
@@ -236,6 +261,41 @@ def _randn(rng, shape, dev):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
 
 
+def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes_moved, flops, extra=None,
+                yardstick=None):
+    """Hold a kernel's output against its plain version (``hold``), time the
+    kernel, the plain version, the PyTorch library call ``lib`` (None where no
+    single call computes the function) and a composed ``yardstick`` (None if
+    not given) with CUDA events, and append the row to ``cases``; raise if
+    the output is not finite or outside the limit."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{kernel}/{name}: non-finite kernel output")
+    h = hold(out, ref, mag)
+    at = h["worst_at"]
+    ms, plain_ms = time_ms(fn, 20), time_ms(plain, 5)
+    lib_ms = time_ms(lib, 20) if lib is not None else None
+    yard_ms = time_ms(yardstick, 20) if yardstick is not None else None
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    row = dict(kernel=kernel, case=name, shape=shape, **h, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, **(extra or {}))
+    if yardstick is not None:
+        row["yardstick_ms"] = yard_ms
+    lib_text = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    yard_text = "" if yard_ms is None else f" yardstick_ms(composed)={yard_ms:.4f}"
+    log(f"[kernel] {kernel:24s} {name:22s} {shape} max_err={h['max_abs_err']:.3e} "
+        f"mean_err={h['mean_abs_err']:.3e} mean|ref|={h['mean_abs_ref']:.3e} mean_limit={h['mean_limit']:.3e} "
+        f"worst/limit={h['worst_share_of_limit']:.3f} (err {at['err']:.3e} at ref {at['ref']:.3e}, "
+        f"mag {at['mag']:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_text}{yard_text} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    if not h["ok"]:
+        raise RuntimeError(f"{kernel}/{name}: outside |out - ref| <= {KERNEL_REL_TOL:.3g}*(|ref| + mag) + "
+                           f"{KERNEL_ABS_TOL} or mean err <= {KERNEL_MEAN_SHARE} * mean limit")
+    cases.append(row)
+
+
 def kernel_cases(dev, seed: int):
     import numpy as np
     import torch
@@ -244,26 +304,7 @@ def kernel_cases(dev, seed: int):
     import merv_tpu_torch.ops.attention as A
 
     cases = []
-
-    def record(kernel, name, shape, out, ref, mag, fn, plain, lib, bytes_moved, flops, extra=None):
-        torch.cuda.synchronize()
-        if not torch.isfinite(out.float()).all():
-            raise RuntimeError(f"{kernel}/{name}: non-finite kernel output")
-        h = hold(out, ref, mag)
-        at = h["worst_at"]
-        ms, plain_ms, lib_ms = time_ms(fn, 20), time_ms(plain, 5), time_ms(lib, 20)
-        bound_ms, bound_by = bound(bytes_moved, flops)
-        row = dict(kernel=kernel, case=name, shape=shape, **h, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, **(extra or {}))
-        log(f"[kernel] {kernel:24s} {name:22s} {shape} max_err={h['max_abs_err']:.3e} "
-            f"mean_err={h['mean_abs_err']:.3e} mean|ref|={h['mean_abs_ref']:.3e} mean_limit={h['mean_limit']:.3e} "
-            f"worst/limit={h['worst_share_of_limit']:.3f} (err {at['err']:.3e} at ref {at['ref']:.3e}, "
-            f"mag {at['mag']:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
-        if not h["ok"]:
-            raise RuntimeError(f"{kernel}/{name}: outside |out - ref| <= {KERNEL_REL_TOL:.3g}*(|ref| + mag) + "
-                               f"{KERNEL_ABS_TOL} or mean err <= {KERNEL_MEAN_SHARE} * mean limit")
-        cases.append(row)
+    record = functools.partial(record_case, cases)
 
     rng = np.random.default_rng(seed)
     # K1: tower frame attention (DINOv2 T=261, LanguageBind spatial T=257)
@@ -484,6 +525,336 @@ def backward_cases(dev, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the towers' three opt-in kernels (B3, B5, B6)
+# ---------------------------------------------------------------------------
+
+
+def fused_block_mags(x, ns, nb, wq, bq, wk, bk, wv, bv, wo, bo, gamma, heads, eps):
+    """The magnitude B6's bf16 roundings scale with, per output element, in
+    fp32: |gamma| * ((|o| + 2 (p/l)|v|) @ |Wo|^T). Each side rounds p / l to
+    bf16 (at most 2**-8 of each term of o_j = sum (p/l) v_j), may round a v on
+    the other side of a bf16 boundary (2**-8 of each term again) and rounds
+    o_j itself (2**-8 |o_j|), so the two sides' o_j differ by at most
+    2**-7 (|o_j| + 2 (p/l)|v_j|); the o-projection carries that through
+    |gamma_n| |Wo[n, j]| summed over j. Each side rounds its output once
+    (2**-8 |ref|), so ``hold``'s 2**-7 (|ref| + mag) covers both. fp32
+    summation order is the absolute term's.
+
+    The bound is sound but loose (it adds |Wo| over the hidden width), and x
+    passes through the output, so a fault inside the attention shows in the
+    output only when it is large: ``hold_fused`` holds each stage on its own
+    besides."""
+    import torch
+
+    import merv_tpu_torch.ops.fused_vit_block as TF
+
+    B, S, D = x.shape
+    _, xn = TF._layer_norm(x, ns, nb, eps)
+    xn = xn.float()
+
+    def proj(w, b):
+        return TF._heads((torch.matmul(xn, w.float().t()) + b.float()).to(x.dtype), heads).float()
+
+    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * (D // heads) ** -0.5, dim=-1)
+    m = torch.matmul(p, v).abs() + 2 * torch.matmul(p, v.abs())
+    del p, q, k
+    return gamma.float().abs() * torch.matmul(m.transpose(1, 2).reshape(B, S, D), wo.float().abs().t())
+
+
+def hold_fused(args, out, stages) -> dict:
+    """B6 held end to end and stage by stage, each stage against the plain
+    version's on the kernel's own inputs to it (``stages`` from
+    ``fused_vit_attn_block_stages``):
+
+    - output: ``hold`` against the plain version, mag ``fused_block_mags``;
+    - ln_stats: mean and 1/sqrt(var + eps) per row within STATS_REL_TOL;
+    - qkv: the plain projections of LN1's output rebuilt from the kernel's
+      statistics (the same fp32 operations, so the same bf16 xn): the two
+      sides differ only in fp32 summation order before one rounding, at most
+      one bf16 ulp (<= 2**-7 |ref|), so mag = |ref|;
+    - attention: the plain attention on the kernel's q, k, v, mag the same on
+      |v| (as for B3);
+    - o_projection: the plain epilogue on the kernel's attention output and
+      x, one rounding again, so mag = |ref|.
+
+    ok only if every hold is."""
+    import merv_tpu_torch.ops.fused_vit_block as TF
+
+    x, ns, nb, wq, bq, wk, bk, wv, bv, wo, bo, gamma, heads, eps = args
+    D = x.shape[-1]
+    xf = x.float()
+    r = {"output": hold(out, TF.fused_vit_attn_block_plain(*args), fused_block_mags(*args))}
+    mu, rstd = TF._ln_stats(xf, eps)
+    share = max(((stages["mu"] - mu).abs() / (STATS_REL_TOL * (mu.abs() + 1 / rstd))).max().item(),
+                ((stages["rstd"] - rstd).abs() / (STATS_REL_TOL * rstd)).max().item())
+    r["ln_stats"] = dict(worst_share_of_limit=share, mean_share=0.0, ok=share <= 1.0)
+    xn = TF._normalize(xf, stages["mu"], stages["rstd"], ns, nb, x.dtype)
+    for name, got, ref in zip(("q", "k", "v"), (stages["q"], stages["k"], stages["v"]),
+                              TF._plain_qkv(xn, wq, bq, wk, bk, wv, bv, heads)):
+        r[name] = hold(got, ref, ref.float().abs())
+    del xn
+    q, k, v, scale = stages["q"], stages["k"], stages["v"], (D // heads) ** -0.5
+    r["attention"] = hold(stages["o"], TF._plain_attention(q, k, v, scale), TF._plain_attention(q, k, v.abs(), scale))
+    ref = TF._plain_out(xf, stages["o"], wo, bo, gamma, x.dtype)
+    r["o_projection"] = hold(out, ref, ref.float().abs())
+    return dict(ok=all(h["ok"] for h in r.values()),
+                worst_share_of_limit=max(h["worst_share_of_limit"] for h in r.values()),
+                mean_share=max(h["mean_share"] for h in r.values()),
+                stages={k: dict(worst_share_of_limit=h["worst_share_of_limit"], mean_share=h["mean_share"], ok=h["ok"])
+                        for k, h in r.items()})
+
+
+def stage_text(h: dict) -> str:
+    return ", ".join(f"{k} {v['worst_share_of_limit']:.3f}" for k, v in h["stages"].items())
+
+
+def planted_tower_faults():
+    """Faulty stand-ins for the plain versions of B3, B5 and B6, as (module,
+    name, function): faults the call-by-call checks must catch."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.fused_vit_block as TF
+
+    small_kt_plain = A.small_attention_kt_plain
+    plain_qkv, plain_attention, plain_out = TF._plain_qkv, TF._plain_attention, TF._plain_out
+
+    def b3_kv_head_ignored(q, k, v, scale):
+        # query head h reads kv head h % Hk (heads tiled), not h // (H / Hk) (grouped)
+        rep = q.shape[1] // k.shape[1]
+        return small_kt_plain(q, k.repeat(1, rep, 1, 1).transpose(-1, -2), v.repeat(1, rep, 1, 1), scale)
+
+    def b5_mask_dropped(q, kt, v, scale, heads):
+        # every packed row attends every row, of every head
+        return small_kt_plain(q[:, None], kt[:, None], v[:, None], scale)[:, 0]
+
+    # B6's faults replace one stage of the plain version, which its end-to-end
+    # plain function and the stage-by-stage hold (``hold_fused``) both call
+    def b6_gamma_ignored(xf, o, wo, bo, gamma, dtype):
+        return plain_out(xf, o, wo, bo, torch.ones_like(gamma), dtype)  # LayerScale gamma taken as 1
+
+    def b6_scores_unscaled(q, k, v, scale):
+        return plain_attention(q, k, v, 0.0)  # scale 0: every key weighted alike
+
+    def b6_q_bias_dropped(xn, wq, bq, wk, bk, wv, bv, heads):
+        return plain_qkv(xn, wq, torch.zeros_like(bq), wk, bk, wv, bv, heads)
+
+    return {
+        "b3_kv_head_ignored": (A, "small_attention_plain", b3_kv_head_ignored),
+        "b5_mask_dropped": (A, "packed_temporal_attention_plain", b5_mask_dropped),
+        "b6_gamma_ignored": (TF, "_plain_out", b6_gamma_ignored),
+        "b6_scores_unscaled": (TF, "_plain_attention", b6_scores_unscaled),
+        "b6_q_bias_dropped": (TF, "_plain_qkv", b6_q_bias_dropped),
+    }
+
+
+def fused_layer(dev, cfg, seed: int):
+    """A ViTLayer of a tower's config on the card (bf16, random init from a
+    seeded generator, LN affine perturbed so that it shows; LayerScale gamma
+    drawn in [0.05, 0.15])."""
+    import dataclasses
+
+    import torch
+
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.models.backbones.video.vit import ViTLayer
+    from merv_tpu_torch.nn.core import init_weights
+
+    cfg = dataclasses.replace(cfg, temporal_attn=False, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    layer = ViTLayer(cfg, device=dev)
+    g = make_generator(dev, seed)
+    init_weights(layer, g)
+    D = cfg.hidden_size
+    with torch.no_grad():
+        layer.norm1.weight.copy_(1 + 0.1 * torch.randn(D, generator=g, device=dev))
+        layer.norm1.bias.copy_(0.1 * torch.randn(D, generator=g, device=dev))
+        if cfg.use_layerscale:
+            layer.ls1.gamma.uniform_(0.05, 0.15, generator=g)
+    return layer
+
+
+def fused_args(layer, x):
+    """The arguments ViTLayer.forward gives fused_vit_attn_block."""
+    import torch
+
+    c, ap = layer.cfg, layer.attn
+    gamma = layer.ls1.gamma if c.use_layerscale else torch.ones(c.hidden_size, dtype=c.param_dtype, device=x.device)
+    return (x, layer.norm1.weight, layer.norm1.bias, ap.q_proj.weight, ap.q_proj.bias, ap.k_proj.weight,
+            ap.k_proj.bias, ap.v_proj.weight, ap.v_proj.bias, ap.o_proj.weight, ap.o_proj.bias, gamma, c.num_heads,
+            c.layer_norm_eps)
+
+
+# (name, B, H, Hk, T): B3 on the towers' frames (the MERV_TPU_TOWER_ATTN=xla route), a ragged T, and GQA
+B3_CASES = (("dinov2_frames", 16, 16, 16, 261), ("languagebind_spatial", 16, 16, 16, 257),
+            ("ragged_t229", 16, 16, 16, 229), ("gqa_16_to_4", 4, 16, 4, 261))
+# (Bn, R, D, heads): B5 on LanguageBind's packed windows (2 windows x 257 tokens; 8 frames x 16 heads)
+B5_CASE = (514, 128, 64, 16)
+# (tower, B, S): B6 on each tower's attention half-layer at merv-base's batch shapes
+B6_CASES = (("dinov2", 16, 261), ("languagebind", 16, 257), ("siglip", 16, 196), ("vivit", 1, 3137))
+
+
+def tower_kernel_cases(dev, seed: int):
+    """B3, B5 and B6 against their plain versions at merv-base's shapes, with
+    the kernel, plain, library (SDPA for B3 and B5) and composed-yardstick
+    times (B6: the default route's attention half-layer, norm1 -> _mha ->
+    LayerScale -> residual) beside the bounds; each planted fault of
+    ``planted_tower_faults`` must fail the same hold."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.fused_vit_block as TF
+    from merv_tpu_torch.models.backbones.video.vit import (
+        DINOV2_LARGE_REG4,
+        LANGUAGEBIND_VIDEO_LARGE,
+        SIGLIP_BASE_224,
+        VIVIT_BASE_16x2,
+    )
+
+    cases, faults = [], planted_tower_faults()
+    record = functools.partial(record_case, cases)
+    rng = np.random.default_rng(seed + 11)
+
+    def fault_caught(kernel, name, fault, out, args, mag):
+        h = hold(out, faults[fault][2](*args), mag)
+        log(f"[fault] {fault:24s} {kernel}/{name}: worst/limit {h['worst_share_of_limit']:.2f}, mean err/mean limit "
+            f"{h['mean_abs_err'] / h['mean_limit']:.3f} -> {'not caught' if h['ok'] else 'caught'}")
+        if h["ok"]:
+            raise RuntimeError(f"planted fault {fault} was not caught on {kernel}/{name}")
+        return h["worst_share_of_limit"]
+
+    for name, B, H, Hk, T in B3_CASES:
+        D, scale = 64, 64 ** -0.5
+        q = _randn(rng, (B, H, T, D), dev)
+        k, v = (_randn(rng, (B, Hk, T, D), dev) for _ in range(2))
+        out = A.small_attention(q, k, v, scale)
+        mag = A.small_attention_plain(q, k, v.abs(), scale)
+        extra = {}
+        if Hk != H:
+            extra["fault_b3_kv_head_ignored_share"] = fault_caught("small_attention", name, "b3_kv_head_ignored",
+                                                                   out, (q, k, v, scale), mag)
+        record(
+            "small_attention", name, [B, H, Hk, T, D], out, A.small_attention_plain(q, k, v, scale), mag,
+            lambda: A.small_attention(q, k, v, scale), lambda: A.small_attention_plain(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, enable_gqa=Hk != H),
+            bytes_moved=(2 * q.numel() + 2 * k.numel()) * 2, flops=4.0 * B * H * T * T * D, extra=extra,
+        )
+
+    Bn, R, D, heads = B5_CASE
+    scale = D ** -0.5
+    q, v = (_randn(rng, (Bn, R, D), dev) for _ in range(2))
+    kt = _randn(rng, (Bn, D, R), dev)
+    out = A.packed_temporal_attention(q, kt, v, scale, heads)
+    mag = A.packed_temporal_attention_plain(q, kt, v.abs(), scale, heads)
+    share = fault_caught("packed_temporal_attention", "languagebind_temporal", "b5_mask_dropped", out,
+                         (q, kt, v, scale, heads), mag)
+    same_head = A._same_head(R, heads, dev)
+    # the library call on k as a user's projection gives it: [Bn, 1, R, D], contiguous
+    k_rows = kt.transpose(-1, -2).contiguous()[:, None]
+
+    def sdpa_masked(k=k_rows):
+        return F.scaled_dot_product_attention(q[:, None], k, v[:, None], attn_mask=same_head, scale=scale)
+
+    probe = sdpa_probe(sdpa_masked)
+    probe["strided_k_ms"] = time_ms(lambda: sdpa_masked(kt.transpose(-1, -2)[:, None]), 20)
+    log(f"[sdpa] packed_temporal_attention yardstick: default backend kernels {probe['default_kernels']}; "
+        f"forced {probe['backends_ms']}; with k strided (last-dim stride {R}) {probe['strided_k_ms']:.4f} ms")
+    record(
+        "packed_temporal_attention", "languagebind_temporal", [Bn, R, D, heads], out,
+        A.packed_temporal_attention_plain(q, kt, v, scale, heads), mag,
+        lambda: A.packed_temporal_attention(q, kt, v, scale, heads),
+        lambda: A.packed_temporal_attention_plain(q, kt, v, scale, heads), sdpa_masked,
+        # the function needs each row's R / heads same-head keys
+        bytes_moved=4 * q.numel() * 2, flops=4.0 * Bn * R * (R // heads) * D,
+        extra=dict(fault_b5_mask_dropped_share=share, library=probe),
+    )
+
+    towers = dict(dinov2=DINOV2_LARGE_REG4, languagebind=LANGUAGEBIND_VIDEO_LARGE, siglip=SIGLIP_BASE_224,
+                  vivit=VIVIT_BASE_16x2)
+    for name, B, S in B6_CASES:
+        cfg = towers[name]
+        layer = fused_layer(dev, cfg, seed + S)
+        D = cfg.hidden_size
+        x = _randn(rng, (B, S, D), dev)
+        args = fused_args(layer, x)
+        out, stages = TF.fused_vit_attn_block_stages(*args)
+        held = hold_fused(args, out, stages)
+        log(f"[kernel] fused_vit_attn_block     {name:22s} by stage, worst/limit: {stage_text(held)}")
+        if not held["ok"]:
+            raise RuntimeError(f"fused_vit_attn_block/{name}: a stage is outside its limit: {held['stages']}")
+        extra = dict(stages=held["stages"])
+        b6_faults = ("b6_q_bias_dropped", "b6_scores_unscaled") + (("b6_gamma_ignored",) if cfg.use_layerscale else ())
+        for fault in b6_faults:
+            with patched(faults[fault]):
+                h = hold_fused(args, out, stages)
+            log(f"[fault] {fault:24s} fused_vit_attn_block/{name}: worst/limit {h['worst_share_of_limit']:.2f} "
+                f"({stage_text(h)}) -> {'not caught' if h['ok'] else 'caught'}")
+            if h["ok"]:
+                raise RuntimeError(f"planted fault {fault} was not caught on fused_vit_attn_block/{name}")
+            extra[f"fault_{fault}"] = h["stages"]
+        del stages
+        if S <= 512:  # the key-tiled attention stage (which S > 512 takes) against the whole-head one
+            out_t, stages_t = TF.fused_vit_attn_block_stages(*args, key_tiled=True)
+            held_t = hold_fused(args, out_t, stages_t)
+            log(f"[kernel] fused_vit_attn_block     {name:22s} key-tiled stage forced, by stage, worst/limit: "
+                f"{stage_text(held_t)}")
+            if not held_t["ok"]:
+                raise RuntimeError(f"fused_vit_attn_block/{name} key-tiled: a stage is outside its limit")
+            del out_t, stages_t
+            ms = {"whole_head": [], "key_tiled": []}
+            for _ in range(2):  # interleaved: whole, tiled, whole, tiled
+                ms["whole_head"].append(time_ms(lambda: TF.fused_vit_attn_block_stages(*args), 20))
+                ms["key_tiled"].append(time_ms(lambda: TF.fused_vit_attn_block_stages(*args, key_tiled=True), 20))
+            log(f"[kernel] fused_vit_attn_block     {name:22s} ms, whole-head stage {ms['whole_head']}, "
+                f"key-tiled stage {ms['key_tiled']}")
+            extra["attention_stage_ms"] = ms
+            extra["key_tiled_stages"] = held_t["stages"]
+
+        def composed(layer=layer, x=x):  # the default route's attention half-layer
+            with torch.no_grad():
+                h = layer._mha(layer.attn, layer.norm1(x), "auto")
+                return x + (layer.ls1(h) if layer.cfg.use_layerscale else h)
+
+        record(
+            "fused_vit_attn_block", name, [B, S, D, cfg.num_heads], out, TF.fused_vit_attn_block_plain(*args),
+            fused_block_mags(*args), lambda: TF.fused_vit_attn_block(*args),
+            lambda: TF.fused_vit_attn_block_plain(*args), None,
+            bytes_moved=2 * x.numel() * 2 + 4 * D * D * 2 + 7 * D * 4,
+            flops=2.0 * B * S * D * 4 * D + 4.0 * B * S * S * D, extra=extra, yardstick=composed,
+        )
+        del layer
+    return cases
+
+
+def sdpa_probe(call) -> dict:
+    """Which SDPA backend ``call`` runs by default (the device kernels of one
+    call, from ``torch.profiler``; "not measured" if the trace holds none)
+    and each backend's time where it takes these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.key[:80] for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    backends = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                backends[b.name] = time_ms(call, 20)
+        except RuntimeError:  # the backend does not take these inputs
+            backends[b.name] = "refused"
+    return dict(default_kernels=kernels or "not measured", backends_ms=backends)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -667,15 +1038,23 @@ def main_path(dev, seed: int, max_new_tokens: int):
         return "; ".join(f"{name} {h['calls']} calls, worst/limit {h['worst_share_of_limit']:.3f}, "
                          f"mean err/mean limit {h['worst_mean_share']:.4f}" for name, h in held.items())
 
-    ref_embeds, ref_logits = run("plain")
-    embeds, logits = run("auto")
-    rel_embeds, rel_logits = rel(embeds, ref_embeds), rel(logits, ref_logits)
+    def compare():
+        """Request 0 through the kernels and through the plain versions: the
+        spliced embeddings and the prefill's last-position logits (relative
+        L2) and the greedy tokens; and the plain run's embeddings and logits."""
+        ref_embeds, ref_logits = run("plain")
+        embeds, logits = run("auto")
+        tok_auto = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
+        tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+                                       attn_impl="plain")
+        return dict(embeds_rel_diff=rel(embeds, ref_embeds), logits_rel_diff=rel(logits, ref_logits),
+                    greedy_agreement=(tok_auto == tok_plain).float().mean().item(),
+                    first_token_equal=bool((tok_auto[:, 0] == tok_plain[:, 0]).all())), ref_embeds, ref_logits
+
+    checks, ref_embeds, ref_logits = compare()
+    rel_embeds, rel_logits = checks["embeds_rel_diff"], checks["logits_rel_diff"]
+    agree, first_equal = checks["greedy_agreement"], checks["first_token_equal"]
     held = run_held()
-    tok_auto = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
-    tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
-                                   attn_impl="plain")
-    agree = (tok_auto == tok_plain).float().mean().item()
-    first_equal = bool((tok_auto[:, 0] == tok_plain[:, 0]).all())
     log(f"[main] kernels vs plain: spliced input embeddings (towers, projectors, fusion) relative L2 diff "
         f"{rel_embeds:.3e} (tol {EMBEDS_REL_TOL}); prefill last-position logits {rel_logits:.3e} "
         f"(tol {LOGITS_REL_TOL}); greedy-token agreement {agree:.3f} over {max_new_tokens} tokens; "
@@ -705,10 +1084,199 @@ def main_path(dev, seed: int, max_new_tokens: int):
         log(f"[fault] {fname:24s} whole path: embeds {fe:.3e} logits {fl:.3e} -> "
             f"{'caught' if faults[fname]['caught_whole_path'] else 'not caught'}; call by call: {show(f_held)} -> "
             f"{'caught' if faults[fname]['caught_call_by_call'] else 'not caught'}")
+
+    # the towers' routes, and request 0 served again with the switches on
+    routes = tower_routes(vidlm, vids)
+    switched = switched_requests(vidlm, videos[0], prompts[0], max_new_tokens, compare)
     return dict(model=cfg.model_id, params=n_params, requests=requests, batched_wall_s=batch_wall,
                 batched_timings=timings, launches=counts, peak_memory_gib=peak_gib,
                 embeds_rel_diff=rel_embeds, logits_rel_diff=rel_logits, held_call_by_call=held,
-                greedy_agreement=agree, first_token_equal=first_equal, planted_faults=faults)
+                greedy_agreement=agree, first_token_equal=first_equal, planted_faults=faults,
+                tower_routes=routes, switched_requests=switched)
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: the towers' routes and the requests served on them
+# ---------------------------------------------------------------------------
+
+SWITCHES = ("MERV_TPU_TOWER_ATTN", "MERV_TPU_TEMPORAL_KERNEL", "MERV_TPU_FUSED_VIT_BLOCK")
+# (route, the switches it sets); "default" sets none
+TOWER_ROUTES = (
+    ("default", {}),
+    ("tower_attn_xla", {"MERV_TPU_TOWER_ATTN": "xla"}),
+    ("tower_attn_xla_kt", {"MERV_TPU_TOWER_ATTN": "xla_kt"}),
+    ("temporal_kernel", {"MERV_TPU_TEMPORAL_KERNEL": "1"}),
+    ("fused_block", {"MERV_TPU_FUSED_VIT_BLOCK": "1"}),
+)
+TOWER_KERNELS = ("small_attention", "packed_temporal_attention", "fused_vit_attn_block")
+# the two requests served with switches on, and the launches each must make
+# (towers: DINOv2 23 and LanguageBind 23 layers, SigLIP 11, ViViT 12; the
+# Llama prefill 32)
+SWITCHED_REQUESTS = (
+    ("tower_attn_xla+temporal_kernel", {"MERV_TPU_TOWER_ATTN": "xla", "MERV_TPU_TEMPORAL_KERNEL": "1"},
+     {"small_attention": 46, "small_attention_kt": 0, "packed_temporal_attention": 23,
+      "flash_attention_forward": 44, "fused_vit_attn_block": 0}),
+    ("fused_block", {"MERV_TPU_FUSED_VIT_BLOCK": "1"},
+     {"fused_vit_attn_block": 69, "small_attention_kt": 0, "flash_attention_forward": 32, "small_attention": 0,
+      "packed_temporal_attention": 0}),
+)
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Set the towers' switches to ``env`` (the others unset) for the block."""
+    saved = {name: os.environ.get(name) for name in SWITCHES}
+    for name in SWITCHES:
+        os.environ.pop(name, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def held_tower_run(vb, video) -> dict:
+    """One tower forward with every B3, B5 and B6 call held against the plain
+    version (as the module holds it now) on the call's own inputs, by
+    ``hold`` (B6: ``hold_fused``, end to end and stage by stage); per kernel:
+    calls, ok, worst share, worst mean share (B6: and the worst per stage)."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.fused_vit_block as TF
+
+    calls = {name: [] for name in TOWER_KERNELS}
+    small, packed = A.small_attention, A.packed_temporal_attention
+
+    def small_held(q, k, v, scale):
+        out = small(q, k, v, scale)
+        calls["small_attention"].append(hold(out, A.small_attention_plain(q, k, v, scale),
+                                             A.small_attention_plain(q, k, v.abs(), scale)))
+        return out
+
+    def packed_held(q, kt, v, scale, heads):
+        out = packed(q, kt, v, scale, heads)
+        calls["packed_temporal_attention"].append(hold(out, A.packed_temporal_attention_plain(q, kt, v, scale, heads),
+                                                       A.packed_temporal_attention_plain(q, kt, v.abs(), scale, heads)))
+        return out
+
+    def fused_held(*args):
+        out, stages = TF.fused_vit_attn_block_stages(*args)
+        calls["fused_vit_attn_block"].append(hold_fused(args, out, stages))
+        return out
+
+    with patched((A, "small_attention", small_held), (A, "packed_temporal_attention", packed_held),
+                 (TF, "fused_vit_attn_block", fused_held)), torch.no_grad():
+        vb(video)
+    out = {}
+    for name, c in calls.items():
+        if not c:
+            continue
+        out[name] = dict(calls=len(c), ok=all(x["ok"] for x in c),
+                         worst_share_of_limit=max(x["worst_share_of_limit"] for x in c),
+                         worst_mean_share=max(x["mean_share"] for x in c))
+        if name == "fused_vit_attn_block":  # hold_fused's stages, worst over the calls
+            out[name]["stages"] = {k: dict(worst_share_of_limit=max(x["stages"][k]["worst_share_of_limit"] for x in c))
+                                   for k in c[0]["stages"]}
+    return out
+
+
+def tower_routes(vidlm, vids) -> dict:
+    """Each tower at merv-base's batch shapes under the default route and
+    under each switch: ms per tower (CUDA events), the output against the same
+    route with impl="plain" (relative L2 <= EMBEDS_REL_TOL), every B3/B5/B6
+    call held against its plain version on its own inputs, and launches per
+    tower. Then planted B5 and B6 faults, which the call-by-call check must
+    catch (B3's kv-head fault needs GQA, which no tower has: its kernel case
+    holds it)."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    out = {}
+    for route, env in TOWER_ROUTES:
+        rows = {}
+        with switches(env), torch.no_grad():
+            for vb, v in zip(vidlm.video_backbones, vids):
+                ref = vb(v, impl="plain")
+                A.reset_launch_counts()
+                got = vb(v)
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in A.launch_counts().items() if n}
+                ms = time_ms(lambda: vb(v), 10)
+                held = held_tower_run(vb, v)
+                r = rel(got, ref)
+                rows[vb.identifier] = dict(ms=ms, rel_diff_plain=r, launches=launches, held=held)
+                log(f"[route] {route:18s} {vb.identifier:36s} {ms:8.3f} ms per tower; vs plain {r:.3e}; launches "
+                    f"{launches}; " + "; ".join(f"{k} {h['calls']} calls worst/limit {h['worst_share_of_limit']:.3f}"
+                                                  + (f" ({stage_text(h)})" if "stages" in h else "")
+                                                  for k, h in held.items()))
+                if not torch.isfinite(got.float()).all() or not r <= EMBEDS_REL_TOL:
+                    raise RuntimeError(f"route {route}, {vb.identifier}: output differs from plain by {r}")
+                if not all(h["ok"] for h in held.values()):
+                    raise RuntimeError(f"route {route}, {vb.identifier}: a kernel call is outside its limit")
+        out[route] = rows
+
+    faults = {}
+    towers = {vb.identifier: (vb, v) for vb, v in zip(vidlm.video_backbones, vids)}
+    for fname, tower, env, kernel in (("b5_mask_dropped", "languagebind-video-noclass", TOWER_ROUTES[3][1],
+                                       "packed_temporal_attention"),
+                                      ("b6_gamma_ignored", "dinov2-video-all-tokens", TOWER_ROUTES[4][1],
+                                       "fused_vit_attn_block"),
+                                      ("b6_scores_unscaled", "vivit-google-b-all-no-cls-16frames",
+                                       TOWER_ROUTES[4][1], "fused_vit_attn_block")):
+        vb, v = towers[tower]
+        with switches(env), patched(planted_tower_faults()[fname]):
+            held = held_tower_run(vb, v)[kernel]
+        faults[fname] = dict(tower=tower, held=held, caught=not held["ok"])
+        by_stage = "" if "stages" not in held else f" ({stage_text(held)})"
+        log(f"[fault] {fname:24s} {tower} call by call: {held['calls']} calls, worst/limit "
+            f"{held['worst_share_of_limit']:.2f}{by_stage} -> {'caught' if faults[fname]['caught'] else 'not caught'}")
+        if not faults[fname]["caught"]:
+            raise RuntimeError(f"planted fault {fname} was not caught on the {tower} route")
+    out["planted_faults"] = faults
+    return out
+
+
+def switched_requests(vidlm, video, prompt, max_new_tokens: int, compare) -> dict:
+    """The requests of SWITCHED_REQUESTS, each served through ``generate`` with
+    its switches on and the launch counters zeroed just before and read just
+    after, then held against its plain rerun by ``compare``."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+
+    out = {}
+    for name, env, expect in SWITCHED_REQUESTS:
+        with switches(env):
+            A.reset_launch_counts()
+            timings = {}
+            t = time.perf_counter()
+            text = vidlm.generate(video, prompt, max_new_tokens=max_new_tokens, timings=timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = A.launch_counts()
+            checks = compare()[0]
+        row = dict(wall_s=wall, towers_s=timings["towers_s"], prefill_s=timings["prefill_s"],
+                   decode_s=timings["decode_s"], launches=counts, text=text, **checks)
+        out[name] = row
+        log(f"[main] request with {name}: wall {wall:.3f} s, towers {row['towers_s']:.3f} s, prefill "
+            f"{row['prefill_s']:.3f} s; launches {counts}; kernels vs plain: embeds {checks['embeds_rel_diff']:.3e} "
+            f"(tol {EMBEDS_REL_TOL}), logits {checks['logits_rel_diff']:.3e} (tol {LOGITS_REL_TOL}), greedy-token "
+            f"agreement {checks['greedy_agreement']:.3f}, first token equal: {checks['first_token_equal']}")
+        wrong = {k: (counts[k], n) for k, n in expect.items() if counts[k] != n}
+        if wrong:
+            raise RuntimeError(f"request with {name}: launches (got, predicted) {wrong}")
+        if not checks["embeds_rel_diff"] <= EMBEDS_REL_TOL or not checks["logits_rel_diff"] <= LOGITS_REL_TOL:
+            raise RuntimeError(f"request with {name}: kernel path differs from the plain path beyond the limits")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1040,6 +1608,15 @@ KERNELS = {
                                     replaces="merv_tpu/ops/attention.py:376", main_case="llama_cache_prefill"),
     "flash_attention_backward": dict(source="merv_tpu_torch/csrc/flash_bwd.cu",
                                      replaces="merv_tpu/ops/attention.py:791", main_case="llama_training"),
+    "small_attention": dict(source="merv_tpu_torch/csrc/small_attention.cu",
+                            replaces="merv_tpu/ops/attention.py:473", main_case="dinov2_frames",
+                            request="tower_attn_xla+temporal_kernel"),
+    "packed_temporal_attention": dict(source="merv_tpu_torch/csrc/packed_temporal.cu",
+                                      replaces="merv_tpu/ops/attention.py:622", main_case="languagebind_temporal",
+                                      request="tower_attn_xla+temporal_kernel"),
+    "fused_vit_attn_block": dict(source="merv_tpu_torch/csrc/fused_vit_block.cu",
+                                 replaces="merv_tpu/ops/fused_vit_block.py:135", main_case="dinov2",
+                                 request="fused_block"),
 }
 SERVING_KERNELS = ("small_attention_kt", "flash_attention_forward")
 
@@ -1073,20 +1650,28 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed)
-    main = main_path(dev, args.seed, args.max_new_tokens)
-    train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
+    with switches({}):  # every phase sets the switches it runs under
+        cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
+        main = main_path(dev, args.seed, args.max_new_tokens)
+        train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
         head = next(c for c in mine if c["case"] == meta["main_case"])
+        if "request" in meta:  # the towers' opt-in kernels: launches of the request served with their switch
+            launches = main["switched_requests"][meta["request"]]["launches"][name]
+        else:
+            launches = train["launches"][name]
+        if launches <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=train["launches"][name], launches_serving=main["launches"].get(name, 0),
+            launches=launches, launches_serving=main["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
+            **({"yardstick_ms": head["yardstick_ms"]} if "yardstick_ms" in head else {}),
         ))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

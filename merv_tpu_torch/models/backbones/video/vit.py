@@ -13,20 +13,41 @@ Frame attention at tower lengths (224..512 tokens) runs the
 :class:`~merv_tpu_torch.ops.attention.SmallAttentionKt`) with q/v written
 ``[B, H, S, Dh]`` and k written ``[B, H, Dh, S]`` straight out of their
 projections; other lengths go through
-:func:`merv_tpu_torch.ops.attention.attention`. The penultimate-layer feature
+:func:`merv_tpu_torch.ops.attention.attention`.
+
+``ViTLayer`` reads ``merv_tpu``'s three switches, with its names, values,
+defaults and gates, at the same places (where ``merv_tpu`` also asks
+``can_use_pallas()``, the port takes the branch on any device; the kernel
+wrappers take their plain versions for CPU tensors):
+
+- ``MERV_TPU_TOWER_ATTN`` (``_mha``): ``small`` the kt route (K1), ``xla_kt``
+  a plain softmax chain on the kt layout, ``xla`` the ``Linear`` projections
+  and ``attention()``, whose ``"small"`` plan is B3 (``small_attention``);
+- ``MERV_TPU_TEMPORAL_KERNEL=1`` (``_mha_time_packed``): the packed temporal
+  kernel (B5) where ``R % 128 == 0`` and ``dh % 16 == 0``;
+- ``MERV_TPU_FUSED_VIT_BLOCK=1`` (``forward``): the fused attention half-layer
+  (B6) where ``hidden % 128 == 0`` and q has a bias. The penultimate-layer feature
 tap is "run the first L-1 layers". Parameter names follow the JAX tree
 (``layers.<i>.attn.q_proj``, ``ls1.gamma``, ...), so the bridge maps by name.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from merv_tpu_torch.nn.core import ACT2FN, LayerNorm, Linear, normal_, trunc_normal_
-from merv_tpu_torch.ops.attention import DEFAULT_MASK_VALUE, SmallAttentionKt, attention, dispatch_plan
+from merv_tpu_torch.ops.attention import (
+    DEFAULT_MASK_VALUE,
+    PackedTemporalAttention,
+    SmallAttentionKt,
+    attention,
+    dispatch_plan,
+)
+from merv_tpu_torch.ops.fused_vit_block import FusedVitAttnBlock
 
 
 @dataclass(frozen=True)
@@ -151,7 +172,12 @@ class ViTLayer(nn.Module):
         B, S, D = x.shape
         H, Dh = c.num_heads, c.head_dim
         plan = dispatch_plan(S, S, Dh, causal=False, has_bias=False, self_shaped=True)
-        if plan == "small":
+        # merv_tpu's override, read where it reads it: "small" pins the kt
+        # kernel (K1), "xla_kt" the plain softmax chain on the same kt layout,
+        # "xla" the Linear projections and attention() (whose "small" plan is
+        # B3, small_attention)
+        plan = os.environ.get("MERV_TPU_TOWER_ATTN", plan)
+        if plan in ("small", "xla_kt"):
             # q and v come out of their GEMMs as [B, S, H*Dh] and are split per
             # head; k is produced directly as W_k @ x^T = [B, H*Dh, S], i.e.
             # kt [B, H, Dh, S] with no transpose pass
@@ -160,7 +186,12 @@ class ViTLayer(nn.Module):
             kt = torch.matmul(ap.k_proj.weight.to(x.dtype), x.transpose(1, 2))
             if ap.k_proj.bias is not None:
                 kt = kt + ap.k_proj.bias.to(x.dtype)[:, None]
-            out = SmallAttentionKt.apply(q, kt.view(B, H, Dh, S), v, Dh ** -0.5, impl)
+            kt = kt.view(B, H, Dh, S)
+            if plan == "xla_kt":
+                s = torch.matmul(q.float(), kt.float()) * Dh ** -0.5
+                out = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+            else:
+                out = SmallAttentionKt.apply(q, kt, v, Dh ** -0.5, impl)
         else:
             q = ap.q_proj(x).view(B, S, H, Dh).transpose(1, 2)
             k = ap.k_proj(x).view(B, S, H, Dh).transpose(1, 2)
@@ -170,12 +201,25 @@ class ViTLayer(nn.Module):
 
     def _mha_time_packed(self, ap: Attention, x: torch.Tensor, impl: str) -> torch.Tensor:
         """Attention over the frame axis with all heads packed into one sequence
-        of F*H rows (row r = f*H + h) and a same-head additive bias: the
-        default (bias) path of ``merv_tpu``'s ``_mha_time_packed``."""
+        of F*H rows (row r = f*H + h), each row seeing only its own head's rows.
+        Default: ``merv_tpu``'s bias path (a same-head additive bias through
+        :func:`attention`). ``MERV_TPU_TEMPORAL_KERNEL=1`` with
+        ``R % 128 == 0`` and ``dh % 16 == 0``: the packed temporal kernel
+        (B5), on q/v ``[Bn, R, dh]`` (pure reshapes of the projections) and
+        kt ``[Bn, dh, R]``."""
         c = self.cfg
         Bn, F, Dm = x.shape
         H, dh = c.num_heads, c.head_dim
         R = F * H
+        if os.environ.get("MERV_TPU_TEMPORAL_KERNEL", "0") == "1" and R % 128 == 0 and dh % 16 == 0:
+            q = ap.q_proj(x).reshape(Bn, R, dh)
+            v = ap.v_proj(x).reshape(Bn, R, dh)
+            # kt[b, k, f*H + h] = k[b, f, h*dh + k]: the packed k rows transposed,
+            # in one copy (no single GEMM writes this layout; merv_tpu's einsum
+            # leaves the transpose to XLA)
+            kt = ap.k_proj(x).reshape(Bn, R, dh).transpose(1, 2).contiguous()
+            out = PackedTemporalAttention.apply(q, kt, v, dh ** -0.5, H, impl)
+            return ap.o_proj(out.reshape(Bn, F, Dm))
         q = ap.q_proj(x).reshape(Bn, 1, R, dh)
         k = ap.k_proj(x).reshape(Bn, 1, R, dh)
         v = ap.v_proj(x).reshape(Bn, 1, R, dh)
@@ -200,8 +244,22 @@ class ViTLayer(nn.Module):
             xt = xt + yt
             x = xt.view(B, N, frames, D).transpose(1, 2).reshape(BT, N, D)
 
-        h = self._mha(self.attn, self.norm1(x), impl)
-        x = x + (self.ls1(h) if c.use_layerscale else h)
+        ap = self.attn
+        if (os.environ.get("MERV_TPU_FUSED_VIT_BLOCK", "0") == "1" and c.hidden_size % 128 == 0
+                and ap.q_proj.bias is not None):
+            # the whole attention half-layer as one kernel call (B6), on this
+            # layer's own parameters; weights cast to x's dtype as merv_tpu does
+            gamma = (self.ls1.gamma if c.use_layerscale
+                     else torch.ones(c.hidden_size, dtype=c.param_dtype, device=x.device))
+            w = lambda lin: lin.weight.to(x.dtype)  # noqa: E731
+            x = FusedVitAttnBlock.apply(
+                x.contiguous(), self.norm1.weight, self.norm1.bias, w(ap.q_proj), ap.q_proj.bias, w(ap.k_proj),
+                ap.k_proj.bias, w(ap.v_proj), ap.v_proj.bias, w(ap.o_proj), ap.o_proj.bias, gamma, c.num_heads,
+                c.layer_norm_eps, impl,
+            )
+        else:
+            h = self._mha(ap, self.norm1(x), impl)
+            x = x + (self.ls1(h) if c.use_layerscale else h)
         h = self.mlp(self.norm2(x))
         return x + (self.ls2(h) if c.use_layerscale else h)
 

@@ -112,6 +112,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def bind(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    """:func:`load`, with ``fn_name``'s argument types set (a pointer passed
+    without them would be cut to 32 bits) and an int return code."""
+    lib = load(name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:

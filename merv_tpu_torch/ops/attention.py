@@ -1,4 +1,4 @@
-"""Attention ops: three hand-written Hopper kernels, their plain versions, the
+"""Attention ops: five hand-written Hopper kernels, their plain versions, the
 autograd Functions around them, and the dispatcher (counterpart of
 ``merv_tpu/ops/attention.py``).
 
@@ -7,6 +7,12 @@ Shapes follow ``merv_tpu``: ``[batch, heads, seq, head_dim]``, GQA through
 
 - :func:`small_attention_kt` (``csrc/small_attention_kt.cu``) replaces the
   Pallas ``small_attention_kt`` the towers' frame attention runs.
+- :func:`small_attention` (``csrc/small_attention.cu``) replaces the Pallas
+  ``_small_attention``, the ``"small"`` plan of :func:`attention` (the towers'
+  ``MERV_TPU_TOWER_ATTN=xla`` route).
+- :func:`packed_temporal_attention` (``csrc/packed_temporal.cu``) replaces the
+  Pallas ``packed_temporal_attention`` (LanguageBind's temporal attention
+  under ``MERV_TPU_TEMPORAL_KERNEL=1``).
 - :func:`flash_attention_forward` (``csrc/flash_fwd.cu``) replaces the Pallas
   ``_flash_forward`` (and, at ViViT's shape, the forward of the library
   flash kernel the TPU used); it also returns the per-row log-sum-exp.
@@ -14,18 +20,22 @@ Shapes follow ``merv_tpu``: ``[batch, heads, seq, head_dim]``, GQA through
   backward of the ``_flash_attention`` custom VJP and of the library flash
   kernel the TPU trained through.
 
+The sixth kernel, the fused ViT attention half-layer, is in
+:mod:`merv_tpu_torch.ops.fused_vit_block`; its launches are counted here too.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) only for tensors on
 the CPU; for a CUDA tensor it launches the kernel or raises. Each counts its
 launches in a plain integer (:func:`launch_counts`), so a run can show it went
 through the kernel. The two plain forwards differ on purpose where their JAX
-counterparts do: the flash forward writes 0 for a row with no valid key (and
-its gradient there is 0), :func:`attention_reference` (mask value
-``-0.7 * fp32 max``) averages V there.
+counterparts do: the flash forward writes 0 for a row with no valid key,
+:func:`attention_reference` (mask value ``-0.7 * fp32 max``) averages V
+there; :class:`FlashAttention`'s gradient there is the reference's, as in
+``merv_tpu``.
 
-Gradients: :class:`SmallAttentionKt` and :class:`FlashAttention` are the
-``torch.autograd.Function`` s the model calls (the towers' ``_mha`` applies
-the first, :func:`attention` the second through :func:`flash_attention`). The first recomputes its backward through
-:func:`attention_reference`, as ``merv_tpu``'s rule does; the second saves
+Gradients: :class:`SmallAttentionKt`, :class:`SmallAttention`,
+:class:`PackedTemporalAttention` and :class:`FlashAttention` are the
+``torch.autograd.Function`` s the model calls. The first three recompute
+their backward through a reference, as ``merv_tpu``'s rules do; the last saves
 ``q, k, v, o, lse`` and runs :func:`flash_attention_backward`. The ``q_offset``
 path is inference-only, as in ``merv_tpu``: asking for its gradient raises.
 """
@@ -42,7 +52,9 @@ from merv_tpu_torch.ops import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 # kernel launches per wrapper, counted where each launches its kernel
-_LAUNCHES = {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0}
+# (fused_vit_attn_block's wrapper lives in ops/fused_vit_block.py)
+_LAUNCHES = {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
+             "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +163,134 @@ def small_attention_kt(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale
         )
     _build.check(lib, rc, "small_attention_kt")
     _LAUNCHES["small_attention_kt"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3: small_attention (tower frame attention through attention())
+# ---------------------------------------------------------------------------
+
+
+def small_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The kernel's function in plain torch, in ``merv_tpu``'s
+    ``_small_attn_kernel`` order: fp32 scores, p cast to the value dtype for
+    PV, the output divided by the fp32 row sum after PV (that is
+    :func:`small_attention_kt_plain` on K transposed). GQA by repeat. The TPU
+    kernel's key-side pad mask hides only the keys it padded on; nothing is
+    padded here."""
+    k, v = _repeat_kv(k, v, q.shape[1])
+    return small_attention_kt_plain(q, k.transpose(-1, -2), v, scale)
+
+
+def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Whole-sequence, non-causal, unmasked attention: q [B,H,T,D],
+    k/v [B,Hk,T,D] (GQA through the kv-head index, nothing repeated).
+
+    CUDA: ``csrc/small_attention.cu`` (bf16, D == 64, T <= 512, H % Hk == 0).
+    CPU: :func:`small_attention_plain`.
+
+    Replaces ``merv_tpu/ops/attention.py::_small_attention`` (Pallas,
+    ``pallas_call`` at :473). Bound on the H100 by bytes at the towers' T.
+    Design: K1's (one block per (batch, head), the kv head's K and V^T staged
+    in shared memory, exact two-pass softmax) with K staged as it is; the
+    device code is shared with K1 (``csrc/attn_core.cuh``)."""
+    B, H, T, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[2:] != q.shape[2:] or v.shape != k.shape:
+        raise ValueError(f"small_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    Hk = k.shape[1]
+    if q.device.type == "cpu":
+        return small_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"small_attention: unsupported device {q.device}")
+    _check_cuda("small_attention", q, k, v)
+    if D != 64 or not 0 < T <= SMALL_KT_MAX_T or H % Hk:
+        raise ValueError(f"small_attention: the CUDA kernel takes D == 64, T <= {SMALL_KT_MAX_T} and H % Hk == 0, "
+                         f"got D={D} T={T} H={H} Hk={Hk}")
+    lib = _kernel_lib("small_attention")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.small_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hk, T, D, float(scale), stream
+        )
+    _build.check(lib, rc, "small_attention")
+    _LAUNCHES["small_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: packed_temporal_attention (LanguageBind temporal attention, opt-in)
+# ---------------------------------------------------------------------------
+
+
+def _same_head(R: int, heads: int, device) -> torch.Tensor:
+    """[R, R] bool: packed row r may attend row r' (r % heads == r' % heads)."""
+    idx = torch.arange(R, device=device) % heads
+    return idx[:, None] == idx[None, :]
+
+
+def packed_temporal_attention_plain(
+    q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float, heads: int
+) -> torch.Tensor:
+    """The kernel's function in plain torch, step by step as ``merv_tpu``'s
+    ``_packed_temporal_kernel``: fp32 scores, other heads' rows set to
+    ``DEFAULT_MASK_VALUE`` (their p underflows to exactly 0), fp32 softmax
+    statistics, p cast to the value dtype for PV, output divided by l after PV."""
+    s = torch.matmul(q.float(), kt.float()) * scale
+    s = s.masked_fill(~_same_head(q.shape[1], heads, q.device), DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / l).to(q.dtype)
+
+
+def packed_temporal_reference(
+    q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float, heads: int
+) -> torch.Tensor:
+    """``merv_tpu``'s ``_packed_temporal_reference``: what the backward
+    recomputes through (softmax, then PV in the value dtype)."""
+    s = torch.matmul(q.float(), kt.float()) * scale
+    s = s.masked_fill(~_same_head(q.shape[1], heads, q.device), DEFAULT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+
+
+def packed_temporal_attention(
+    q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float, heads: int
+) -> torch.Tensor:
+    """Head-interleaved packed attention: q/v [Bn,R,D], kt [Bn,D,R], rows
+    ordered (frame, head); row r attends the rows r' with
+    ``r % heads == r' % heads``, a mask the kernel builds itself.
+
+    CUDA: ``csrc/packed_temporal.cu`` (bf16, D == 64, R <= 512).
+    CPU: :func:`packed_temporal_attention_plain`.
+
+    Replaces ``merv_tpu/ops/attention.py::packed_temporal_attention``
+    (Pallas, ``pallas_call`` at :622). Bound on the H100 by bytes at
+    LanguageBind's [514, 128, 64]. Design: one block per packed window,
+    K1's staging and exact softmax over the full R x R scores, masked in the
+    kernel (see the source)."""
+    Bn, R, D = q.shape
+    if kt.shape != (Bn, D, R) or v.shape != q.shape:
+        raise ValueError(f"packed_temporal_attention: q {tuple(q.shape)}, kt {tuple(kt.shape)}, v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return packed_temporal_attention_plain(q, kt, v, scale, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"packed_temporal_attention: unsupported device {q.device}")
+    _check_cuda("packed_temporal_attention", q, kt, v)
+    if D != 64 or not 0 < R <= SMALL_KT_MAX_T or heads <= 0:
+        raise ValueError(f"packed_temporal_attention: the CUDA kernel takes D == 64, R <= {SMALL_KT_MAX_T} and "
+                         f"heads > 0, got D={D} R={R} heads={heads}")
+    lib = _kernel_lib("packed_temporal")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.packed_temporal_bf16(
+            q.data_ptr(), kt.data_ptr(), v.data_ptr(), out.data_ptr(), Bn, R, D, int(heads), float(scale), stream
+        )
+    _build.check(lib, rc, "packed_temporal_attention")
+    _LAUNCHES["packed_temporal_attention"] += 1
     return out
 
 
@@ -414,11 +554,74 @@ class SmallAttentionKt(torch.autograd.Function):
         return dq, dk.transpose(-1, -2), dv, None, None
 
 
+class SmallAttention(torch.autograd.Function):
+    """:func:`small_attention` (``impl="plain"``: its plain version) with the
+    backward of ``merv_tpu``'s ``_small_attention_bwd_rule``: a recompute
+    through :func:`attention_reference` (GQA folded by autograd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, impl: str):
+        fn = small_attention_plain if impl == "plain" else small_attention
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return fn(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            out = attention_reference(qq, kk, vv, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
+        return dq, dk, dv, None, None
+
+
+class PackedTemporalAttention(torch.autograd.Function):
+    """:func:`packed_temporal_attention` (``impl="plain"``: its plain version)
+    with the backward of ``merv_tpu``'s ``_packed_temporal_bwd_rule``: a
+    recompute through :func:`packed_temporal_reference`."""
+
+    @staticmethod
+    def forward(ctx, q, kt, v, scale: float, heads: int, impl: str):
+        fn = packed_temporal_attention_plain if impl == "plain" else packed_temporal_attention
+        ctx.save_for_backward(q, kt, v)
+        ctx.scale, ctx.heads = scale, heads
+        return fn(q, kt, v, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kt, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = tuple(x.detach().requires_grad_() for x in (q, kt, v))
+            out = packed_temporal_reference(*leaves, ctx.scale, ctx.heads)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None)
+
+
+def _empty_row_dv(lse: torch.Tensor, do: torch.Tensor, Hk: int, Tk: int) -> torch.Tensor:
+    """[B, Hk, 1, D] fp32: what ``merv_tpu``'s reference backward gives every
+    key's dV from the query rows with no valid key (``lse == +inf``): the
+    reference averages V there, so each key receives ``round(1/Tk) * dO_row``
+    (1/Tk rounded to the input dtype, as its probabilities are), summed over
+    the rows and over each GQA group. Tensor ops only: no host sync, and no
+    copy of dO (the rows are summed by one [1, Tq] @ [Tq, D] product per head)."""
+    B, H, _, D = do.shape
+    empty = torch.isposinf(lse).to(do.dtype)[:, :, None, :]  # [B, H, 1, Tq]
+    rows = torch.matmul(empty, do).float()  # [B, H, 1, D]
+    w = torch.tensor(1.0 / Tk, dtype=do.dtype).item()
+    return w * rows.view(B, Hk, H // Hk, 1, D).sum(2)
+
+
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention_forward` and :func:`flash_attention_backward`
     (``impl="plain"``: both plain versions). The forward computes and keeps
     the log-sum-exp only when the caller wants a gradient (``with_grad``:
-    ``ctx.needs_input_grad`` does not see ``torch.no_grad``)."""
+    ``ctx.needs_input_grad`` does not see ``torch.no_grad``). A query row
+    with no valid key outputs 0, but its gradient is ``merv_tpu``'s
+    (``_flash_bwd_rule`` takes the VJP of :func:`attention_reference`, which
+    averages V there): dq = dk = 0 and every key's dv gains
+    :func:`_empty_row_dv`. Only a key mask or ``Tq > Tk`` under the causal
+    mask can leave such a row, so only those calls pay for the check."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal: bool, scale: float, q_offset, impl: str, with_grad: bool):
@@ -436,6 +639,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, kv_mask = ctx.saved_tensors
         bwd = flash_attention_backward_plain if ctx.impl == "plain" else flash_attention_backward
         dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), causal=ctx.causal, kv_mask=kv_mask, scale=ctx.scale)
+        Tq, Tk = q.shape[2], k.shape[2]
+        if kv_mask is not None or (ctx.causal and Tq > Tk):  # only these can leave a row with no valid key
+            dv = dv + _empty_row_dv(lse, do, k.shape[1], Tk).to(dv.dtype)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -473,6 +679,14 @@ _SIGNATURES = {
         "small_attention_kt_bf16",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
     ),
+    "small_attention": (
+        "small_attention_bf16",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    ),
+    "packed_temporal": (
+        "packed_temporal_bf16",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
     "flash_fwd": (
         "flash_fwd_bf16",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
@@ -485,13 +699,7 @@ _SIGNATURES = {
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind(name, *_SIGNATURES[name])
 
 
 # ---------------------------------------------------------------------------
@@ -512,9 +720,12 @@ def dispatch_plan(
     """Static kernel choice: ``'small'`` | ``'flash'`` | ``'plain'``.
 
     - self-shaped, non-causal, unmasked tower frames with ``224 <= T <= 512``
-      and D == 64 (DINOv2 261, LanguageBind spatial 257) -> small_attention_kt;
-      only the towers' ``_mha`` passes ``self_shaped``, and it makes the kt
-      layout the kernel takes;
+      (DINOv2 261, LanguageBind spatial 257) -> ``'small'``: the towers'
+      ``_mha`` runs it as small_attention_kt (K1) on its kt layout, and
+      :func:`attention` (``self_shaped`` is ``q.shape == k.shape``) as
+      small_attention (B3). ``merv_tpu`` plans this for D <= 128; the port
+      only for D == 64, the head dim whose K and V^T fit a block's shared
+      memory at T = 512, so other head dims stay plain;
     - every causal call with ``Tq > 1`` (the LLM's no-cache forward and cache
       prefill) and every call with ``min(Tq, Tk) >= 2048`` (ViViT's 3137
       tokens) -> flash_attention_forward;
@@ -522,8 +733,8 @@ def dispatch_plan(
       the T=1 decode, anything with an additive bias) -> plain torch, as these
       ran as plain XLA in ``merv_tpu``.
 
-    These rules route the main path through the two kernels; no threshold
-    here is a measured H100 crossover yet.
+    These rules route the main path through the kernels; no threshold here
+    is a measured H100 crossover yet.
     """
     if has_bias:
         return "plain"
@@ -552,18 +763,20 @@ def attention(
     wrappers; ``impl="plain"`` runs the same plan through the plain versions
     (for comparing the whole path on the card against its plain form). The
     ``'flash'`` plan goes through :class:`FlashAttention`, so it is
-    differentiable (except with ``q_offset``, which raises).
-
-    :func:`small_attention_kt` takes K transposed, which only the towers'
-    frame attention produces (straight out of its k projection), so the
-    towers call it themselves (:class:`SmallAttentionKt`) and this dispatcher never
-    plans ``'small'``."""
+    differentiable (except with ``q_offset``, which raises); the ``'small'``
+    plan (self-shaped tower frames, as ``merv_tpu``'s ``attention()`` plans
+    it) through :class:`SmallAttention`. The towers reach it on the
+    ``MERV_TPU_TOWER_ATTN=xla`` route; their default route calls
+    :class:`SmallAttentionKt` itself on its kt layout."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     D = q.shape[-1]
     scale_val = D ** -0.5 if scale is None else scale
     Tq, Tk = q.shape[2], k.shape[2]
-    plan = dispatch_plan(Tq, Tk, D, causal=causal, has_bias=bias is not None, has_mask=kv_mask is not None)
+    plan = dispatch_plan(Tq, Tk, D, causal=causal, has_bias=bias is not None, has_mask=kv_mask is not None,
+                         self_shaped=q.shape == k.shape and q_offset is None)
+    if plan == "small":
+        return SmallAttention.apply(q, k, v, scale_val, impl)
     if plan == "flash":
         return flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale_val, q_offset=q_offset, impl=impl)
     return attention_reference(

@@ -146,7 +146,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     out = TA.attention(q, k, v, causal=True)  # planned 'flash'
     ref = TA.attention_reference(q, k, v, causal=True)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=FP32_TOL, rtol=0)
-    assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0}
+    assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
+                                  "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +160,14 @@ BWD_FP32_TOL = 1e-5
 # early keys' dK and dV reach when ~100 causal queries sum onto them)
 BWD_BF16_TOL = 2e-2
 
-# (name, B, H, Hk, T, D, causal, mask kind): Tq == Tk as in training; every row keeps a valid key
+# (name, B, H, Hk, T, D, causal, mask kind): Tq == Tk as in training
 BWD_CASES = [
     ("causal_ragged_T200", 1, 2, 2, 200, 64, True, None),
     ("causal_gqa_4_to_2", 1, 4, 2, 96, 128, True, None),
     ("kv_mask_d64", 2, 2, 2, 80, 64, False, "random"),
     ("causal_kv_mask_d128", 2, 4, 2, 72, 128, True, "right_pad_short"),
+    # batch row 1 has no valid key: merv_tpu's reference VJP averages V there
+    ("row1_empty", 2, 4, 2, 48, 64, False, "row1_empty"),
 ]
 
 
@@ -179,8 +182,10 @@ def _bwd_mask(kind, B, T):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
 def test_flash_backward_plain_matches_jax_grad(case, dtype):
-    """flash_attention_backward_plain (from the plain forward's o and lse)
-    against jax.vjp of merv_tpu's _flash_attention custom VJP in interpret mode."""
+    """The gradient of flash_attention on the CPU (FlashAttention: the plain
+    forward's o and lse into flash_attention_backward's plain version, plus
+    the rows with no valid key) against jax.vjp of merv_tpu's _flash_attention
+    custom VJP in interpret mode."""
     import jax
 
     name, B, H, Hk, T, D, causal, mask_kind = case
@@ -194,9 +199,9 @@ def test_flash_backward_plain_matches_jax_grad(case, dtype):
     refs = vjp(_to_jax(do, dtype))
     tq, tk, tv = (_to_torch(x, dtype) for x in (q, k, v))
     tmask = None if mask is None else torch.from_numpy(mask)
-    o, lse = TA.flash_attention_forward_plain(tq, tk, tv, causal=causal, kv_mask=tmask, scale=scale, return_lse=True)
-    grads = TA.flash_attention_backward(tq, tk, tv, o, lse, _to_torch(do, dtype), causal=causal, kv_mask=tmask,
-                                        scale=scale)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = TA.flash_attention(*leaves, causal=causal, kv_mask=tmask, scale=scale)
+    grads = torch.autograd.grad(out, leaves, _to_torch(do, dtype))
     tol = dict(atol=BWD_FP32_TOL, rtol=0) if dtype == "float32" else dict(atol=BWD_BF16_TOL, rtol=BWD_BF16_TOL)
     for gname, out, ref, x in zip(("dq", "dk", "dv"), grads, refs, (tq, tk, tv)):
         assert out.shape == x.shape and out.dtype == x.dtype
@@ -206,8 +211,10 @@ def test_flash_backward_plain_matches_jax_grad(case, dtype):
 @pytest.mark.parametrize("Hk,mask_kind", [(2, None), (1, "row1_empty")])
 def test_flash_autograd_function_matches_plain_autograd(Hk, mask_kind):
     """attention() (the 'flash' plan) and flash_attention() on the CPU, through FlashAttention, against
-    torch.autograd of the plain forward, fp32; a row with no valid key has a
-    zero gradient (merv_tpu's reference VJP would average V there instead)."""
+    torch.autograd of the plain forward, fp32. On a row with no valid key dq and
+    dk are 0 and every key's dv is round(1/Tk) * dO summed over the row's
+    queries and GQA group (merv_tpu's reference VJP averages V there), where
+    autograd of the plain forward (which writes 0 there) gives 0."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(8, 2, 4, Hk, 48, 48, 64))
     mask = _mask(mask_kind, 2, 48)
     tmask = None if mask is None else torch.from_numpy(mask)
@@ -220,9 +227,16 @@ def test_flash_autograd_function_matches_plain_autograd(Hk, mask_kind):
     ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     TA.flash_attention_forward_plain(*ref_leaves, causal=mask is None, kv_mask=tmask).backward(g)
     for a, b in zip(leaves, ref_leaves):
-        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=FP32_TOL, rtol=0)
+        np.testing.assert_allclose(a.grad[0].numpy(), b.grad[0].numpy(), atol=FP32_TOL, rtol=0)
     if mask_kind == "row1_empty":
-        assert all(not x.grad[1].any() for x in leaves)
+        assert not leaves[0].grad[1].any() and not leaves[1].grad[1].any()
+        expect = g[1].sum(dim=1).view(Hk, 4 // Hk, 64).sum(1)[:, None, :] / 48  # [Hk, 1, D], each key the same
+        np.testing.assert_allclose(leaves[2].grad[1].numpy(), expect.expand(Hk, 48, 64).numpy(), atol=FP32_TOL,
+                                   rtol=0)
+    else:
+        np.testing.assert_allclose(leaves[2].grad[1].numpy(), ref_leaves[2].grad[1].numpy(), atol=FP32_TOL, rtol=0)
+        for a, b in zip(leaves[:2], ref_leaves[:2]):
+            np.testing.assert_allclose(a.grad[1].numpy(), b.grad[1].numpy(), atol=FP32_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

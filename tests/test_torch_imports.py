@@ -26,6 +26,7 @@ from merv_tpu_torch.nn.core import init_weights
 import merv_tpu_torch.bridge, merv_tpu_torch.models.materialize, merv_tpu_torch.conf
 import merv_tpu_torch.training, merv_tpu_torch.training.checkpointing, merv_tpu_torch.training.train_step
 import merv_tpu_torch.util.batching_utils, merv_tpu_torch.util.data_utils, merv_tpu_torch.util.seed_utils
+import merv_tpu_torch.ops.fused_vit_block, merv_tpu_torch.ops.attention
 
 tower = DinoV2VideoBackbone("dinov2-video-all-tokens", "resize-naive", 32, 4,
                             vit_config=tiny_vit_config(num_cls_tokens=1, num_register_tokens=4), device="cpu")

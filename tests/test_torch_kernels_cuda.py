@@ -8,7 +8,9 @@ without them:
 
 Each output is held by ``chip_smoke.hold``, element by element and on the
 mean, under the limit stated there; the flash forward's log-sum-exp by
-``chip_smoke.hold_lse``, row by row.
+``chip_smoke.hold_lse``, row by row; the fused ViT block's with the
+magnitudes of ``chip_smoke.fused_block_mags`` and stage by stage by
+``chip_smoke.hold_fused``.
 """
 
 import numpy as np
@@ -16,7 +18,20 @@ import pytest
 import torch
 
 import merv_tpu_torch.ops.attention as A
-from chip_smoke import LSE_PLANTED_OFFSET, backward_mags, hold, hold_from_plain_forward, hold_lse
+import merv_tpu_torch.ops.fused_vit_block as TF
+from chip_smoke import (
+    LSE_PLANTED_OFFSET,
+    backward_mags,
+    fused_args,
+    fused_block_mags,
+    fused_layer,
+    hold,
+    hold_from_plain_forward,
+    hold_fused,
+    hold_lse,
+    patched,
+    planted_tower_faults,
+)
 
 
 @pytest.fixture
@@ -149,3 +164,68 @@ def test_flash_autograd_runs_the_backward_kernel(cuda):
     counts = A.launch_counts()
     assert counts["flash_attention_forward"] == 1 and counts["flash_attention_backward"] == 1, counts
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hk,T", [(4, 4, 40), (16, 16, 261), (16, 4, 229), (2, 2, 512)])
+def test_small_attention_matches_plain(cuda, H, Hk, T):
+    rng = np.random.default_rng(T + Hk)
+    q = _bf16(rng, (2, H, T, 64), cuda)
+    k, v = (_bf16(rng, (2, Hk, T, 64), cuda) for _ in range(2))
+    out = A.small_attention(q, k, v, 0.125)
+    mag = A.small_attention_plain(q, k, v.abs(), 0.125)
+    _assert_close(out, A.small_attention_plain(q, k, v, 0.125), mag)
+    if Hk != H:  # the kv-head index matters: heads tiled instead of grouped is caught
+        fault = planted_tower_faults()["b3_kv_head_ignored"][2]
+        assert not hold(out, fault(q, k, v, 0.125), mag)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bn,R,heads", [(3, 128, 16), (5, 256, 8), (2, 48, 4)])
+def test_packed_temporal_matches_plain(cuda, Bn, R, heads):
+    rng = np.random.default_rng(R + heads)
+    q, v = (_bf16(rng, (Bn, R, 64), cuda) for _ in range(2))
+    kt = _bf16(rng, (Bn, 64, R), cuda)
+    out = A.packed_temporal_attention(q, kt, v, 0.125, heads)
+    mag = A.packed_temporal_attention_plain(q, kt, v.abs(), 0.125, heads)
+    _assert_close(out, A.packed_temporal_attention_plain(q, kt, v, 0.125, heads), mag)
+    assert not hold(out, planted_tower_faults()["b5_mask_dropped"][2](q, kt, v, 0.125, heads), mag)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tower,B,S", [("dinov2", 2, 37), ("siglip", 2, 196), ("vivit", 1, 700), ("dinov2", 1, 512)])
+def test_fused_vit_block_matches_plain(cuda, tower, B, S):
+    from merv_tpu_torch.models.backbones.video.vit import DINOV2_LARGE_REG4, SIGLIP_BASE_224, VIVIT_BASE_16x2
+
+    cfg = dict(dinov2=DINOV2_LARGE_REG4, siglip=SIGLIP_BASE_224, vivit=VIVIT_BASE_16x2)[tower]
+    layer = fused_layer(cuda, cfg, S)
+    x = _bf16(np.random.default_rng(S), (B, S, cfg.hidden_size), cuda)
+    args = fused_args(layer, x)
+    A.reset_launch_counts()
+    out = TF.fused_vit_attn_block(*args)
+    assert A.launch_counts()["fused_vit_attn_block"] == 1
+    _assert_close(out, TF.fused_vit_attn_block_plain(*args), fused_block_mags(*args))
+    out, stages = TF.fused_vit_attn_block_stages(*args)
+    held = hold_fused(args, out, stages)
+    assert held["ok"], f"a stage outside its limit: {held['stages']}"
+    faults = planted_tower_faults()
+    for fault in ("b6_q_bias_dropped", "b6_scores_unscaled") + (("b6_gamma_ignored",) if cfg.use_layerscale else ()):
+        with patched(faults[fault]):
+            assert not hold_fused(args, out, stages)["ok"], fault
+    if S <= 512:  # the key-tiled attention stage at a length the whole-head stage also takes
+        held = hold_fused(args, *TF.fused_vit_attn_block_stages(*args, key_tiled=True))
+        assert held["ok"], f"key-tiled: a stage outside its limit: {held['stages']}"
+
+
+@pytest.mark.cuda
+def test_tower_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        A.small_attention(q, q, q, 1.0)  # head dim 32
+    with pytest.raises(ValueError):
+        A.packed_temporal_attention(q[0], q[0].transpose(-1, -2).contiguous(), q[0], 1.0, 2)  # head dim 32
+    x = torch.zeros((1, 8, 128), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((128, 128), dtype=torch.float32, device=cuda)
+    vec = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError):
+        TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 2, 1e-6)  # fp32 weights
