@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only]
+
+``--flash-only`` stops after phase 3's K2 and K3 cases and prints them as one
+JSON line, with no result line: a quick way to compare two versions of the
+flash kernels within one call.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
-2. build: ``nvcc`` compiles every ``merv_tpu_torch/csrc/*.cu`` for sm_90a.
+2. build: ``nvcc`` compiles every ``merv_tpu_torch/csrc/*.cu`` for sm_90a;
+   for the flash kernels K2 and K3, ``ptxas -v``'s registers, spills and
+   shared memory and, where ``cuobjdump`` exists, the counts of ``HGMMA``
+   (wgmma), ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync) in their SASS.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes (bf16, inputs from a numpy seed), with max/mean abs
    error against a stated tolerance and CUDA-event times of the kernel, the
    plain version and one PyTorch library call (SDPA, forward + backward for
    the backward kernel: a yardstick only, the port never calls it), beside
-   the shape's lower bound on this card. The flash forward's log-sum-exp is
-   held row by row against the plain version's; the backward kernel is held
-   twice: against the plain backward on the forward kernel's o and lse, and
-   against the plain backward on the plain forward's. The towers' opt-in
+   the shape's lower bound on this card; for K2 and K3 also the device time
+   of the kernel and of SDPA from ``torch.profiler``. The flash forward's
+   log-sum-exp is held row by row against the plain version's; the backward
+   kernel is held twice: against the plain backward on the forward kernel's
+   o and lse, and against the plain backward on the plain forward's, and two
+   of its calls on the same inputs must give the same bits. The towers' opt-in
    kernels (B3 ``small_attention``, B5 ``packed_temporal_attention``, B6
    ``fused_vit_attn_block``) at merv-base's shapes, with SDPA (B3, B5; for
    B5 also the backend SDPA picks and each backend's time) or the default
@@ -77,6 +86,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -244,6 +254,33 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn):
+    """Device time of one call of ``fn``: the self time of every CUDA kernel,
+    copy and set in a ``torch.profiler`` window over 5 calls, divided by 5;
+    the median over those of 3 windows that hold any. The
+    records of kernels launched through ``ctypes`` are not reliable: a window
+    read a quarter of its neighbours, another 1.16 times the CUDA-event time,
+    some none at all; SDPA's stay within 9 % of each other. Host gaps between
+    launches do not count, so it reads what a host-bound CUDA-event time
+    hides. None if no window holds device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            readings.append(total_us / 1e3 / 5)
+    return sorted(readings)[len(readings) // 2] if readings else None
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -262,12 +299,13 @@ def _randn(rng, shape, dev):
 
 
 def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes_moved, flops, extra=None,
-                yardstick=None):
+                yardstick=None, device=False):
     """Hold a kernel's output against its plain version (``hold``), time the
     kernel, the plain version, the PyTorch library call ``lib`` (None where no
     single call computes the function) and a composed ``yardstick`` (None if
     not given) with CUDA events, and append the row to ``cases``; raise if
-    the output is not finite or outside the limit."""
+    the output is not finite or outside the limit. ``device``: also the
+    kernel's and the library call's device time (``device_ms``)."""
     import torch
 
     torch.cuda.synchronize()
@@ -285,6 +323,10 @@ def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes
         row["yardstick_ms"] = yard_ms
     lib_text = "none" if lib_ms is None else f"{lib_ms:.4f}"
     yard_text = "" if yard_ms is None else f" yardstick_ms(composed)={yard_ms:.4f}"
+    if device:
+        row["device_ms"] = device_ms(fn)
+        row["library_device_ms"] = device_ms(lib) if lib is not None else None
+        yard_text += f" device_ms={row['device_ms']} library_device_ms={row['library_device_ms']}"
     log(f"[kernel] {kernel:24s} {name:22s} {shape} max_err={h['max_abs_err']:.3e} "
         f"mean_err={h['mean_abs_err']:.3e} mean|ref|={h['mean_abs_ref']:.3e} mean_limit={h['mean_limit']:.3e} "
         f"worst/limit={h['worst_share_of_limit']:.3f} (err {at['err']:.3e} at ref {at['ref']:.3e}, "
@@ -296,7 +338,8 @@ def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes
     cases.append(row)
 
 
-def kernel_cases(dev, seed: int):
+def kernel_cases(dev, seed: int, k1: bool = True):
+    """K1 (unless ``k1`` is False) and K2 against their plain versions."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -308,7 +351,7 @@ def kernel_cases(dev, seed: int):
 
     rng = np.random.default_rng(seed)
     # K1: tower frame attention (DINOv2 T=261, LanguageBind spatial T=257)
-    for name, T in (("dinov2_frames", 261), ("languagebind_spatial", 257)):
+    for name, T in (("dinov2_frames", 261), ("languagebind_spatial", 257)) if k1 else ():
         B, H, D = 16, 16, 64
         q, k, v = (_randn(rng, (B, H, T, D), dev) for _ in range(3))
         kt = k.transpose(-1, -2).contiguous()
@@ -330,6 +373,8 @@ def kernel_cases(dev, seed: int):
         # cache prefill: 1053 valid prompt tokens (BOS + 1024 visual + 28 text) padded to
         # 1088, against a 1120-slot cache whose last 32 slots are not written yet
         ("llama_cache_prefill", 1, 32, 32, 1088, 1120, 128, True, 0, "prefill"),
+        # one row of the align micro-step's LLM forward (and its remat recompute): 64 of its 76 launches
+        ("llama_training", 1, 32, 32, 3072, 3072, 128, True, None, None),
         ("gqa_causal", 1, 32, 8, 1088, 1088, 128, True, None, None),
         ("fully_masked_row", 2, 8, 8, 256, 512, 64, False, None, "row1_empty"),
     ]
@@ -379,15 +424,18 @@ def kernel_cases(dev, seed: int):
             valid &= torch.arange(Tk, device=dev)[None, :] <= torch.arange(Tq, device=dev)[:, None] + off
         pairs = valid.sum().item() * H
         kr, vr = (k, v) if Hk == H else (k.repeat_interleave(H // Hk, 1), v.repeat_interleave(H // Hk, 1))
-        sdpa_mask = valid[:, None] if (mask is not None or causal) else None
+        # a plain causal square (no key mask, no offset) goes to SDPA as is_causal, which its flash backend takes
+        sdpa_causal = causal and mask is None and q_offset is None and Tq == Tk
+        sdpa_mask = valid[:, None] if (mask is not None or causal) and not sdpa_causal else None
         bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * 2 + (0 if mask is None else mask.numel())
         record(
             "flash_attention_forward", name, [B, H, Hk, Tq, Tk, D], out, ref, mag,
             lambda: A.flash_attention_forward(q, k, v, **kw),
             lambda: A.flash_attention_forward_plain(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=sdpa_mask),
-            bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=extra,
+            lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=sdpa_mask, is_causal=sdpa_causal),
+            bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=extra, device=True,
         )
+        del valid
     return cases
 
 
@@ -493,9 +541,18 @@ def backward_cases(dev, seed: int):
             out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask, is_causal=causal and mask is None)
             out.backward(do)
 
-        ms = time_ms(lambda: A.flash_attention_backward(q, k, v, o, lse, do, **kw), 10)
+        # deterministic: no atomics, so a second call on the same inputs gives the same bits
+        again = A.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        extra["deterministic"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        if not extra["deterministic"]:
+            raise RuntimeError(f"flash_attention_backward/{name}: two calls on the same inputs differ")
+
+        kernel = lambda: A.flash_attention_backward(q, k, v, o, lse, do, **kw)  # noqa: E731
+        ms = time_ms(kernel, 10)
         plain_ms = time_ms(lambda: A.flash_attention_backward_plain(q, k, v, o, lse, do, **kw), 3)
         lib_ms = time_ms(library, 10)
+        extra["device_ms"], extra["library_device_ms"] = device_ms(kernel), device_ms(library)
         pairs = visible_pairs(B, T, T, causal, mask, dev) * H
         # read q, k, v, o, dO (bf16), lse (fp32) and the mask once; write dq, dk, dv
         bytes_moved = ((4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2 + lse.numel() * 4
@@ -509,7 +566,9 @@ def backward_cases(dev, seed: int):
         per_plain = "; ".join(f"{g} worst/limit {x['worst_share_of_limit']:.3f} mean_err/mean_limit "
                               f"{x['mean_abs_err'] / x['mean_limit']:.4f}" for g, x in fp["backward"]["per_grad"].items())
         log(f"[kernel] flash_attention_backward {name:24s} {row['shape']} {per}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms(SDPA fwd+bwd)={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            f"library_ms(SDPA fwd+bwd)={lib_ms:.4f} device_ms={extra['device_ms']} "
+            f"library_device_ms={extra['library_device_ms']} bound_ms={bound_ms:.4f} ({bound_by}); "
+            f"two calls bit-identical: {extra['deterministic']}")
         log(f"[kernel] flash_attention_backward {name:24s} against the plain backward on the plain forward's o and "
             f"lse: {per_plain}; forward kernel's lse worst/limit {fp['lse']['worst_share_of_limit']:.4f}, +inf rows "
             f"{fp['lse']['empty_rows']} (same as plain: {fp['lse']['same_empty_rows']})")
@@ -1600,6 +1659,61 @@ def train_path(dev, seed: int, run_dir: str):
 
 # ---------------------------------------------------------------------------
 
+FLASH_LIBS = ("flash_fwd", "flash_bwd")
+
+
+def compile_report() -> dict:
+    """What was compiled for K2 and K3: each kernel's registers, spills and
+    static shared memory as ``ptxas -v`` reported them at the build, and,
+    where ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma) and
+    ``UTMALDG`` (TMA load) instructions in each library's SASS. ptxas's
+    warnings (a wgmma serialised, a setmaxnreg ignored) are kept too. Logged
+    on lines of their own."""
+    import re
+
+    from merv_tpu_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or next(
+        (p for p in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),)
+         if os.path.exists(p)), None)
+    report = {}
+    for lib in FLASH_LIBS:
+        kernels, current, warnings = {}, None, []
+        for line in _build.build_log(lib).splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                warnings.append(line.strip())
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                short = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
+                current = f"{short.group(1)}<{short.group(2)}>" if short else m.group(1)
+                kernels[current] = {}
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                kernels[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels[current]["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                kernels[current]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+        sass = None
+        if cuobjdump is not None:
+            dump = subprocess.run([cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{lib}.so")], capture_output=True,
+                                  text=True, timeout=120)
+            if dump.returncode == 0:
+                sass = {op: len(re.findall(rf"\b{op}\b", dump.stdout)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+        report[lib] = dict(kernels=kernels, sass=sass, ptxas_warnings=warnings)
+        for name, k in kernels.items():
+            log(f"[compile] {lib}: {name}: {k.get('registers')} registers, {k.get('spill_stores')} bytes spill stores, "
+                f"{k.get('spill_loads')} bytes spill loads, {k.get('static_smem_bytes')} bytes static shared memory")
+        for line in warnings:
+            log(f"[compile] {lib}: ptxas: {line}")
+        log(f"[compile] {lib}: SASS instruction counts {sass}" if sass is not None else
+            f"[compile] {lib}: cuobjdump not found (or failed): HGMMA / UTMALDG counts not measured")
+    return report
+
 
 KERNELS = {
     "small_attention_kt": dict(source="merv_tpu_torch/csrc/small_attention_kt.cu",
@@ -1625,6 +1739,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--flash-only", action="store_true",
+                    help="build, then run only the K2 and K3 kernel cases and print them (no result line): "
+                         "for comparing two versions of the flash kernels within one call")
     args = ap.parse_args()
 
     import torch
@@ -1642,13 +1759,17 @@ def main() -> int:
     from merv_tpu_torch.ops import _build
 
     t = time.perf_counter()
-    logs = _build.build_all(verbose=True)
+    logs = _build.build_all()
     build_s = time.perf_counter() - t
     log(f"[build] {len(logs)} kernel libraries built with nvcc (sm_90a) in {build_s:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    compiled = compile_report()
+
+    if args.flash_only:
+        cases = kernel_cases(dev, args.seed, k1=False) + backward_cases(dev, args.seed)
+        keys = ("kernel", "case", "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
+                "worst_share_of_limit")
+        log(json.dumps({"flash_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
 
     with switches({}):  # every phase sets the switches it runs under
         cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
@@ -1671,12 +1792,12 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
-            **({"yardstick_ms": head["yardstick_ms"]} if "yardstick_ms" in head else {}),
+            **{key: head[key] for key in ("yardstick_ms", "device_ms", "library_device_ms") if key in head},
         ))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, kernels=kernels, main_path=main,
-                       train_path=train), f, indent=1)
+        json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
+                       main_path=main, train_path=train), f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -5,7 +5,9 @@ Each source is compiled on its own into ``merv_tpu_torch/_build/lib<name>.so``
 headers, so one source builds in seconds. :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them. A library is rebuilt
 only when its source's SHA-256 changes (recorded beside it), so the sources in
-the checkout are the only inputs.
+the checkout are the only inputs. ``ptxas`` reports each kernel's registers,
+spills and shared memory (``-Xptxas -v``); the report is kept beside the
+library (:func:`build_log`).
 
 Nothing here runs at import time: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -27,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
 _LOCK = threading.Lock()
@@ -60,12 +62,18 @@ def _paths(name: str):
     return BUILD_DIR / f"lib{name}.so", BUILD_DIR / f"lib{name}.so.sha256"
 
 
+def build_log(name: str) -> str:
+    """What nvcc printed when it last built ``csrc/<name>.cu`` ("" if never)."""
+    log = BUILD_DIR / f"lib{name}.log"
+    return log.read_text() if log.exists() else ""
+
+
 def _is_fresh(src: Path) -> bool:
     lib, stamp = _paths(src.stem)
     return lib.exists() and stamp.exists() and stamp.read_text() == _digest(src)
 
 
-def build_all(verbose: bool = False) -> Dict[str, str]:
+def build_all() -> Dict[str, str]:
     """Compile every stale source in parallel; returns {name: nvcc output}.
     Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,12 +81,11 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
     if not todo:
         return {}
     nvcc = find_nvcc()
-    extra = ["-Xptxas", "-v"] if verbose else []
     procs = {}
     for src in todo:
         lib, _ = _paths(src.stem)
         tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for src, (tmp, proc) in procs.items():
@@ -89,6 +96,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
             continue
         lib, stamp = _paths(src.stem)
         os.replace(tmp, lib)
+        (BUILD_DIR / f"lib{src.stem}.log").write_text(out)
         stamp.write_text(_digest(src))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -379,10 +379,12 @@ def flash_attention_forward(
     ``pallas_call`` at :376) and, at ViViT's shape, the forward of the
     library flash kernel. Bound on the H100 by operations at ViViT's 3137
     tokens and near the balance point at the Llama prefill. Design: one
-    block per (batch, head, 64 query rows) loops over 64-key tiles staged in
-    shared memory, mma.sync with an fp32 online softmax, masks (key mask,
-    right-aligned causal, ragged edges) applied in the kernel, and causal
-    tiles past the block's last visible key skipped (see the source)."""
+    block per (batch, head, 128 query rows); a producer warp streams 128-key
+    K/V tiles by TMA through a ring of shared-memory stages, two consumer
+    warpgroups run wgmma with an fp32 online softmax, masks (key mask,
+    right-aligned causal, ragged edges) applied in the kernel on the tiles
+    that need them, and causal tiles past the block's last visible key
+    skipped (see the source)."""
     B, H, Tq, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
         raise ValueError(f"flash_attention_forward: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")

@@ -346,3 +346,30 @@ def test_lse_hold_catches_an_offset_and_other_empty_rows():
     finite_empty[1, 0, 3] = 0.0
     nan[0, 1, 7] = float("nan")
     assert not hold_lse(finite_empty, lse)["ok"] and not hold_lse(nan, lse)["ok"]
+
+
+def test_compile_report_reads_ptxas_output(monkeypatch, tmp_path):
+    """chip_smoke.compile_report, the card's record of what was compiled for K2
+    and K3: registers, spills and shared memory per kernel from ``ptxas -v``'s
+    report, and ptxas's warnings; without ``cuobjdump`` the SASS counts read
+    as not measured (None) instead of failing the run."""
+    import chip_smoke
+    from merv_tpu_torch.ops import _build
+
+    log = (
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__f68bbc09_12_flash_fwd_cu_751008f416flash_fwd_kernel"
+        "ILi128EEEv14CUtensorMap_stS1_S1_PKhP13__nv_bfloat16Pfiiiiiif' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 64 bytes smem\n"
+        "ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized\n"
+    )
+    monkeypatch.setattr(_build, "build_log", lambda name: log)
+    monkeypatch.setattr(chip_smoke.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))  # no cuobjdump there either
+    report = chip_smoke.compile_report()
+    assert set(report) == set(chip_smoke.FLASH_LIBS)
+    fwd = report["flash_fwd"]
+    assert fwd["kernels"] == {"flash_fwd_kernel<128>": dict(spill_stores=8, spill_loads=4, registers=168,
+                                                             static_smem_bytes=64)}
+    assert fwd["sass"] is None
+    assert fwd["ptxas_warnings"] == [log.splitlines()[-1].strip()]

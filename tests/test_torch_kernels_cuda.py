@@ -66,7 +66,10 @@ def test_small_attention_kt_matches_plain(cuda, T):
 @pytest.mark.parametrize(
     "H,Hk,Tq,Tk,D,causal,q_offset",
     [(4, 4, 130, 130, 64, False, None), (4, 2, 100, 170, 128, True, 30), (4, 1, 77, 77, 128, True, None),
-     (2, 2, 40, 300, 64, True, None)],
+     (2, 2, 40, 300, 64, True, None),
+     # tile edges (128 query rows per block, 128 keys per tile) and a causal q_offset call off the tile grid
+     (4, 4, 127, 127, 64, True, None), (4, 2, 128, 128, 128, False, None), (2, 2, 129, 129, 128, True, None),
+     (4, 4, 255, 255, 64, False, None), (4, 2, 200, 330, 128, True, 100)],
 )
 def test_flash_forward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, q_offset):
     rng = np.random.default_rng(Tq + Tk)
@@ -131,7 +134,10 @@ def _assert_backward_close(q, k, v, mask, causal):
 @pytest.mark.parametrize(
     "H,Hk,Tq,Tk,D,causal,masked",
     [(4, 4, 200, 200, 64, True, False), (4, 2, 130, 130, 128, True, False), (4, 1, 77, 150, 128, False, True),
-     (2, 2, 40, 100, 64, True, True), (4, 4, 64, 64, 128, False, False)],
+     (2, 2, 40, 100, 64, True, True), (4, 4, 64, 64, 128, False, False),
+     # tile edges (64-row streamed tiles, 128-row blocks) and a GQA 32 -> 8 call across several key tiles
+     (4, 4, 127, 127, 128, True, False), (4, 2, 128, 128, 64, True, True), (2, 2, 129, 129, 128, False, False),
+     (4, 4, 255, 255, 128, True, False), (32, 8, 1088, 1088, 128, True, False)],
 )
 def test_flash_backward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, masked):
     rng = np.random.default_rng(H * Tq + Tk)
@@ -142,6 +148,22 @@ def test_flash_backward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, masked):
         mask = torch.ones((2, Tk), dtype=torch.bool, device=cuda)
         mask[1, Tk // 3:] = False
     _assert_backward_close(q, k, v, mask, causal)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give bit-identical dq, dk, dv."""
+    rng = np.random.default_rng(3)
+    q = _bf16(rng, (2, 8, 300, 128), cuda)
+    k, v = (_bf16(rng, (2, 2, 300, 128), cuda) for _ in range(2))
+    mask = torch.ones((2, 300), dtype=torch.bool, device=cuda)
+    mask[1, 250:] = False
+    o, lse = A.flash_attention_forward(q, k, v, causal=True, kv_mask=mask, return_lse=True)
+    do = _bf16(rng, tuple(q.shape), cuda)
+    first = A.flash_attention_backward(q, k, v, o, lse, do, causal=True, kv_mask=mask)
+    second = A.flash_attention_backward(q, k, v, o, lse, do, causal=True, kv_mask=mask)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{name} differs between two calls"
 
 
 @pytest.mark.cuda
