@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only]
 
-``--flash-only`` stops after phase 3's K2 and K3 cases and prints them as one
-JSON line, with no result line: a quick way to compare two versions of the
-flash kernels within one call.
+``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
+after its K1 and B3 cases; each prints them as one JSON line, with no result
+line: a quick way to compare two versions of those kernels within one call.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
 2. build: ``nvcc`` compiles every ``merv_tpu_torch/csrc/*.cu`` for sm_90a;
-   for the flash kernels K2 and K3, ``ptxas -v``'s registers, spills and
-   shared memory and, where ``cuobjdump`` exists, the counts of ``HGMMA``
-   (wgmma), ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync) in their SASS.
+   for the kernels on ``hopper.cuh`` (K2, K3, K1, B3), ``ptxas -v``'s
+   registers, spills and shared memory and, where ``cuobjdump`` exists, the
+   counts of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load)
+   and ``UBLKCP`` (1-D bulk copy) in their SASS.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes (bf16, inputs from a numpy seed), with max/mean abs
    error against a stated tolerance and CUDA-event times of the kernel, the
    plain version and one PyTorch library call (SDPA, forward + backward for
    the backward kernel: a yardstick only, the port never calls it), beside
-   the shape's lower bound on this card; for K2 and K3 also the device time
-   of the kernel and of SDPA from ``torch.profiler``. The flash forward's
+   the shape's lower bound on this card; for K1, K2, K3 and B3 also the
+   device time of the kernel and of SDPA from ``torch.profiler``, and for K1
+   and B3, SDPA beside them, B5's SDPA and B6's composed half-layer the
+   graph-replay time (``graph_ms``: 20 calls in one CUDA graph, which host
+   launch cost cannot hide). The flash forward's
    log-sum-exp is held row by row against the plain version's; the backward
    kernel is held twice: against the plain backward on the forward kernel's
    o and lse, and against the plain backward on the plain forward's, and two
@@ -254,6 +258,58 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=None)
+def capture_stream():
+    """The one stream every graph timing warms up and captures on: cuBLAS keeps
+    a workspace for each stream it has run on, so a new stream per timing would
+    raise the memory the later phases report."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one call of ``fn`` that host launch cost cannot hide:
+    ``calls`` back-to-back calls captured in one CUDA graph, the graph
+    replayed ``replays`` times between two CUDA events, the elapsed time
+    divided by ``calls * replays``. Kernels launched through ``ctypes`` run on
+    PyTorch's current stream, which is the capturing stream inside
+    ``torch.cuda.graph``. The capture is relaxed (a host-side call such as
+    ``cudaFuncSetAttribute`` during it is allowed); if the calls still cannot
+    be captured, this raises: there is no substitute timing."""
+    import torch
+
+    side = capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as torch's graph capture asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:  # torch's capture errors and the wrappers' CUDA errors
+        raise RuntimeError(f"graph_ms: {calls} calls could not be captured in a CUDA graph: {e}") from e
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    # and the capture stream's cuBLAS workspace: later phases measure peak memory
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return ms
+
+
 def device_ms(fn):
     """Device time of one call of ``fn``: the self time of every CUDA kernel,
     copy and set in a ``torch.profiler`` window over 5 calls, divided by 5;
@@ -299,13 +355,16 @@ def _randn(rng, shape, dev):
 
 
 def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes_moved, flops, extra=None,
-                yardstick=None, device=False):
+                yardstick=None, device=False, graph=()):
     """Hold a kernel's output against its plain version (``hold``), time the
     kernel, the plain version, the PyTorch library call ``lib`` (None where no
     single call computes the function) and a composed ``yardstick`` (None if
     not given) with CUDA events, and append the row to ``cases``; raise if
     the output is not finite or outside the limit. ``device``: also the
-    kernel's and the library call's device time (``device_ms``)."""
+    kernel's and the library call's device time (``device_ms``). ``graph``:
+    which of "kernel", "library" and "yardstick" also get the graph-replay
+    time (``graph_ms``: ``graph_ms``, ``library_graph_ms``,
+    ``yardstick_graph_ms``)."""
     import torch
 
     torch.cuda.synchronize()
@@ -327,6 +386,11 @@ def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes
         row["device_ms"] = device_ms(fn)
         row["library_device_ms"] = device_ms(lib) if lib is not None else None
         yard_text += f" device_ms={row['device_ms']} library_device_ms={row['library_device_ms']}"
+    for what, call, key in (("kernel", fn, "graph_ms"), ("library", lib, "library_graph_ms"),
+                            ("yardstick", yardstick, "yardstick_graph_ms")):
+        if what in graph:
+            row[key] = graph_ms(call)
+            yard_text += f" {key}={row[key]:.4f}"
     log(f"[kernel] {kernel:24s} {name:22s} {shape} max_err={h['max_abs_err']:.3e} "
         f"mean_err={h['mean_abs_err']:.3e} mean|ref|={h['mean_abs_ref']:.3e} mean_limit={h['mean_limit']:.3e} "
         f"worst/limit={h['worst_share_of_limit']:.3f} (err {at['err']:.3e} at ref {at['ref']:.3e}, "
@@ -338,8 +402,10 @@ def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes
     cases.append(row)
 
 
-def kernel_cases(dev, seed: int, k1: bool = True):
-    """K1 (unless ``k1`` is False) and K2 against their plain versions."""
+def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
+    """K1 (unless ``k1`` is False) and K2 (unless ``k2`` is False) against
+    their plain versions; K1 also with the graph-replay times of the kernel and
+    of SDPA."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -364,7 +430,7 @@ def kernel_cases(dev, seed: int, k1: bool = True):
             lambda: A.small_attention_kt(q, kt, v, scale),
             lambda: A.small_attention_kt_plain(q, kt, v, scale),
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-            bytes_moved=4 * q.numel() * 2, flops=4.0 * B * H * T * T * D,
+            bytes_moved=4 * q.numel() * 2, flops=4.0 * B * H * T * T * D, device=True, graph=("kernel", "library"),
         )
 
     # K2: flash forward. (name, B, H, Hk, Tq, Tk, D, causal, q_offset, kv valid length per row / None)
@@ -378,7 +444,7 @@ def kernel_cases(dev, seed: int, k1: bool = True):
         ("gqa_causal", 1, 32, 8, 1088, 1088, 128, True, None, None),
         ("fully_masked_row", 2, 8, 8, 256, 512, 64, False, None, "row1_empty"),
     ]
-    for name, B, H, Hk, Tq, Tk, D, causal, q_offset, mask_kind in flash:
+    for name, B, H, Hk, Tq, Tk, D, causal, q_offset, mask_kind in flash if k2 else ():
         q = _randn(rng, (B, H, Tq, D), dev)
         k, v = (_randn(rng, (B, Hk, Tk, D), dev) for _ in range(2))
         mask = None
@@ -753,12 +819,14 @@ B5_CASE = (514, 128, 64, 16)
 B6_CASES = (("dinov2", 16, 261), ("languagebind", 16, 257), ("siglip", 16, 196), ("vivit", 1, 3137))
 
 
-def tower_kernel_cases(dev, seed: int):
-    """B3, B5 and B6 against their plain versions at merv-base's shapes, with
-    the kernel, plain, library (SDPA for B3 and B5) and composed-yardstick
-    times (B6: the default route's attention half-layer, norm1 -> _mha ->
-    LayerScale -> residual) beside the bounds; each planted fault of
-    ``planted_tower_faults`` must fail the same hold."""
+def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
+    """B3, B5 and B6 (only B3 if ``b3_only``) against their plain versions at
+    merv-base's shapes, with the kernel, plain, library (SDPA for B3 and B5)
+    and composed-yardstick times (B6: the default route's attention
+    half-layer, norm1 -> _mha -> LayerScale -> residual) beside the bounds,
+    and graph-replay times of B3 and its SDPA, of B5's SDPA and of B6's
+    composed half-layer; each planted fault of ``planted_tower_faults`` must
+    fail the same hold."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -799,7 +867,10 @@ def tower_kernel_cases(dev, seed: int):
             lambda: A.small_attention(q, k, v, scale), lambda: A.small_attention_plain(q, k, v, scale),
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, enable_gqa=Hk != H),
             bytes_moved=(2 * q.numel() + 2 * k.numel()) * 2, flops=4.0 * B * H * T * T * D, extra=extra,
+            device=True, graph=("kernel", "library"),
         )
+    if b3_only:
+        return cases
 
     Bn, R, D, heads = B5_CASE
     scale = D ** -0.5
@@ -827,7 +898,7 @@ def tower_kernel_cases(dev, seed: int):
         lambda: A.packed_temporal_attention_plain(q, kt, v, scale, heads), sdpa_masked,
         # the function needs each row's R / heads same-head keys
         bytes_moved=4 * q.numel() * 2, flops=4.0 * Bn * R * (R // heads) * D,
-        extra=dict(fault_b5_mask_dropped_share=share, library=probe),
+        extra=dict(fault_b5_mask_dropped_share=share, library=probe), graph=("library",),
     )
 
     towers = dict(dinov2=DINOV2_LARGE_REG4, languagebind=LANGUAGEBIND_VIDEO_LARGE, siglip=SIGLIP_BASE_224,
@@ -882,6 +953,7 @@ def tower_kernel_cases(dev, seed: int):
             lambda: TF.fused_vit_attn_block_plain(*args), None,
             bytes_moved=2 * x.numel() * 2 + 4 * D * D * 2 + 7 * D * 4,
             flops=2.0 * B * S * D * 4 * D + 4.0 * B * S * S * D, extra=extra, yardstick=composed,
+            graph=("yardstick",),
         )
         del layer
     return cases
@@ -1424,7 +1496,7 @@ def planted_backward_faults():
 
 
 KERNEL_GROUPS = (  # device kernel name -> group, first match wins
-    ("K1 small_attention_kt", ("small_attn_kt_kernel",)),
+    ("K1 small_attention_kt", ("small_attn_kernel<true>",)),
     ("K2 flash_attention_forward", ("flash_fwd_kernel",)),
     ("K3 flash_attention_backward", ("bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_delta_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "Kernel2")),
@@ -1659,16 +1731,19 @@ def train_path(dev, seed: int, run_dir: str):
 
 # ---------------------------------------------------------------------------
 
-FLASH_LIBS = ("flash_fwd", "flash_bwd")
+# the libraries built on hopper.cuh: K2, K3, K1 and B3
+COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
 def compile_report() -> dict:
-    """What was compiled for K2 and K3: each kernel's registers, spills and
-    static shared memory as ``ptxas -v`` reported them at the build, and,
-    where ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma) and
-    ``UTMALDG`` (TMA load) instructions in each library's SASS. ptxas's
-    warnings (a wgmma serialised, a setmaxnreg ignored) are kept too. Logged
-    on lines of their own."""
+    """What was compiled for K2, K3, K1 and B3: each kernel's registers,
+    spills and static shared memory as ``ptxas -v`` reported them at the
+    build, and, where ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma),
+    ``HMMA`` (mma.sync), ``UTMALDG`` (TMA tensor load) and ``UBLKCP`` (1-D bulk
+    copy) instructions in each library's SASS. ptxas's warnings (a wgmma
+    serialised, a setmaxnreg ignored) are kept too. Logged on lines of their
+    own."""
     import re
 
     from merv_tpu_torch.ops import _build
@@ -1677,15 +1752,19 @@ def compile_report() -> dict:
         (p for p in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),)
          if os.path.exists(p)), None)
     report = {}
-    for lib in FLASH_LIBS:
+    for lib in COMPILED_LIBS:
         kernels, current, warnings = {}, None, []
         for line in _build.build_log(lib).splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
                 warnings.append(line.strip())
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                short = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
-                current = f"{short.group(1)}<{short.group(2)}>" if short else m.group(1)
+                short = re.search(r"([a-z_]+_kernel)IL([ib])(\d+)E", m.group(1))
+                if short:  # a template argument: an int (ILi128E) or a bool (ILb1E)
+                    arg = short.group(3) if short.group(2) == "i" else ("false", "true")[int(short.group(3))]
+                    current = f"{short.group(1)}<{arg}>"
+                else:
+                    current = m.group(1)
                 kernels[current] = {}
                 continue
             if current is None:
@@ -1703,7 +1782,7 @@ def compile_report() -> dict:
             dump = subprocess.run([cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{lib}.so")], capture_output=True,
                                   text=True, timeout=120)
             if dump.returncode == 0:
-                sass = {op: len(re.findall(rf"\b{op}\b", dump.stdout)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+                sass = {op: len(re.findall(rf"\b{op}\b", dump.stdout)) for op in SASS_OPS}
         report[lib] = dict(kernels=kernels, sass=sass, ptxas_warnings=warnings)
         for name, k in kernels.items():
             log(f"[compile] {lib}: {name}: {k.get('registers')} registers, {k.get('spill_stores')} bytes spill stores, "
@@ -1711,7 +1790,7 @@ def compile_report() -> dict:
         for line in warnings:
             log(f"[compile] {lib}: ptxas: {line}")
         log(f"[compile] {lib}: SASS instruction counts {sass}" if sass is not None else
-            f"[compile] {lib}: cuobjdump not found (or failed): HGMMA / UTMALDG counts not measured")
+            f"[compile] {lib}: cuobjdump not found (or failed): {' / '.join(SASS_OPS)} counts not measured")
     return report
 
 
@@ -1742,6 +1821,9 @@ def main() -> int:
     ap.add_argument("--flash-only", action="store_true",
                     help="build, then run only the K2 and K3 kernel cases and print them (no result line): "
                          "for comparing two versions of the flash kernels within one call")
+    ap.add_argument("--small-only", action="store_true",
+                    help="build, then run only the K1 and B3 kernel cases and print them (no result line): "
+                         "for comparing two versions of the whole-sequence kernels within one call")
     args = ap.parse_args()
 
     import torch
@@ -1770,6 +1852,12 @@ def main() -> int:
                 "worst_share_of_limit")
         log(json.dumps({"flash_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
+    if args.small_only:
+        cases = kernel_cases(dev, args.seed, k2=False) + tower_kernel_cases(dev, args.seed, b3_only=True)
+        keys = ("kernel", "case", "ms", "graph_ms", "device_ms", "library_ms", "library_graph_ms",
+                "library_device_ms", "bound_ms", "worst_share_of_limit")
+        log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
 
     with switches({}):  # every phase sets the switches it runs under
         cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
@@ -1792,7 +1880,8 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
-            **{key: head[key] for key in ("yardstick_ms", "device_ms", "library_device_ms") if key in head},
+            **{key: head[key] for key in ("yardstick_ms", "device_ms", "library_device_ms", "graph_ms",
+                                          "library_graph_ms", "yardstick_graph_ms") if key in head},
         ))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,6 +1,5 @@
-// Device code shared by the whole-sequence attention kernels (head dim 64):
-// small_attention_kt.cu (K1), small_attention.cu (B3), packed_temporal.cu
-// (B5) and the attention stage of fused_vit_block.cu (B6).
+// Device code shared by the whole-sequence attention of packed_temporal.cu
+// (B5) and the attention stage of fused_vit_block.cu (B6), head dim 64.
 //
 // One block owns one (batch, head) and stages the head's K ([Tp][kKS],
 // row-major) and V^T ([kD][VS]) in dynamic shared memory; 8 warps walk the

@@ -22,7 +22,7 @@
 //      fp32 bias added, rounded to bf16 and scattered to q/k/v [B, H, S, 64];
 //  (c) attention per (image, head), softmax normalised before PV as the TPU
 //      kernel does ((p / l) rounded to bf16, then PV; o_h rounded to bf16):
-//      for S <= 512 the whole head staged (attn_core.cuh, as B3), else a
+//      for S <= 512 the whole head staged (attn_core.cuh, as in B5), else a
 //      key-tiled stage per 64 query rows (two passes over 64-key tiles);
 //      it writes o as [B*S, D], the layout the o-projection reads;
 //  (d) gemm<OPROJ>: o @ Wo^T accumulated in fp32 over all heads, + bo, then

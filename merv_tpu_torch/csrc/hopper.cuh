@@ -1,8 +1,9 @@
 // Hopper (sm_90a) machinery shared by the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): TMA tensor maps and bulk-tensor loads completing on
-// mbarriers, a ring position for full/empty barrier pairs, wgmma shared-memory
-// descriptors for the 128-byte swizzle, the wgmma instructions the kernels
-// use, and setmaxnreg.
+// flash_bwd.cu) and the whole-sequence kernels (small_attn_hopper.cuh): TMA
+// tensor maps, bulk-tensor and 1-D bulk loads completing on mbarriers, a ring
+// position for full/empty barrier pairs, named barriers, the async-proxy
+// fence, wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
+// instructions the kernels use, and setmaxnreg.
 //
 // Tiles. Every operand tile in shared memory is a stack of "slabs": 64 bf16
 // columns (128 bytes) of `rows` rows, written by one TMA box {64, rows, 1}
@@ -135,6 +136,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory `dst`, counted on `bar`'s transaction
+// bytes: for a block too irregular for a tensor map (a row stride that is not a
+// multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (wgmma operand reads, TMA and bulk writes).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Barrier over `count` threads (a multiple of 32) on hardware barrier `id`
+// (0 is __syncthreads'): wait for all of them, or only arrive.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Stage and phase of a ring of `stages` full/empty barrier pairs. A consumer
 // waits `full` at `phase`; a producer waits `empty` at `phase ^ 1`, which
 // passes at once on the first round (the stages start empty).
@@ -194,6 +219,10 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void pin(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[j])::"memory");
+}
 template <int R>
 __device__ __forceinline__ void pin(uint32_t (&a)[R][4]) {
 #pragma unroll
@@ -226,6 +255,33 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, A K-major,
+// B K-major (TB = 0) or MN-major (TB = 1, wgmma's transpose bit).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64_b(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]: A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -13,8 +13,8 @@
 // each row's 128 keys are valid.
 //
 // Design: the TPU kernel's, one block per packed window (grid Bn), computing
-// the full R x R scores and masking them, as K1 does its head
-// (attn_core.cuh): K transposed out of kt while staging, V^T staged, 8 warps
+// the full R x R scores and masking them (attn_core.cuh): K transposed out
+// of kt while staging, V^T staged, 8 warps
 // of 16 rows, fp32 scores, masked entries set to -0.7 * fp32 max (so their p
 // is exactly 0), exact two-pass softmax, p rounded to bf16 for PV, output
 // divided by l after PV. Skipping the masked tiles is left for later.

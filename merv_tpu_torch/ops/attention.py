@@ -105,7 +105,7 @@ def attention_reference(
 # K1: small_attention_kt (tower frame attention)
 # ---------------------------------------------------------------------------
 
-SMALL_KT_MAX_T = 512  # K and V^T of one head fit the block's shared memory
+SMALL_KT_MAX_T = 512  # K and V of one head fit the block's shared memory
 
 
 def small_attention_kt_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -140,10 +140,14 @@ def small_attention_kt(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale
 
     Replaces ``merv_tpu/ops/attention.py::small_attention_kt`` (Pallas,
     ``pallas_call`` at :540). Bound on the H100 by bytes at the towers' T of
-    257/261 (~T/2 flops per byte, under the bf16 balance point). Design: one
-    block per (batch, head) stages the head's K (transposed out of kt) and
-    V^T in shared memory once, then 8 warps take 16 query rows at a time
-    through mma.sync with an exact two-pass softmax (see the source)."""
+    257/261 (~T/2 flops per byte, under the bf16 balance point). Design
+    (``csrc/small_attn_hopper.cuh``): a persistent grid of one block per SM
+    walks the heads; a producer warpgroup brings each head's kt in with one
+    bulk copy, rewrites it into swizzled slabs that wgmma reads MN-major, and
+    loads V by TMA into a ring of two stages; two consumer warpgroups run
+    Q K^T and P V by wgmma on 64-row query tiles with a whole row of scores
+    in registers for T <= 272 and the TPU kernel's exact softmax order (see
+    the source). Every base pointer must be 16-byte aligned."""
     B, H, T, D = q.shape
     if kt.shape != (B, H, D, T) or v.shape != q.shape:
         raise ValueError(f"small_attention_kt: q {tuple(q.shape)}, kt {tuple(kt.shape)}, v {tuple(v.shape)}")
@@ -191,9 +195,10 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
     Replaces ``merv_tpu/ops/attention.py::_small_attention`` (Pallas,
     ``pallas_call`` at :473). Bound on the H100 by bytes at the towers' T.
-    Design: K1's (one block per (batch, head), the kv head's K and V^T staged
-    in shared memory, exact two-pass softmax) with K staged as it is; the
-    device code is shared with K1 (``csrc/attn_core.cuh``)."""
+    Design: K1's (``csrc/small_attn_hopper.cuh``: persistent grid, K and V of
+    the kv head loaded by TMA into a ring of two stages, wgmma with a whole
+    row of scores in registers, the exact softmax order) with K read K-major
+    as it lies. Every base pointer must be 16-byte aligned."""
     B, H, T, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[2:] != q.shape[2:] or v.shape != k.shape:
         raise ValueError(f"small_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -269,8 +274,8 @@ def packed_temporal_attention(
     Replaces ``merv_tpu/ops/attention.py::packed_temporal_attention``
     (Pallas, ``pallas_call`` at :622). Bound on the H100 by bytes at
     LanguageBind's [514, 128, 64]. Design: one block per packed window,
-    K1's staging and exact softmax over the full R x R scores, masked in the
-    kernel (see the source)."""
+    the mma.sync staging of ``csrc/attn_core.cuh`` and an exact softmax over
+    the full R x R scores, masked in the kernel (see the source)."""
     Bn, R, D = q.shape
     if kt.shape != (Bn, D, R) or v.shape != q.shape:
         raise ValueError(f"packed_temporal_attention: q {tuple(q.shape)}, kt {tuple(kt.shape)}, v {tuple(v.shape)}")

@@ -47,7 +47,7 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T", [40, 261])
+@pytest.mark.parametrize("T", [40, 65, 257, 261, 289])  # just past 64, 256 and 288 keys, as on the card
 def test_small_attention_kt_plain_matches_pallas(T, dtype):
     q, k, v = _qkv(0, 1, 2, 2, T, T, 64)
     kt = np.ascontiguousarray(k.transpose(0, 1, 3, 2))
@@ -349,10 +349,11 @@ def test_lse_hold_catches_an_offset_and_other_empty_rows():
 
 
 def test_compile_report_reads_ptxas_output(monkeypatch, tmp_path):
-    """chip_smoke.compile_report, the card's record of what was compiled for K2
-    and K3: registers, spills and shared memory per kernel from ``ptxas -v``'s
-    report, and ptxas's warnings; without ``cuobjdump`` the SASS counts read
-    as not measured (None) instead of failing the run."""
+    """chip_smoke.compile_report, the card's record of what was compiled for K2,
+    K3, K1 and B3: registers, spills and shared memory per kernel from ``ptxas
+    -v``'s report (kernels named with their int or bool template argument),
+    and ptxas's warnings; without ``cuobjdump`` the SASS counts read as not
+    measured (None) instead of failing the run."""
     import chip_smoke
     from merv_tpu_torch.ops import _build
 
@@ -367,9 +368,20 @@ def test_compile_report_reads_ptxas_output(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))  # no cuobjdump there either
     report = chip_smoke.compile_report()
-    assert set(report) == set(chip_smoke.FLASH_LIBS)
+    assert set(report) == set(chip_smoke.COMPILED_LIBS)
     fwd = report["flash_fwd"]
     assert fwd["kernels"] == {"flash_fwd_kernel<128>": dict(spill_stores=8, spill_loads=4, registers=168,
                                                              static_smem_bytes=64)}
     assert fwd["sass"] is None
     assert fwd["ptxas_warnings"] == [log.splitlines()[-1].strip()]
+    small_log = (
+        "ptxas info    : Compiling entry function '_ZN10small_attn17small_attn_kernelILb1EEEv14CUtensorMap_stS1_S1_"
+        "PK13__nv_bfloat16PS2_iiiif' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+    )
+    monkeypatch.setattr(_build, "build_log", lambda name: small_log)
+    kt = chip_smoke.compile_report()["small_attention_kt"]
+    assert kt["kernels"] == {"small_attn_kernel<true>": dict(spill_stores=0, spill_loads=0, registers=168,
+                                                              static_smem_bytes=0)}
+    assert kt["ptxas_warnings"] == []

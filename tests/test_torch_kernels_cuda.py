@@ -52,14 +52,69 @@ def _assert_close(out, ref, mag):
     assert h["ok"], f"outside the limit: {h}"
 
 
+# the whole-sequence kernels' edges: 64-row query tiles and 64-key score blocks (63/64/65, 128/129),
+# 256 keys (wgmma's largest N), the towers' 257 and 261, the one-pass bound of 272 keys of scores in
+# registers (272/273: two key chunks above it), 288/289, 320/321 (one shared-memory stage for kt above
+# it) and 512
+SMALL_EDGE_T = [1, 16, 40, 63, 64, 65, 128, 129, 256, 257, 261, 272, 273, 288, 289, 320, 321, 511, 512]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [40, 257, 261, 512])
+@pytest.mark.parametrize("T", SMALL_EDGE_T)
 def test_small_attention_kt_matches_plain(cuda, T):
     rng = np.random.default_rng(T)
     q, k, v = (_bf16(rng, (2, 4, T, 64), cuda) for _ in range(3))
     kt = k.transpose(-1, -2).contiguous()
     out = A.small_attention_kt(q, kt, v, 0.125)
     _assert_close(out, A.small_attention_kt_plain(q, kt, v, 0.125), A.small_attention_kt_plain(q, kt, v.abs(), 0.125))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["small_attention_kt", "small_attention"])
+@pytest.mark.parametrize("B,H,T", [(24, 16, 261), (18, 16, 512), (300, 1, 65)])
+def test_small_kernels_persistent_grid_wraps(cuda, kernel, B, H, T):
+    """More heads than the card has SMs: each block walks several heads through its
+    ring of stages (two stages at T=261, one at T=512, and 300 one-tile heads)."""
+    rng = np.random.default_rng(B * T)
+    q, k, v = (_bf16(rng, (B, H, T, 64), cuda) for _ in range(3))
+    assert B * H > torch.cuda.get_device_properties(cuda).multi_processor_count
+    if kernel == "small_attention_kt":
+        kt = k.transpose(-1, -2).contiguous()
+        out, ref = A.small_attention_kt(q, kt, v, 0.125), A.small_attention_kt_plain(q, kt, v, 0.125)
+        mag = A.small_attention_kt_plain(q, kt, v.abs(), 0.125)
+    else:
+        out, ref = A.small_attention(q, k, v, 0.125), A.small_attention_plain(q, k, v, 0.125)
+        mag = A.small_attention_plain(q, k, v.abs(), 0.125)
+    _assert_close(out, ref, mag)
+
+
+@pytest.mark.cuda
+def test_small_kernels_are_deterministic(cuda):
+    """No atomics, and a fixed schedule: two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_bf16(rng, (20, 16, 261, 64), cuda) for _ in range(3))
+    kt = k.transpose(-1, -2).contiguous()
+    assert torch.equal(A.small_attention_kt(q, kt, v, 0.125), A.small_attention_kt(q, kt, v, 0.125))
+    k, v = k[:, :4].contiguous(), v[:, :4].contiguous()  # GQA 16 -> 4
+    assert torch.equal(A.small_attention(q, k, v, 0.125), A.small_attention(q, k, v, 0.125))
+
+
+@pytest.mark.cuda
+def test_small_kernels_raise_on_a_misaligned_pointer(cuda):
+    """The kernels' TMA and bulk copies need 16-byte aligned bases: a contiguous
+    view 2 bytes into its storage is refused, for each of q, k (kt) and v."""
+    n = 2 * 4 * 100 * 64
+    flat = torch.zeros(n + 1, dtype=torch.bfloat16, device=cuda)
+    bad = flat[1:].view(2, 4, 100, 64)
+    good = torch.zeros((2, 4, 100, 64), dtype=torch.bfloat16, device=cuda)
+    good_kt = good.transpose(-1, -2).contiguous()
+    bad_kt = flat[1:].view(2, 4, 64, 100)
+    for args in ((bad, good_kt, good), (good, bad_kt, good), (good, good_kt, bad)):
+        with pytest.raises(ValueError, match="aligned"):
+            A.small_attention_kt(*args, 0.125)
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="aligned"):
+            A.small_attention(*args, 0.125)
 
 
 @pytest.mark.cuda
@@ -189,7 +244,12 @@ def test_flash_autograd_runs_the_backward_kernel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hk,T", [(4, 4, 40), (16, 16, 261), (16, 4, 229), (2, 2, 512)])
+@pytest.mark.parametrize(
+    "H,Hk,T",
+    [(4, 4, 40), (16, 16, 261), (16, 4, 229), (2, 2, 512)]
+    + [(4, 4, T) for T in SMALL_EDGE_T if T not in (40, 512)]
+    + [(16, 4, 257), (16, 1, 261), (16, 4, 289), (16, 1, 512)],
+)
 def test_small_attention_matches_plain(cuda, H, Hk, T):
     rng = np.random.default_rng(T + Hk)
     q = _bf16(rng, (2, H, T, 64), cuda)
@@ -197,7 +257,7 @@ def test_small_attention_matches_plain(cuda, H, Hk, T):
     out = A.small_attention(q, k, v, 0.125)
     mag = A.small_attention_plain(q, k, v.abs(), 0.125)
     _assert_close(out, A.small_attention_plain(q, k, v, 0.125), mag)
-    if Hk != H:  # the kv-head index matters: heads tiled instead of grouped is caught
+    if 1 < Hk < H:  # the kv-head index matters: heads tiled instead of grouped is caught (the same at Hk = 1)
         fault = planted_tower_faults()["b3_kv_head_ignored"][2]
         assert not hold(out, fault(q, k, v, 0.125), mag)["ok"]
 

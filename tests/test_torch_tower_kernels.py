@@ -74,7 +74,7 @@ def _close(out, ref, dtype="float32", tol=None):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T", [256, 261])
+@pytest.mark.parametrize("T", [65, 256, 257, 261, 289])  # just past 64, 256 and 288 keys, as on the card
 def test_small_attention_matches_pallas(T, dtype):
     q, k, v = (_rand(s, 2, 3, T, 64) for s in (0, 1, 2))
     ref = A._small_attention(_jx(q, dtype), _jx(k, dtype), _jx(v, dtype), 64 ** -0.5)
