@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
-after its K1 and B3 cases; each prints them as one JSON line, with no result
-line: a quick way to compare two versions of those kernels within one call.
+after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
+cases; each prints them as one JSON line, with no result line: a quick way
+to compare two versions of those kernels within one call.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
 2. build: ``nvcc`` compiles every ``merv_tpu_torch/csrc/*.cu`` for sm_90a;
-   for the kernels on ``hopper.cuh`` (K2, K3, K1, B3), ``ptxas -v``'s
+   for every library, ``ptxas -v``'s
    registers, spills and shared memory and, where ``cuobjdump`` exists, the
    counts of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load)
    and ``UBLKCP`` (1-D bulk copy) in their SASS.
@@ -20,8 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    plain version and one PyTorch library call (SDPA, forward + backward for
    the backward kernel: a yardstick only, the port never calls it), beside
    the shape's lower bound on this card; for K1, K2, K3 and B3 also the
-   device time of the kernel and of SDPA from ``torch.profiler``, and for K1
-   and B3, SDPA beside them, B5's SDPA and B6's composed half-layer the
+   device time of the kernel and of SDPA from ``torch.profiler``, and for K1,
+   B3, B5 and B6, SDPA beside them and B6's composed half-layer the
    graph-replay time (``graph_ms``: 20 calls in one CUDA graph, which host
    launch cost cannot hide). The flash forward's
    log-sum-exp is held row by row against the plain version's; the backward
@@ -34,7 +35,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    route's composed attention half-layer (B6) as the yardstick, and planted
    faults that the same check must catch. B6 is held end to end and stage by
    stage (``hold_fused``), and timed with its whole-head and its key-tiled
-   attention stage, interleaved, where both take the shape.
+   attention stage, interleaved, where both take the shape, and its
+   launches' device time by kernel (``kernel_device_ms``).
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -335,6 +337,30 @@ def device_ms(fn):
         if total_us > 0:
             readings.append(total_us / 1e3 / 5)
     return sorted(readings)[len(readings) // 2] if readings else None
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name (``torch.profiler`` over
+    ``calls`` calls, after a warm-up): where a call's time goes among its
+    launches. As ``device_ms`` says, records of ctypes-launched kernels can
+    be unreliable; the sum is logged beside the graph-replay time to show
+    whether a window held them all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.split("(")[0].replace("void ", "")[:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls / 1e3
+    return out
 
 
 def bound(bytes_moved: float, flops: float):
@@ -824,7 +850,7 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
     merv-base's shapes, with the kernel, plain, library (SDPA for B3 and B5)
     and composed-yardstick times (B6: the default route's attention
     half-layer, norm1 -> _mha -> LayerScale -> residual) beside the bounds,
-    and graph-replay times of B3 and its SDPA, of B5's SDPA and of B6's
+    and graph-replay times of B3, B5 and their SDPA, and of B6 and its
     composed half-layer; each planted fault of ``planted_tower_faults`` must
     fail the same hold."""
     import numpy as np
@@ -898,7 +924,7 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
         lambda: A.packed_temporal_attention_plain(q, kt, v, scale, heads), sdpa_masked,
         # the function needs each row's R / heads same-head keys
         bytes_moved=4 * q.numel() * 2, flops=4.0 * Bn * R * (R // heads) * D,
-        extra=dict(fault_b5_mask_dropped_share=share, library=probe), graph=("library",),
+        extra=dict(fault_b5_mask_dropped_share=share, library=probe), graph=("kernel", "library"),
     )
 
     towers = dict(dinov2=DINOV2_LARGE_REG4, languagebind=LANGUAGEBIND_VIDEO_LARGE, siglip=SIGLIP_BASE_224,
@@ -942,6 +968,11 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
             extra["attention_stage_ms"] = ms
             extra["key_tiled_stages"] = held_t["stages"]
 
+        extra["kernel_device_ms"] = kernel_device_ms(lambda: TF.fused_vit_attn_block(*args))
+        log(f"[kernel] fused_vit_attn_block     {name:22s} device ms by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in extra["kernel_device_ms"].items())
+            + f" (sum {sum(extra['kernel_device_ms'].values()):.4f})")
+
         def composed(layer=layer, x=x):  # the default route's attention half-layer
             with torch.no_grad():
                 h = layer._mha(layer.attn, layer.norm1(x), "auto")
@@ -953,7 +984,7 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
             lambda: TF.fused_vit_attn_block_plain(*args), None,
             bytes_moved=2 * x.numel() * 2 + 4 * D * D * 2 + 7 * D * 4,
             flops=2.0 * B * S * D * 4 * D + 4.0 * B * S * S * D, extra=extra, yardstick=composed,
-            graph=("yardstick",),
+            graph=("kernel", "yardstick"),
         )
         del layer
     return cases
@@ -1731,13 +1762,14 @@ def train_path(dev, seed: int, run_dir: str):
 
 # ---------------------------------------------------------------------------
 
-# the libraries built on hopper.cuh: K2, K3, K1 and B3
-COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention")
+# every kernel library: K2, K3, K1, B3, B6 and B5
+COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention", "fused_vit_block",
+                 "packed_temporal")
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
 def compile_report() -> dict:
-    """What was compiled for K2, K3, K1 and B3: each kernel's registers,
+    """What was compiled for each kernel library: each kernel's registers,
     spills and static shared memory as ``ptxas -v`` reported them at the
     build, and, where ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma),
     ``HMMA`` (mma.sync), ``UTMALDG`` (TMA tensor load) and ``UBLKCP`` (1-D bulk
@@ -1759,12 +1791,14 @@ def compile_report() -> dict:
                 warnings.append(line.strip())
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                short = re.search(r"([a-z_]+_kernel)IL([ib])(\d+)E", m.group(1))
-                if short:  # a template argument: an int (ILi128E) or a bool (ILb1E)
-                    arg = short.group(3) if short.group(2) == "i" else ("false", "true")[int(short.group(3))]
-                    current = f"{short.group(1)}<{arg}>"
+                short = re.search(r"([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
+                if short:  # template arguments: ints (Li128E) or bools (Lb1E)
+                    args = [n if k == "i" else ("false", "true")[int(n)]
+                            for k, n in re.findall(r"L([ib])(\d+)E", short.group(2))]
+                    current = f"{short.group(1)}<{', '.join(args)}>"
                 else:
-                    current = m.group(1)
+                    current = re.search(r"([a-z_]+_kernel)", m.group(1)).group(1) if "_kernel" in m.group(1) \
+                        else m.group(1)
                 kernels[current] = {}
                 continue
             if current is None:
@@ -1824,6 +1858,9 @@ def main() -> int:
     ap.add_argument("--small-only", action="store_true",
                     help="build, then run only the K1 and B3 kernel cases and print them (no result line): "
                          "for comparing two versions of the whole-sequence kernels within one call")
+    ap.add_argument("--tower-only", action="store_true",
+                    help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
+                         "line): for comparing two versions of the towers' opt-in kernels within one call")
     args = ap.parse_args()
 
     import torch
@@ -1857,6 +1894,12 @@ def main() -> int:
         keys = ("kernel", "case", "ms", "graph_ms", "device_ms", "library_ms", "library_graph_ms",
                 "library_device_ms", "bound_ms", "worst_share_of_limit")
         log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
+    if args.tower_only:
+        cases = tower_kernel_cases(dev, args.seed)
+        keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
+                "yardstick_graph_ms", "bound_ms", "worst_share_of_limit", "attention_stage_ms", "kernel_device_ms")
+        log(json.dumps({"tower_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
 
     with switches({}):  # every phase sets the switches it runs under

@@ -1,9 +1,10 @@
-// Shared helpers for the port's hand-written sm_90a kernels: the bf16
-// m16n8k16 tensor-core MMA (fp32 accumulate), bf16x2 packing, quad
-// reductions over the four threads that share an MMA row, and the exported
-// error-string hook the ctypes wrappers use.
+// Shared helpers for the port's hand-written sm_90a kernels: bf16x2
+// packing, quad reductions over the four threads that share an accumulator
+// row, and the exported error-string hook the ctypes wrappers use.
 //
-// Fragment layout of mma.sync.m16n8k16 (per lane: g = lane / 4, t = lane % 4):
+// Fragment layout of the m16n8k16 tensor-core product, which wgmma's register
+// A operand and each warp's share of its accumulator follow (hopper.cuh's
+// acc_to_a; per lane: g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a[0] = (row g,   cols 2t, 2t+1)   a[1] = (row g+8, cols 2t, 2t+1)
 //                         a[2] = (row g,   cols 2t+8, 2t+9) a[3] = (row g+8, cols 2t+8, 2t+9)
 //   B (16x8, "col"):      b0 = (rows 2t, 2t+1, col g)      b1 = (rows 2t+8, 2t+9, col g)
@@ -19,20 +20,10 @@ typedef __nv_bfloat16 bf16;
 
 #define MERV_EXPORT extern "C" __attribute__((visibility("default")))
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

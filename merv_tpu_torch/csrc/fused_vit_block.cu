@@ -10,45 +10,80 @@
 // Bound on the H100: operations. flops = 2*B*S*D*4D (the four projections)
 // + 4*B*S*S*D (scores and PV), e.g. 3.95e10 at DINOv2's [16, 261, 1024]
 // (0.040 ms at 989 TFLOP/s) against 25.5 MB of x, out and weights (0.0076 ms).
+// The projections are 89 % of the flops there, so they have to run near the
+// tensor cores' rate.
 //
 // Design. The TPU program holds one image's [S, D] rows and all four weights
 // in VMEM; one DINOv2 image alone (534 KB) exceeds an SM's shared memory, so
 // here one C entry point launches four kernels on the caller's stream and
 // passes the intermediates through scratch buffers the caller allocates:
-//  (a) row_stats: one warp per row, the LN's fp32 mean and 1/sqrt(var + eps);
-//  (b) gemm<QKV>: 64 x 64 output tiles of [B*S, 3D] over 64-wide k steps,
-//      x normalised in fp32 and rounded to bf16 while it is staged (the LN
-//      never goes to device memory), mma.sync bf16 with fp32 accumulate,
-//      fp32 bias added, rounded to bf16 and scattered to q/k/v [B, H, S, 64];
-//  (c) attention per (image, head), softmax normalised before PV as the TPU
-//      kernel does ((p / l) rounded to bf16, then PV; o_h rounded to bf16):
-//      for S <= 512 the whole head staged (attn_core.cuh, as in B5), else a
-//      key-tiled stage per 64 query rows (two passes over 64-key tiles);
-//      it writes o as [B*S, D], the layout the o-projection reads;
-//  (d) gemm<OPROJ>: o @ Wo^T accumulated in fp32 over all heads, + bo, then
-//      x + gamma * y in fp32 and one rounding to bf16.
-// The GEMMs stage each 64 x 64 tile with plain 16-byte loads and no
-// pipelining: right and simple first. All products are this file's mma.sync.
-#include "attn_core.cuh"
+//  (a) ln_kernel: one warp per row, held in registers (D <= 2048), LN1's
+//      fp32 mean and 1/sqrt(var + eps)
+//      (kept for the stage checks) and xn = ((x - mu) * rstd) * ns + nb in
+//      fp32, rounded once to bf16, into the attention output's scratch
+//      (which nothing reads until (c) overwrites it), so that the GEMM's A
+//      operand arrives by TMA as it lies;
+//  (b) gemm_kernel<QKV>: [B*S, 3D] = xn W^T, the plain TN product: A [M, K]
+//      and W [N, K] both K-major, loaded by 2-D TMA boxes of 128 (A) and 256
+//      (W) rows x 64 columns (128-byte swizzle, zero fill past M and past a
+//      weight's rows) into a ring of 3 stages guarded by full / empty
+//      mbarriers. One producer thread issues the loads; two consumer
+//      warpgroups each own 64 rows of a 128 x 256 output tile (two wgmma
+//      m64n128k16 from shared memory a k step, one k slice in flight while
+//      the next is issued). A persistent grid
+//      walks the tiles, so one tile's epilogue runs while the producer loads
+//      the next tile's slices. Epilogue, through shared memory in 16-byte
+//      stores: + the fp32 bias, rounded to bf16, into q/k/v [3, B, H, S, 64];
+//  (c) attention per (image, head) in the TPU kernel's order: m and l first,
+//      then (p / l) rounded to bf16, then PV, o_h rounded to bf16; written as
+//      [B*S, D] at column 64 h, the layout the o-projection reads. For
+//      S <= 512 B3's whole-head kernel in its kFused mode
+//      (small_attn_hopper.cuh: persistent grid, K and V of a head by TMA, a
+//      whole row of scores in registers up to S = 272). Otherwise
+//      (ViViT's 3137 tokens) attn_tiled_kernel: 128 query rows per block on
+//      two consumer warpgroups, 128-key K and V tiles by TMA through a ring
+//      of 3 stages, two passes because l is needed before PV: pass 1 takes
+//      QK^T and each row's max and sum (the sum rescaled as the max grows),
+//      pass 2 takes QK^T again and p / l = 2^(s c - (m c + log2 l)) on one
+//      FFMA and one ex2.approx.ftz, then PV. The two warpgroups take turns
+//      on QK^T, so one's exponentials run beside the other's products;
+//  (d) gemm_kernel<OPROJ>: o W_o^T in fp32, + bo, then x + gamma * y in fp32
+//      and one rounding to bf16.
+// Every product is wgmma; nothing here is a library call.
+#include <algorithm>
 
-using namespace attn_core;
+#include "small_attn_hopper.cuh"
 
-namespace {
+namespace fused_block {
 
-constexpr int kBM = 64, kBN = 64, kBK = 64;
-constexpr int kAS = kBK + 8;  // tile row stride in elements (36 words: conflict-free fragment loads)
-constexpr int kGemmThreads = 128;
-constexpr int kTileVS = kChunk + 8;
+using small_attn::ex2_ftz;
 
-__global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__ x, float* __restrict__ mu,
-                                                        float* __restrict__ rstd, int M, int D, float eps) {
+constexpr int kD = 64;  // head dim
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kSmemLimit = 232448;
+
+// ---------------------------------------------------------------------------
+// (a) LN1
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxD = 2048;  // LN1 holds a row in registers: kMaxD / 256 16-byte chunks a lane
+
+__global__ void __launch_bounds__(256) ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ns,
+                                                 const float* __restrict__ nb, float* __restrict__ mu,
+                                                 float* __restrict__ rstd, bf16* __restrict__ xn, int M, int D,
+                                                 float eps) {
+  constexpr int kChunks = kMaxD / 256;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* xr = x + static_cast<size_t>(row) * D;
+  uint4 held[kChunks];
   float s = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    const uint4 v4 = *reinterpret_cast<const uint4*>(xr + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v4);
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c >= D) break;
+    held[i] = *reinterpret_cast<const uint4*>(xr + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&held[i]);
 #pragma unroll
     for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
   }
@@ -56,9 +91,10 @@ __global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   const float m = s / D;
   float ss = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
-    const uint4 v4 = *reinterpret_cast<const uint4*>(xr + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v4);
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    if (lane * 8 + i * 256 >= D) break;
+    const bf16* e = reinterpret_cast<const bf16*>(&held[i]);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float d = __bfloat162float(e[j]) - m;
@@ -67,242 +103,481 @@ __global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float rs = rsqrtf(ss / D + eps);
   if (lane == 0) {
     mu[row] = m;
-    rstd[row] = rsqrtf(ss / D + eps);
+    rstd[row] = rs;
+  }
+  bf16* xo = xn + static_cast<size_t>(row) * D;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c >= D) break;
+    bf16* e = reinterpret_cast<bf16*>(&held[i]);
+    const float4 s0 = *reinterpret_cast<const float4*>(ns + c), s1 = *reinterpret_cast<const float4*>(ns + c + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(nb + c), b1 = *reinterpret_cast<const float4*>(nb + c + 4);
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // ((x - mu) * rstd) * ns + nb in fp32, rounded once
+      const float n = __fmul_rn(__fsub_rn(__bfloat162float(e[j]), m), rs);
+      e[j] = __float2bfloat16(__fadd_rn(__fmul_rn(n, sc[j]), bi[j]));
+    }
+    *reinterpret_cast<uint4*>(xo + c) = held[i];
   }
 }
 
+// ---------------------------------------------------------------------------
+// (b), (d) the GEMM
+// ---------------------------------------------------------------------------
+
+// A 128 x 256 output tile a k slice of 64: 2 * 128 * 256 * 64 flops over
+// 48 KB of operands, 87 flops a byte. 128 x 128 tiles (64 flops a byte) ran
+// the QKV product at ~340 TFLOP/s, bound by the L2's bandwidth to the SMs.
+constexpr int kTileM = 128;   // output rows of a tile (64 a consumer warpgroup)
+constexpr int kTileN = 256;   // output columns of a tile (two m64n128 products a warpgroup)
+constexpr int kGemmStages = 3;
+constexpr uint32_t kABytes = kTileM * 128, kBBytes = kTileN * 128;  // rows x 64 bf16
+constexpr int kCStride = 128 + 4;  // fp32 epilogue row: 128 columns, padded against bank conflicts
+
+struct GemmSmem {
+  bf16 a[kGemmStages][kTileM * 64];
+  bf16 b[kGemmStages][kTileN * 64];
+  float c[kTileM * kCStride];  // the epilogue's half tile
+  uint64_t full[kGemmStages], empty[kGemmStages];
+};
+
 struct GemmArgs {
-  const bf16* a;         // [M, K]: x (QKV, normalised while staged) or the attention output (OPROJ)
-  const bf16* w[3];      // (out, in) weights, [n_per, K] each: wq, wk, wv (QKV) or wo (OPROJ)
-  const float* bias[3];  // fp32 [n_per] each
-  int M, K, n_per;
-  const float* mu;       // QKV: LN statistics [M] and affine [K]
-  const float* rstd;
-  const float* ns;
-  const float* nb;
-  bf16* qkv;             // QKV: [3, B, H, S, 64]
+  int M, K, n_per, n_weights;  // A [M, K]; n_weights weights of [n_per, K]
+  const float* bias;           // fp32, n_weights * n_per (QKV: bq | bk | bv; OPROJ: bo)
+  bf16* qkv;                   // QKV: [3, B, H, S, 64]
   int S, H;
-  const bf16* x;         // OPROJ: residual [M, n_per], gamma [n_per], out [M, n_per]
+  const bf16* x;               // OPROJ: residual [M, n_per], gamma [n_per], out [M, n_per]
   const float* gamma;
   bf16* out;
 };
 
 template <bool kQKV>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(const GemmArgs p) {
-  __shared__ __align__(16) unsigned char smem_raw[(kBM + kBN) * kAS * sizeof(bf16)];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [kBM][kAS]
-  bf16* Bs = As + kBM * kAS;                     // [kBN][kAS]
-  const int m0 = blockIdx.x * kBM;
-  const int n0g = blockIdx.y * kBN;
-  const int which = n0g / p.n_per, n0 = n0g - which * p.n_per;  // a tile never straddles two weights
-  const bf16* __restrict__ w = p.w[which];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap w0,
+                const __grid_constant__ CUtensorMap w1, const __grid_constant__ CUtensorMap w2, const GemmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  GemmSmem& sm = *reinterpret_cast<GemmSmem*>(align_1024(smem_raw));
+  const int tiles_m = (p.M + kTileM - 1) / kTileM;
+  const int tiles_per_w = (p.n_per + kTileN - 1) / kTileN;  // a tile never straddles two weights
+  const int n_tiles = tiles_m * tiles_per_w * p.n_weights;
+  const int k_steps = p.K / 64;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: one thread issues every load ----------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      RingPos pos;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int tn = tile % (tiles_per_w * p.n_weights), tm = tile / (tiles_per_w * p.n_weights);
+        const int which = tn / tiles_per_w, n0 = (tn - which * tiles_per_w) * kTileN;
+        const CUtensorMap* wmap = which == 0 ? &w0 : (which == 1 ? &w1 : &w2);
+        for (int kb = 0; kb < k_steps; ++kb, pos.next(kGemmStages)) {
+          mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+          mbar_arrive_expect_tx(&sm.full[pos.stage], kABytes + kBBytes);
+          tma_load_3d(sm.a[pos.stage], &amap, &sm.full[pos.stage], kb * 64, tm * kTileM, 0);
+          tma_load_3d(sm.b[pos.stage], wmap, &sm.full[pos.stage], kb * 64, n0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: 64 rows of each tile a warpgroup ----------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x - wg * 128;
+  const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-
-  float acc[kBN / 8][4];
+  RingPos pos;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tn = tile % (tiles_per_w * p.n_weights), tm = tile / (tiles_per_w * p.n_weights);
+    const int which = tn / tiles_per_w, n0 = (tn - which * tiles_per_w) * kTileN;
+    float acc[2][64];  // columns 0-127 and 128-255 of the tile
+    int prev = 0;
+    for (int kb = 0; kb < k_steps; ++kb, pos.next(kGemmStages)) {
+      mbar_wait(&sm.full[pos.stage], pos.phase);
+      wgmma_fence();
+      pin(acc[0]);
+      pin(acc[1]);
 #pragma unroll
-  for (int nt = 0; nt < kBN / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t da = kmajor_desc(sm.a[pos.stage], cw * 64, ks * 16);
+        wgmma_ss_n128(acc[0], da, kmajor_desc(sm.b[pos.stage], 0, ks * 16), kb > 0 || ks > 0);
+        wgmma_ss_n128(acc[1], da, kmajor_desc(sm.b[pos.stage], 128, ks * 16), kb > 0 || ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's products are done: its stage may be refilled
+      pin(acc[0]);
+      pin(acc[1]);
+      if (kb > 0 && lane == 0) mbar_arrive(&sm.empty[prev]);
+      prev = pos.stage;
+    }
+    wgmma_wait<0>();
+    pin(acc[0]);
+    pin(acc[1]);
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
 
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kGemmThreads) {
-      const int r = i >> 3, c8 = i & 7;
-      const int m = m0 + r, kc = k0 + c8 * 8;
-      uint4 a4 = make_uint4(0u, 0u, 0u, 0u);
-      if (m < p.M) {
-        a4 = *reinterpret_cast<const uint4*>(p.a + static_cast<size_t>(m) * p.K + kc);
-        if (kQKV) {  // LN: ((x - mu) * rstd) * ns + nb in fp32, rounded to bf16
-          bf16* e = reinterpret_cast<bf16*>(&a4);
-          const float mu = p.mu[m], rs = p.rstd[m];
+    // Epilogue, 128 columns at a time through shared memory: each thread
+    // writes its fragment (acc[h][4n + 2i + j] is row 16 warp + g + 8i,
+    // column 128 h + 8n + 2t + j of the warpgroup's 64 x 256) as fp32, then
+    // the warpgroup reads its 64 rows back 8 columns a thread and stores 16
+    // bytes at a time: 8 threads write a head's 128-byte row. (The fragment's
+    // own 4-byte scattered stores took longer than the product.)
+    float* cw_rows = sm.c + cw * 64 * kCStride;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float xn = __fmul_rn(__fsub_rn(__bfloat162float(e[j]), mu), rs);
-            e[j] = __float2bfloat16(__fadd_rn(__fmul_rn(xn, p.ns[kc + j]), p.nb[kc + j]));
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = n0 + 128 * h;  // the half's first column in the weight's n_per
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(cw_rows + (warp * 16 + g + 8 * i) * kCStride + n * 8 + 2 * t) =
+              make_float2(acc[h][4 * n + 2 * i], acc[h][4 * n + 2 * i + 1]);
+      named_barrier_sync(1 + cw, 128);
+#pragma unroll 2
+      for (int q = tid; q < 64 * 16; q += 128) {
+        const int r = q >> 4, col = c0 + (q & 15) * 8, m = tm * kTileM + cw * 64 + r;
+        if (m < p.M && col < p.n_per) {
+          const float4 y0 = *reinterpret_cast<const float4*>(cw_rows + r * kCStride + (q & 15) * 8);
+          const float4 y1 = *reinterpret_cast<const float4*>(cw_rows + r * kCStride + (q & 15) * 8 + 4);
+          const float* bias = p.bias + which * p.n_per + col;
+          const float4 b0 = *reinterpret_cast<const float4*>(bias), b1 = *reinterpret_cast<const float4*>(bias + 4);
+          float y[8] = {__fadd_rn(y0.x, b0.x), __fadd_rn(y0.y, b0.y), __fadd_rn(y0.z, b0.z), __fadd_rn(y0.w, b0.w),
+                        __fadd_rn(y1.x, b1.x), __fadd_rn(y1.y, b1.y), __fadd_rn(y1.z, b1.z), __fadd_rn(y1.w, b1.w)};
+          uint4 o;
+          if constexpr (kQKV) {
+            const int b = m / p.S, s = m - b * p.S, hh = col / kD, j = col - hh * kD;
+            o = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+            *reinterpret_cast<uint4*>(p.qkv + static_cast<size_t>(which) * p.M * p.n_per +
+                                      (static_cast<size_t>(b * p.H + hh) * p.S + s) * kD + j) = o;
+          } else {
+            const size_t at = static_cast<size_t>(m) * p.n_per + col;
+            const uint4 x4 = *reinterpret_cast<const uint4*>(p.x + at);
+            const bf16* xe = reinterpret_cast<const bf16*>(&x4);
+            const float4 g0 = *reinterpret_cast<const float4*>(p.gamma + col);
+            const float4 g1 = *reinterpret_cast<const float4*>(p.gamma + col + 4);
+            const float ga[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+            float r8[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) r8[e] = __fadd_rn(__bfloat162float(xe[e]), __fmul_rn(ga[e], y[e]));
+            o = make_uint4(pack_bf16(r8[0], r8[1]), pack_bf16(r8[2], r8[3]), pack_bf16(r8[4], r8[5]),
+                           pack_bf16(r8[6], r8[7]));
+            *reinterpret_cast<uint4*>(p.out + at) = o;
           }
         }
       }
-      *reinterpret_cast<uint4*>(As + r * kAS + c8 * 8) = a4;
-      *reinterpret_cast<uint4*>(Bs + r * kAS + c8 * 8) =
-          *reinterpret_cast<const uint4*>(w + static_cast<size_t>(n0 + r) * p.K + kc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const bf16* ap = As + (warp * 16 + g) * kAS + ks * 16 + 2 * t;
-      const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * kAS), ld32(ap + 8), ld32(ap + 8 * kAS + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-        const bf16* bp = Bs + (nt * 8 + g) * kAS + ks * 16 + 2 * t;
-        mma_bf16_16816(acc[nt], af, ld32(bp), ld32(bp + 8));
-      }
-    }
-    __syncthreads();
-  }
-
-  const int ra = m0 + warp * 16 + g, rb = ra + 8;
-  const float* __restrict__ bias = p.bias[which];
-#pragma unroll
-  for (int nt = 0; nt < kBN / 8; ++nt) {
-    const int n = n0 + nt * 8 + 2 * t;
-    const float b0 = bias[n], b1 = bias[n + 1];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = half ? rb : ra;
-      if (m >= p.M) continue;
-      const float y0 = __fadd_rn(acc[nt][2 * half], b0), y1 = __fadd_rn(acc[nt][2 * half + 1], b1);
-      if (kQKV) {
-        const int b = m / p.S, s = m - b * p.S, h = n / kD, j = n - h * kD;
-        bf16* dst = p.qkv + static_cast<size_t>(which) * p.M * p.n_per +
-                    (static_cast<size_t>(b * p.H + h) * p.S + s) * kD + j;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
-      } else {
-        const size_t at = static_cast<size_t>(m) * p.n_per + n;
-        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(p.x + at);
-        const float o0 = __fadd_rn(__bfloat162float(x2.x), __fmul_rn(p.gamma[n], y0));
-        const float o1 = __fadd_rn(__bfloat162float(x2.y), __fmul_rn(p.gamma[n + 1], y1));
-        *reinterpret_cast<__nv_bfloat162*>(p.out + at) = __floats2bfloat162_rn(o0, o1);
-      }
+      named_barrier_sync(1 + cw, 128);  // the rows are read before the next half overwrites them
     }
   }
 }
 
-// (c), S <= 512: one block per (image, head), the whole head staged
-__global__ void __launch_bounds__(kWarps * 32) attn_small_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
-                                                         int H, int S, int Sp, int VS, size_t plane, int D,
-                                                         float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [Sp][kKS]
-  bf16* Vt = Ks + Sp * kKS;                      // [kD][VS]
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const bf16* qh = qkv + static_cast<size_t>(bh) * S * kD;
-  stage_k_rows(qh + plane, Ks, S, Sp);
-  stage_vt(qh + 2 * plane, Vt, S, Sp, VS);
+// ---------------------------------------------------------------------------
+// (c), S > 512: the key-tiled stage
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;  // query rows per block, 64 per consumer warpgroup
+constexpr int kKeys = 128;  // keys per tile
+constexpr int kKvStages = 3;
+
+struct TiledSmem {
+  bf16 q[kRows * 64];
+  bf16 k[kKvStages][kKeys * 64];
+  bf16 v[kKvStages][kKeys * 64];
+  uint64_t q_full, k_full[kKvStages], v_full[kKvStages], empty[kKvStages];
+};
+
+// keys >= S of the tile at kbase -> -inf
+__device__ __forceinline__ void mask_tile(float (&sc)[64], int kbase, int S, int t) {
+  if (kbase + kKeys <= S) return;
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (kbase + 8 * n + 2 * t + j >= S) sc[4 * n + j] = sc[4 * n + 2 + j] = neg_inf();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_tiled_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int H, int S,
+                      float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  TiledSmem& sm = *reinterpret_cast<TiledSmem*>(align_1024(smem_raw));
+  const int bh = blockIdx.x, row0 = blockIdx.y * kRows;
+  const int n_tiles = (S + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kKvStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // the consumer warps
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  attend_head<true>(qh, Ks, Vt, o + static_cast<size_t>(b) * S * D + h * kD, D, S, Sp, VS, 0, scale);
-}
 
-// (c), S > 512: one block per (image, head, 64 query rows), 4 warps; pass 1
-// takes each row's max and sum over 64-key tiles, pass 2 restages K and V^T
-// tile by tile for (p / l) V
-__global__ void __launch_bounds__(128) attn_tiled_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int H,
-                                                         int S, size_t plane, int D, float scale) {
-  __shared__ __align__(16) unsigned char smem_raw[(kChunk * kKS + kD * kTileVS) * sizeof(bf16)];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kChunk][kKS]
-  bf16* Vt = Ks + kChunk * kKS;                  // [kD][kTileVS]
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const bf16* qh = qkv + static_cast<size_t>(bh) * S * kD;
-  const bf16* kh = qh + plane;
-  const bf16* vh = qh + 2 * plane;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ra = blockIdx.y * 64 + warp * 16 + g, rb = ra + 8;
-  uint32_t qa[kD / 16][4];
-  load_q(qh, ra, rb, S, t, qa);
-
-  float ma = neg_inf(), mb = neg_inf(), la = 0.f, lb = 0.f;
-  for (int kbase = 0; kbase < S; kbase += kChunk) {
-    __syncthreads();
-    stage_k_rows(kh + static_cast<size_t>(kbase) * kD, Ks, S - kbase, kChunk);
-    __syncthreads();
-    float s[kChunk / 8][4];
-    qk_chunk(qa, Ks, 0, g, t, s);
-    mask_chunk(s, kbase, S, ra, rb, 0, scale, t);
-    online_stats(s, ma, mb, la, lb);
-  }
-  quad_stats(ma, la);
-  quad_stats(mb, lb);
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  for (int kbase = 0; kbase < S; kbase += kChunk) {
-    __syncthreads();
-    stage_k_rows(kh + static_cast<size_t>(kbase) * kD, Ks, S - kbase, kChunk);
-    stage_vt(vh + static_cast<size_t>(kbase) * kD, Vt, S - kbase, kChunk, kTileVS);
-    __syncthreads();
-    float s[kChunk / 8][4];
-    qk_chunk(qa, Ks, 0, g, t, s);
-    mask_chunk(s, kbase, S, ra, rb, 0, scale, t);
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - ma) / la;
-        s[nt][2 + j] = expf(s[nt][2 + j] - mb) / lb;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: Q once, then K tiles (pass 1), then K and V tiles (pass 2) ----------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kRows * 128);
+      tma_load_3d(sm.q, &qmap, &sm.q_full, 0, row0, bh);
+      RingPos pos;
+      for (int j = 0; j < 2 * n_tiles; ++j, pos.next(kKvStages)) {
+        const int second = j >= n_tiles, kbase = (j - second * n_tiles) * kKeys;
+        mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+        mbar_arrive_expect_tx(&sm.k_full[pos.stage], kKeys * 128);
+        tma_load_3d(sm.k[pos.stage], &kmap, &sm.k_full[pos.stage], 0, kbase, bh);
+        if (second) {
+          mbar_arrive_expect_tx(&sm.v_full[pos.stage], kKeys * 128);
+          tma_load_3d(sm.v[pos.stage], &vmap, &sm.v_full[pos.stage], 0, kbase, bh);
+        }
       }
     }
-    pv_chunk(s, Vt, kTileVS, 0, g, t, acc);
+    return;
   }
-  store_rows(acc, o + static_cast<size_t>(b) * S * D + h * kD, D, ra, rb, S, 1.f, 1.f, t);
+
+  // ---------------- consumers: 64 query rows each ----------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x - wg * 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qw = sm.q + cw * 64 * 64;  // this warpgroup's 64 rows (8 KB into the 128-row box)
+
+  // The two warpgroups take turns on the tensor cores, as small_attn_hopper.cuh's
+  // do: a warpgroup computes a tile's scores only after the other's are done
+  // (barrier 4 + cw, 256 threads) and lets the other go once its own are
+  // (barrier 5 - cw), so one's QK^T runs while the other's exponentials do.
+  // Warpgroup 0 goes first.
+  if (cw == 1) named_barrier_arrive(4, 256);
+  float sc[64];
+  auto tile_scores = [&](int stage) {  // S = Q K^T over one 128-key tile (m64n128, both K-major)
+    named_barrier_sync(4 + cw, 256);
+    wgmma_fence();
+    pin(sc);
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks)
+      wgmma_ss_n128(sc, kmajor_desc(qw, 0, ks * 16), kmajor_desc(sm.k[stage], 0, ks * 16), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    named_barrier_arrive(5 - cw, 256);
+  };
+
+  // pass 1: each row's max and sum in log2 units of the scaled scores; the
+  // quad shares the max, each thread keeps its share of the sum
+  float ma = neg_inf(), mb = neg_inf(), la = 0.f, lb = 0.f;
+  mbar_wait(&sm.q_full, 0);
+  RingPos pos;
+  for (int j = 0; j < n_tiles; ++j, pos.next(kKvStages)) {
+    mbar_wait(&sm.k_full[pos.stage], pos.phase);
+    tile_scores(pos.stage);
+    if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);  // the scores are in registers
+    mask_tile(sc, j * kKeys, S, t);
+    float ca = neg_inf(), cb = neg_inf();
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      ca = fmaxf(ca, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      cb = fmaxf(cb, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    // every tile holds a valid key of every row, so the max is finite from tile 0 on
+    const float na = fmaxf(ma, quad_max(ca) * scale_log2), nb = fmaxf(mb, quad_max(cb) * scale_log2);
+    la *= ex2_ftz(ma - na);  // 0 on the first tile (ma = -inf)
+    lb *= ex2_ftz(mb - nb);
+    ma = na;
+    mb = nb;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        la += ex2_ftz(fmaf(sc[4 * n + jj], scale_log2, -ma));
+        lb += ex2_ftz(fmaf(sc[4 * n + 2 + jj], scale_log2, -mb));
+      }
+    }
+  }
+  // p / l = 2^(s c - (m c + log2 l))
+  const float ba = ma + __log2f(quad_sum(la)), bb = mb + __log2f(quad_sum(lb));
+
+  // pass 2: (p / l) rounded to bf16, then PV. A stage's V barrier completes
+  // only on its pass-2 uses: its phase is kept apart (bit s of v_phases).
+  float acc[32];
+  uint32_t v_phases = 0;
+  for (int j = 0; j < n_tiles; ++j, pos.next(kKvStages)) {
+    mbar_wait(&sm.k_full[pos.stage], pos.phase);
+    tile_scores(pos.stage);
+    mask_tile(sc, j * kKeys, S, t);
+    auto p = [&](int i, float bias) { return ex2_ftz(fmaf(sc[i], scale_log2, -bias)); };
+    uint32_t pf[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const int i = 8 * kk;
+      pf[kk][0] = pack_bf16(p(i, ba), p(i + 1, ba));
+      pf[kk][1] = pack_bf16(p(i + 2, bb), p(i + 3, bb));
+      pf[kk][2] = pack_bf16(p(i + 4, ba), p(i + 5, ba));
+      pf[kk][3] = pack_bf16(p(i + 6, bb), p(i + 7, bb));
+    }
+    mbar_wait(&sm.v_full[pos.stage], (v_phases >> pos.stage) & 1u);
+    v_phases ^= 1u << pos.stage;
+    wgmma_fence();
+    pin(acc);
+    pin(pf);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs_n64_tb(acc, pf[kk], mnmajor_desc(sm.v[pos.stage], kk * 16, kKeys * 128), j > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(pf);
+    if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);
+  }
+  // Settle the turns: each warpgroup took 2 n_tiles, warpgroup 1 after its
+  // opening arrival on barrier 4, which no turn of warpgroup 0 consumed.
+  if (cw == 0) named_barrier_sync(4, 256);
+
+  // o_h rounded to bf16 at [b, row, 64 h]
+  const int b = bh / H, h = bh - b * H, D = H * kD;
+  const int ra = row0 + cw * 64 + warp * 16 + g, rb = ra + 8;
+  bf16* oh = o + static_cast<size_t>(b) * S * D + h * kD;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(ra) * D + col) =
+          __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
+    if (rb < S)
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * D + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+  }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+// once per device: the kernels' dynamic shared memory limits (set outside any
+// graph capture's first launch) and the SM count
+static cudaError_t device_setup(int* sms) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    e = cudaFuncSetAttribute(gemm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gemm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      cached[dev] = 0;
+      return e;
+    }
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
+}
+
+// a: [M, K]; w[i]: [n_per, K], all bf16 row-major
+template <bool kQKV>
+static cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, const GemmArgs& p, int sms,
+                        cudaStream_t st) {
+  CUtensorMap amap, wmap[3];
+  cudaError_t e = make_tile_map(&amap, a, 1, p.M, p.K, kTileM);
+  for (int i = 0; i < 3 && e == cudaSuccess; ++i)
+    e = make_tile_map(&wmap[i], w[std::min(i, n_weights - 1)], 1, p.n_per, p.K, kTileN);
+  if (e != cudaSuccess) return e;
+  const int tiles = (p.M + kTileM - 1) / kTileM * ((p.n_per + kTileN - 1) / kTileN) * n_weights;
+  gemm_kernel<kQKV><<<std::min(tiles, sms), kThreads, sizeof(GemmSmem) + 1024, st>>>(amap, wmap[0], wmap[1], wmap[2],
+                                                                                      p);
+  return cudaGetLastError();
+}
+
+}  // namespace fused_block
 
 // x, out: [B, S, D] bf16; vecs: fp32 [7, D] (ns, nb, bq, bk, bv, bo, gamma);
 // wq, wk, wv, wo: bf16 [D, D] (out, in). Scratch from the caller: stats fp32
-// [2, B*S], qkv bf16 [3, B, H, S, 64], attn bf16 [B*S, D]. key_tiled != 0
-// takes the key-tiled attention stage at any S. One call.
+// [2, B*S], qkv bf16 [3, B, H, S, 64], attn bf16 [B*S, D] (LN1's output, then
+// the attention output). All 16-byte aligned. key_tiled != 0 takes the
+// key-tiled attention stage at any S. One call.
 MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const void* wq, const void* wk,
                                           const void* wv, const void* wo, void* stats, void* qkv, void* attn,
                                           void* out, int B, int S, int D, int H, int key_tiled, float eps,
                                           float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * kD) return static_cast<int>(cudaErrorInvalidValue);
+  using namespace fused_block;
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * kD || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int M = B * S;
   const float* v = static_cast<const float*>(vecs);
   float* mu = static_cast<float*>(stats);
-  float* rstd = mu + M;
   bf16* qkv_b = static_cast<bf16*>(qkv);
   bf16* attn_b = static_cast<bf16*>(attn);
   const size_t plane = static_cast<size_t>(M) * D;
-  cudaError_t e;
 
-  row_stats_kernel<<<(M + 7) / 8, 256, 0, st>>>(static_cast<const bf16*>(x), mu, rstd, M, D, eps);
+  ln_kernel<<<(M + 7) / 8, 256, 0, st>>>(static_cast<const bf16*>(x), v, v + D, mu, mu + M, attn_b, M, D, eps);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   GemmArgs a{};
-  a.a = static_cast<const bf16*>(x);
-  a.w[0] = static_cast<const bf16*>(wq);
-  a.w[1] = static_cast<const bf16*>(wk);
-  a.w[2] = static_cast<const bf16*>(wv);
-  a.bias[0] = v + 2 * D;
-  a.bias[1] = v + 3 * D;
-  a.bias[2] = v + 4 * D;
   a.M = M;
   a.K = D;
   a.n_per = D;
-  a.mu = mu;
-  a.rstd = rstd;
-  a.ns = v;
-  a.nb = v + D;
+  a.n_weights = 3;
+  a.bias = v + 2 * D;  // bq | bk | bv
   a.qkv = qkv_b;
   a.S = S;
   a.H = H;
-  gemm_kernel<true><<<dim3((M + kBM - 1) / kBM, 3 * D / kBN), kGemmThreads, 0, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const bf16* wqkv[3] = {static_cast<const bf16*>(wq), static_cast<const bf16*>(wk), static_cast<const bf16*>(wv)};
+  if ((e = gemm<true>(attn_b, wqkv, 3, a, sms, st)) != cudaSuccess) return static_cast<int>(e);
 
-  if (S <= kMaxT && !key_tiled) {
-    const int Sp = padded_t(S);
-    const size_t smem = smem_bytes(S);
-    e = cudaFuncSetAttribute(attn_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attn_small_kernel<<<B * H, kWarps * 32, smem, st>>>(qkv_b, attn_b, H, S, Sp, vt_stride(Sp), plane, D, scale);
+  if (S <= small_attn::kMaxT && !key_tiled) {
+    const int rc = small_attn::launch<false, true>(qkv_b, qkv_b + plane, nullptr, qkv_b + 2 * plane, attn_b, B, H, H,
+                                                   S, scale, st);
+    if (rc != 0) return rc;
   } else {
-    attn_tiled_kernel<<<dim3(B * H, (S + 63) / 64), 128, 0, st>>>(qkv_b, attn_b, H, S, plane, D, scale);
+    CUtensorMap qmap, kmap, vmap;
+    e = make_tile_map(&qmap, qkv_b, B * H, S, kD, kRows);
+    if (e == cudaSuccess) e = make_tile_map(&kmap, qkv_b + plane, B * H, S, kD, kKeys);
+    if (e == cudaSuccess) e = make_tile_map(&vmap, qkv_b + 2 * plane, B * H, S, kD, kKeys);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attn_tiled_kernel<<<dim3(B * H, (S + kRows - 1) / kRows), kThreads, sizeof(TiledSmem) + 1024, st>>>(
+        qmap, kmap, vmap, attn_b, H, S, scale * kLog2e);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   GemmArgs o{};
-  o.a = attn_b;
-  o.w[0] = o.w[1] = o.w[2] = static_cast<const bf16*>(wo);
-  o.bias[0] = o.bias[1] = o.bias[2] = v + 5 * D;
   o.M = M;
   o.K = D;
   o.n_per = D;
+  o.n_weights = 1;
+  o.bias = v + 5 * D;
   o.x = static_cast<const bf16*>(x);
   o.gamma = v + 6 * D;
   o.out = static_cast<bf16*>(out);
-  gemm_kernel<false><<<dim3((M + kBM - 1) / kBM, D / kBN), kGemmThreads, 0, st>>>(o);
-  return static_cast<int>(cudaGetLastError());
+  const bf16* wout[1] = {static_cast<const bf16*>(wo)};
+  return static_cast<int>(gemm<false>(attn_b, wout, 1, o, sms, st));
 }

@@ -1,8 +1,9 @@
 // Device and host code of the whole-sequence attention kernels K1
 // (small_attention_kt.cu: K given as kt [B, H, 64, T]) and B3
 // (small_attention.cu: K given as k [B, Hk, T, 64], GQA through the kv-head
-// index). Head dim 64, 1 <= T <= 512, bf16, contiguous; no mask but the ragged
-// edge at T. Built on hopper.cuh.
+// index), and of B6's whole-head attention stage (fused_vit_block.cu: B3's
+// operands, kFused). Head dim 64, 1 <= T <= 512, bf16, contiguous; no mask
+// but the ragged edge at T. Built on hopper.cuh.
 //
 // What is computed, in the TPU kernels' order (merv_tpu/ops/attention.py
 // _small_attn_kernel / _small_attn_kernel_kt): s = (q k^T) * scale in fp32,
@@ -10,6 +11,14 @@
 // (as exp2 with log2 e folded into the scale, as flash_fwd.cu does); l = sum p
 // in fp32; O = round_bf16(p) V accumulated in fp32, divided by l after the
 // product, written as bf16. No online rescaling across key chunks.
+//
+// kFused (B6, merv_tpu/ops/fused_vit_block.py _fused_block_kernel) takes the
+// other order: l first, then round_bf16(p / l) V, written as it is, and the
+// output as [B, T, H * 64] (head h at column 64 h: the rows the o-projection
+// reads). For T <= 272 the whole row of p is in registers when l is known;
+// for T > 272 the first chunk's sum is taken in the pass that finds its max
+// and rescaled to the row's max, so l is known while the second chunk's
+// scores are still held.
 //
 // Bound on the H100: bytes (at [16, 16, 261, 64]: 34.2 MB of q, k, v and o,
 // 0.0102 ms; ~T/2 = 130 flops per byte, under the bf16 balance point), with
@@ -336,8 +345,75 @@ __device__ __forceinline__ void exp_pv_n(int nb, bool tail, float (&sc)[kBlocks]
   }
 }
 
+// 1 / (the quad's sum of l), 0 for a row with no p (a warp wholly past T)
+__device__ __forceinline__ float inv_row_sum(float l) {
+  l = quad_sum(l);
+  return l > 0.f ? 1.f / l : 0.f;
+}
+
+// kFused: p (exp_block's output, fp32) times 1/l, rounded to bf16, then
+// acc (+)= that V over the chunk's keys.
+template <int NB, bool TAIL>
+__device__ __forceinline__ void norm_pv(float (&sc)[kBlocks][32], float (&st)[8], float (&acc)[32],
+                                        const unsigned char* vst, int kbase, float ia, float ib, bool first) {
+  constexpr int kSteps = NB * 4 + (TAIL ? 1 : 0);
+  uint32_t pf[kSteps][4];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float* d = sc[b] + 8 * kk;
+      pf[4 * b + kk][0] = pack_bf16(d[0] * ia, d[1] * ia);
+      pf[4 * b + kk][1] = pack_bf16(d[2] * ib, d[3] * ib);
+      pf[4 * b + kk][2] = pack_bf16(d[4] * ia, d[5] * ia);
+      pf[4 * b + kk][3] = pack_bf16(d[6] * ib, d[7] * ib);
+    }
+  }
+  if (TAIL) {
+    pf[kSteps - 1][0] = pack_bf16(st[0] * ia, st[1] * ia);
+    pf[kSteps - 1][1] = pack_bf16(st[2] * ib, st[3] * ib);
+    pf[kSteps - 1][2] = pack_bf16(st[4] * ia, st[5] * ia);
+    pf[kSteps - 1][3] = pack_bf16(st[6] * ib, st[7] * ib);
+  }
+  const uint64_t vd = mnmajor_desc(reinterpret_cast<const bf16*>(vst), kbase, kSlabBytes);
+  wgmma_fence();
+  pin(acc);
+  pin(pf);
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) wgmma_rs_n64_tb(acc, pf[k], desc_at(vd, k * 2048), !(first && k == 0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(acc);
+  pin(pf);
+}
+
+// kFused: exp_block over a chunk of one of the shapes a call can take (l += p).
+__device__ __forceinline__ void exp_sum_n(int nb, bool tail, float (&sc)[kBlocks][32], float (&st)[8], int kbase,
+                                          int T, bool live, float c, float ma, float mb, float& la, float& lb) {
+#pragma unroll
+  for (int b = 0; b < kBlocks; ++b)
+    if (b < nb) exp_block<32>(sc[b], kbase + 64 * b, T, live, c, ma, mb, la, lb);
+  if (tail) exp_block<8>(st, kChunk, T, live, c, ma, mb, la, lb);
+}
+
+__device__ __forceinline__ void norm_pv_n(int nb, bool tail, float (&sc)[kBlocks][32], float (&st)[8],
+                                          float (&acc)[32], const unsigned char* vst, int kbase, float ia, float ib,
+                                          bool first) {
+  if (tail) {
+    norm_pv<4, true>(sc, st, acc, vst, kbase, ia, ib, first);
+    return;
+  }
+  switch (nb) {
+    case 1: norm_pv<1, false>(sc, st, acc, vst, kbase, ia, ib, first); break;
+    case 2: norm_pv<2, false>(sc, st, acc, vst, kbase, ia, ib, first); break;
+    case 3: norm_pv<3, false>(sc, st, acc, vst, kbase, ia, ib, first); break;
+    default: norm_pv<4, false>(sc, st, acc, vst, kbase, ia, ib, first); break;
+  }
+}
+
 // The kernel. kt: K1's kt (kmap unused); otherwise kmap maps B3's k.
-template <bool kKt>
+// kFused: B6's order and output layout (with B3's operands, H == Hk).
+template <bool kKt, bool kFused = false>
 __global__ void __launch_bounds__(kThreads, 1)
     small_attn_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ kt, bf16* __restrict__ o,
@@ -448,38 +524,77 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(&bar.q_full[cw], q_phase);
         q_phase ^= 1u;
 
-        // the row max over every key; the last chunk's scores stay in registers
-        float ma = neg_inf(), mb = neg_inf();
-        named_barrier_sync(4 + cw, 256);
-        if (last == 1) qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ma, mb);
-        qk_max<kKt>(last_nb, tail, sc, st, qbuf, kst, last * kBlocks, T, t, ma, mb);
-        named_barrier_arrive(5 - cw, 256);
-        ma = quad_max(ma) * scale_log2;  // the exponent is s * c - m * c
-        mb = quad_max(mb) * scale_log2;
-        if (last == 0) release_q(gi);
+        float acc[32];  // the first product of exp_pv_n / norm_pv_n(..., true) overwrites it
+        float ia = 1.f, ib = 1.f;
+        if constexpr (!kFused) {
+          // the row max over every key; the last chunk's scores stay in registers
+          float ma = neg_inf(), mb = neg_inf();
+          named_barrier_sync(4 + cw, 256);
+          if (last == 1) qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ma, mb);
+          qk_max<kKt>(last_nb, tail, sc, st, qbuf, kst, last * kBlocks, T, t, ma, mb);
+          named_barrier_arrive(5 - cw, 256);
+          ma = quad_max(ma) * scale_log2;  // the exponent is s * c - m * c
+          mb = quad_max(mb) * scale_log2;
+          if (last == 0) release_q(gi);
 
-        float acc[32];  // the first product of exp_pv_n(..., true) overwrites it
-        float la = 0.f, lb = 0.f;
-        mbar_wait(&bar.v_full[s], ph);
-        exp_pv_n(last_nb, tail, sc, st, acc, vst, last * kChunk, T, live, scale_log2, ma, mb, la, lb, true);
-        if (last == 1) {  // T > 272: the first chunk's scores again (all its keys are < T)
-          float ua = neg_inf(), ub = neg_inf();  // their max again, unused: ma, mb hold the row's
-          qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ua, ub);
-          release_q(gi);
-          exp_pv_n(kBlocks, false, sc, st, acc, vst, 0, T, live, scale_log2, ma, mb, la, lb, false);
+          float la = 0.f, lb = 0.f;
+          mbar_wait(&bar.v_full[s], ph);
+          exp_pv_n(last_nb, tail, sc, st, acc, vst, last * kChunk, T, live, scale_log2, ma, mb, la, lb, true);
+          if (last == 1) {  // T > 272: the first chunk's scores again (all its keys are < T)
+            float ua = neg_inf(), ub = neg_inf();  // their max again, unused: ma, mb hold the row's
+            qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ua, ub);
+            release_q(gi);
+            exp_pv_n(kBlocks, false, sc, st, acc, vst, 0, T, live, scale_log2, ma, mb, la, lb, false);
+          }
+          // o / l after the product, as one reciprocal a row and a multiply
+          ia = 1.f / quad_sum(la);
+          ib = 1.f / quad_sum(lb);
+        } else {
+          // l before the product: p / l rounded to bf16, then P V
+          float ma = neg_inf(), mb = neg_inf(), la = 0.f, lb = 0.f;
+          named_barrier_sync(4 + cw, 256);
+          if (last == 1) {  // T > 272: the first chunk's max and its sum at that max
+            qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ma, mb);
+            ma = quad_max(ma);
+            mb = quad_max(mb);
+            exp_sum_n(kBlocks, false, sc, st, 0, T, live, scale_log2, ma * scale_log2, mb * scale_log2, la, lb);
+          }
+          const float m0a = ma, m0b = mb;
+          qk_max<kKt>(last_nb, tail, sc, st, qbuf, kst, last * kBlocks, T, t, ma, mb);
+          named_barrier_arrive(5 - cw, 256);
+          ma = quad_max(ma) * scale_log2;
+          mb = quad_max(mb) * scale_log2;
+          if (last == 1) {  // the first chunk's sum rescaled to the row's max
+            la *= ex2_ftz(fmaf(m0a, scale_log2, -ma));
+            lb *= ex2_ftz(fmaf(m0b, scale_log2, -mb));
+          } else {
+            release_q(gi);
+          }
+          exp_sum_n(last_nb, tail, sc, st, last * kChunk, T, live, scale_log2, ma, mb, la, lb);
+          const float pa = inv_row_sum(la), pb = inv_row_sum(lb);
+          mbar_wait(&bar.v_full[s], ph);
+          norm_pv_n(last_nb, tail, sc, st, acc, vst, last * kChunk, pa, pb, true);
+          if (last == 1) {  // the first chunk's scores and p again
+            float ua = neg_inf(), ub = neg_inf(), va = 0.f, vb = 0.f;
+            qk_max<kKt>(kBlocks, false, sc, st, qbuf, kst, 0, T, t, ua, ub);
+            release_q(gi);
+            exp_sum_n(kBlocks, false, sc, st, 0, T, live, scale_log2, ma, mb, va, vb);
+            norm_pv_n(kBlocks, false, sc, st, acc, vst, 0, pa, pb, false);
+          }
         }
 
-        // o / l after the product, as one reciprocal a row and a multiply
-        const float ia = 1.f / quad_sum(la), ib = 1.f / quad_sum(lb);
-        bf16* oh = o + static_cast<size_t>(bh) * T * kD;
+        // K1, B3: o [B, H, T, 64]; B6: o [B, T, H * 64]
+        const int ors = kFused ? H * kD : kD;
+        bf16* oh = kFused ? o + static_cast<size_t>(bh / H) * T * H * kD + (bh % H) * kD
+                          : o + static_cast<size_t>(bh) * T * kD;
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const int col = n * 8 + 2 * t;
           if (ra < T)
-            *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(ra) * kD + col) =
+            *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(ra) * ors + col) =
                 __floats2bfloat162_rn(acc[4 * n] * ia, acc[4 * n + 1] * ia);
           if (rb < T)
-            *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * kD + col) =
+            *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * ors + col) =
                 __floats2bfloat162_rn(acc[4 * n + 2] * ib, acc[4 * n + 3] * ib);
         }
       }
@@ -494,8 +609,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Host: the tensor maps, the persistent grid and the launch. kt is K1's kt
-// (k unused) or null (B3: k mapped).
-template <bool kKt>
+// (k unused) or null (B3, B6: k mapped). kFused: B6's order, o [B, T, H * 64].
+template <bool kKt, bool kFused = false>
 int launch(const void* q, const void* k, const void* kt, const void* v, void* o, int B, int H, int Hk, int T,
            float scale, cudaStream_t stream) {
   if (T <= 0 || T > kMaxT || B <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -507,7 +622,8 @@ int launch(const void* q, const void* k, const void* kt, const void* v, void* o,
   static int sms[64] = {0};
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (sms[dev] == 0) {
-    e = cudaFuncSetAttribute(small_attn_kernel<kKt>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    e = cudaFuncSetAttribute(small_attn_kernel<kKt, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemLimit);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) {
       sms[dev] = 0;
@@ -521,8 +637,8 @@ int launch(const void* q, const void* k, const void* kt, const void* v, void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   const Layout L = layout(T, kKt);
   const int grid = std::min(B * H, sms[dev]);
-  small_attn_kernel<kKt><<<grid, kThreads, L.total, stream>>>(qmap, kmap, vmap, static_cast<const bf16*>(kt),
-                                                              static_cast<bf16*>(o), B * H, H, Hk, T, scale * kLog2e);
+  small_attn_kernel<kKt, kFused><<<grid, kThreads, L.total, stream>>>(
+      qmap, kmap, vmap, static_cast<const bf16*>(kt), static_cast<bf16*>(o), B * H, H, Hk, T, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

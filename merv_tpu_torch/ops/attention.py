@@ -273,9 +273,10 @@ def packed_temporal_attention(
 
     Replaces ``merv_tpu/ops/attention.py::packed_temporal_attention``
     (Pallas, ``pallas_call`` at :622). Bound on the H100 by bytes at
-    LanguageBind's [514, 128, 64]. Design: one block per packed window,
-    the mma.sync staging of ``csrc/attn_core.cuh`` and an exact softmax over
-    the full R x R scores, masked in the kernel (see the source)."""
+    LanguageBind's [514, 128, 64]. Design: a persistent grid bringing each
+    window in by three 1-D bulk copies, and only the live scores (each row's
+    own head's keys, R / heads of R) in fp32 on the CUDA cores, with the
+    TPU kernel's exact softmax order (see the source)."""
     Bn, R, D = q.shape
     if kt.shape != (Bn, D, R) or v.shape != q.shape:
         raise ValueError(f"packed_temporal_attention: q {tuple(q.shape)}, kt {tuple(kt.shape)}, v {tuple(v.shape)}")

@@ -2,9 +2,10 @@
 ``merv_tpu/ops/fused_vit_block.py``): ``x + gamma * o_proj(attn(qkv(LN1(x))))``.
 
 :func:`fused_vit_attn_block` launches ``csrc/fused_vit_block.cu`` for a CUDA
-tensor (one C entry point, four kernels on the caller's stream: LN
-statistics, the LN + q/k/v GEMM, attention per (image, head), the o-proj GEMM
-with the bias, LayerScale and fp32-residual epilogue) and takes
+tensor (one C entry point, four kernels on the caller's stream: LN1 (its
+statistics and its bf16 output), the q/k/v GEMM, attention per (image,
+head), the o-proj GEMM with the bias, LayerScale and fp32-residual
+epilogue; the GEMMs and the attention on wgmma fed by TMA) and takes
 :func:`fused_vit_attn_block_plain` for a CPU tensor. ``merv_tpu`` runs it
 under ``MERV_TPU_FUSED_VIT_BLOCK=1`` (``ViTLayer.forward``).
 
@@ -155,12 +156,13 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
     [B, S, 1] fp32), ``{"q", "k", "v"}`` ([B, H, S, 64]) and ``"o"`` (the
     attention output, [B, S, D]), so that each stage can be held on its own.
 
-    x and the four weights bf16 and contiguous, D == 64 * heads, any S: S <=
+    x and the four weights bf16 and contiguous, D == 64 * heads <= 2048, any S: S <=
     512 stages whole heads, longer sequences (or ``key_tiled``) go through
     the key-tiled stage. The wrapper casts nothing in [D, D]: the weights
     must already be bf16 (the towers store them so). The seven [D] vectors
     are cast to fp32 and stacked once per call, into the one [7, D] block the
-    kernel reads. Scratch (LN statistics, q/k/v, the attention output) is
+    kernel reads. Scratch (LN statistics, q/k/v, and one [B * S, D] buffer
+    that holds LN1's output until the attention output overwrites it) is
     allocated here per call."""
     vecs = (norm_scale, norm_bias, bq, bk, bv, bo, gamma)
     _check_args(x, vecs, (wq, wk, wv, wo), heads)
@@ -168,11 +170,12 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
         raise ValueError(f"fused_vit_attn_block: the kernel needs a CUDA tensor, got {x.device}")
     _check_cuda("fused_vit_attn_block", x, wq, wk, wv, wo)
     B, S, D = x.shape
-    if D != 64 * heads:
-        raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dim 64, got D={D} heads={heads}")
+    if D != 64 * heads or D > 2048:
+        raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dim 64 and D <= 2048, got D={D} "
+                         f"heads={heads}")
     if any(t.device != x.device for t in vecs):
         raise ValueError("fused_vit_attn_block: vectors on another device")
-    vec = torch.stack([t.to(torch.float32) for t in vecs]).contiguous()
+    vec = torch.stack(vecs).to(torch.float32)  # one stack, one cast
     M = B * S
     stats = torch.empty((2, M), dtype=torch.float32, device=x.device)
     qkv = torch.empty((3, B, heads, S, 64), dtype=x.dtype, device=x.device)

@@ -262,8 +262,14 @@ def test_small_attention_matches_plain(cuda, H, Hk, T):
         assert not hold(out, fault(q, k, v, 0.125), mag)["ok"]
 
 
+# B5's edges: the towers' 16 heads of 8 frames, rows of 32 and of 12 keys (more than one chunk of 8
+# keys a row), R % heads != 0 (rows of 9 and of 8 keys), one head (every row sees all 512), one key a
+# row, and more windows than the persistent grid has blocks (2 a SM)
+B5_EDGES = [(3, 128, 16), (5, 256, 8), (2, 48, 4), (3, 130, 16), (2, 512, 1), (3, 64, 64), (300, 128, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bn,R,heads", [(3, 128, 16), (5, 256, 8), (2, 48, 4)])
+@pytest.mark.parametrize("Bn,R,heads", B5_EDGES)
 def test_packed_temporal_matches_plain(cuda, Bn, R, heads):
     rng = np.random.default_rng(R + heads)
     q, v = (_bf16(rng, (Bn, R, 64), cuda) for _ in range(2))
@@ -271,18 +277,49 @@ def test_packed_temporal_matches_plain(cuda, Bn, R, heads):
     out = A.packed_temporal_attention(q, kt, v, 0.125, heads)
     mag = A.packed_temporal_attention_plain(q, kt, v.abs(), 0.125, heads)
     _assert_close(out, A.packed_temporal_attention_plain(q, kt, v, 0.125, heads), mag)
-    assert not hold(out, planted_tower_faults()["b5_mask_dropped"][2](q, kt, v, 0.125, heads), mag)["ok"]
+    if heads > 1:  # with one head every row sees every row: there is no mask to drop
+        assert not hold(out, planted_tower_faults()["b5_mask_dropped"][2](q, kt, v, 0.125, heads), mag)["ok"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tower,B,S", [("dinov2", 2, 37), ("siglip", 2, 196), ("vivit", 1, 700), ("dinov2", 1, 512)])
-def test_fused_vit_block_matches_plain(cuda, tower, B, S):
+def test_packed_temporal_is_deterministic_and_refuses_a_misaligned_pointer(cuda):
+    """A fixed schedule and no atomics: two calls give the same bits. The bulk
+    copies need 16-byte aligned windows: a view 2 bytes into its storage is
+    refused, for each of q, kt and v."""
+    rng = np.random.default_rng(6)
+    q, v = (_bf16(rng, (300, 128, 64), cuda) for _ in range(2))
+    kt = _bf16(rng, (300, 64, 128), cuda)
+    assert torch.equal(A.packed_temporal_attention(q, kt, v, 0.125, 16), A.packed_temporal_attention(q, kt, v, 0.125, 16))
+    flat = torch.zeros(4 * 128 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    bad, bad_kt = flat[1:].view(4, 128, 64), flat[1:].view(4, 64, 128)
+    good, good_kt = q[:4].contiguous(), kt[:4].contiguous()
+    for args in ((bad, good_kt, good), (good, bad_kt, good), (good, good_kt, bad)):
+        with pytest.raises(ValueError, match="aligned"):
+            A.packed_temporal_attention(*args, 0.125, 16)
+
+
+# B6's edges, at D = 768 (SigLIP, ViViT: 12 heads) and 1024 (DINOv2: 16 heads), with B * S mostly not a
+# multiple of the GEMM's 128-row tiles: one token; the whole-head stage's 64-row tiles (63/64/65) and
+# its one-pass bound of 272 keys (272/273: two key chunks above it); the towers' 196, 257 and 261; 512,
+# the last length it takes, and 513, where the key-tiled stage takes over; ViViT's 3137
+B6_EDGES = [("siglip", 3, 1), ("dinov2", 2, 16), ("dinov2", 2, 37), ("siglip", 2, 63), ("dinov2", 2, 64),
+            ("siglip", 2, 65), ("siglip", 2, 196), ("dinov2", 2, 257), ("dinov2", 3, 261), ("siglip", 1, 272),
+            ("dinov2", 1, 273), ("dinov2", 1, 512), ("siglip", 1, 513), ("vivit", 1, 700), ("vivit", 1, 3137)]
+
+
+def _fused_case(dev, tower, B, S):
     from merv_tpu_torch.models.backbones.video.vit import DINOV2_LARGE_REG4, SIGLIP_BASE_224, VIVIT_BASE_16x2
 
     cfg = dict(dinov2=DINOV2_LARGE_REG4, siglip=SIGLIP_BASE_224, vivit=VIVIT_BASE_16x2)[tower]
-    layer = fused_layer(cuda, cfg, S)
-    x = _bf16(np.random.default_rng(S), (B, S, cfg.hidden_size), cuda)
-    args = fused_args(layer, x)
+    layer = fused_layer(dev, cfg, S)
+    x = _bf16(np.random.default_rng(S), (B, S, cfg.hidden_size), dev)
+    return cfg, fused_args(layer, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tower,B,S", B6_EDGES)
+def test_fused_vit_block_matches_plain(cuda, tower, B, S):
+    cfg, args = _fused_case(cuda, tower, B, S)
     A.reset_launch_counts()
     out = TF.fused_vit_attn_block(*args)
     assert A.launch_counts()["fused_vit_attn_block"] == 1
@@ -291,12 +328,33 @@ def test_fused_vit_block_matches_plain(cuda, tower, B, S):
     held = hold_fused(args, out, stages)
     assert held["ok"], f"a stage outside its limit: {held['stages']}"
     faults = planted_tower_faults()
-    for fault in ("b6_q_bias_dropped", "b6_scores_unscaled") + (("b6_gamma_ignored",) if cfg.use_layerscale else ()):
+    # with one key a softmax is 1 at any scale: unscaled scores change nothing
+    for fault in (("b6_q_bias_dropped",) + (("b6_scores_unscaled",) if S > 1 else ())
+                  + (("b6_gamma_ignored",) if cfg.use_layerscale else ())):
         with patched(faults[fault]):
             assert not hold_fused(args, out, stages)["ok"], fault
     if S <= 512:  # the key-tiled attention stage at a length the whole-head stage also takes
         held = hold_fused(args, *TF.fused_vit_attn_block_stages(*args, key_tiled=True))
         assert held["ok"], f"key-tiled: a stage outside its limit: {held['stages']}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_tiled", [False, True])
+def test_fused_vit_block_is_deterministic_and_refuses_a_misaligned_pointer(cuda, key_tiled):
+    """Two calls on the same inputs give the same bits (each attention stage),
+    and the TMA loads' bases must be 16-byte aligned: an x or a weight 2 bytes
+    into its storage is refused."""
+    _, args = _fused_case(cuda, "dinov2", 3, 261)
+    one, stages = TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled)
+    two, again = TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled)
+    assert torch.equal(one, two) and all(torch.equal(stages[k], again[k]) for k in stages)
+    x, w = args[0], args[3]
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        TF.fused_vit_attn_block(flat[1:].view(x.shape), *args[1:])
+    flat = torch.zeros(w.numel() + 1, dtype=w.dtype, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        TF.fused_vit_attn_block(*args[:3], flat[1:].view(w.shape), *args[4:])
 
 
 @pytest.mark.cuda
@@ -311,3 +369,8 @@ def test_tower_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     vec = torch.zeros(128, device=cuda)
     with pytest.raises(ValueError):
         TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 2, 1e-6)  # fp32 weights
+    x = torch.zeros((1, 8, 4096), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((4096, 4096), dtype=torch.bfloat16, device=cuda)
+    vec = torch.zeros(4096, device=cuda)
+    with pytest.raises(ValueError):
+        TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 64, 1e-6)  # D > 2048

@@ -163,6 +163,17 @@ def test_packed_temporal_matches_pallas(dtype):
     _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,heads", [(130, 16), (48, 1)])
+def test_packed_temporal_uneven_heads_match_pallas(R, heads, dtype):
+    """Rows of 9 and of 8 keys (R % heads != 0), and one head (every row sees
+    every row): the shapes where the card's kernel takes other key counts."""
+    q, kt, v = _packed(40 + R, Bn=2, R=R)
+    ref = A.packed_temporal_attention(_jx(q, dtype), _jx(kt, dtype), _jx(v, dtype), 32 ** -0.5, heads)
+    out = TA.packed_temporal_attention(_th(q, dtype), _th(kt, dtype), _th(v, dtype), 32 ** -0.5, heads)
+    _close(out, ref, dtype)
+
+
 def test_packed_temporal_masks_other_heads():
     """Row r sees only rows r' with r % heads == r' % heads: changing another
     head's keys and values leaves row 0 as it is."""
@@ -220,6 +231,19 @@ def test_fused_block_matches_pallas(S, dtype):
     _close(out, ref, dtype)
     _close(TF.fused_block_reference(_th(x, dtype), *_port_args(p, dtype), 4, 1e-6),
            FVB._fused_block_reference(_jx(x, dtype), *jargs, 4, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_block_key_tiled_length_matches_pallas(dtype):
+    """S = 513, the first length the card's key-tiled attention stage takes
+    (B 1, D 128, H 2; the TPU kernel pads it to 528)."""
+    x = _rand(38, 1, 513, 128)
+    p = _fused_params(128, 39)
+    jargs = [_jx(a) if a.ndim == 1 else _jx(a, dtype) for a in p]
+    ref = FVB.fused_vit_attn_block(_jx(x, dtype), *jargs, 2, 1e-6)
+    out = TF.fused_vit_attn_block(_th(x, dtype), *_port_args(p, dtype), 2, 1e-6)
+    assert out.dtype == _th(x, dtype).dtype and out.shape == x.shape
+    _close(out, ref, dtype)
 
 
 def test_fused_block_grad_matches_jax():
