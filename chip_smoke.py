@@ -34,9 +34,11 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    B5 also the backend SDPA picks and each backend's time) or the default
    route's composed attention half-layer (B6) as the yardstick, and planted
    faults that the same check must catch. B6 is held end to end and stage by
-   stage (``hold_fused``), and timed with its whole-head and its key-tiled
-   attention stage, interleaved, where both take the shape, and its
-   launches' device time by kernel (``kernel_device_ms``).
+   stage (``hold_fused``), and held and timed by graph replay with its
+   whole-head and its key-tiled attention stage each forced, interleaved,
+   where both take the shape;
+   under ``--tower-only`` also its launches' device time by kernel
+   (``kernel_device_ms``).
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -845,14 +847,14 @@ B5_CASE = (514, 128, 64, 16)
 B6_CASES = (("dinov2", 16, 261), ("languagebind", 16, 257), ("siglip", 16, 196), ("vivit", 1, 3137))
 
 
-def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
+def tower_kernel_cases(dev, seed: int, b3_only: bool = False, by_launch: bool = False):
     """B3, B5 and B6 (only B3 if ``b3_only``) against their plain versions at
     merv-base's shapes, with the kernel, plain, library (SDPA for B3 and B5)
     and composed-yardstick times (B6: the default route's attention
     half-layer, norm1 -> _mha -> LayerScale -> residual) beside the bounds,
     and graph-replay times of B3, B5 and their SDPA, and of B6 and its
     composed half-layer; each planted fault of ``planted_tower_faults`` must
-    fail the same hold."""
+    fail the same hold. ``by_launch``: B6's device time by launch too."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -951,27 +953,29 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False):
                 raise RuntimeError(f"planted fault {fault} was not caught on fused_vit_attn_block/{name}")
             extra[f"fault_{fault}"] = h["stages"]
         del stages
-        if S <= 512:  # the key-tiled attention stage (which S > 512 takes) against the whole-head one
-            out_t, stages_t = TF.fused_vit_attn_block_stages(*args, key_tiled=True)
-            held_t = hold_fused(args, out_t, stages_t)
-            log(f"[kernel] fused_vit_attn_block     {name:22s} key-tiled stage forced, by stage, worst/limit: "
-                f"{stage_text(held_t)}")
-            if not held_t["ok"]:
-                raise RuntimeError(f"fused_vit_attn_block/{name} key-tiled: a stage is outside its limit")
-            del out_t, stages_t
+        if S <= 512:  # both attention stages take the shape: each forced, held and timed
+            for stage, key_tiled in (("whole_head", False), ("key_tiled", True)):
+                out_t, stages_t = TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled)
+                held_t = hold_fused(args, out_t, stages_t)
+                log(f"[kernel] fused_vit_attn_block     {name:22s} {stage} stage forced, by stage, worst/limit: "
+                    f"{stage_text(held_t)}")
+                if not held_t["ok"]:
+                    raise RuntimeError(f"fused_vit_attn_block/{name} {stage}: a stage is outside its limit")
+                extra[f"{stage}_stages"] = held_t["stages"]
+                del out_t, stages_t
             ms = {"whole_head": [], "key_tiled": []}
-            for _ in range(2):  # interleaved: whole, tiled, whole, tiled
-                ms["whole_head"].append(time_ms(lambda: TF.fused_vit_attn_block_stages(*args), 20))
-                ms["key_tiled"].append(time_ms(lambda: TF.fused_vit_attn_block_stages(*args, key_tiled=True), 20))
-            log(f"[kernel] fused_vit_attn_block     {name:22s} ms, whole-head stage {ms['whole_head']}, "
+            for _ in range(3):  # graph replay, interleaved: whole, tiled, whole, tiled, ...
+                for stage, key_tiled in (("whole_head", False), ("key_tiled", True)):
+                    ms[stage].append(graph_ms(lambda: TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled)))
+            log(f"[kernel] fused_vit_attn_block     {name:22s} graph ms, whole-head stage {ms['whole_head']}, "
                 f"key-tiled stage {ms['key_tiled']}")
             extra["attention_stage_ms"] = ms
-            extra["key_tiled_stages"] = held_t["stages"]
 
-        extra["kernel_device_ms"] = kernel_device_ms(lambda: TF.fused_vit_attn_block(*args))
-        log(f"[kernel] fused_vit_attn_block     {name:22s} device ms by kernel: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in extra["kernel_device_ms"].items())
-            + f" (sum {sum(extra['kernel_device_ms'].values()):.4f})")
+        if by_launch:
+            extra["kernel_device_ms"] = kernel_device_ms(lambda: TF.fused_vit_attn_block(*args))
+            log(f"[kernel] fused_vit_attn_block     {name:22s} device ms by kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in extra["kernel_device_ms"].items())
+                + f" (sum {sum(extra['kernel_device_ms'].values()):.4f})")
 
         def composed(layer=layer, x=x):  # the default route's attention half-layer
             with torch.no_grad():
@@ -1896,7 +1900,7 @@ def main() -> int:
         log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
     if args.tower_only:
-        cases = tower_kernel_cases(dev, args.seed)
+        cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
                 "yardstick_graph_ms", "bound_ms", "worst_share_of_limit", "attention_stage_ms", "kernel_device_ms")
         log(json.dumps({"tower_cases": [{k: c.get(k) for k in keys} for c in cases]}))

@@ -37,16 +37,20 @@
 //  (c) attention per (image, head) in the TPU kernel's order: m and l first,
 //      then (p / l) rounded to bf16, then PV, o_h rounded to bf16; written as
 //      [B*S, D] at column 64 h, the layout the o-projection reads. For
-//      S <= 512 B3's whole-head kernel in its kFused mode
+//      256 < S <= 512 B3's whole-head kernel in its kFused mode
 //      (small_attn_hopper.cuh: persistent grid, K and V of a head by TMA, a
 //      whole row of scores in registers up to S = 272). Otherwise
-//      (ViViT's 3137 tokens) attn_tiled_kernel: 128 query rows per block on
+//      attn_tiled_kernel: 128 query rows per block on
 //      two consumer warpgroups, 128-key K and V tiles by TMA through a ring
 //      of 3 stages, two passes because l is needed before PV: pass 1 takes
 //      QK^T and each row's max and sum (the sum rescaled as the max grows),
 //      pass 2 takes QK^T again and p / l = 2^(s c - (m c + log2 l)) on one
 //      FFMA and one ex2.approx.ftz, then PV. The two warpgroups take turns
-//      on QK^T, so one's exponentials run beside the other's products;
+//      on QK^T, so one's exponentials run beside the other's products.
+//      By graph replay on an H100, B6 takes 12 % less time with the
+//      whole-head stage at 257 and 261 tokens (a third 128-key tile, mostly
+//      empty, costs the key-tiled stage two passes), and 7 % more at 196,
+//      two full tiles (PERF.md §6): hence the split at 256;
 //  (d) gemm_kernel<OPROJ>: o W_o^T in fp32, + bo, then x + gamma * y in fp32
 //      and one rounding to bf16.
 // Every product is wgmma; nothing here is a library call.
@@ -55,12 +59,10 @@
 #include "small_attn_hopper.cuh"
 
 namespace fused_block {
-
-using small_attn::ex2_ftz;
+namespace {
 
 constexpr int kD = 64;  // head dim
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kSmemLimit = 232448;
 
 // ---------------------------------------------------------------------------
 // (a) LN1
@@ -289,12 +291,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// (c), S > 512: the key-tiled stage
+// (c), S <= 256 and S > 512: the key-tiled stage
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 128;  // query rows per block, 64 per consumer warpgroup
 constexpr int kKeys = 128;  // keys per tile
 constexpr int kKvStages = 3;
+constexpr int kWholeHeadMinS = 2 * kKeys;  // the whole-head stage takes kWholeHeadMinS < S <= small_attn::kMaxT
 
 struct TiledSmem {
   bf16 q[kRows * 64];
@@ -476,33 +479,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host
 // ---------------------------------------------------------------------------
 
-// once per device: the kernels' dynamic shared memory limits (set outside any
-// graph capture's first launch) and the SM count
-static cudaError_t device_setup(int* sms) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    e = cudaFuncSetAttribute(gemm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gemm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      cached[dev] = 0;
-      return e;
-    }
-  }
-  *sms = cached[dev];
-  return cudaSuccess;
-}
-
 // a: [M, K]; w[i]: [n_per, K], all bf16 row-major
 template <bool kQKV>
-static cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, const GemmArgs& p, int sms,
+cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, const GemmArgs& p, int sms,
                         cudaStream_t st) {
   CUtensorMap amap, wmap[3];
   cudaError_t e = make_tile_map(&amap, a, 1, p.M, p.K, kTileM);
@@ -515,22 +494,27 @@ static cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, cons
   return cudaGetLastError();
 }
 
+}  // namespace
 }  // namespace fused_block
 
 // x, out: [B, S, D] bf16; vecs: fp32 [7, D] (ns, nb, bq, bk, bv, bo, gamma);
 // wq, wk, wv, wo: bf16 [D, D] (out, in). Scratch from the caller: stats fp32
 // [2, B*S], qkv bf16 [3, B, H, S, 64], attn bf16 [B*S, D] (LN1's output, then
-// the attention output). All 16-byte aligned. key_tiled != 0 takes the
-// key-tiled attention stage at any S. One call.
+// the attention output). All 16-byte aligned. key_tiled < 0 picks the
+// attention stage by S; 1 takes the key-tiled stage at any S, 0 the
+// whole-head stage (S <= 512). One call.
 MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const void* wq, const void* wk,
                                           const void* wv, const void* wo, void* stats, void* qkv, void* attn,
                                           void* out, int B, int S, int D, int H, int key_tiled, float eps,
                                           float scale, void* stream) {
   using namespace fused_block;
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * kD || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * kD || D > kMaxD || key_tiled > 1 ||
+      (key_tiled == 0 && S > small_attn::kMaxT))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int done[64] = {0};  // a local of a function that is not inline: one per library
   int sms = 0;
-  cudaError_t e = device_setup(&sms);
+  cudaError_t e = device_setup(done, &sms, gemm_kernel<true>, gemm_kernel<false>, attn_tiled_kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int M = B * S;
   const float* v = static_cast<const float*>(vecs);
@@ -554,7 +538,8 @@ MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const
   const bf16* wqkv[3] = {static_cast<const bf16*>(wq), static_cast<const bf16*>(wk), static_cast<const bf16*>(wv)};
   if ((e = gemm<true>(attn_b, wqkv, 3, a, sms, st)) != cudaSuccess) return static_cast<int>(e);
 
-  if (S <= small_attn::kMaxT && !key_tiled) {
+  const bool whole_head = key_tiled < 0 ? S > kWholeHeadMinS && S <= small_attn::kMaxT : key_tiled == 0;
+  if (whole_head) {
     const int rc = small_attn::launch<false, true>(qkv_b, qkv_b + plane, nullptr, qkv_b + 2 * plane, attn_b, B, H, H,
                                                    S, scale, st);
     if (rc != 0) return rc;

@@ -3,7 +3,8 @@
 // tensor maps, bulk-tensor and 1-D bulk loads completing on mbarriers, a ring
 // position for full/empty barrier pairs, named barriers, the async-proxy
 // fence, wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
-// instructions the kernels use, and setmaxnreg.
+// instructions the kernels use, setmaxnreg, ex2.approx.ftz, and the kernels'
+// once-per-device host setup.
 //
 // Tiles. Every operand tile in shared memory is a stack of "slabs": 64 bf16
 // columns (128 bytes) of `rows` rows, written by one TMA box {64, rows, 1}
@@ -75,10 +76,52 @@ static cudaError_t make_tile_map(CUtensorMap* map, const void* base, int BH, int
 }
 
 // ---------------------------------------------------------------------------
+// Host: once-per-device setup
+// ---------------------------------------------------------------------------
+
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
+
+// Raises each kernel's dynamic shared memory limit to kSmemLimit once per
+// device (outside any graph capture's first launch) and gives the device's SM
+// count. `done` is the caller's record of the devices set up (their SM
+// counts, 0 until then). It must have internal linkage: a function-local
+// static of a template or an inline function is one symbol for every library
+// of the process, so a second copy of a library would take the first one's
+// record for its own and launch with its kernels' limit unset.
+template <typename... Kernels>
+static cudaError_t device_setup(int (&done)[64], int* sms, Kernels*... kernels) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev] == 0) {
+    ((e = e == cudaSuccess ? cudaFuncSetAttribute(kernels, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit)
+                           : e),
+     ...);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&done[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      done[dev] = 0;
+      return e;
+    }
+  }
+  *sms = done[dev];
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
 // Device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the MUFU with denormal results flushed to 0. exp2f's denormal-safe
+// form took ~3x K1's whole time; a p below 2^-126 changes neither l nor any
+// product at bf16 precision.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }

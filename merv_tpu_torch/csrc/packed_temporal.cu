@@ -47,7 +47,6 @@ constexpr int kD = 64;
 constexpr int kMaxR = 512;
 constexpr int kThreads = 256;   // 128 row pairs
 constexpr int kChunkKeys = 4;   // keys a thread scores at once (8 a row)
-constexpr int kSmemLimit = 232448;
 
 constexpr int kBoxRows = 64;  // q and v rows a TMA box (8 KB)
 
@@ -75,13 +74,6 @@ __device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128u + ((c ^ 
 __device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 __device__ __forceinline__ float bf16_f(unsigned short b) { return __uint_as_float(static_cast<uint32_t>(b) << 16); }
-
-// 2^x on the MUFU, denormal results flushed to 0 (as small_attn_hopper.cuh's)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The unscaled scores of keys j = j0 + 2 i (i < kChunkKeys) of a row of head
 // h with n keys: -inf for j >= n.
@@ -245,20 +237,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 MERV_EXPORT int packed_temporal_bf16(const void* q, const void* kt, const void* v, void* o, int Bn, int R, int D,
                                      int heads, float scale, void* stream) {
   if (D != kD || R <= 0 || R > kMaxR || Bn <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int done[64] = {0};  // a local of a function that is not inline: one per library
+  int sms = 0;
+  cudaError_t e = device_setup(done, &sms, packed_temporal_kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // once per device: the dynamic shared memory limit and the SM count
-  static int sms[64] = {0};
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (sms[dev] == 0) {
-    e = cudaFuncSetAttribute(packed_temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      sms[dev] = 0;
-      return static_cast<int>(e);
-    }
-  }
   const Layout L = layout(R);
   CUtensorMap qmap, vmap;
   e = make_tile_map(&qmap, q, Bn, R, kD, kBoxRows);
@@ -267,7 +249,7 @@ MERV_EXPORT int packed_temporal_bf16(const void* q, const void* kt, const void* 
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, packed_temporal_kernel, kThreads, L.total);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = std::min(Bn, std::max(per_sm, 1) * sms[dev]);
+  const int grid = std::min(Bn, std::max(per_sm, 1) * sms);
   packed_temporal_kernel<<<grid, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
       qmap, vmap, static_cast<const bf16*>(kt), static_cast<bf16*>(o), Bn, R, heads, L, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());

@@ -64,6 +64,7 @@
 #include "hopper.cuh"
 
 namespace small_attn {
+namespace {  // internal linkage: each library that includes this keeps its own launch's setup record
 
 constexpr int kD = 64;             // head dim
 constexpr int kMaxT = 512;
@@ -74,7 +75,6 @@ constexpr int kChunk = kBlocks * 64;
 constexpr int kOnePass = kChunk + 16;  // T up to which a whole row (with the 16-key tail) is held
 constexpr uint32_t kSlabBytes = 64 * 128;  // 64 rows of 64 bf16
 constexpr uint32_t kTailBytes = 16 * 128;  // K1: keys 256-271 K-major
-constexpr int kSmemLimit = 232448;         // what a block may use on sm_90
 constexpr int kProducerRegs = 24;          // 128 * 24 + 256 * 240 = the 168 * 384 the launch gives
 constexpr int kConsumerRegs = 240;
 
@@ -191,15 +191,6 @@ __device__ __forceinline__ void qk(float (&sc)[kBlocks][32], float (&st)[8], con
 #pragma unroll
   for (int b = 0; b < NB; ++b) pin(sc[b]);
   if (TAIL) pin(st);
-}
-
-// 2^x on the MUFU with denormal results flushed to 0. exp2f's denormal-safe
-// form took ~3x the whole kernel's time here; a p below 2^-126 changes
-// neither l nor any product at bf16 precision.
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Keys >= T of N fragment values of a block (keys from key0) -> -inf. The
@@ -614,32 +605,21 @@ template <bool kKt, bool kFused = false>
 int launch(const void* q, const void* k, const void* kt, const void* v, void* o, int B, int H, int Hk, int T,
            float scale, cudaStream_t stream) {
   if (T <= 0 || T > kMaxT || B <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int done[64] = {0};  // this instantiation's record (the anonymous namespace keeps it per library)
+  int sms = 0;
+  cudaError_t e = device_setup(done, &sms, small_attn_kernel<kKt, kFused>);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // once per device: the dynamic shared memory limit (set outside any graph
-  // capture's first launch) and the SM count
-  static int sms[64] = {0};
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (sms[dev] == 0) {
-    e = cudaFuncSetAttribute(small_attn_kernel<kKt, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemLimit);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      sms[dev] = 0;
-      return static_cast<int>(e);
-    }
-  }
   CUtensorMap qmap, kmap, vmap;
   e = make_tile_map(&qmap, q, B * H, T, kD, kRows);
   if (e == cudaSuccess) e = make_tile_map(&vmap, v, B * Hk, T, kD, 64);
   if (e == cudaSuccess) e = kKt ? make_tile_map(&kmap, q, B * H, T, kD, kRows) : make_tile_map(&kmap, k, B * Hk, T, kD, 64);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Layout L = layout(T, kKt);
-  const int grid = std::min(B * H, sms[dev]);
+  const int grid = std::min(B * H, sms);
   small_attn_kernel<kKt, kFused><<<grid, kThreads, L.total, stream>>>(
       qmap, kmap, vmap, static_cast<const bf16*>(kt), static_cast<bf16*>(o), B * H, H, Hk, T, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace small_attn

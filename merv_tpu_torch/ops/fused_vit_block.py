@@ -150,15 +150,18 @@ def fused_vit_attn_block(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv, wo, b
 
 
 def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv, wo, bo, gamma, heads: int,
-                                eps: float, key_tiled: bool = False):
+                                eps: float, key_tiled: bool | None = None):
     """One launch of ``csrc/fused_vit_block.cu`` on CUDA tensors: the output
     and the kernel's intermediates, ``{"mu", "rstd"}`` (LN1's statistics,
     [B, S, 1] fp32), ``{"q", "k", "v"}`` ([B, H, S, 64]) and ``"o"`` (the
     attention output, [B, S, D]), so that each stage can be held on its own.
 
-    x and the four weights bf16 and contiguous, D == 64 * heads <= 2048, any S: S <=
-    512 stages whole heads, longer sequences (or ``key_tiled``) go through
-    the key-tiled stage. The wrapper casts nothing in [D, D]: the weights
+    x and the four weights bf16 and contiguous, D == 64 * heads <= 2048, any S.
+    The attention stage goes by S: 256 < S <= 512 stages whole heads, other
+    lengths go through the key-tiled stage (on an H100 each is the faster on
+    its side of 256). ``key_tiled=True`` forces the key-tiled stage at any S,
+    ``False`` the whole-head stage (S <= 512), so that both can be held and
+    timed at one shape. The wrapper casts nothing in [D, D]: the weights
     must already be bf16 (the towers store them so). The seven [D] vectors
     are cast to fp32 and stacked once per call, into the one [7, D] block the
     kernel reads. Scratch (LN statistics, q/k/v, and one [B * S, D] buffer
@@ -173,6 +176,8 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
     if D != 64 * heads or D > 2048:
         raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dim 64 and D <= 2048, got D={D} "
                          f"heads={heads}")
+    if key_tiled is False and S > 512:
+        raise ValueError(f"fused_vit_attn_block: the whole-head stage takes S <= 512, got S={S}")
     if any(t.device != x.device for t in vecs):
         raise ValueError("fused_vit_attn_block: vectors on another device")
     vec = torch.stack(vecs).to(torch.float32)  # one stack, one cast
@@ -186,7 +191,7 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_vit_attn_block_bf16(
             x.data_ptr(), vec.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-            stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, D, heads, int(key_tiled),
+            stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, D, heads, -1 if key_tiled is None else int(key_tiled),
             float(eps), 64 ** -0.5, stream,
         )
     _build.check(lib, rc, "fused_vit_attn_block")

@@ -13,12 +13,16 @@ magnitudes of ``chip_smoke.fused_block_mags`` and stage by stage by
 ``chip_smoke.hold_fused``.
 """
 
+import ctypes
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 import merv_tpu_torch.ops.attention as A
 import merv_tpu_torch.ops.fused_vit_block as TF
+from merv_tpu_torch.ops import _build
 from chip_smoke import (
     LSE_PLANTED_OFFSET,
     backward_mags,
@@ -300,11 +304,12 @@ def test_packed_temporal_is_deterministic_and_refuses_a_misaligned_pointer(cuda)
 
 # B6's edges, at D = 768 (SigLIP, ViViT: 12 heads) and 1024 (DINOv2: 16 heads), with B * S mostly not a
 # multiple of the GEMM's 128-row tiles: one token; the whole-head stage's 64-row tiles (63/64/65) and
-# its one-pass bound of 272 keys (272/273: two key chunks above it); the towers' 196, 257 and 261; 512,
-# the last length it takes, and 513, where the key-tiled stage takes over; ViViT's 3137
+# its one-pass bound of 272 keys (272/273: two key chunks above it); the towers' 196, 257 and 261; 256/257,
+# where S starts to pick the whole-head stage; 512, the last length it takes, and 513; ViViT's 3137
 B6_EDGES = [("siglip", 3, 1), ("dinov2", 2, 16), ("dinov2", 2, 37), ("siglip", 2, 63), ("dinov2", 2, 64),
-            ("siglip", 2, 65), ("siglip", 2, 196), ("dinov2", 2, 257), ("dinov2", 3, 261), ("siglip", 1, 272),
-            ("dinov2", 1, 273), ("dinov2", 1, 512), ("siglip", 1, 513), ("vivit", 1, 700), ("vivit", 1, 3137)]
+            ("siglip", 2, 65), ("siglip", 2, 196), ("siglip", 2, 256), ("dinov2", 2, 257), ("dinov2", 3, 261),
+            ("siglip", 1, 272), ("dinov2", 1, 273), ("dinov2", 1, 512), ("siglip", 1, 513), ("vivit", 1, 700),
+            ("vivit", 1, 3137)]
 
 
 def _fused_case(dev, tower, B, S):
@@ -333,9 +338,10 @@ def test_fused_vit_block_matches_plain(cuda, tower, B, S):
                   + (("b6_gamma_ignored",) if cfg.use_layerscale else ())):
         with patched(faults[fault]):
             assert not hold_fused(args, out, stages)["ok"], fault
-    if S <= 512:  # the key-tiled attention stage at a length the whole-head stage also takes
-        held = hold_fused(args, *TF.fused_vit_attn_block_stages(*args, key_tiled=True))
-        assert held["ok"], f"key-tiled: a stage outside its limit: {held['stages']}"
+    if S <= 512:  # both attention stages take the length: each forced, whichever S picks
+        for key_tiled in (False, True):
+            held = hold_fused(args, *TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled))
+            assert held["ok"], f"key_tiled={key_tiled}: a stage outside its limit: {held['stages']}"
 
 
 @pytest.mark.cuda
@@ -374,3 +380,34 @@ def test_tower_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     vec = torch.zeros(4096, device=cuda)
     with pytest.raises(ValueError):
         TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 64, 1e-6)  # D > 2048
+    _, args = _fused_case(cuda, "siglip", 1, 513)
+    with pytest.raises(ValueError):
+        TF.fused_vit_attn_block_stages(*args, key_tiled=False)  # the whole-head stage past 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["small_attention_kt", "small_attention", "packed_temporal", "fused_vit_block"])
+def test_a_second_copy_of_a_library_sets_itself_up(cuda, name, tmp_path, monkeypatch):
+    """Two copies of one library in a process (as when two trees are compared
+    in one run) each raise their own kernels' shared-memory limit: the
+    per-device setup record has internal linkage, so the copy loaded second
+    does not read the first one's record as its own and skip its setup."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16(rng, (2, 4, 261, 64), cuda) for _ in range(3))
+    kt = k.transpose(-1, -2).contiguous()
+    qp, vp = (_bf16(rng, (8, 128, 64), cuda) for _ in range(2))
+    ktp = _bf16(rng, (8, 64, 128), cuda)
+    call = dict(
+        small_attention_kt=lambda: A.small_attention_kt(q, kt, v, 0.125),
+        small_attention=lambda: A.small_attention(q, k, v, 0.125),
+        packed_temporal=lambda: A.packed_temporal_attention(qp, ktp, vp, 0.125, 16),
+        fused_vit_block=lambda args=_fused_case(cuda, "dinov2", 2, 261)[1]: TF.fused_vit_attn_block(*args),
+    )[name]
+    first = call()  # through the package's own library, which sets itself up
+    copy = tmp_path / f"lib{name}.so"
+    shutil.copyfile(_build.load(name)._name, copy)
+    lib = ctypes.CDLL(str(copy))
+    lib.merv_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.merv_cuda_error_string.restype = ctypes.c_char_p
+    monkeypatch.setitem(_build._LIBS, name, lib)
+    assert torch.equal(call(), first)
