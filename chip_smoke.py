@@ -61,6 +61,19 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    ``MERV_TPU_TEMPORAL_KERNEL=1`` (B3, B5, K2), and with
    ``MERV_TPU_FUSED_VIT_BLOCK=1`` (B6, K2), launches as predicted in
    ``SWITCHED_REQUESTS``, each held against its plain rerun as request 0 is.
+4c. a loaded run directory, once phase 4's model is freed: writes
+   ``runs/chip_smoke_quickstart/`` (config.json with merv-full's model dict,
+   fp32 projectors and fusion from a seeded generator through the port's
+   ``save_checkpoint``), loads it with ``load_vid(..., allow_random_weights=True)``
+   (towers and LLM random from the port's seeded generator: the repository
+   holds no weights), checks projectors and fusion bit-identical and fp32, towers
+   and LLM bf16 on the card, then serves one ``generate`` on
+   ``assets/video_demo.mp4`` with the launch counters zeroed just before and
+   read just after (``LOADED_REQUEST_LAUNCHES``), and holds it against its
+   plain rerun as request 0 is. It prints which decoder opens the file
+   (``{"video_decode": ..., "frames_from": ...}``); where none does, the
+   request takes seeded synthetic frames of the decoded shape. The run
+   directory is deleted at the end.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -79,7 +92,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    kernel group and the device's idle share.
 6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
    from the training path for K1-K3 and from the switched request of 4b for
-   B3, B5 and B6, ``launches_serving`` from the default serving path), and
+   B3, B5 and B6, ``launches_serving`` from the default serving path,
+   ``launches_loaded`` from 4c's request), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -1090,12 +1104,82 @@ def planted_faults():
     }
 
 
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def show(held) -> str:
+    return "; ".join(f"{name} {h['calls']} calls, worst/limit {h['worst_share_of_limit']:.3f}, "
+                     f"mean err/mean limit {h['worst_mean_share']:.4f}" for name, h in held.items())
+
+
+def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_tokens: int):
+    """(run, run_held, compare) for one request's prepared inputs: ``run(impl)``
+    gives the spliced embeddings and the prefill's last-position logits through
+    the kernels (``"auto"``) or the plain versions; ``run_held()`` holds every
+    kernel call of ``run("auto")`` against its plain version; ``compare()``
+    gives both runs' relative L2 difference and their greedy-token agreement."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch.models.generation import prefill
+
+    def run(impl):
+        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm, attn_impl=impl)
+        if embeds.shape[1] != ids.shape[1] + visual_len:
+            raise RuntimeError(f"spliced stream has {embeds.shape[1]} positions")
+        logits, _, _ = prefill(vidlm.llm_backbone.decoder, embeds, emask.long(),
+                               embeds.shape[1] + max_new_tokens, attn_impl=impl)
+        if not (torch.isfinite(embeds).all() and torch.isfinite(logits).all()):
+            raise RuntimeError(f"non-finite embeddings or prefill logits (impl={impl})")
+        return embeds.float(), logits.float()
+
+    def run_held():
+        """run("auto") with every kernel call held, by ``hold``, against the
+        plain version (as the module holds it now) on the call's own inputs."""
+        calls = {name: [] for name in SERVING_KERNELS}
+        small, flash = A.small_attention_kt, A.flash_attention_forward
+
+        def small_held(q, kt, v, scale):
+            out = small(q, kt, v, scale)
+            calls["small_attention_kt"].append(hold(out, A.small_attention_kt_plain(q, kt, v, scale),
+                                                    A.small_attention_kt_plain(q, kt, v.abs(), scale)))
+            return out
+
+        def flash_held(q, k, v, **kw):
+            out = flash(q, k, v, **kw)
+            calls["flash_attention_forward"].append(hold(out, A.flash_attention_forward_plain(q, k, v, **kw),
+                                                         A.flash_attention_forward_plain(q, k, v.abs(), **kw)))
+            return out
+
+        with patched((A, "small_attention_kt", small_held), (A, "flash_attention_forward", flash_held)):
+            run("auto")
+        return {name: dict(calls=len(c), ok=all(x["ok"] for x in c),
+                           worst_share_of_limit=max((x["worst_share_of_limit"] for x in c), default=0.0),
+                           worst_mean_share=max((x["mean_abs_err"] / x["mean_limit"] for x in c), default=0.0))
+                for name, c in calls.items()}
+
+    def compare():
+        """The request through the kernels and through the plain versions: the
+        spliced embeddings and the prefill's last-position logits (relative
+        L2) and the greedy tokens; and the plain run's embeddings and logits."""
+        ref_embeds, ref_logits = run("plain")
+        embeds, logits = run("auto")
+        tok_auto = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
+        tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+                                       attn_impl="plain")
+        return dict(embeds_rel_diff=rel_l2(embeds, ref_embeds), logits_rel_diff=rel_l2(logits, ref_logits),
+                    greedy_agreement=(tok_auto == tok_plain).float().mean().item(),
+                    first_token_equal=bool((tok_auto[:, 0] == tok_plain[:, 0]).all())), ref_embeds, ref_logits
+
+    return run, run_held, compare
+
+
 def main_path(dev, seed: int, max_new_tokens: int):
     import numpy as np
     import torch
 
     import merv_tpu_torch.ops.attention as A
-    from merv_tpu_torch.models.generation import prefill
 
     t0 = time.perf_counter()
     cfg, vidlm = build_merv_base(dev, seed)
@@ -1161,62 +1245,8 @@ def main_path(dev, seed: int, max_new_tokens: int):
 
     # whole-path comparison with the plain versions (request 0)
     ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([videos[0]], [prompts[0]])
-
-    def run(impl):
-        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm, attn_impl=impl)
-        if embeds.shape[1] != ids.shape[1] + cfg.visual_feature_length:
-            raise RuntimeError(f"spliced stream has {embeds.shape[1]} positions")
-        logits, _, _ = prefill(vidlm.llm_backbone.decoder, embeds, emask.long(),
-                               embeds.shape[1] + max_new_tokens, attn_impl=impl)
-        if not (torch.isfinite(embeds).all() and torch.isfinite(logits).all()):
-            raise RuntimeError(f"non-finite embeddings or prefill logits (impl={impl})")
-        return embeds.float(), logits.float()
-
-    def run_held():
-        """run("auto") with every kernel call held, by ``hold``, against the
-        plain version (as the module holds it now) on the call's own inputs."""
-        calls = {name: [] for name in SERVING_KERNELS}
-        small, flash = A.small_attention_kt, A.flash_attention_forward
-
-        def small_held(q, kt, v, scale):
-            out = small(q, kt, v, scale)
-            calls["small_attention_kt"].append(hold(out, A.small_attention_kt_plain(q, kt, v, scale),
-                                                    A.small_attention_kt_plain(q, kt, v.abs(), scale)))
-            return out
-
-        def flash_held(q, k, v, **kw):
-            out = flash(q, k, v, **kw)
-            calls["flash_attention_forward"].append(hold(out, A.flash_attention_forward_plain(q, k, v, **kw),
-                                                         A.flash_attention_forward_plain(q, k, v.abs(), **kw)))
-            return out
-
-        with patched((A, "small_attention_kt", small_held), (A, "flash_attention_forward", flash_held)):
-            run("auto")
-        return {name: dict(calls=len(c), ok=all(x["ok"] for x in c),
-                           worst_share_of_limit=max((x["worst_share_of_limit"] for x in c), default=0.0),
-                           worst_mean_share=max((x["mean_abs_err"] / x["mean_limit"] for x in c), default=0.0))
-                for name, c in calls.items()}
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    def show(held):
-        return "; ".join(f"{name} {h['calls']} calls, worst/limit {h['worst_share_of_limit']:.3f}, "
-                         f"mean err/mean limit {h['worst_mean_share']:.4f}" for name, h in held.items())
-
-    def compare():
-        """Request 0 through the kernels and through the plain versions: the
-        spliced embeddings and the prefill's last-position logits (relative
-        L2) and the greedy tokens; and the plain run's embeddings and logits."""
-        ref_embeds, ref_logits = run("plain")
-        embeds, logits = run("auto")
-        tok_auto = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
-        tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
-                                       attn_impl="plain")
-        return dict(embeds_rel_diff=rel(embeds, ref_embeds), logits_rel_diff=rel(logits, ref_logits),
-                    greedy_agreement=(tok_auto == tok_plain).float().mean().item(),
-                    first_token_equal=bool((tok_auto[:, 0] == tok_plain[:, 0]).all())), ref_embeds, ref_logits
-
+    run, run_held, compare = request_checks(vidlm, ids, mask, vids, is_mm, cfg.visual_feature_length,
+                                            max_new_tokens)
     checks, ref_embeds, ref_logits = compare()
     rel_embeds, rel_logits = checks["embeds_rel_diff"], checks["logits_rel_diff"]
     agree, first_equal = checks["greedy_agreement"], checks["first_token_equal"]
@@ -1243,7 +1273,7 @@ def main_path(dev, seed: int, max_new_tokens: int):
         with patched(fault):
             f_embeds, f_logits = run("plain")
             f_held = run_held()
-        fe, fl = rel(f_embeds, ref_embeds), rel(f_logits, ref_logits)
+        fe, fl = rel_l2(f_embeds, ref_embeds), rel_l2(f_logits, ref_logits)
         faults[fname] = dict(embeds_rel_diff=fe, logits_rel_diff=fl, caught_whole_path=fe > EMBEDS_REL_TOL or
                              fl > LOGITS_REL_TOL, caught_call_by_call=not all(h["ok"] for h in f_held.values()),
                              held=f_held)
@@ -1443,6 +1473,173 @@ def switched_requests(vidlm, video, prompt, max_new_tokens: int, compare) -> dic
         if not checks["embeds_rel_diff"] <= EMBEDS_REL_TOL or not checks["logits_rel_diff"] <= LOGITS_REL_TOL:
             raise RuntimeError(f"request with {name}: kernel path differs from the plain path beyond the limits")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: a run directory loaded by load_vid, a video file served
+# ---------------------------------------------------------------------------
+
+# merv-full's model dict as scripts/make_randinit_run.py:38-52 writes it
+MERV_FULL_MODEL = {
+    "model_id": "merv-full",
+    "arch_specifier": "3davg+linear",
+    "feature_fusion": "cross_attention_avg_lq",
+    "video_backbone_ids": ["languagebind-video-noclass", "dinov2-video-all-tokens",
+                           "vivit-google-b-all-no-cls-16frames", "siglip-vit-b16-224px-all-no-cls"],
+    "llm_backbone_id": "llama2-7b-pure",
+    "image_resize_strategy": "resize-naive",
+    "llm_max_length": 2048,
+    "num_frames": [16, 16, 32, 16],
+    "projector_token_length": 64,
+    "visual_feature_length": 1024,
+}
+DEMO_VIDEO = os.path.join("assets", "video_demo.mp4")
+SYNTHETIC_FRAMES = (32, 128, 128, 3)  # what load_video returns for the demo at max(num_frames)
+# the loaded request's launches: K1 23 DINOv2 + 23 LanguageBind layers; K2 12 ViViT + 32 prefill layers
+LOADED_REQUEST_LAUNCHES = {"small_attention_kt": 46, "flash_attention_forward": 44, "small_attention": 0,
+                           "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
+
+
+def video_decoders(path: str) -> dict:
+    """Which of the decode backends opens ``path`` here: {backend: "ok" or its error}."""
+    from merv_tpu_torch.preprocessing import video_io
+
+    out = {}
+    for name in video_io.BACKENDS:
+        try:
+            video_io.open_video(path, backend=name).close()
+            out[name] = "ok"
+        except Exception as e:  # recorded: the phase reports which decoders the host lacks
+            out[name] = f"{type(e).__name__}: {e}"[-400:]
+    return out
+
+
+def write_run_dir(run_dir: str, dev, seed: int) -> dict:
+    """config.json with merv-full's model dict, and the align-stage layout the
+    released checkpoints use: projectors and fusion only, fp32, random from a
+    seeded generator, written by the port's ``save_checkpoint``. The model is
+    built on the meta device (no memory) and only the trainables on the card.
+    Returns the saved state dicts."""
+    import torch
+
+    from merv_tpu_torch.conf import MERV_Base
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.models.materialize import (
+        get_llm_backbone_and_tokenizer,
+        get_video_backbone_and_transform,
+        get_vidlm,
+    )
+    from merv_tpu_torch.nn.core import init_weights
+    from merv_tpu_torch.training.checkpointing import save_checkpoint
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump({"model": MERV_FULL_MODEL}, f)
+    cfg, meta = MERV_Base(**MERV_FULL_MODEL), torch.device("meta")
+    vbs, _ = get_video_backbone_and_transform(cfg.video_backbone_ids, cfg.image_resize_strategy, cfg.num_frames,
+                                              device=meta)
+    llm, _ = get_llm_backbone_and_tokenizer(cfg.llm_backbone_id, cfg.llm_max_length, inference_mode=True, device=meta)
+    vidlm = get_vidlm(cfg.model_id, cfg.arch_specifier, cfg.feature_fusion, vbs, llm,
+                      projector_token_length=cfg.projector_token_length,
+                      visual_feature_length=cfg.visual_feature_length, device=meta)
+    g = make_generator(dev, seed)
+    saved = {}
+    for key in ("projectors", "feature_fusion"):
+        module = getattr(vidlm, key).to_empty(device=dev)
+        init_weights(module, g)
+        saved[key] = {n: t.detach().cpu().clone() for n, t in module.state_dict().items()}
+    save_checkpoint(run_dir, 1, 0, 0.0, vidlm, ["projectors", "feature_fusion"])
+    return saved
+
+
+def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
+    """Phase 4c: write a run directory, load it with ``load_vid`` (towers and
+    LLM random from the port's seeded generator: the repository holds no
+    weights), check what was loaded, then serve one request on the demo video
+    (or on synthetic frames of its decoded shape where no decoder opens it)
+    with the launches counted, held against its plain rerun as request 0 is."""
+    import gc
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch import load_vid
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = write_run_dir(run_dir, dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):  # the random-weights route, whatever the caller set
+        os.environ.pop(name, None)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for key, state in saved.items():
+        got = getattr(vidlm, key).state_dict()
+        bad = [n for n, ref in state.items() if got[n].dtype != torch.float32 or not torch.equal(got[n].cpu(), ref)]
+        if sorted(got) != sorted(state) or bad:
+            raise RuntimeError(f"load_vid: {key} differ from the saved checkpoint (or are not fp32): {bad[:4]}")
+    frozen = [(n, p) for n, p in vidlm.named_parameters() if n.split(".", 1)[0] in ("video_backbones", "llm_backbone")]
+    bad = [n for n, p in frozen if p.is_floating_point() and (p.dtype != torch.bfloat16 or p.device.type != dev.type)]
+    if bad:
+        raise RuntimeError(f"load_vid: towers / LLM parameters not bf16 on the card: {bad[:4]}")
+    log(f"[loaded] load_vid({run_dir}): {cfg.model_id}, {sum(p.numel() for p in vidlm.parameters()) / 1e9:.3f} B "
+        f"params in {load_s:.1f} s, peak {load_peak_gib:.2f} GiB; projectors and fusion bit-identical to the "
+        f"saved checkpoint (fp32); {len(frozen)} tower and LLM parameters bf16 on the card")
+
+    decoders = video_decoders(DEMO_VIDEO)
+    frames_from = next((name for name, state in decoders.items() if state == "ok"), "synthetic")
+    video = Path(DEMO_VIDEO) if frames_from != "synthetic" else \
+        np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+    log(json.dumps({"video_decode": decoders, "frames_from": frames_from}))
+    prompt = vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
+    vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=2)  # warm-up, outside the counted window
+    torch.cuda.synchronize()
+
+    A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t = time.perf_counter()
+    text = vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=max_new_tokens, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = A.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = timings["decode_steps"]
+    request = dict(wall_s=wall, decode_video_s=timings.get("decode_video_s"), prepare_s=timings["prepare_s"],
+                   towers_s=timings["towers_s"], project_fuse_s=timings["project_fuse_s"],
+                   prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=steps,
+                   decode_tokens_per_s=steps / timings["decode_s"] if steps else None, text=text)
+    log(f"[loaded] request on {frames_from} frames: wall {wall:.3f} s = prepare {request['prepare_s']:.3f} "
+        f"(host decode {request['decode_video_s']}) + towers {request['towers_s']:.3f} + projector/fusion "
+        f"{request['project_fuse_s']:.4f} + prefill {request['prefill_s']:.3f} + decode {request['decode_s']:.3f} s "
+        f"({steps} steps, {request['decode_tokens_per_s']} tok/s); launches {counts}; peak {peak_gib:.2f} GiB")
+    wrong = {k: (counts[k], n) for k, n in LOADED_REQUEST_LAUNCHES.items() if counts[k] != n}
+    if wrong:
+        raise RuntimeError(f"loaded request: launches (got, predicted) {wrong}")
+
+    ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([video], [prompt], cfg.num_frames)
+    _, run_held, compare = request_checks(vidlm, ids, mask, vids, is_mm, cfg.visual_feature_length, max_new_tokens)
+    checks = compare()[0]
+    held = run_held()
+    log(f"[loaded] kernels vs plain: embeds {checks['embeds_rel_diff']:.3e} (tol {EMBEDS_REL_TOL}), logits "
+        f"{checks['logits_rel_diff']:.3e} (tol {LOGITS_REL_TOL}), greedy-token agreement "
+        f"{checks['greedy_agreement']:.3f}, first token equal: {checks['first_token_equal']}; call by call: {show(held)}")
+    if not checks["embeds_rel_diff"] <= EMBEDS_REL_TOL or not checks["logits_rel_diff"] <= LOGITS_REL_TOL:
+        raise RuntimeError("loaded request: kernel path differs from the plain path beyond the limits")
+    for name, h in held.items():
+        if h["calls"] == 0 or not h["ok"]:
+            raise RuntimeError(f"loaded request: {name} has no call or a call outside its limit against plain")
+    del vidlm
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return dict(model=cfg.model_id, load_s=load_s, load_peak_memory_gib=load_peak_gib, request=request,
+                launches=counts, peak_memory_gib=peak_gib, video_decode=decoders, frames_from=frames_from,
+                held_call_by_call=held, **checks)
 
 
 # ---------------------------------------------------------------------------
@@ -1909,6 +2106,7 @@ def main() -> int:
     with switches({}):  # every phase sets the switches it runs under
         cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
         main = main_path(dev, args.seed, args.max_new_tokens)
+        loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -1924,6 +2122,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=launches, launches_serving=main["launches"].get(name, 0),
+            launches_loaded=loaded["launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -1933,7 +2132,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
-                       main_path=main, train_path=train), f, indent=1)
+                       main_path=main, loaded_path=loaded, train_path=train), f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

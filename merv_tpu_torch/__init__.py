@@ -8,8 +8,12 @@ Llama decoder, generation, MERV) and ``bridge.py`` (JAX parameter trees ->
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).
+
+:func:`load_vid` loads a trained MERV from a local run directory;
+``python -m merv_tpu_torch.quick_start`` answers a question about a video with it.
 """
 
 from merv_tpu_torch.device import resolve_device
+from merv_tpu_torch.models.load_vid import available_model_names, available_models, get_model_description, load_vid
 
-__all__ = ["resolve_device"]
+__all__ = ["available_model_names", "available_models", "get_model_description", "load_vid", "resolve_device"]

@@ -48,7 +48,21 @@ def _convert(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor])
             if arr.ndim != 2:
                 raise ValueError(f"{prefix}kernel: expected a 2-D (in, out) kernel, got {arr.shape}")
             arr = arr.T
-        out[prefix + _LEAF_NAMES.get(key, key)] = torch.from_numpy(np.array(arr))  # a writable copy
+        out[prefix + _LEAF_NAMES.get(key, key)] = to_torch(arr)
+
+
+def as_tensor(t: Any) -> torch.Tensor:
+    """A torch tensor (moved to the CPU) or a numpy array (through :func:`to_torch`)."""
+    return t.detach().cpu() if isinstance(t, torch.Tensor) else to_torch(t)
+
+
+def to_torch(arr: Any) -> torch.Tensor:
+    """A numpy array -> a CPU tensor that owns a copy of it; ``bfloat16``
+    (ml_dtypes', as JAX and tensorstore give it) through a ``uint16`` view."""
+    arr = np.array(arr, order="C")  # a contiguous copy, of any rank
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _leaves(tree: Mapping[str, Any]):
@@ -62,16 +76,28 @@ def _index(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
     return {k: (_index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]) for k, v in tree.items()}
 
 
+def module_state_dicts(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A (partial) MERV tree, keyed by ``video_backbones`` / ``projectors`` /
+    ``feature_fusion`` / ``llm_backbone`` -> the ``state_dict`` of each of the
+    ``MERV`` module's children of those names."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, sub in tree.items():
+        if key not in _MERV_KEYS:
+            raise ValueError(f"not a MERV module key: {key!r}")
+        sd: Dict[str, torch.Tensor] = {}
+        if key == "video_backbones":
+            for i, tower in sub.items():
+                _convert(tower, f"{i}.vit.", sd)
+        else:
+            _convert(sub, "decoder." if key == "llm_backbone" else "", sd)
+        out[key] = sd
+    return out
+
+
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A ``merv_tpu`` parameter tree (numpy leaves) -> the port module's ``state_dict``."""
-    out: Dict[str, torch.Tensor] = {}
     if set(tree) <= set(_MERV_KEYS) and "llm_backbone" in tree:
-        for i, sub in tree.get("video_backbones", {}).items():
-            _convert(sub, f"video_backbones.{i}.vit.", out)
-        for i, sub in tree.get("projectors", {}).items():
-            _convert(sub, f"projectors.{i}.", out)
-        _convert(tree.get("feature_fusion", {}), "feature_fusion.", out)
-        _convert(tree["llm_backbone"], "llm_backbone.decoder.", out)
-    else:
-        _convert(tree, "", out)
+        return {f"{key}.{name}": t for key, sd in module_state_dicts(tree).items() for name, t in sd.items()}
+    out: Dict[str, torch.Tensor] = {}
+    _convert(tree, "", out)
     return out

@@ -53,6 +53,7 @@ class ModelConfig:
     enable_gradient_checkpointing: bool = True  # per-layer activation checkpointing of the LLM
     save_checkpoint_after: int = 512  # optimizer steps between checkpoints
     enable_mixed_precision_training: bool = True  # bf16 compute (the port has no fp32 compute path)
+    reduce_in_full_precision: bool = False  # merv_tpu's field, so its config.json dumps load here
 
     def __post_init__(self) -> None:
         if isinstance(self.num_frames, int):

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Type
+from typing import Any, Dict, Mapping, Optional, Type
 
 import torch
 from torch import nn
 
 from merv_tpu_torch.device import resolve_device
+from merv_tpu_torch.models.backbones.llm.hf_import import import_llama_state_dict
 from merv_tpu_torch.models.backbones.llm.prompting import PromptBuilder, PurePromptBuilder
 from merv_tpu_torch.models.backbones.llm.tokenization import load_tokenizer
 from merv_tpu_torch.models.backbones.llm.transformer import (
@@ -74,6 +75,17 @@ class LLMBackbone(nn.Module):
     @property
     def embed_dim(self) -> int:
         return self.decoder_config.hidden_size
+
+    @property
+    def half_precision_dtype(self) -> torch.dtype:
+        return self.spec.half_precision_dtype
+
+    def import_state_dict(self, state: Mapping[str, Any], param_dtype: torch.dtype = torch.bfloat16) -> None:
+        """Load an HF Llama state dict into ``self.decoder``, each value rounded
+        to ``param_dtype`` first (see ``hf_import.py``). The counterpart of
+        ``merv_tpu``'s ``load_state_dict``, which returns a tree; here
+        ``load_state_dict`` stays torch's own."""
+        self.decoder.load_state_dict(import_llama_state_dict(self.decoder_config, state, param_dtype=param_dtype))
 
     def embed_input_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.decoder.embed_input_ids(input_ids)

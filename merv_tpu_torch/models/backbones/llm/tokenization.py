@@ -2,14 +2,19 @@
 
 :class:`ByteTokenizer` is the deterministic byte-level tokenizer ``merv_tpu``
 falls back to offline, with the same call surface (``__call__``, ``encode``,
-``decode``, pad/bos/eos attributes). No HF tokenizer file is in the
-repository, so :func:`load_tokenizer` returns it; loading real tokenizers
-waits with the checkpoint importers (ROADMAP A7).
+``decode``, pad/bos/eos attributes). :func:`load_tokenizer` returns the
+HF fast tokenizer where its files are on the machine and ``ByteTokenizer``
+otherwise, as ``merv_tpu`` does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Union
+
+from merv_tpu_torch.overwatch import initialize_overwatch
+
+overwatch = initialize_overwatch(__name__)
 
 # Trigger strings that must tokenize to a single id (reference merv.py:239-244)
 _TRIGGER_STRINGS = ["True", "False", "Yes", "No"] + [chr(ord("A") + i) for i in range(26)]
@@ -132,7 +137,25 @@ def load_tokenizer(
     hf_hub_path: str,
     model_max_length: int = 2048,
     add_bos_token: bool = True,
-) -> ByteTokenizer:
-    """The offline tokenizer for ``hf_hub_path`` (right padding, like the HF path)."""
-    del hf_hub_path
-    return ByteTokenizer(model_max_length=model_max_length, add_bos_token=add_bos_token)
+) -> Any:
+    """The HF fast tokenizer for ``hf_hub_path`` from local files (the network
+    only under ``MERV_TPU_ONLINE=1``), else :class:`ByteTokenizer`. Any failure,
+    ``transformers`` not being installed among them, takes the
+    ``ByteTokenizer`` branch. Padding is on the right either way."""
+    try:
+        from transformers import AutoTokenizer
+
+        kwargs = dict(model_max_length=model_max_length, padding_side="right")
+        try:
+            tok = AutoTokenizer.from_pretrained(hf_hub_path, local_files_only=True, **kwargs)
+        except Exception:
+            # the network is opt-in, so an offline run falls through at once instead of retrying
+            if os.environ.get("MERV_TPU_ONLINE", "0") != "1" or os.environ.get("HF_HUB_OFFLINE", "0") == "1":
+                raise
+            tok = AutoTokenizer.from_pretrained(hf_hub_path, **kwargs)
+        if tok.padding_side != "right":
+            raise ValueError(f"tokenizer for {hf_hub_path} pads on the {tok.padding_side}, not the right")
+        return tok
+    except Exception as e:  # offline, no local files, or no transformers
+        overwatch.info(f"Tokenizer for {hf_hub_path} unavailable ({type(e).__name__}); using ByteTokenizer fallback")
+        return ByteTokenizer(model_max_length=model_max_length, add_bos_token=add_bos_token)

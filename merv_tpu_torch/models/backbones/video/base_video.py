@@ -13,12 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 from abc import abstractmethod
-from typing import Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from merv_tpu_torch.device import resolve_device
+from merv_tpu_torch.models.backbones.video.vision_import import import_vision_state_dict
 from merv_tpu_torch.models.backbones.video.vit import VisionTransformer, ViTConfig
 from merv_tpu_torch.preprocessing.transforms import VideoTransform
 
@@ -53,6 +54,13 @@ class VideoBackbone(nn.Module):
 
     @abstractmethod
     def default_vit_config(self) -> ViTConfig: ...
+
+    def import_state_dict(self, state: Mapping[str, Any], param_dtype: torch.dtype = torch.bfloat16) -> None:
+        """Load a timm / HF checkpoint state dict into ``self.vit``, each value
+        rounded to ``param_dtype`` first (see ``vision_import.py``). The
+        counterpart of ``merv_tpu``'s ``load_state_dict``, which returns a
+        tree; here ``load_state_dict`` stays torch's own."""
+        self.vit.load_state_dict(import_vision_state_dict(self.vit_config, state, param_dtype=param_dtype))
 
     @abstractmethod
     def forward(self, video_values: torch.Tensor, impl: str = "auto") -> torch.Tensor:

@@ -3,7 +3,8 @@
 ``llama2-7b-pure``. The ``get_*`` entry points keep ``merv_tpu``'s
 signatures plus ``device`` (default: the card; raises without one),
 ``param_dtype`` and an optional ``generator``: when given, the built modules
-are random-initialised from it (no checkpoint is on disk yet, ROADMAP A7).
+are random-initialised from it. Trained weights are loaded by
+:func:`merv_tpu_torch.models.load_vid.load_vid`.
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@
   ``requires_grad``; the loss is :func:`causal_lm_loss` or, with
   ``loss_chunk_size``, :func:`chunked_causal_lm_loss`.
 
-``generate`` takes a raw uint8 ``[T, H, W, C]`` video or ``None``; decoding a
-video from a path waits for the FFmpeg decoder (ROADMAP A7).
+``generate`` takes a video or image path (decoded on the host by
+:func:`merv_tpu_torch.preprocessing.load_video`), a raw uint8
+``[T, H, W, C]`` video, or ``None``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import math
 import re
 import time
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +46,21 @@ from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.preprocessing.transforms import subsample_frames
 
 overwatch = initialize_overwatch(__name__)
+
+
+def _load_media(video: Any, num_frames_max: int, **clip_kwargs: Any) -> np.ndarray:
+    """A path -> uint8 [T, H, W, C] on the host: an image (by its extension,
+    ``.jpg`` / ``.jpeg`` / ``.png``) repeated ``num_frames_max`` times, else a
+    video through ``load_video`` with the clip window in ``clip_kwargs``."""
+    path = str(video)
+    if Path(path).suffix.lower() in (".jpg", ".jpeg", ".png"):
+        from PIL import Image
+
+        image = np.asarray(Image.open(path).convert("RGB"))
+        return np.repeat(image[None], num_frames_max, axis=0)
+    from merv_tpu_torch.preprocessing.video_io import load_video
+
+    return load_video(path, num_frames_max, **clip_kwargs)
 
 
 def _extract_frame_number(query: str) -> int:
@@ -316,16 +333,22 @@ class MERV(VidLM):
         prompt_texts: Sequence[str],
         num_frames: Optional[List[int]] = None,
         length_bucket: int = 64,
+        clip_args: Optional[Sequence[Dict[str, Any]]] = None,
+        timings: Optional[Dict[str, float]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """Tokenize + right-pad prompts to a ``length_bucket`` multiple, and
         subsample + transform each video per encoder, on the model's device.
-        A ``None`` video gives a text-only row (zero video tensors)."""
+        A ``None`` video gives a text-only row (zero video tensors); a path is
+        decoded on the host to ``max(num_frames)`` frames, with the row's
+        ``clip_args`` (``clip_start_sec`` / ``clip_end_sec`` / ``end_frame``).
+        ``timings`` (optional) receives the host decode's time, ``decode_video_s``."""
         dev = self.device
         if num_frames is None:
             num_frames = [vb.num_frames for vb in self.video_backbones]
         B = len(videos)
         if len(prompt_texts) != B:
             raise ValueError("one prompt per video")
+        clip_args = list(clip_args) if clip_args else [{}] * B
         tok = self.llm_backbone.tokenizer
         id_lists = [tok(p, truncation=True).input_ids for p in prompt_texts]
         T = max(len(ids) for ids in id_lists)
@@ -340,14 +363,17 @@ class MERV(VidLM):
 
         per_encoder: List[List[torch.Tensor]] = [[] for _ in self.video_backbones]
         is_mm = []
-        for video in videos:
+        for b, video in enumerate(videos):
             if video is None:
                 for e, vb in enumerate(self.video_backbones):
                     per_encoder[e].append(torch.zeros(vb.default_video_resolution, dtype=torch.float32, device=dev))
                 is_mm.append(False)
                 continue
             if isinstance(video, str) or hasattr(video, "__fspath__"):
-                raise NotImplementedError("decoding a video from a path waits for the FFmpeg decoder (ROADMAP A7)")
+                t0 = time.perf_counter()
+                video = _load_media(video, max(num_frames), **clip_args[b])
+                if timings is not None:
+                    timings["decode_video_s"] = timings.get("decode_video_s", 0.0) + time.perf_counter() - t0
             frames_all = torch.as_tensor(np.asarray(video)).to(dev)  # uint8 [T, H, W, C], one copy to the card
             for e, (vb, nf) in enumerate(zip(self.video_backbones, num_frames)):
                 per_encoder[e].append(vb.get_video_transform()(subsample_frames(frames_all, nf)))
@@ -369,13 +395,22 @@ class MERV(VidLM):
         top_p: float = 1.0,
         top_k: int = 0,
         min_length: int = 1,
+        clip_start_sec: float = 0.0,
+        clip_end_sec: Optional[float] = None,
+        end_frame: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         attn_impl: str = "auto",
         timings: Optional[Dict[str, float]] = None,
     ) -> str:
-        """Single-example API: ``video`` is a uint8 [T, H, W, C] array or None (text only)."""
+        """Single-example API: ``video`` is a path (decoded within
+        ``[clip_start_sec, clip_end_sec]`` or up to ``end_frame``), a uint8
+        [T, H, W, C] array, or None (text only)."""
         t0 = time.perf_counter()
-        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs([video], [prompt_text], num_frames)
+        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
+            [video], [prompt_text], num_frames,
+            clip_args=[dict(clip_start_sec=clip_start_sec, clip_end_sec=clip_end_sec, end_frame=end_frame)],
+            timings=timings,
+        )
         if timings is not None:
             timings["prepare_s"] = _sync(self.device) - t0
         tokens = self.generate_ids(

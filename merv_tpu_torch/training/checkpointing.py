@@ -6,8 +6,13 @@ loss, module keys) and a ``latest-checkpoint`` symlink, written last so it
 never points at a torn directory. The port's format inside the directory is
 its own: one ``torch.save`` file, ``checkpoint.pt``, holding ``model`` (the
 state dicts of the trainable top-level modules, by module key) and
-``optimizer`` (the optimizer's state dict). Saves are blocking. Reading
-``merv_tpu``'s Orbax checkpoints waits for the importers (ROADMAP A7).
+``optimizer`` (the optimizer's state dict). Saves are blocking.
+
+:func:`load_checkpoint` also reads ``merv_tpu``'s Orbax checkpoints, without
+JAX: ``_METADATA`` lists each leaf's key path, and each array is opened with
+``tensorstore`` (zarr or zarr3, in an OCDBT store or one directory per
+array, as ``_METADATA`` says). The parameter trees come back as the port's
+``state_dict``s (by :mod:`merv_tpu_torch.bridge`), bf16 as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from merv_tpu_torch.bridge import module_state_dicts
 from merv_tpu_torch.overwatch import initialize_overwatch
 
 overwatch = initialize_overwatch(__name__)
@@ -86,11 +92,54 @@ def latest_checkpoint(run_dir: Path) -> Optional[Path]:
 
 
 def load_checkpoint(path: Path, map_location: Any = "cpu") -> Dict[str, Any]:
-    """A checkpoint directory -> {"model": {key: state dict}, "optimizer": ..., "step", "epoch"}."""
+    """A checkpoint directory -> {"model": {key: state dict}, "optimizer": ..., "step", "epoch"}.
+
+    The port's own ``checkpoint.pt``, or else a ``merv_tpu`` Orbax checkpoint:
+    then ``model`` holds the port's state dicts of its modules (CPU tensors),
+    and the optax optimizer state, which the port's optimizer cannot resume
+    from, is not read."""
     path = Path(path).resolve()
-    out = dict(torch.load(path / CKPT_FILE, map_location=map_location, weights_only=True))
+    if (path / CKPT_FILE).exists():
+        out = dict(torch.load(path / CKPT_FILE, map_location=map_location, weights_only=True))
+    elif (path / "_METADATA").exists():
+        out = {"model": module_state_dicts(read_orbax_tree(path, subtree="model").get("model", {}))}
+    else:
+        raise FileNotFoundError(f"{path} holds neither {CKPT_FILE} nor an Orbax checkpoint (_METADATA)")
     out["step"], out["epoch"] = parse_checkpoint_name(path)
     return out
+
+
+def read_orbax_tree(path: Path, subtree: Optional[str] = None) -> Dict[str, Any]:
+    """An Orbax checkpoint directory -> its tree (or only its top-level
+    ``subtree``) as nested dicts of numpy arrays (bf16 as ml_dtypes'
+    ``bfloat16``; list and tuple nodes become dicts keyed by index), read
+    without JAX. Raises ``ImportError`` when ``tensorstore`` is missing."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(f"reading the Orbax checkpoint {path} needs the `tensorstore` package") from e
+    path = Path(path).resolve()
+    meta = json.loads((path / "_METADATA").read_text())
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    tree: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        if subtree is not None and keys[0] != subtree:
+            continue
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize"):  # an empty dict / list, or None
+            node[keys[-1]] = {} if value["value_type"] in ("Dict", "List", "Tuple") else None
+            continue
+        name = ".".join(keys)
+        if meta.get("use_ocdbt"):
+            kvstore = {"driver": "ocdbt", "base": f"file://{path}", "path": name}
+        else:
+            kvstore = {"driver": "file", "path": f"{path / name}/"}
+        node[keys[-1]] = ts.open({"driver": driver, "kvstore": kvstore}).result().read().result()
+    return tree
 
 
 def discover_align_checkpoint(run_dir: Path) -> Path:

@@ -27,6 +27,12 @@ import merv_tpu_torch.bridge, merv_tpu_torch.models.materialize, merv_tpu_torch.
 import merv_tpu_torch.training, merv_tpu_torch.training.checkpointing, merv_tpu_torch.training.train_step
 import merv_tpu_torch.util.batching_utils, merv_tpu_torch.util.data_utils, merv_tpu_torch.util.seed_utils
 import merv_tpu_torch.ops.fused_vit_block, merv_tpu_torch.ops.attention
+import merv_tpu_torch.native, merv_tpu_torch.preprocessing.video_io, merv_tpu_torch.quick_start
+import merv_tpu_torch.models.load_vid, merv_tpu_torch.models.ckpt_import, merv_tpu_torch.models.registry
+import merv_tpu_torch.models.backbones.video.vision_import, merv_tpu_torch.models.backbones.llm.hf_import
+import merv_tpu_torch.util.safetensors_io
+from merv_tpu_torch import available_models, load_vid
+assert "merv-full" in available_models()
 
 tower = DinoV2VideoBackbone("dinov2-video-all-tokens", "resize-naive", 32, 4,
                             vit_config=tiny_vit_config(num_cls_tokens=1, num_register_tokens=4), device="cpu")
@@ -35,6 +41,8 @@ model = MERV("tiny", [tower], tiny_llm_backbone(device="cpu"), arch_specifier="3
 init_weights(model, make_generator(torch.device("cpu"), 0))
 video = np.random.default_rng(0).integers(0, 256, size=(8, 40, 48, 3), dtype=np.uint8)
 text = model.generate(video, "In: hi\nOut:", max_new_tokens=4)
+assert isinstance(text, str)
+text = model.generate("assets/video_demo.mp4", "In: hi\nOut:", max_new_tokens=4, clip_end_sec=3.0)
 assert isinstance(text, str)
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
 assert not loaded, loaded
@@ -66,7 +74,8 @@ def test_no_jax_or_merv_tpu_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def test_entry_points_raise_without_gpu(monkeypatch):
+def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    from merv_tpu_torch import load_vid
     from merv_tpu_torch.device import resolve_device
     from merv_tpu_torch.models.backbones.llm.base_llm import tiny_llm_backbone
     from merv_tpu_torch.models.materialize import get_llm_backbone_and_tokenizer, get_video_backbone_and_transform
@@ -80,6 +89,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         get_llm_backbone_and_tokenizer("llama2-7b-pure")
     with pytest.raises(RuntimeError):
         tiny_llm_backbone()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_vid(tmp_path)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
