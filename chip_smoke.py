@@ -38,7 +38,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    whole-head and its key-tiled attention stage each forced, interleaved,
    where both take the shape;
    under ``--tower-only`` also its launches' device time by kernel
-   (``kernel_device_ms``).
+   (``kernel_device_ms``). K2 also at the shared-prefix suffix prefill (8
+   ragged suffixes in a 64-token bucket at ``q_offset`` 1025), held and
+   graph-timed beside SDPA.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -49,7 +51,12 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the last-position logits against it, holds each kernel call of that
    prefill against its plain version on the call's own inputs, compares the
    greedy tokens, and reports what both checks give for a few planted
-   kernel faults.
+   kernel faults. Every request decodes through its decode runner's CUDA
+   graph (the T=1 step captured once per shape; ``decode_capture_s`` apart
+   from ``decode_s``); from request 0's prefill the graph's tokens and step
+   logits are held against the eager loop over the same step function, both
+   loops are timed, and one eager step and one replay are profiled (device
+   ms, kernels, idle share); a sampled decode from one seed is compared too.
 4a. tower routes: each tower of that model at merv-base's batch shapes under
    the default route and under each of the towers' switches
    (``MERV_TPU_TOWER_ATTN=xla`` / ``xla_kt``, ``MERV_TPU_TEMPORAL_KERNEL=1``,
@@ -74,6 +81,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    (``{"video_decode": ..., "frames_from": ...}``); where none does, the
    request takes seeded synthetic frames of the decoded shape. The run
    directory is deleted at the end.
+4d. the evaluation path: merv-full's run directory (as 4c writes it) at
+   ``runs/chip_smoke_eval/``, served by the port's drivers through their
+   command lines with 64 new tokens: ``eval_mcq`` on ``eval_data/dummy_mcq``
+   (naive at batch 2, likelihood at batch 2, naive with
+   ``--share_video_prefix`` at batch 2) and ``eval_openended`` on
+   ``eval_data/dummy_openended_scaled`` (32 questions on 4 videos, batch 8,
+   ``--serving_passes 2``); every question must get a ``pred``, no group or
+   item may fail, and K1 / K2 launches must be as predicted
+   (``EVAL_RUNS``). Then ``generate_batch_shared`` against
+   ``generate_batch`` on scene_0's 8 questions: each row's last-position
+   logits of the suffix prefill held against the full prefill's, greedy
+   agreement reported, launches as predicted.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -93,7 +112,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
    from the training path for K1-K3 and from the switched request of 4b for
    B3, B5 and B6, ``launches_serving`` from the default serving path,
-   ``launches_loaded`` from 4c's request), and
+   ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
+   4d's runs), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -106,6 +126,7 @@ import argparse
 import contextlib
 import functools
 import json
+import logging
 import math
 import os
 import shutil
@@ -132,6 +153,11 @@ KERNEL_MEAN_SHARE = 0.1
 # of the prefill's last-position logits (all of the above plus 32 layers)
 EMBEDS_REL_TOL = 2e-2
 LOGITS_REL_TOL = 5e-2
+# the decode graph against the eager loop over the same step function on the same
+# state: the same kernels, so the same bits are expected; where a library picks
+# another algorithm under capture, the step logits (fp32 from a bf16 lm_head)
+# may differ by bf16 rounding, 2**-8 relative
+DECODE_GRAPH_LOGITS_REL_TOL = 2 ** -8
 # K2's log-sum-exp against the plain version's, row by row:
 # |lse - ref| <= LSE_REL_TOL * (1 + |ref|) where ref is finite, and +inf on
 # exactly the rows where ref is +inf (no valid key). Both sum the exponentials
@@ -140,6 +166,8 @@ LOGITS_REL_TOL = 5e-2
 # row's P, and its gradients, by exp(-d).
 LSE_REL_TOL = 1e-4
 LSE_PLANTED_OFFSET = 0.05
+# the valid suffix tokens of the 8 rows of K2's suffix-prefill case (a 64-token bucket)
+SUFFIX_LENGTHS = (64, 57, 49, 41, 36, 30, 23, 12)
 # B6's LN statistics against the plain version's, row by row: fp32 sums of
 # the same bf16 row in different orders (about 1e-7 relative)
 STATS_REL_TOL = 1e-5
@@ -485,6 +513,10 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
         ("llama_training", 1, 32, 32, 3072, 3072, 128, True, None, None),
         ("gqa_causal", 1, 32, 8, 1088, 1088, 128, True, None, None),
         ("fully_masked_row", 2, 8, 8, 256, 512, 64, False, None, "row1_empty"),
+        # the shared-prefix suffix prefill (generate_with_prefix): 8 questions' suffixes in a 64-token bucket
+        # at q_offset P = 1025 (BOS + 1024 visual) in a cache of P + 64 + 64 new tokens; keys: the prefix and
+        # each row's valid suffix tokens (ragged: SUFFIX_LENGTHS), not its pads nor the rows not written yet
+        ("llama_suffix_prefill", 8, 32, 32, 64, 1153, 128, True, 1025, "suffix"),
     ]
     for name, B, H, Hk, Tq, Tk, D, causal, q_offset, mask_kind in flash if k2 else ():
         q = _randn(rng, (B, H, Tq, D), dev)
@@ -496,6 +528,11 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
         elif mask_kind == "row1_empty":
             mask = torch.ones((B, Tk), dtype=torch.bool, device=dev)
             mask[1] = False
+        elif mask_kind == "suffix":
+            mask = torch.zeros((B, Tk), dtype=torch.bool, device=dev)
+            mask[:, :q_offset] = True
+            for b, n in enumerate(SUFFIX_LENGTHS):
+                mask[b, q_offset : q_offset + n] = True
         kw = dict(causal=causal, kv_mask=mask, q_offset=q_offset)
         out = A.flash_attention_forward(q, k, v, **kw)
         ref = A.flash_attention_forward_plain(q, k, v, **kw)
@@ -542,6 +579,7 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
             lambda: A.flash_attention_forward_plain(q, k, v, **kw),
             lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=sdpa_mask, is_causal=sdpa_causal),
             bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=extra, device=True,
+            graph=("kernel", "library") if mask_kind == "suffix" else (),
         )
         del valid
     return cases
@@ -1214,13 +1252,14 @@ def main_path(dev, seed: int, max_new_tokens: int):
         steps = timings["decode_steps"]
         row = dict(request=i, wall_s=wall, prepare_s=timings["prepare_s"], towers_s=timings["towers_s"],
                    project_fuse_s=timings["project_fuse_s"], prefill_s=timings["prefill_s"],
-                   decode_s=timings["decode_s"], decode_steps=steps,
+                   decode_s=timings["decode_s"], decode_steps=steps, decode_capture_s=timings["decode_capture_s"],
                    decode_tokens_per_s=steps / timings["decode_s"] if steps else None, text=text)
         requests.append(row)
         texts.append(text)
         log(f"[main] request {i}: wall {wall:.3f} s = prepare {row['prepare_s']:.3f} + towers {row['towers_s']:.3f} "
             f"+ projector/fusion {row['project_fuse_s']:.4f} + prefill {row['prefill_s']:.3f} "
-            f"+ decode {row['decode_s']:.3f} s ({steps} steps, {row['decode_tokens_per_s']} tok/s); "
+            f"+ decode {row['decode_s']:.3f} s ({steps} steps as CUDA-graph replays, "
+            f"{row['decode_tokens_per_s']} tok/s) + graph capture {row['decode_capture_s']:.3f} s; "
             f"text {text[:40]!r}")
 
     # batched: a video row and a text-only row with a shorter prompt
@@ -1281,6 +1320,9 @@ def main_path(dev, seed: int, max_new_tokens: int):
             f"{'caught' if faults[fname]['caught_whole_path'] else 'not caught'}; call by call: {show(f_held)} -> "
             f"{'caught' if faults[fname]['caught_call_by_call'] else 'not caught'}")
 
+    # the decode graph against the eager loop over the same step, from request 0's prefill
+    graph_check = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed)
+
     # the towers' routes, and request 0 served again with the switches on
     routes = tower_routes(vidlm, vids)
     switched = switched_requests(vidlm, videos[0], prompts[0], max_new_tokens, compare)
@@ -1288,7 +1330,113 @@ def main_path(dev, seed: int, max_new_tokens: int):
                 batched_timings=timings, launches=counts, peak_memory_gib=peak_gib,
                 embeds_rel_diff=rel_embeds, logits_rel_diff=rel_logits, held_call_by_call=held,
                 greedy_agreement=agree, first_token_equal=first_equal, planted_faults=faults,
-                tower_routes=routes, switched_requests=switched)
+                decode_graph=graph_check, tower_routes=routes, switched_requests=switched)
+
+
+def profile_decode_step(advance) -> dict:
+    """One decode step (``advance()``: an eager step or a graph replay) under
+    ``torch.profiler``: the host wall from its launch to a device sync, the
+    device time of its kernels, their count and the device's idle share;
+    device time "not measured" (None) where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        advance()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms <= 0:
+        return dict(wall_ms=wall_ms, device_ms=None, kernels=0, idle_share=None)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    # one stream: kernels do not overlap, so busy time is their sum
+    return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=sum(e.count for e in events),
+                idle_share=1 - device_ms / wall_ms if device_ms <= wall_ms else None,
+                top_kernels=[dict(kernel=e.key[:100], ms=e.self_device_time_total / 1e3, count=e.count) for e in top])
+
+
+def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed: int) -> dict:
+    """Request 0's prefill written into its decode runner's cache, then the
+    same steps from the same state twice: the eager loop over the runner's step
+    function (run on the card for this check only) and the captured graph's
+    replays. Their tokens must be equal and each step's logits equal to the
+    bit or within DECODE_GRAPH_LOGITS_REL_TOL; both loops are timed (host
+    clock between syncs, no copies) and one step of each is profiled. Then the
+    same for a sampled decode (temperature 1, top-p 0.9) from one seed:
+    whether graph and eager draw the same tokens is reported."""
+    import torch
+
+    from merv_tpu_torch.models import generation as G
+
+    dec = vidlm.llm_backbone.decoder
+    out = {}
+    with torch.inference_mode():
+        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
+        B, T = embeds.shape[:2]
+        for name, sample in (("greedy", False), ("sampled", True)):
+            cfg = vidlm._generation_config(max_new_tokens, sample, 1.0, 0.9 if sample else 1.0, 0, 1, None)
+            runner, made = G.decode_runner(dec, B, T + max_new_tokens, cfg, embeds.device)
+            logits, _, n_valid = G.prefill(dec, embeds, emask.long(), T + max_new_tokens, cache=runner.cache)
+            first = logits.argmax(-1)
+            cache_mask = torch.cat([emask.bool(), torch.ones((B, max_new_tokens), dtype=torch.bool,
+                                                               device=emask.device)], dim=1)
+
+            def start():
+                gen = torch.Generator(device=embeds.device)
+                gen.manual_seed(seed + 7)
+                runner.load(first, n_valid, cache_mask, T, gen)
+
+            def eager():
+                return runner.step(dec)
+
+            def replay():
+                runner.graph.replay()
+                return runner.graph_logits
+
+            runs = {}
+            for mode, advance in (("eager", eager), ("graph", replay)):
+                start()
+                logits_by_step = torch.stack([advance().clone() for _ in range(max_new_tokens - 1)])
+                runs[mode] = (runner.out.clone(), logits_by_step)
+            tokens_equal = bool(torch.equal(runs["eager"][0], runs["graph"][0]))
+            row = dict(capture_s=runner.capture_s if made else None, tokens_equal=tokens_equal)
+            if name == "greedy":
+                a, b = runs["graph"][1], runs["eager"][1]
+                row.update(logits_bit_equal=bool(torch.equal(a, b)), logits_max_abs_diff=(a - b).abs().max().item(),
+                           logits_rel_diff=rel_l2(a, b))
+                for mode, advance in (("eager", eager), ("graph", replay)):
+                    start()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(max_new_tokens - 1):
+                        advance()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t) * 1e3 / (max_new_tokens - 1)
+                    start()
+                    row[mode] = dict(ms_per_step=ms, tokens_per_s=1e3 / ms, profiled_step=profile_decode_step(advance))
+            out[name] = row
+            p_e, p_g = (row.get(m, {}).get("profiled_step", {}) for m in ("eager", "graph"))
+            log(f"[decode] {name}: graph tokens equal the eager loop's: {tokens_equal}" + (
+                "" if name != "greedy" else
+                f"; step logits bit-equal {row['logits_bit_equal']} (max abs diff {row['logits_max_abs_diff']:.3e}, "
+                f"rel L2 {row['logits_rel_diff']:.3e}, tol {DECODE_GRAPH_LOGITS_REL_TOL:g}); eager "
+                f"{row['eager']['ms_per_step']:.2f} ms/step ({row['eager']['tokens_per_s']:.1f} tok/s), graph "
+                f"{row['graph']['ms_per_step']:.2f} ms/step ({row['graph']['tokens_per_s']:.1f} tok/s); profiled "
+                f"eager step: wall {p_e['wall_ms']:.2f} ms, device {p_e['device_ms']} ms in {p_e['kernels']} "
+                f"kernels, idle share {p_e['idle_share']}; profiled replay: wall {p_g['wall_ms']:.2f} ms, device "
+                f"{p_g['device_ms']} ms in {p_g['kernels']} kernels, idle share {p_g['idle_share']}; the replay's "
+                f"largest kernels (ms, launches): "
+                + "; ".join(f"{k['ms']:.3f} {k['count']} {k['kernel'][:60]}" for k in p_g.get("top_kernels", []))))
+    g = out["greedy"]
+    if not g["tokens_equal"]:
+        raise RuntimeError("decode graph: greedy tokens differ from the eager loop's over the same step")
+    if not (g["logits_bit_equal"] or g["logits_rel_diff"] <= DECODE_GRAPH_LOGITS_REL_TOL):
+        raise RuntimeError(f"decode graph: step logits differ from the eager loop's by {g['logits_rel_diff']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1614,6 +1762,7 @@ def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
     request = dict(wall_s=wall, decode_video_s=timings.get("decode_video_s"), prepare_s=timings["prepare_s"],
                    towers_s=timings["towers_s"], project_fuse_s=timings["project_fuse_s"],
                    prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=steps,
+                   decode_capture_s=timings["decode_capture_s"],
                    decode_tokens_per_s=steps / timings["decode_s"] if steps else None, text=text)
     log(f"[loaded] request on {frames_from} frames: wall {wall:.3f} s = prepare {request['prepare_s']:.3f} "
         f"(host decode {request['decode_video_s']}) + towers {request['towers_s']:.3f} + projector/fusion "
@@ -1640,6 +1789,211 @@ def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
     return dict(model=cfg.model_id, load_s=load_s, load_peak_memory_gib=load_peak_gib, request=request,
                 launches=counts, peak_memory_gib=peak_gib, video_decode=decoders, frames_from=frames_from,
                 held_call_by_call=held, **checks)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the evaluation path (the port's eval drivers on a loaded run directory)
+# ---------------------------------------------------------------------------
+
+EVAL_RUN = "chip_smoke_eval"  # runs/<EVAL_RUN> (the run directory), eval_result/<EVAL_RUN> (the drivers' files)
+EVAL_MAX_NEW_TOKENS = 64
+# (label, driver, dataset, arguments, K1 / K2 launches predicted). Per video row batch: K1 23 DINOv2 + 23
+# LanguageBind layers (one launch a layer for the whole batch), K2 12 ViViT layers + 32 LLM layers (the cache
+# prefill, score_options' no-cache forward, or build_video_prefix's [BOS | visual] prefill); the shared path adds
+# 32 K2 launches for each suffix prefill. dummy_mcq: 6 questions on 6 videos; batch 2 -> 3 groups, shared -> one
+# video a group, 6 groups. dummy_openended_scaled: 32 questions on 4 videos, batch 8 -> 4 groups a pass, 2 passes.
+EVAL_RUNS = (
+    ("mcq_naive_b2", "eval_mcq", "dummy_mcq", dict(strategy="naive", batch_size=2),
+     {"small_attention_kt": 3 * 46, "flash_attention_forward": 3 * 44}),
+    ("mcq_likelihood_b2", "eval_mcq", "dummy_mcq", dict(strategy="likelihood", batch_size=2),
+     {"small_attention_kt": 3 * 46, "flash_attention_forward": 3 * 44}),
+    ("mcq_naive_b2_shared", "eval_mcq", "dummy_mcq", dict(strategy="naive", batch_size=2, share_video_prefix=True),
+     {"small_attention_kt": 6 * 46, "flash_attention_forward": 6 * (44 + 32)}),
+    ("openended_scaled_b8", "eval_openended", "dummy_openended_scaled", dict(batch_size=8, serving_passes=2),
+     {"small_attention_kt": 8 * 46, "flash_attention_forward": 8 * 44}),
+)
+# generate_batch against generate_batch_shared on scene_0's 8 questions, one call each
+SHARED_CHECK_LAUNCHES = {"batch": {"small_attention_kt": 46, "flash_attention_forward": 44},
+                         "shared": {"small_attention_kt": 46, "flash_attention_forward": 44 + 32}}
+
+
+class _ErrorRecords(logging.Handler):
+    """Keeps the messages of the ERROR records it is handed."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        if record.levelno >= logging.ERROR:
+            self.messages.append(record.getMessage())
+
+
+def eval_driver_run(label, driver, dataset, args, predicted, errors) -> dict:
+    """One driver run through its command line (``evaluate(args=...)``) on the
+    run directory ``runs/<EVAL_RUN>``: its wall, launches, answers and logged
+    failures; raises if a question has no ``pred``, a group or item failed
+    (the drivers' per-item fault tolerance must not hide a kernel or capture
+    fault on the card), or the launches differ from ``predicted``."""
+    import io
+
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch.cli import eval_mcq, eval_openended
+
+    module = {"eval_mcq": eval_mcq, "eval_openended": eval_openended}[driver]
+    result_dir = os.path.join("eval_result", EVAL_RUN)
+    shutil.rmtree(result_dir, ignore_errors=True)  # stale shards would satisfy the resume and merge
+    argv = ["--model_path", EVAL_RUN, "--eval_dataset", dataset, "--max_new_tokens", str(EVAL_MAX_NEW_TOKENS),
+            "--allow_random_weights", "true"] + [a for k, v in args.items() for a in (f"--{k}", str(v))]
+    errors.messages.clear()
+    A.reset_launch_counts()
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        module.evaluate(args=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k: A.launch_counts()[k] for k in predicted}
+    lines = printed.getvalue().strip().splitlines()
+    questions = {q["question_id"] for q in json.load(open(os.path.join("eval_data", dataset, "test_q.json")))}
+    merged = (f"{dataset}_{args.get('strategy', 'naive')}_pred_merge.jsonl" if driver == "eval_mcq"
+              else f"{dataset}_pred_merge.jsonl")
+    merged_path = os.path.join(result_dir, merged)
+    rows = [json.loads(line) for line in open(merged_path) if line.strip()] if os.path.exists(merged_path) else []
+    missing = sorted(questions - {r["question_id"] for r in rows if isinstance(r.get("pred"), str)})
+    serving = next((json.loads(line) for line in reversed(lines) if line.startswith("{") and "serving_wall_s" in line),
+                   None)
+    flops_path = os.path.join(result_dir, "flops.json")
+    row = dict(label=label, driver=driver, dataset=dataset, args=args, wall_s=wall, questions=len(questions),
+               questions_per_s=len(questions) / wall, launches=counts, predicted_launches=predicted,
+               failures=list(errors.messages), missing=missing, printed=lines[-4:], serving=serving,
+               flops=json.load(open(flops_path)) if os.path.exists(flops_path) else None,
+               preds={r["question_id"]: r["pred"][:60] for r in rows})
+    os.makedirs(os.path.join("chiprun_out", "eval"), exist_ok=True)
+    if os.path.exists(merged_path):
+        shutil.copy(merged_path, os.path.join("chiprun_out", "eval", f"{label}_{merged}"))
+    log(f"[eval] {label}: python -m merv_tpu_torch.cli.{driver} {' '.join(argv)}: wall {wall:.2f} s for "
+        f"{len(questions)} questions ({row['questions_per_s']:.3f} q/s, model load and graph captures included); "
+        f"serving {serving}; launches {counts} (predicted {predicted}); {len(rows)} answers, missing {missing}; "
+        f"failures {row['failures'][:3]}; printed {lines[-3:]}; flops {row['flops']}")
+    if row["failures"] or missing:
+        raise RuntimeError(f"eval {label}: failed groups or items {row['failures'][:3]}, unanswered {missing}")
+    if counts != predicted:
+        raise RuntimeError(f"eval {label}: launches {counts}, predicted {predicted}")
+    return row
+
+
+def shared_vs_batch(run_dir: str) -> dict:
+    """scene_0's 8 questions of dummy_openended_scaled through generate_batch
+    (8 full prefills of [BOS | visual | question]) and generate_batch_shared
+    (one [BOS | visual] prefix, 8 suffix prefills at q_offset 1025): each row's
+    last-position logits of the two prefills (recorded where generation calls
+    them) held to LOGITS_REL_TOL, the greedy tokens' agreement, and each
+    call's launches against SHARED_CHECK_LAUNCHES."""
+    import torch
+
+    import merv_tpu_torch.models.generation as G
+    import merv_tpu_torch.models.vidlms.merv as M
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch import load_vid
+
+    vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True)
+    dataset = os.path.join("eval_data", "dummy_openended_scaled")
+    prompts = []
+    for q in json.load(open(os.path.join(dataset, "test_q.json"))):
+        if q["video_name"] == "scene_0":
+            builder = vidlm.llm_backbone.prompt_builder_fn(model_family="merv")
+            builder.add_turn(role="human", message=q["question"])
+            prompts.append(builder.get_prompt())
+    video = M._load_media(os.path.join(dataset, "videos", "scene_0.gif"), max(cfg.num_frames))
+    seen = {}
+
+    def recorded(fn, key, first):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen[key] = (out[0] if first else out).clone()
+            return out
+        return call
+
+    calls = {
+        "batch": lambda: vidlm.generate_batch([video] * len(prompts), prompts, num_frames=cfg.num_frames,
+                                              max_new_tokens=EVAL_MAX_NEW_TOKENS),
+        "shared": lambda: vidlm.generate_batch_shared(video, prompts, num_frames=cfg.num_frames,
+                                                      max_new_tokens=EVAL_MAX_NEW_TOKENS),
+    }
+    out = dict(questions=len(prompts))
+    with patched((G, "prefill", recorded(G.prefill, "logits", True)),
+                 (G, "prefill_with_prefix", recorded(G.prefill_with_prefix, "logits", True)),
+                 (M, "_generate", recorded(M._generate, "tokens", False)),
+                 (M, "generate_with_prefix", recorded(M.generate_with_prefix, "tokens", False))):
+        for name, call in calls.items():
+            A.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            texts = call()
+            torch.cuda.synchronize()
+            out[name] = dict(wall_s=time.perf_counter() - t, launches={k: A.launch_counts()[k] for k in
+                                                                     SHARED_CHECK_LAUNCHES[name]},
+                             logits=seen.pop("logits").float(), tokens=seen.pop("tokens"), texts=texts)
+    full, shared = out["batch"], out["shared"]
+    rows = [rel_l2(shared["logits"][b], full["logits"][b]) for b in range(len(prompts))]
+    agree = (shared["tokens"] == full["tokens"]).float().mean().item()
+    first = int((shared["tokens"][:, 0] == full["tokens"][:, 0]).sum().item())
+    for name in calls:
+        out[name] = {k: v for k, v in out[name].items() if k not in ("logits", "tokens")}
+    out.update(logits_rel_diff_by_row=rows, greedy_agreement=agree, first_tokens_equal=first)
+    log(f"[eval] generate_batch_shared against generate_batch on scene_0's {len(prompts)} questions: last-position "
+        f"logits relative L2 by row {[round(r, 5) for r in rows]} (tol {LOGITS_REL_TOL}); greedy-token agreement "
+        f"{agree:.3f} over {EVAL_MAX_NEW_TOKENS} tokens, first tokens equal in {first} of {len(prompts)} rows; walls "
+        f"{full['wall_s']:.3f} / {shared['wall_s']:.3f} s; launches {full['launches']} / {shared['launches']}")
+    del vidlm
+    if not max(rows) <= LOGITS_REL_TOL:
+        raise RuntimeError(f"shared-prefix logits differ from the full prefill's by {max(rows)}")
+    for name, predicted in SHARED_CHECK_LAUNCHES.items():
+        if out[name]["launches"] != predicted:
+            raise RuntimeError(f"{name}: launches {out[name]['launches']}, predicted {predicted}")
+    return out
+
+
+def eval_path(dev, seed: int) -> dict:
+    """Phase 4d: write merv-full's run directory (as phase 4c does) to
+    ``runs/<EVAL_RUN>``, run the port's eval drivers on it through their
+    command lines (EVAL_RUNS), then hold generate_batch_shared against
+    generate_batch (``shared_vs_batch``). The run directory and the drivers'
+    files are deleted at the end; the merged predictions are copied to
+    ``chiprun_out/eval/``."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_dir = os.path.join("runs", EVAL_RUN)
+    write_run_dir(run_dir, dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):  # the random-weights route, whatever the caller set
+        os.environ.pop(name, None)
+    errors = _ErrorRecords()
+    logging.getLogger("merv_tpu_torch").addHandler(errors)
+    t = time.perf_counter()
+    try:
+        runs = []
+        for label, driver, dataset, args, predicted in EVAL_RUNS:
+            runs.append(eval_driver_run(label, driver, dataset, args, predicted, errors))
+            gc.collect()
+            torch.cuda.empty_cache()
+        shared = shared_vs_batch(run_dir)
+    finally:
+        logging.getLogger("merv_tpu_torch").removeHandler(errors)
+        shutil.rmtree(run_dir, ignore_errors=True)
+        shutil.rmtree(os.path.join("eval_result", EVAL_RUN), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t
+    log(f"[eval] phase 4d: {wall:.1f} s")
+    return dict(wall_s=wall, runs=runs, shared_vs_batch=shared)
 
 
 # ---------------------------------------------------------------------------
@@ -2107,6 +2461,7 @@ def main() -> int:
         cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
+        evals = eval_path(dev, args.seed)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -2123,6 +2478,9 @@ def main() -> int:
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=launches, launches_serving=main["launches"].get(name, 0),
             launches_loaded=loaded["launches"].get(name, 0),
+            launches_eval={**{r["label"]: r["launches"].get(name, 0) for r in evals["runs"]},
+                           **{f"shared_check_{k}": evals["shared_vs_batch"][k]["launches"].get(name, 0)
+                              for k in SHARED_CHECK_LAUNCHES}},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -2132,7 +2490,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
-                       main_path=main, loaded_path=loaded, train_path=train), f, indent=1)
+                       main_path=main, loaded_path=loaded, eval_path=evals, train_path=train), f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -7,13 +7,17 @@ cache.
 
 Differences from ``merv_tpu``, all in idiom, not in function:
 - layers are an ``nn.ModuleList`` run in a Python loop (``lax.scan`` there);
-- the KV cache is written IN PLACE (slice assignment into the preallocated
+- the KV cache is written IN PLACE (``index_copy_`` into the preallocated
   ``[L, B, H_kv, max_len, D]`` buffers), where JAX returns a new buffer. The
-  returned :class:`KVCache` shares the tensors, with ``length`` advanced;
+  returned :class:`KVCache` shares the tensors, with ``length`` advanced.
+  ``length`` is a host int, or, for the captured decode step, a 0-d tensor on
+  the device, so that one CUDA graph serves every step;
 - attention goes through :func:`merv_tpu_torch.ops.attention.attention`: every
   call with T > 1 (no-cache forward and cache prefill) runs the flash kernel,
-  T = 1 decode runs plain torch. The no-cache forward is differentiable
-  through the flash backward kernel;
+  T = 1 decode runs plain torch. At T = 1 the causal bound is part of the key
+  mask (``kv_pos < length + 1``, as ``merv_tpu`` builds it), so no host value
+  enters the step. The no-cache forward is differentiable through the flash
+  backward kernel;
 - ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around each layer,
   where ``merv_tpu`` wraps its layer scan body in ``jax.checkpoint``.
 
@@ -24,7 +28,7 @@ Int8 KV and int8 weights, per-slot pointers, ring/pipeline paths and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,11 +68,13 @@ class DecoderConfig:
 
 @dataclass
 class KVCache:
-    """Preallocated cache for all layers; ``length`` is the shared write pointer."""
+    """Preallocated cache for all layers; ``length`` is the shared write
+    pointer: a host int, or a 0-d long tensor on the cache's device (T = 1
+    steps only: the captured decode step reads and advances it there)."""
 
     k: torch.Tensor  # [L, B, H_kv, max_len, D]
     v: torch.Tensor  # [L, B, H_kv, max_len, D]
-    length: int
+    length: Union[int, torch.Tensor]
 
     @classmethod
     def create(
@@ -133,7 +139,7 @@ class DecoderLayer(nn.Module):
         h: torch.Tensor,
         cos_sin: Tuple[torch.Tensor, torch.Tensor],
         kv_mask: Optional[torch.Tensor],
-        cache: Optional[Tuple[torch.Tensor, torch.Tensor, int]],
+        cache: Optional[Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]],
         attn_impl: str,
     ) -> torch.Tensor:
         c = self.cfg
@@ -144,14 +150,19 @@ class DecoderLayer(nn.Module):
         v = self.attn.v_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
         q = _rope(cos_sin, q).contiguous()
         k = _rope(cos_sin, k)
-        q_offset = None
+        q_offset, causal = None, True
         if cache is not None:
             ck, cv, start = cache  # this layer's [B, H_kv, max_len, D] buffers
-            ck[:, :, start : start + T] = k.to(ck.dtype)
-            cv[:, :, start : start + T] = v.to(cv.dtype)
-            k, v, q_offset = ck.to(q.dtype), cv.to(q.dtype), start
+            rows = torch.arange(T, device=h.device) + start
+            ck.index_copy_(2, rows, k.to(ck.dtype))
+            cv.index_copy_(2, rows, v.to(cv.dtype))
+            k, v = ck.to(q.dtype), cv.to(q.dtype)
+            if T == 1:  # kv_mask already bounds the keys at kv_pos <= start: the causal mask adds nothing
+                causal = False
+            else:
+                q_offset = start
         out = attention(
-            q, k.contiguous(), v.contiguous(), causal=True, kv_mask=kv_mask, q_offset=q_offset, impl=attn_impl
+            q, k.contiguous(), v.contiguous(), causal=causal, kv_mask=kv_mask, q_offset=q_offset, impl=attn_impl
         )
         h = h + self.attn.o_proj(out.transpose(1, 2).reshape(B, T, c.q_dim))
         return h + self.mlp(self.post_attn_norm(h))
@@ -191,8 +202,9 @@ class LlamaDecoder(nn.Module):
         keeps every valid query off the padded keys). With a cache, the T new
         keys/values are written at ``kv_cache.length`` and attention spans the
         whole buffer with ``kv_pos < length + T`` AND ``attention_mask`` as
-        the key mask. ``remat`` recomputes each layer in the backward instead
-        of keeping its activations (no-cache forward only)."""
+        the key mask. A ``length`` held on the device takes T = 1 only, and
+        reads nothing back to the host. ``remat`` recomputes each layer in the
+        backward instead of keeping its activations (no-cache forward only)."""
         c = self.cfg
         if remat and kv_cache is not None:
             raise ValueError(
@@ -207,7 +219,10 @@ class LlamaDecoder(nn.Module):
         if kv_cache is not None:
             start = kv_cache.length
             max_len = kv_cache.k.shape[3]
-            if start + T > max_len:
+            if isinstance(start, torch.Tensor):
+                if T != 1:
+                    raise ValueError(f"a write pointer on the device takes one token a step, got T={T}")
+            elif start + T > max_len:
                 raise ValueError(f"KV cache overflow: {start} + {T} > {max_len}")
             if positions is None:
                 positions = (start + torch.arange(T, device=dev))[None].expand(B, T)

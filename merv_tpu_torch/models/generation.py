@@ -1,23 +1,47 @@
 """Autoregressive generation over the decoder (counterpart of ``merv_tpu/models/generation.py``).
 
 :func:`prefill` writes the prompt (or the multimodal embedding stream) into a
-fresh KV cache and returns the last valid position's logits; :func:`generate`
-then decodes greedily or by sampling in a Python loop (``lax.scan`` in JAX),
-with EOS semantics (tokens after EOS become ``pad_token_id``), right-padded
-batches (RoPE positions count valid tokens only) and min-length EOS banning.
-Sampling draws from an explicit ``torch.Generator``. Prefix sharing and
-speculative decoding wait for the serving slice (ROADMAP A9).
+KV cache and returns the last valid position's logits; :func:`generate`
+then decodes greedily or by sampling, with EOS semantics (tokens after EOS
+become ``pad_token_id``), right-padded batches (RoPE positions count valid
+tokens only) and min-length EOS banning. :func:`prefill_prefix` and
+:func:`generate_with_prefix` share one video's ``[BOS | visual]`` cache
+across many questions.
+
+Decode as one program. ``merv_tpu`` compiles the decode loop once
+(``_decode_scan``, a ``lax.scan`` over the T=1 step with the cache donated).
+Here the T=1 step is :meth:`DecodeRunner.step`, a function of tensors at
+fixed addresses (the runner's cache, token, positions, write pointer,
+``done`` and output), which reads nothing back to the host. On a CUDA device
+it is captured once per (batch, cache length, config) as a CUDA graph and
+replayed; on the CPU the same function runs in the Python loop, which is its
+plain version. The early exit (every row has emitted EOS) is read once per
+``DECODE_SYNC_EVERY`` steps: rows past EOS are pad either way, so the output
+is what a step-by-step check, or ``merv_tpu``'s scan over every step, gives.
+Sampling draws from the caller's ``torch.Generator`` (the runner's own
+generator takes its state before and hands it back after, and is registered
+with the graph). Speculative decoding waits for the serving engine (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import functools
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder
+
+# steps run between two reads of ``done`` (the early exit's host sync)
+DECODE_SYNC_EVERY = 16
+# decode runners kept alive per decoder, least recently used evicted first. Each
+# holds its KV cache: at Llama-2-7B 0.5 MiB per token per row (32 layers x K and
+# V x 32 heads x 128 x 2 bytes), so B=8 x 1,600 tokens is 6.25 GiB, plus the
+# graph's own pool (the step's activations at T=1, a few MiB)
+MAX_DECODE_RUNNERS = 2
 
 
 @dataclass(frozen=True)
@@ -31,6 +55,22 @@ class GenerationConfig:
     pad_token_id: int = 0
     # HF MinLengthLogitsProcessor: EOS banned while prompt + generated < min_length
     min_length: int = 1
+    # "int8" (merv_tpu's quantized KV cache) is not ported yet (ROADMAP A4);
+    # anything else stores the cache in the decoder's compute dtype
+    kv_cache_dtype: Optional[str] = None
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one side stream per device on which every decode runner warms up and
+    is captured: cuBLAS keeps a workspace for each stream it has run on, so a
+    stream per runner would add one per captured shape."""
+    return torch.cuda.Stream(device)
+
+
+def _check_kv_cache_dtype(kv_cache_dtype: Optional[str]) -> None:
+    if kv_cache_dtype == "int8":
+        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP A4)")
 
 
 def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -50,11 +90,15 @@ def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
 
 
 def _sample_token(logits: torch.Tensor, cfg: GenerationConfig, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """logits [B, V] fp32 -> [B] int64."""
+    """logits [B, V] fp32 -> [B] int64. Sampling is ``torch.multinomial``'s own
+    one-sample path written out (argmax of p / q with q ~ Exp(1) from the
+    generator), without its checks that read the probabilities back to the
+    host: the same draws, and nothing that stops a graph capture."""
     if not cfg.do_sample:
         return logits.argmax(dim=-1)
     probs = torch.softmax(_filter_logits(logits, cfg), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
 
 
 def _ban_eos_below_min_length(logits: torch.Tensor, cur_len: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -79,13 +123,17 @@ def prefill(
     attention_mask: Optional[torch.Tensor],  # [B, T]
     cache_len: int,
     attn_impl: str = "auto",
+    cache: Optional[KVCache] = None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
-    """Fill a new cache of ``cache_len`` positions with the prompt.
-    Returns (fp32 logits of each row's last valid position [B, V], cache,
-    valid-token counts [B])."""
+    """Fill a cache of ``cache_len`` positions with the prompt: a new one, or
+    ``cache`` (a decode runner's, written from row 0). Returns (fp32 logits of
+    each row's last valid position [B, V], cache, valid-token counts [B])."""
     B, T = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
-    cache = KVCache.create(decoder.cfg, B, cache_len, decoder.cfg.compute_dtype, dev)
+    if cache is None:
+        cache = KVCache.create(decoder.cfg, B, cache_len, decoder.cfg.compute_dtype, dev)
+    elif tuple(cache.k.shape[1:4:2]) != (B, cache_len):
+        raise ValueError(f"prefill: cache of {tuple(cache.k.shape)} for batch {B} and {cache_len} positions")
     if attention_mask is not None:
         am = attention_mask.long()
         positions = (am.cumsum(dim=1) - 1).clamp(min=0)
@@ -95,9 +143,177 @@ def prefill(
         n_valid = torch.full((B,), T, dtype=torch.long, device=dev)
     logits, cache = decoder(
         inputs_embeds=inputs_embeds, attention_mask=attention_mask, positions=positions,
-        kv_cache=cache, logits_indices=n_valid - 1, attn_impl=attn_impl,
+        kv_cache=KVCache(cache.k, cache.v, 0), logits_indices=n_valid - 1, attn_impl=attn_impl,
     )
     return logits[:, 0].float(), cache, n_valid
+
+
+# ---------------------------------------------------------------------------
+# Decode as one program: the T=1 step on fixed-address tensors
+# ---------------------------------------------------------------------------
+
+
+class DecodeRunner:
+    """One decode shape: its KV cache, the step's state tensors and, on a CUDA
+    device, the step captured as a CUDA graph.
+
+    A graph keeps the addresses of the tensors it was captured on, so the
+    runner owns them for as long as it lives: the cache ``[L, B, H_kv,
+    max_len, D]`` (prefill and :func:`_tile_pad_cache` write into it), the
+    last token, each row's RoPE position, the shared write pointer
+    (``length``, a 0-d tensor), ``done``, the key mask and the output
+    ``[B, max_new_tokens]`` with its next column. The decoder's weights must
+    stay where they were at capture. T=1 attention is plain torch under
+    either ``attn_impl``, as the dispatch plans it, so the step takes none.
+    """
+
+    def __init__(self, decoder: LlamaDecoder, batch: int, max_len: int, config: GenerationConfig,
+                 device: torch.device) -> None:
+        c = decoder.cfg
+        self.config = config
+        self.cache = KVCache.create(c, batch, max_len, c.compute_dtype, device)
+        self.token = torch.zeros(batch, dtype=torch.long, device=device)
+        self.pos = torch.zeros(batch, dtype=torch.long, device=device)
+        self.length = torch.zeros((), dtype=torch.long, device=device)
+        self.column = torch.ones(1, dtype=torch.long, device=device)
+        self.done = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.cache_mask = torch.ones((batch, max_len), dtype=torch.bool, device=device)
+        self.out = torch.full((batch, config.max_new_tokens), config.pad_token_id, dtype=torch.long, device=device)
+        self.generator = torch.Generator(device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_logits: Optional[torch.Tensor] = None  # the captured step's logits, rewritten by each replay
+        self.capture_s = 0.0
+
+    def step(self, decoder: LlamaDecoder) -> torch.Tensor:
+        """One T=1 decode step on the runner's tensors, all of it on the device:
+        decoder forward at the write pointer, EOS ban, token choice, pad after
+        EOS, ``done``, and every pointer advanced by one. Returns the step's
+        fp32 logits [B, V] (after the EOS ban)."""
+        cfg = self.config
+        logits, _ = decoder(
+            input_ids=self.token[:, None], kv_cache=KVCache(self.cache.k, self.cache.v, self.length),
+            attention_mask=self.cache_mask, positions=self.pos[:, None],
+        )
+        # pos = per-row sequence length so far (prompt + generated)
+        step_logits = _ban_eos_below_min_length(logits[:, 0].float(), self.pos + 1, cfg)
+        nxt = _sample_token(step_logits, cfg, self.generator)
+        nxt = torch.where(self.done, torch.full_like(nxt, cfg.pad_token_id), nxt)
+        self.done |= nxt == cfg.eos_token_id
+        self.out.index_copy_(1, self.column, nxt[:, None])
+        self.token.copy_(nxt)
+        self.pos += 1
+        self.length += 1
+        self.column += 1
+        return step_logits
+
+    def capture(self, decoder: LlamaDecoder) -> None:
+        """Capture :meth:`step` as a CUDA graph (after two warm-up steps on a
+        side stream, as torch asks). Run before the runner's first prefill:
+        the warm-up steps write cache rows. A capture that fails raises."""
+        register = getattr(torch.cuda.CUDAGraph, "register_generator_state", None)
+        if self.config.do_sample and register is None:
+            raise RuntimeError("this torch cannot register a custom generator with a CUDA graph: no sampled decode")
+        t0 = time.perf_counter()
+        dev = self.token.device
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self.column.fill_(1)  # a warm-up step must not write past the output's last column
+                self.step(decoder)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        if self.config.do_sample:
+            graph.register_generator_state(self.generator)
+        # thread_local: host threads (the eval drivers' prefetch) may call CUDA meanwhile
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.graph_logits = self.step(decoder)
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, first: torch.Tensor, start_pos: torch.Tensor, cache_mask: torch.Tensor, length: int,
+             generator: Optional[torch.Generator]) -> None:
+        """Set the step's state for one request: the first sampled token, each
+        row's position, the key mask over the whole cache, the write pointer
+        (the rows written so far), and the caller's generator state."""
+        cfg = self.config
+        self.token.copy_(first)
+        self.pos.copy_(start_pos)
+        self.length.fill_(length)
+        self.column.fill_(1)
+        self.done.copy_(first == cfg.eos_token_id)
+        self.cache_mask.copy_(cache_mask)
+        self.out.fill_(cfg.pad_token_id)
+        self.out[:, 0] = first
+        if cfg.do_sample and generator is not None:
+            self.generator.set_state(generator.get_state())
+
+    def decode(self, decoder: LlamaDecoder) -> int:
+        """Run up to ``max_new_tokens - 1`` steps (graph replays on a CUDA
+        device, :meth:`step` on the CPU), reading ``done`` once every
+        ``DECODE_SYNC_EVERY`` steps. Returns the steps run."""
+        remaining, steps = self.config.max_new_tokens - 1, 0
+        while remaining > 0 and not bool(self.done.all()):
+            n = min(DECODE_SYNC_EVERY, remaining)
+            for _ in range(n):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self.step(decoder)
+            remaining, steps = remaining - n, steps + n
+        return steps
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.graph_logits = self.cache = None
+
+
+def decode_runner(decoder: LlamaDecoder, batch: int, max_len: int, config: GenerationConfig,
+                  device: torch.device) -> Tuple[DecodeRunner, bool]:
+    """The decoder's runner for (batch, cache length, config, device), made
+    (and, on a CUDA device, captured) on first use: (runner, made now). At
+    most ``MAX_DECODE_RUNNERS`` stay alive per decoder."""
+    runners = decoder.__dict__.setdefault("_decode_runners", OrderedDict())
+    key = (batch, max_len, config, str(device))
+    runner = runners.get(key)
+    if runner is not None:
+        runners.move_to_end(key)
+        return runner, False
+    while len(runners) >= MAX_DECODE_RUNNERS:
+        runners.popitem(last=False)[1].release()
+    runner = DecodeRunner(decoder, batch, max_len, config, device)
+    if device.type == "cuda":
+        runner.capture(decoder)
+    runners[key] = runner
+    return runner, True
+
+
+def _decode(decoder: LlamaDecoder, runner: DecodeRunner, made: bool, first: torch.Tensor, start_pos: torch.Tensor,
+            cache_mask: torch.Tensor, length: int, generator: Optional[torch.Generator],
+            timings: Optional[Dict[str, float]]) -> torch.Tensor:
+    dev = first.device
+    t0 = _sync(dev) if timings is not None else 0.0
+    runner.load(first, start_pos, cache_mask, length, generator)
+    steps = runner.decode(decoder)
+    if runner.config.do_sample and generator is not None:
+        generator.set_state(runner.generator.get_state())
+    out = runner.out.clone()
+    if timings is not None:
+        timings["decode_s"] = _sync(dev) - t0
+        timings["decode_steps"] = steps
+        timings["decode_capture_s"] = runner.capture_s if made else 0.0
+    return out
+
+
+def _default_generator(config: GenerationConfig, generator: Optional[torch.Generator],
+                       device: torch.device) -> Optional[torch.Generator]:
+    if config.do_sample and generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return generator
 
 
 @torch.inference_mode()
@@ -117,49 +333,152 @@ def generate(
 
     ``timings``, when given, receives ``prefill_s`` / ``decode_s`` /
     ``decode_steps`` measured with a device synchronisation at each phase
-    boundary (so it costs two syncs per call and nothing when omitted)."""
+    boundary, and ``decode_capture_s``, the graph capture's time when this
+    call made the runner (else 0; outside both phases)."""
+    _check_kv_cache_dtype(config.kv_cache_dtype)
     if inputs_embeds is None:
         inputs_embeds = decoder.embed_input_ids(input_ids)
     B, T = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
-    if config.do_sample and generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(0)
+    generator = _default_generator(config, generator, dev)
     cache_len = max_cache_len or (T + config.max_new_tokens)
+    runner, made = decode_runner(decoder, B, cache_len, config, dev) if config.max_new_tokens > 1 else (None, False)
 
     t0 = _sync(dev) if timings is not None else 0.0
-    last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len, attn_impl)
+    last_logits, _, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len, attn_impl,
+                                      cache=None if runner is None else runner.cache)
     first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
     if timings is not None:
-        t1 = _sync(dev)
-        timings["prefill_s"] = t1 - t0
-
-    out = torch.full((B, config.max_new_tokens), config.pad_token_id, dtype=torch.long, device=dev)
-    out[:, 0] = first
+        timings["prefill_s"] = _sync(dev) - t0
+    if runner is None:
+        if timings is not None:
+            timings.update(decode_s=0.0, decode_steps=0, decode_capture_s=0.0)
+        return first[:, None]
+    ones = torch.ones((B, cache_len - T), dtype=torch.bool, device=dev)
     if attention_mask is not None:
-        cache_mask = torch.cat(
-            [attention_mask.bool(), torch.ones((B, cache_len - T), dtype=torch.bool, device=dev)], dim=1
-        )
+        cache_mask = torch.cat([attention_mask.bool(), ones], dim=1)
     else:
-        cache_mask = None
-    token, pos = first, n_valid.clone()
-    done = first == config.eos_token_id
-    steps = 0
-    for step in range(1, config.max_new_tokens):
-        if bool(done.all()):  # every row has emitted EOS: the rest stays pad
-            break
-        logits, cache = decoder(
-            input_ids=token[:, None], kv_cache=cache, attention_mask=cache_mask,
-            positions=pos[:, None], attn_impl=attn_impl,
-        )
-        step_logits = _ban_eos_below_min_length(logits[:, 0].float(), pos + 1, config)
-        nxt = _sample_token(step_logits, config, generator)
-        nxt = torch.where(done, torch.full_like(nxt, config.pad_token_id), nxt)
-        done = done | (nxt == config.eos_token_id)
-        out[:, step] = nxt
-        token, pos = nxt, pos + 1
-        steps += 1
-    if timings is not None:
-        timings["decode_s"] = _sync(dev) - t1
-        timings["decode_steps"] = steps
-    return out
+        cache_mask = torch.cat([torch.ones((B, T), dtype=torch.bool, device=dev), ones], dim=1)
+    return _decode(decoder, runner, made, first, n_valid, cache_mask, T, generator, timings)
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix generation (video-prefix KV caching)
+# ---------------------------------------------------------------------------
+
+
+class VideoPrefix(NamedTuple):
+    """A shared-video prefix cache plus the host-side facts that define which
+    requests it may serve: the exact BOS ids baked into its first rows and
+    the KV dtype it was built with. ``MERV.generate_batch_shared`` validates
+    both before reuse."""
+
+    cache: KVCache
+    bos_ids: Tuple[int, ...]
+    kv_cache_dtype: Optional[str]
+
+
+@torch.inference_mode()
+def prefill_prefix(
+    decoder: LlamaDecoder,
+    *,
+    inputs_embeds: torch.Tensor,  # [1, P, E]: the shared prefix, no padding
+    kv_cache_dtype: Optional[str] = None,
+) -> KVCache:
+    """Prefill a shared, pad-free prompt prefix into a fresh B=1 cache whose
+    buffer is exactly P rows (``length == P``): the suffix path tiles and
+    extends it (:func:`generate_with_prefix`), and reads P from its shape."""
+    _check_kv_cache_dtype(kv_cache_dtype)
+    B, P = inputs_embeds.shape[:2]
+    if B != 1:
+        raise ValueError(f"a shared prefix is per video (B=1), got B={B}")
+    cache = KVCache.create(decoder.cfg, 1, P, decoder.cfg.compute_dtype, inputs_embeds.device)
+    _, cache = decoder(inputs_embeds=inputs_embeds, kv_cache=cache)
+    return cache
+
+
+def _tile_pad_cache(cache: KVCache, n: int, extra_rows: int, out: Optional[KVCache] = None) -> KVCache:
+    """Broadcast a B=1 prefix cache to n rows and extend its buffer by
+    ``extra_rows`` rows: into ``out`` (a decode runner's cache, whose rows past
+    the prefix are written before any step reads them) or into a new,
+    zero-filled cache. Shapes [L, B, H_kv, max_len, D]; returns ``length == P``."""
+    L, _, H, P, D = cache.k.shape
+    shape = (L, n, H, P + extra_rows, D)
+    if out is None:
+        out = KVCache(*(torch.zeros(shape, dtype=cache.k.dtype, device=cache.k.device) for _ in range(2)), 0)
+    elif tuple(out.k.shape) != shape:
+        raise ValueError(f"_tile_pad_cache: target cache {tuple(out.k.shape)}, need {shape}")
+    out.k[:, :, :, :P] = cache.k
+    out.v[:, :, :, :P] = cache.v
+    return KVCache(out.k, out.v, P)
+
+
+@torch.inference_mode()
+def prefill_with_prefix(
+    decoder: LlamaDecoder,
+    prefix_cache: KVCache,
+    suffix_ids: torch.Tensor,  # [B, Ts] right-padded question tokens (post-BOS)
+    suffix_mask: torch.Tensor,  # [B, Ts]
+    decode_rows: int,
+    cache: Optional[KVCache] = None,
+) -> Tuple[torch.Tensor, KVCache, torch.Tensor, torch.Tensor]:
+    """The suffix prefill of :func:`generate_with_prefix`: the prefix tiled
+    into a cache of P + Ts + ``decode_rows`` positions (``cache``, or a new
+    one), then the B suffixes written at P, each attending the prefix and its
+    own suffix causally (K2 with ``q_offset = P`` and a key mask). Returns
+    (fp32 logits of each row's last valid suffix position [B, V], cache,
+    valid tokens per row P + n_valid [B], key mask over the whole cache:
+    prefix valid, suffix pads invalid, decode rows valid)."""
+    B, Ts = suffix_ids.shape
+    P = prefix_cache.k.shape[3]
+    if prefix_cache.k.shape[1] != 1:
+        raise ValueError(f"prefix cache holds {prefix_cache.k.shape[1]} rows, not one video's")
+    cache = _tile_pad_cache(prefix_cache, B, Ts + decode_rows, out=cache)
+    dev = suffix_ids.device
+    sm = suffix_mask.long()
+    n_valid = sm.sum(dim=1)
+    positions = P + (sm.cumsum(dim=1) - 1).clamp(min=0)
+    cache_mask = torch.cat([
+        torch.ones((B, P), dtype=torch.bool, device=dev), suffix_mask.bool(),
+        torch.ones((B, decode_rows), dtype=torch.bool, device=dev),
+    ], dim=1)
+    logits, cache = decoder(
+        inputs_embeds=decoder.embed_input_ids(suffix_ids), attention_mask=cache_mask, positions=positions,
+        kv_cache=cache, logits_indices=(n_valid - 1).clamp(min=0),
+    )
+    return logits[:, 0].float(), cache, P + n_valid, cache_mask
+
+
+@torch.inference_mode()
+def generate_with_prefix(
+    decoder: LlamaDecoder,
+    prefix_cache: KVCache,
+    *,
+    suffix_ids: torch.Tensor,  # [B, Ts] right-padded question tokens (post-BOS)
+    suffix_mask: torch.Tensor,  # [B, Ts]
+    config: GenerationConfig = GenerationConfig(),
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Generate continuations of a shared cached prefix -> [B, max_new_tokens].
+
+    Token-identical to :func:`generate` on the spliced ``[prefix | suffix_b]``
+    sequences: suffix positions start at P, and ``logits_indices`` is
+    ``max(n_valid - 1, 0)``. The prefix cache is tiled into the decode
+    runner's buffer, so the caller's cache serves further question batches.
+    Every suffix row must hold at least one valid token (``MERV.generate_batch_shared``
+    checks); an all-pad row reads its first suffix position."""
+    _check_kv_cache_dtype(config.kv_cache_dtype)
+    B, Ts = suffix_ids.shape
+    P = prefix_cache.k.shape[3]
+    dev = suffix_ids.device
+    generator = _default_generator(config, generator, dev)
+    max_new = config.max_new_tokens
+    runner, made = decode_runner(decoder, B, P + Ts + max_new, config, dev) if max_new > 1 else (None, False)
+
+    last_logits, _, total_valid, cache_mask = prefill_with_prefix(
+        decoder, prefix_cache, suffix_ids, suffix_mask, max_new, cache=None if runner is None else runner.cache,
+    )
+    first = _sample_token(_ban_eos_below_min_length(last_logits, total_valid, config), config, generator)
+    if runner is None:
+        return first[:, None]
+    return _decode(decoder, runner, made, first, total_valid, cache_mask, P + Ts, generator, None)

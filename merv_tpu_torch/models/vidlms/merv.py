@@ -9,7 +9,12 @@
 - multimodal splice: visual tokens after BOS; text-only rows keep their text
   followed by zero embeddings with a False mask.
 - generation: towers -> projectors -> fusion -> splice -> cache prefill ->
-  decode, eagerly (the JAX package jits the whole pipeline).
+  decode (the T=1 step captured as one CUDA graph on the card; the JAX
+  package jits the whole pipeline), for one video (:meth:`MERV.generate`), a
+  batch (:meth:`MERV.generate_batch`), or many questions on one video
+  sharing its ``[BOS | visual]`` cache (:meth:`MERV.build_video_prefix`,
+  :meth:`MERV.generate_batch_shared`); :meth:`MERV.score_options` reads a
+  multiple-choice answer from one forward's last-position logits.
 - training: :meth:`MERV.forward` is differentiable (the towers, frozen in
   every stage, run under ``torch.no_grad``, the counterpart of
   ``stop_gradient``);
@@ -38,7 +43,14 @@ from torch.utils.checkpoint import checkpoint
 from merv_tpu_torch.device import resolve_device
 from merv_tpu_torch.models.backbones.llm.base_llm import LLMBackbone
 from merv_tpu_torch.models.backbones.video.base_video import VideoBackbone
-from merv_tpu_torch.models.generation import GenerationConfig, _sync, generate as _generate
+from merv_tpu_torch.models.generation import (
+    GenerationConfig,
+    VideoPrefix,
+    _sync,
+    generate as _generate,
+    generate_with_prefix,
+    prefill_prefix,
+)
 from merv_tpu_torch.models.vidlms.base_vidlm import IGNORE_INDEX, VidLM
 from merv_tpu_torch.nn.fusion import CrossAttentionAdapterLearnableQuery
 from merv_tpu_torch.nn.projectors import AveragePooling3DProjector
@@ -136,10 +148,26 @@ class MERV(VidLM):
             raise NotImplementedError(f"feature_fusion {feature_fusion!r} is not ported yet (ROADMAP A10)")
 
         self.trainable_module_keys: List[str] = []
+        # MCQ likelihood readout tokens, resolved at first use so that building
+        # the model never instantiates the tokenizer
+        self._string2idx: Optional[Dict[str, int]] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    @property
+    def string2idx(self) -> Dict[str, int]:
+        if self._string2idx is None:
+            s2i = {}
+            tok = self.llm_backbone.tokenizer
+            for s in ["True", "False", "Yes", "No"] + [chr(ord("A") + i) for i in range(26)]:
+                ids = tok.encode(s, add_special_tokens=False)
+                if len(ids) != 1:
+                    raise ValueError(f'String "{s}" is tokenized as more than one token!')
+                s2i[s] = ids[0]
+            self._string2idx = s2i
+        return self._string2idx
 
     # ------------------------------------------------------------------------------
     # Forward pieces
@@ -305,6 +333,7 @@ class MERV(VidLM):
         top_k: int = 0,
         min_length: int = 1,
         generator: Optional[torch.Generator] = None,
+        kv_cache_dtype: Optional[str] = None,
         attn_impl: str = "auto",
         timings: Optional[Dict[str, float]] = None,
     ) -> torch.Tensor:
@@ -314,11 +343,8 @@ class MERV(VidLM):
         for t in (input_ids, attention_mask, *video_values):
             if t.device != dev:
                 raise ValueError(f"generate_ids: input on {t.device}, model on {dev}")
-        cfg = GenerationConfig(
-            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature, top_p=top_p,
-            top_k=top_k, min_length=min_length,
-            eos_token_id=self.llm_backbone.stop_token_id, pad_token_id=self.llm_backbone.pad_token_id,
-        )
+        cfg = self._generation_config(max_new_tokens, do_sample, temperature, top_p, top_k, min_length,
+                                      kv_cache_dtype)
         embeds, mask = self.build_inputs_embeds(
             input_ids, attention_mask, video_values, is_multimodal, attn_impl, timings
         )
@@ -332,8 +358,9 @@ class MERV(VidLM):
         videos: Sequence[Any],
         prompt_texts: Sequence[str],
         num_frames: Optional[List[int]] = None,
-        length_bucket: int = 64,
         clip_args: Optional[Sequence[Dict[str, Any]]] = None,
+        length_bucket: int = 64,
+        pad_to_batch: Optional[int] = None,
         timings: Optional[Dict[str, float]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """Tokenize + right-pad prompts to a ``length_bucket`` multiple, and
@@ -341,7 +368,10 @@ class MERV(VidLM):
         A ``None`` video gives a text-only row (zero video tensors); a path is
         decoded on the host to ``max(num_frames)`` frames, with the row's
         ``clip_args`` (``clip_start_sec`` / ``clip_end_sec`` / ``end_frame``).
-        ``timings`` (optional) receives the host decode's time, ``decode_video_s``."""
+        ``pad_to_batch`` pads the batch with text-only rows (prompt ``"."``)
+        up to that size, so a partial last group runs at the full group's
+        shapes (callers slice the outputs back). ``timings`` (optional)
+        receives the host decode's time, ``decode_video_s``."""
         dev = self.device
         if num_frames is None:
             num_frames = [vb.num_frames for vb in self.video_backbones]
@@ -349,6 +379,12 @@ class MERV(VidLM):
         if len(prompt_texts) != B:
             raise ValueError("one prompt per video")
         clip_args = list(clip_args) if clip_args else [{}] * B
+        if pad_to_batch is not None and B < pad_to_batch:
+            n_pad = pad_to_batch - B
+            videos = list(videos) + [None] * n_pad
+            prompt_texts = list(prompt_texts) + ["."] * n_pad
+            clip_args = clip_args + [{}] * n_pad
+            B = pad_to_batch
         tok = self.llm_backbone.tokenizer
         id_lists = [tok(p, truncation=True).input_ids for p in prompt_texts]
         T = max(len(ids) for ids in id_lists)
@@ -418,11 +454,242 @@ class MERV(VidLM):
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
             generator=generator, attn_impl=attn_impl, timings=timings,
         )
-        out = tokens[0].tolist()
+        return self._texts(tokens, 1)[0]
+
+    def _generation_config(self, max_new_tokens: int, do_sample: bool, temperature: float, top_p: float,
+                           top_k: int, min_length: int, kv_cache_dtype: Optional[str]) -> GenerationConfig:
+        return GenerationConfig(
+            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature, top_p=top_p,
+            top_k=top_k, min_length=min_length, eos_token_id=self.llm_backbone.stop_token_id,
+            pad_token_id=self.llm_backbone.pad_token_id, kv_cache_dtype=kv_cache_dtype,
+        )
+
+    def _texts(self, tokens: torch.Tensor, n_real: int) -> List[str]:
+        """The first ``n_real`` rows of generated ids, each cut at the stop
+        token and decoded."""
         stop = self.llm_backbone.stop_token_id
-        if stop in out:
-            out = out[: out.index(stop)]
-        return self.llm_backbone.tokenizer.decode(out, skip_special_tokens=True).strip()
+        outs = []
+        for row in tokens[:n_real].tolist():
+            if stop in row:
+                row = row[: row.index(stop)]
+            outs.append(self.llm_backbone.tokenizer.decode(row, skip_special_tokens=True).strip())
+        return outs
+
+    def generate_batch(
+        self,
+        videos: Sequence[Any],
+        prompt_texts: Sequence[str],
+        num_frames: Optional[List[int]] = None,
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_length: int = 1,
+        clip_args: Optional[Sequence[Dict[str, Any]]] = None,
+        generator: Optional[torch.Generator] = None,
+        pad_to_batch: Optional[int] = None,
+        kv_cache_dtype: Optional[str] = None,
+        mesh: Optional[Any] = None,
+    ) -> List[str]:
+        """Batched multi-video generation: one prefill and one decode for the
+        whole batch. ``videos`` entries: a path, a uint8 array or None. Prompt
+        lengths pad to ``length_bucket`` multiples and, with ``pad_to_batch``,
+        the batch to a fixed size (see :meth:`_prepare_batch_inputs`), which
+        bounds the decode shapes, and so the captured graphs, of a run.
+        ``mesh`` (a serving mesh) is not ported (ROADMAP A12)."""
+        _no_mesh(mesh)
+        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
+            videos, prompt_texts, num_frames, clip_args, pad_to_batch=pad_to_batch
+        )
+        tokens = self.generate_ids(
+            input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+            do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
+            generator=generator, kv_cache_dtype=kv_cache_dtype,
+        )
+        return self._texts(tokens, len(videos))
+
+    # ------------------------------------------------------------------------------
+    # Video-prefix KV caching (many questions on one video)
+    # ------------------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def build_video_prefix(
+        self,
+        video: Any,
+        num_frames: Optional[List[int]] = None,
+        clip_args: Optional[Dict[str, Any]] = None,
+        kv_cache_dtype: Optional[str] = None,
+        bos_ids: Optional[Any] = None,
+    ) -> VideoPrefix:
+        """Towers + fusion + the ``[BOS | visual]`` KV prefill, once per video:
+        every question about the video reuses it (:meth:`generate_batch_shared`).
+        Returns a :class:`VideoPrefix`: the B=1 cache and the BOS ids and KV
+        dtype it was built with, which a later request must match."""
+        dev = self.device
+        if num_frames is None:
+            num_frames = [vb.num_frames for vb in self.video_backbones]
+        if isinstance(video, str) or hasattr(video, "__fspath__"):
+            video = _load_media(video, max(num_frames), **(clip_args or {}))
+        frames_all = torch.as_tensor(np.asarray(video)).to(dev)
+        vids = [vb.get_video_transform()(subsample_frames(frames_all, nf))[None]
+                for vb, nf in zip(self.video_backbones, num_frames)]
+
+        nbos = self.llm_backbone.bos_token_length
+        visual, _ = self.project_and_fuse(self.encode_videos(vids))
+        bos_tuple: Tuple[int, ...] = ()
+        prefix = visual
+        if nbos:
+            if bos_ids is None:
+                bos_ids = [self.llm_backbone.tokenizer(".", truncation=True).input_ids[:nbos]]
+            bos_ids = torch.as_tensor(bos_ids, device=dev).long()
+            bos_tuple = tuple(bos_ids[0].tolist())
+            bos_embeds = self.llm_backbone.embed_input_ids(bos_ids)
+            prefix = torch.cat([bos_embeds, visual.to(bos_embeds.dtype)], dim=1)
+        cache = prefill_prefix(self.llm_backbone.decoder, inputs_embeds=prefix, kv_cache_dtype=kv_cache_dtype)
+        return VideoPrefix(cache=cache, bos_ids=bos_tuple, kv_cache_dtype=kv_cache_dtype)
+
+    def generate_ids_shared(
+        self,
+        prefix_cache: Any,
+        suffix_ids: torch.Tensor,  # [B, Ts] right-padded post-BOS prompt tokens
+        suffix_mask: torch.Tensor,  # [B, Ts]
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_length: int = 1,
+        generator: Optional[torch.Generator] = None,
+        kv_cache_dtype: Optional[str] = None,
+    ) -> torch.Tensor:
+        """Batched generation against a shared video-prefix cache (a
+        :class:`VideoPrefix` or its bare cache): token-identical to
+        :meth:`generate_ids` on the full spliced sequences, each question
+        paying only its suffix prefill and decode."""
+        if isinstance(prefix_cache, VideoPrefix):
+            if prefix_cache.kv_cache_dtype != kv_cache_dtype:
+                raise ValueError(
+                    f"prefix cache was built with kv_cache_dtype={prefix_cache.kv_cache_dtype!r} but this request "
+                    f"asks for {kv_cache_dtype!r}"
+                )
+            prefix_cache = prefix_cache.cache
+        cfg = self._generation_config(max_new_tokens, do_sample, temperature, top_p, top_k, min_length,
+                                      kv_cache_dtype)
+        return generate_with_prefix(
+            self.llm_backbone.decoder, prefix_cache, suffix_ids=suffix_ids, suffix_mask=suffix_mask, config=cfg,
+            generator=generator,
+        )
+
+    def generate_batch_shared(
+        self,
+        video: Any,
+        prompt_texts: Sequence[str],
+        num_frames: Optional[List[int]] = None,
+        max_new_tokens: int = 128,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_length: int = 1,
+        clip_args: Optional[Dict[str, Any]] = None,
+        generator: Optional[torch.Generator] = None,
+        pad_to_batch: Optional[int] = None,
+        length_bucket: int = 64,
+        kv_cache_dtype: Optional[str] = None,
+        prefix_cache: Any = None,
+    ) -> List[str]:
+        """One video, many questions: towers and the video-prefix prefill run
+        once, each question pays its suffix prefill and decode. Same bucketing
+        as :meth:`generate_batch`. ``prefix_cache`` (from
+        :meth:`build_video_prefix`) reuses a prefix across calls. Raises
+        ``ValueError`` where the prompts disagree on BOS, where the prefix was
+        built with other BOS ids, or where a prompt is empty after its BOS."""
+        n_real = len(prompt_texts)
+        nbos = self.llm_backbone.bos_token_length
+        tok = self.llm_backbone.tokenizer
+        id_lists = [tok(p, truncation=True).input_ids for p in prompt_texts]
+        if nbos:
+            bos = id_lists[0][:nbos]
+            if not all(ids[:nbos] == bos for ids in id_lists):
+                raise ValueError(
+                    "prompts disagree on BOS: a shared prefix bakes one BOS into its cache, got "
+                    f"{sorted({tuple(i[:nbos]) for i in id_lists})}"
+                )
+        else:
+            bos = []
+        if isinstance(prefix_cache, VideoPrefix) and prefix_cache.bos_ids != tuple(bos):
+            raise ValueError(
+                f"prefix cache was built with bos_ids={prefix_cache.bos_ids} but these prompts tokenize to "
+                f"bos_ids={tuple(bos)}"
+            )
+        suffixes = [ids[nbos:] for ids in id_lists]
+        if any(len(s) == 0 for s in suffixes):
+            empty = [i for i, s in enumerate(suffixes) if not s]
+            raise ValueError(
+                f"prompts {empty} are empty after BOS stripping: the shared-prefix path needs at least one suffix "
+                "token per row to anchor its first sampled position"
+            )
+        if pad_to_batch is not None and n_real < pad_to_batch:
+            suffixes += [suffixes[-1]] * (pad_to_batch - n_real)
+        B = len(suffixes)
+        Ts = max(1, max(len(s) for s in suffixes))
+        if length_bucket > 1:
+            cap = max(self.llm_backbone.llm_max_length, Ts)
+            Ts = min(-(-Ts // length_bucket) * length_bucket, cap)
+        suffix_ids = np.full((B, Ts), self.llm_backbone.pad_token_id, np.int64)
+        suffix_mask = np.zeros((B, Ts), np.int64)
+        for b, sfx in enumerate(suffixes):
+            suffix_ids[b, : len(sfx)] = sfx
+            suffix_mask[b, : len(sfx)] = 1
+
+        dev = self.device
+        if prefix_cache is None:
+            prefix_cache = self.build_video_prefix(
+                video, num_frames, clip_args, kv_cache_dtype=kv_cache_dtype, bos_ids=[bos] if nbos else None,
+            )
+        tokens = self.generate_ids_shared(
+            prefix_cache, torch.as_tensor(suffix_ids, device=dev), torch.as_tensor(suffix_mask, device=dev),
+            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k,
+            min_length=min_length, generator=generator, kv_cache_dtype=kv_cache_dtype,
+        )
+        return self._texts(tokens, n_real)
+
+    @torch.inference_mode()
+    def score_options(
+        self,
+        videos: Sequence[Any],
+        prompt_texts: Sequence[str],
+        option_strings: Sequence[Sequence[str]],
+        num_frames: Optional[List[int]] = None,
+        clip_args: Optional[Sequence[Dict[str, Any]]] = None,
+        pad_to_batch: Optional[int] = None,
+        mesh: Optional[Any] = None,
+    ) -> List[str]:
+        """Likelihood MCQ readout: one batched no-cache forward, next-token
+        logits at each row's last prompt position, the option whose single
+        token (:attr:`string2idx`) scores highest; ids past the LM head (tiny
+        test vocabularies) score -inf. No decode at all."""
+        _no_mesh(mesh)
+        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
+            videos, prompt_texts, num_frames, clip_args, pad_to_batch=pad_to_batch
+        )
+        embeds, mask = self.build_inputs_embeds(input_ids, attention_mask, vids, is_mm)
+        last = mask.long().sum(dim=1) - 1
+        logits, _ = self.llm_backbone.decoder(inputs_embeds=embeds, attention_mask=mask, logits_indices=last)
+        rows = logits[:, 0].float().cpu().numpy()  # [B, V] next-token logits
+        picks = []
+        V = rows.shape[1]
+        for b, options in enumerate(option_strings):
+            ids = [self.string2idx[o] for o in options]
+            scores = [rows[b, i] if i < V else -np.inf for i in ids]
+            picks.append(options[int(np.argmax(scores))])
+        return picks
+
+
+def _no_mesh(mesh: Optional[Any]) -> None:
+    if mesh is not None:
+        raise NotImplementedError("serving over a device mesh (the sequence-sharded cache) is not ported (ROADMAP A12)")
 
 
 def _block_nll(decoder: Any, h_blk: torch.Tensor, l_blk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

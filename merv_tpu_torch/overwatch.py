@@ -26,6 +26,9 @@ class _Overwatch:
     def warning(self, msg: str, ctx_level: int = 0) -> None:
         self.logger.warning("  " * ctx_level + msg)
 
+    def error(self, msg: str, ctx_level: int = 0) -> None:
+        self.logger.error("  " * ctx_level + msg)
+
 
 def initialize_overwatch(name: str) -> _Overwatch:
     return _Overwatch(name)

@@ -31,6 +31,8 @@ import merv_tpu_torch.native, merv_tpu_torch.preprocessing.video_io, merv_tpu_to
 import merv_tpu_torch.models.load_vid, merv_tpu_torch.models.ckpt_import, merv_tpu_torch.models.registry
 import merv_tpu_torch.models.backbones.video.vision_import, merv_tpu_torch.models.backbones.llm.hf_import
 import merv_tpu_torch.util.safetensors_io
+import merv_tpu_torch.cli.eval_mcq, merv_tpu_torch.cli.eval_openended, merv_tpu_torch.conf.registry
+import merv_tpu_torch.util.prefetch, merv_tpu_torch.util.flops_utils
 from merv_tpu_torch import available_models, load_vid
 assert "merv-full" in available_models()
 
@@ -44,6 +46,10 @@ text = model.generate(video, "In: hi\nOut:", max_new_tokens=4)
 assert isinstance(text, str)
 text = model.generate("assets/video_demo.mp4", "In: hi\nOut:", max_new_tokens=4, clip_end_sec=3.0)
 assert isinstance(text, str)
+texts = model.generate_batch_shared(video, ["In: hi\nOut:", "In: what?\nOut:"], max_new_tokens=3, pad_to_batch=3)
+assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
+picks = model.score_options([video, None], ["In: hi\nOut:", "In: a?\nOut:"], [["A", "B"], ["A", "B", "C"]])
+assert picks[0] in ("A", "B") and picks[1] in ("A", "B", "C")
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
 assert not loaded, loaded
 print("OK")
