@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
+                           --engine-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
 cases; each prints them as one JSON line, with no result line: a quick way
-to compare two versions of those kernels within one call.
+to compare two versions of those kernels within one call. ``--engine-only``
+runs phase 4e alone after the build and prints its numbers the same way.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -93,6 +95,25 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    ``generate_batch`` on scene_0's 8 questions: each row's last-position
    logits of the suffix prefill held against the full prefill's, greedy
    agreement reported, launches as predicted.
+4e. the serving engine: merv-full's run directory (as 4c writes it) at
+   ``runs/chip_smoke_serve/``, 64 new tokens, 4 slots over a 2,048-token
+   budget. In this process: (a) the engine's decode chunk (plain, and the
+   verify at gamma 4) replayed as its CUDA graph against the same chunk
+   function run eagerly from the same state, greedy tokens identical; the
+   plain chunk's and the verify chunks' (gamma 2, 4, 8) ms per step by graph
+   replay, their ratios being the H100 ``_SPEC_COST_RATIO``; (b) the engine's
+   greedy tokens against ``MERV.generate`` on 6 requests (agreement
+   reported); (c) the speculative engine's against the plain engine's
+   (agreement and tokens per verify step reported). Then
+   ``python -m merv_tpu_torch.cli.serve`` three times in fresh processes
+   (``SERVE_RUNS``: prefix sharing on, off, and ``--speculative 4``) on
+   ``eval_data/dummy_openended_scaled``'s 32 questions, 4 text-only requests
+   and one naming a missing video: every request must get a line, only the
+   missing video's with ``finish_reason: "error"``, and K1 / K2 launches
+   must be as predicted from the engine's counts
+   (``engine_predicted_launches``). Requests/s, tokens/s, TTFT p50, slot
+   utilisation, prefill stall share, capture seconds and peak memory are
+   printed per run.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -113,7 +134,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    from the training path for K1-K3 and from the switched request of 4b for
    B3, B5 and B6, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
-   4d's runs), and
+   4d's runs, ``launches_engine`` from each of 4e's serve runs), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -1997,6 +2018,277 @@ def eval_path(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the serving engine (continuous batching, prefix caching, batched speculation)
+# ---------------------------------------------------------------------------
+
+SERVE_RUN = "chip_smoke_serve"  # runs/<SERVE_RUN> (the run directory); its request and result files beside it
+SERVE_MAX_NEW_TOKENS = 64
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 2048  # merv-full's llm_max_length, as eval_openended --use_engine sizes its engine
+SERVE_DATASET = os.path.join("eval_data", "dummy_openended_scaled")
+SERVE_TEXT_ONLY = ("Write one sentence about the sea.", "Name three colors.", "What is a video?",
+                   "Say hello to the user.")
+# (label, the serve command's arguments); each run in a fresh process
+SERVE_RUNS = (
+    ("shared", ["--share_video_prefix", "true"]),
+    ("unshared", ["--share_video_prefix", "false"]),
+    ("speculative", ["--speculative", "4", "--share_video_prefix", "true"]),
+)
+# K1 / K2 launches per program of the engine: a full VidLM prefill (a video or a text-only row: the towers run
+# either way) or a prefix build runs K1 in 23 DINOv2 + 23 LanguageBind layers and K2 in 12 ViViT + 32 LLM layers;
+# a suffix-only prefill runs K2 in the 32 LLM layers. Decode chunks (T=1 and the verify) run plain attention.
+ENGINE_LAUNCHES = {"full": {"small_attention_kt": 46, "flash_attention_forward": 44},
+                   "suffix": {"small_attention_kt": 0, "flash_attention_forward": 32}}
+CHUNK_GAMMAS = (0, 2, 4, 8)  # the plain chunk and the verify chunks the monitor may pick
+CHUNK_TIMED_REPLAYS = 5
+
+
+def engine_predicted_launches(summary: dict) -> dict:
+    """K1 / K2 launches a serve run must show, from the engine's own counts."""
+    full = summary["prefills"] - summary["suffix_prefills"] + summary["prefix_builds"]
+    return {k: full * ENGINE_LAUNCHES["full"][k] + summary["suffix_prefills"] * ENGINE_LAUNCHES["suffix"][k]
+            for k in ENGINE_LAUNCHES["full"]}
+
+
+def serve_request_file(path: str, vidlm) -> list:
+    """dummy_openended_scaled's 32 questions on its 4 videos, 4 text-only
+    requests and one naming a missing video file, as the serve command reads
+    them (prompts built as eval_openended builds them)."""
+    def prompt(message):
+        builder = vidlm.llm_backbone.prompt_builder_fn(model_family="merv")
+        builder.add_turn(role="human", message=message)
+        return builder.get_prompt()
+
+    reqs = [dict(request_id=q["question_id"], prompt=prompt(q["question"]),
+                 video=os.path.join(SERVE_DATASET, "videos", f"{q['video_name']}.gif"))
+            for q in json.load(open(os.path.join(SERVE_DATASET, "test_q.json")))]
+    reqs += [dict(request_id=f"text_{i}", prompt=prompt(m)) for i, m in enumerate(SERVE_TEXT_ONLY)]
+    reqs.append(dict(request_id="missing_video", prompt=prompt("What happens here?"),
+                     video=os.path.join(SERVE_DATASET, "videos", "no_such_scene.gif")))
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    return reqs
+
+
+def run_serve_process(argv: list) -> tuple:
+    """``python -m merv_tpu_torch.cli.serve`` in a fresh process -> (exit code, stdout, stderr)."""
+    proc = subprocess.run([sys.executable, "-m", "merv_tpu_torch.cli.serve"] + argv, capture_output=True, text=True,
+                          timeout=600)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def serve_run(label: str, extra: list, requests: list, request_path: str) -> dict:
+    """One serve run at SERVE_SLOTS slots: every request must get a
+    line, only ``missing_video`` may (and must) fail, and the K1 / K2 launches
+    must be as predicted from the engine's counts."""
+    out_path = os.path.join("runs", f"{SERVE_RUN}_{label}.jsonl")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    argv = ["--model_path", SERVE_RUN, "--requests", request_path, "--output", out_path, "--slots", str(SERVE_SLOTS),
+            "--max_len", str(SERVE_MAX_LEN), "--max_new_tokens", str(SERVE_MAX_NEW_TOKENS),
+            "--allow_random_weights", "true"] + extra
+    t = time.perf_counter()
+    rc, stdout, stderr = run_serve_process(argv)
+    wall = time.perf_counter() - t
+    os.makedirs(os.path.join("chiprun_out", "serve"), exist_ok=True)
+    with open(os.path.join("chiprun_out", "serve", f"{label}.log"), "w") as f:
+        f.write(stderr)
+    if rc != 0:
+        raise RuntimeError(f"serve {label}: exit {rc}: {stderr[-2000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    rows = {r["request_id"]: r for r in map(json.loads, open(out_path).read().splitlines())}
+    shutil.copy(out_path, os.path.join("chiprun_out", "serve", f"{label}.jsonl"))
+    missing = sorted({r["request_id"] for r in requests} - set(rows))
+    failed = sorted(rid for rid, r in rows.items() if r["finish_reason"] == "error")
+    predicted = engine_predicted_launches(summary)
+    launches = {k: summary["launches"][k] for k in predicted}
+    others = {k: v for k, v in summary["launches"].items() if k not in predicted and v}
+    phase_lines = [line for line in stderr.splitlines() if "Served" in line or "Phases:" in line]
+    log(f"[serve] {label}: python -m merv_tpu_torch.cli.serve {' '.join(argv)}: process wall {wall:.1f} s; "
+        f"{json.dumps({k: v for k, v in summary.items() if k != 'launches'})}; launches {launches} (predicted "
+        f"{predicted}); {len(rows)} result lines, unanswered {missing}, failed {failed}; "
+        + " | ".join(line.split(":: ")[-1] for line in phase_lines))
+    if missing or failed != ["missing_video"]:
+        raise RuntimeError(f"serve {label}: unanswered {missing}, failed {failed} (only missing_video may fail)")
+    if launches != predicted or others:
+        raise RuntimeError(f"serve {label}: launches {summary['launches']}, predicted {predicted}")
+    return dict(label=label, argv=argv, process_wall_s=wall, summary=summary, launches=launches,
+                predicted_launches=predicted, texts={rid: r["text"][:60] for rid, r in rows.items()})
+
+
+def chunk_checks(vidlm, requests: list) -> dict:
+    """(a) The engine's decode chunk by graph replay against the same chunk
+    function run eagerly from the same state (4 live slots after one
+    admission), plain and at gamma 4: greedy tokens must be identical. Then
+    the plain chunk's and the verify chunks' (gamma 2, 4, 8) ms per step by
+    graph replay at SERVE_SLOTS slots over the full-length cache, which give
+    the H100 ``_SPEC_COST_RATIO``, with each graph's capture time and pool."""
+    import torch
+
+    from merv_tpu_torch.models.generation import GenerationConfig
+    from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    cfg = GenerationConfig(max_new_tokens=SERVE_MAX_NEW_TOKENS, eos_token_id=vidlm.llm_backbone.stop_token_id,
+                           pad_token_id=vidlm.llm_backbone.pad_token_id)
+    engine = ContinuousBatchingEngine.for_vidlm(vidlm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, config=cfg,
+                                                speculative_gamma=4)
+    for r in requests[:: 8][:SERVE_SLOTS]:  # one question of each video
+        engine.submit(Request(r["request_id"], prompt_text=r["prompt"], video=r["video"],
+                              max_new_tokens=SERVE_MAX_NEW_TOKENS))
+    engine._admit()
+    st = engine._state
+    with torch.inference_mode():
+        st.done.zero_()
+    torch.cuda.synchronize()
+    snap = st.snapshot()
+    rows = st.k.shape[3]
+    out = dict(slots=SERVE_SLOTS, cache_rows=rows, slot_lengths=snap["length"].tolist(), chunks={})
+    for gamma in CHUNK_GAMMAS:
+        chunk = engine._chunk(gamma)
+        window = (lambda c=chunk: (c.wins.clone(), c.emits.clone())) if gamma else (lambda c=chunk: (c.toks.clone(),))
+        row = dict(capture_s=chunk.capture_s, pool_mib=chunk.pool_bytes / 2**20)
+        if gamma in (0, 4):
+            st.restore(snap)
+            chunk.run_eager(engine)
+            eager = window()
+            st.restore(snap)
+            chunk.graph.replay()
+            graph = window()
+            row["graph_equals_eager"] = all(torch.equal(a, b) for a, b in zip(eager, graph))
+            if gamma:
+                row["tokens_per_step"] = (graph[1].sum() / (graph[1] > 0).sum()).item()
+        times = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for i in range(CHUNK_TIMED_REPLAYS + 1):
+            st.restore(snap)
+            torch.cuda.synchronize()
+            start.record()
+            chunk.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            if i:  # the first replay warms up
+                times.append(start.elapsed_time(end))
+        row["ms_per_step"] = sum(times) / len(times) / engine.steps_per_sync
+        row["ms_per_step_min"] = min(times) / engine.steps_per_sync
+        if gamma in (0, 4):  # one replay under the profiler: where a chunk's device time goes
+            st.restore(snap)
+            row["profiled_replay"] = profile_decode_step(chunk.graph.replay)
+        out["chunks"][gamma] = row
+    plain = out["chunks"][0]["ms_per_step"]
+    out["spec_cost_ratio"] = {g: out["chunks"][g]["ms_per_step"] / plain for g in CHUNK_GAMMAS if g}
+    out["chunk_graphs_alive"] = len(engine._chunks)
+    log(f"[engine] chunk graphs at {SERVE_SLOTS} slots, {rows} cache rows (slot lengths {out['slot_lengths']}): "
+        + "; ".join(f"gamma {g}: {r['ms_per_step']:.3f} ms/step (min {r['ms_per_step_min']:.3f}), capture "
+                    f"{r['capture_s']:.3f} s, pool {r['pool_mib']:.1f} MiB"
+                    + (f", graph tokens equal the eager chunk's: {r['graph_equals_eager']}" if "graph_equals_eager"
+                       in r else "") for g, r in out["chunks"].items())
+        + f"; verify cost / plain step {json.dumps({g: round(v, 4) for g, v in out['spec_cost_ratio'].items()})}")
+    for g in (0, 4):
+        p = out["chunks"][g]["profiled_replay"]
+        log(f"[engine] one replay of the gamma {g} chunk ({engine.steps_per_sync} steps) under the profiler: wall "
+            f"{p['wall_ms']:.2f} ms, device {p['device_ms']} ms in {p['kernels']} kernels, idle share "
+            f"{p['idle_share']}; largest kernels (ms, launches): "
+            + "; ".join(f"{k['ms']:.3f} {k['count']} {k['kernel'][:60]}" for k in p.get("top_kernels", [])))
+    del engine
+    bad = [g for g, r in out["chunks"].items() if r.get("graph_equals_eager") is False]
+    if bad:
+        raise RuntimeError(f"engine chunk graph: tokens differ from the eager chunk's at gamma {bad}")
+    return out
+
+
+def agreement(a: dict, b: dict) -> float:
+    """Share of equal tokens between two {request_id: token array} maps."""
+    return sum(int((a[k] == b[k]).sum()) for k in a) / sum(a[k].size for k in a)
+
+
+def engine_path(dev, seed: int) -> dict:
+    """Phase 4e: write merv-full's run directory (as 4c and 4d do); in this
+    process check the chunk graphs (``chunk_checks``) and the engine's greedy
+    tokens (b) against ``MERV.generate`` and (c) its speculative form against
+    the plain engine; then run the serve command three times in fresh
+    processes (SERVE_RUNS). The run directory, the request file and the result files are
+    deleted at the end; copies go to ``chiprun_out/serve/``."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch import load_vid
+    from merv_tpu_torch.models.generation import GenerationConfig
+    from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs", SERVE_RUN)
+    write_run_dir(run_dir, dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):  # the random-weights route, whatever the caller set
+        os.environ.pop(name, None)
+    request_path = os.path.join("runs", f"{SERVE_RUN}_requests.jsonl")
+    try:
+        vidlm = load_vid(run_dir, allow_random_weights=True)
+        requests = serve_request_file(request_path, vidlm)
+        torch.cuda.reset_peak_memory_stats()
+        stamps = [time.perf_counter()]
+        chunks = chunk_checks(vidlm, requests)
+        stamps.append(time.perf_counter())
+
+        # (b) and (c): one question of each video and two text-only requests
+        picked = requests[::8][:4] + [r for r in requests if r["request_id"].startswith("text_")][:2]
+        cfg = GenerationConfig(max_new_tokens=SERVE_MAX_NEW_TOKENS, eos_token_id=vidlm.llm_backbone.stop_token_id,
+                               pad_token_id=vidlm.llm_backbone.pad_token_id)
+        served = {}
+        for name, gamma in (("plain", 0), ("speculative", 4)):
+            engine = ContinuousBatchingEngine.for_vidlm(vidlm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, config=cfg,
+                                                        speculative_gamma=gamma)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            served[name] = engine.run([Request(r["request_id"], prompt_text=r["prompt"], video=r.get("video"),
+                                               max_new_tokens=SERVE_MAX_NEW_TOKENS) for r in picked])
+            torch.cuda.synchronize()
+            served[name + "_stats"] = dict(wall_s=time.perf_counter() - t, tokens_per_step=engine.stats.tokens_per_step,
+                                           spec_steps=engine.stats.spec_steps, capture_s=engine.stats.capture_s,
+                                           spec_disables=engine.stats.spec_disables)
+            del engine
+        ref = {r["request_id"]: vidlm.generate_ids(*vidlm._prepare_batch_inputs([r.get("video")], [r["prompt"]]),
+                                                   max_new_tokens=SERVE_MAX_NEW_TOKENS)[0].cpu().numpy()
+               for r in picked}
+        tokens = {name: {k: v.token_ids for k, v in served[name].items()} for name in ("plain", "speculative")}
+        errors = [k for name in tokens for k, v in served[name].items() if v.finish_reason == "error"]
+        checks = dict(
+            engine_vs_generate_agreement=agreement(tokens["plain"], ref),
+            first_tokens_equal=sum(int(tokens["plain"][k][0] == ref[k][0]) for k in ref),
+            speculative_vs_plain_agreement=agreement(tokens["speculative"], tokens["plain"]),
+            plain=served["plain_stats"], speculative=served["speculative_stats"], requests=len(picked),
+        )
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        stamps.append(time.perf_counter())
+        checks["walls_s"] = dict(setup=stamps[0] - t0, chunks=stamps[1] - stamps[0], agreement=stamps[2] - stamps[1])
+        log(f"[engine] in this process: run directory + load_vid {checks['walls_s']['setup']:.1f} s, chunk checks "
+            f"{checks['walls_s']['chunks']:.1f} s, (b) + (c) {checks['walls_s']['agreement']:.1f} s")
+        log(f"[engine] (b) engine greedy tokens against MERV.generate on {len(picked)} requests: agreement "
+            f"{checks['engine_vs_generate_agreement']:.3f}, first tokens equal in {checks['first_tokens_equal']}; "
+            f"(c) speculative engine (gamma 4) against the plain engine: agreement "
+            f"{checks['speculative_vs_plain_agreement']:.3f}, tokens per verify step "
+            f"{checks['speculative']['tokens_per_step']:.3f} over {checks['speculative']['spec_steps']} verify steps "
+            f"(monitor disables {checks['speculative']['spec_disables']}); walls {checks['plain']['wall_s']:.2f} / "
+            f"{checks['speculative']['wall_s']:.2f} s; peak {peak_gib:.2f} GiB")
+        if errors:
+            raise RuntimeError(f"engine checks: requests failed {errors}")
+        del vidlm
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = [serve_run(label, extra, requests, request_path) for label, extra in SERVE_RUNS]
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        for path in [request_path] + [os.path.join("runs", f"{SERVE_RUN}_{label}.jsonl") for label, _ in SERVE_RUNS]:
+            if os.path.exists(path):
+                os.remove(path)
+    wall = time.perf_counter() - t0
+    log(f"[engine] phase 4e: {wall:.1f} s")
+    return dict(wall_s=wall, chunks=chunks, checks=checks, peak_memory_gib=peak_gib, runs=runs)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the training path (merv-base align stage)
 # ---------------------------------------------------------------------------
 
@@ -2413,6 +2705,8 @@ def main() -> int:
     ap.add_argument("--small-only", action="store_true",
                     help="build, then run only the K1 and B3 kernel cases and print them (no result line): "
                          "for comparing two versions of the whole-sequence kernels within one call")
+    ap.add_argument("--engine-only", action="store_true",
+                    help="build, then run only phase 4e (the serving engine) and print its numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -2450,6 +2744,13 @@ def main() -> int:
                 "library_device_ms", "bound_ms", "worst_share_of_limit")
         log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
+    if args.engine_only:
+        with switches({}):
+            engine = engine_path(dev, args.seed)
+        log(json.dumps({"engine": {"chunks": engine["chunks"], "checks": engine["checks"],
+                                   "runs": [{k: r[k] for k in ("label", "process_wall_s", "summary")}
+                                            for r in engine["runs"]]}}))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -2462,6 +2763,7 @@ def main() -> int:
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
         evals = eval_path(dev, args.seed)
+        engine = engine_path(dev, args.seed)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -2481,6 +2783,7 @@ def main() -> int:
             launches_eval={**{r["label"]: r["launches"].get(name, 0) for r in evals["runs"]},
                            **{f"shared_check_{k}": evals["shared_vs_batch"][k]["launches"].get(name, 0)
                               for k in SHARED_CHECK_LAUNCHES}},
+            launches_engine={r["label"]: r["summary"]["launches"].get(name, 0) for r in engine["runs"]},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -2490,7 +2793,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
-                       main_path=main, loaded_path=loaded, eval_path=evals, train_path=train), f, indent=1)
+                       main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, train_path=train),
+                  f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -10,15 +10,23 @@ The chunked jsonl protocol of :mod:`merv_tpu_torch.cli.eval_mcq`, plus:
 - ``batch_size > 1`` batches each group into one prefill and one decode
   (``MERV.generate_batch``), with host decode run ahead (``prefetch_map``) and
   a failed group retried item by item; a failed item is logged and skipped;
+- ``--speculative N`` (batch size 1 only) decodes by prompt-lookup
+  speculation with draft length N;
+- ``--use_engine`` serves the questions through the continuous-batching
+  engine (:mod:`merv_tpu_torch.serving`) instead of groups: ``--engine_slots``
+  decode slots, questions grouped by (video, clip) and, with
+  ``--share_video_prefix``, each group of two or more sharing one
+  ``[BOS | visual]`` prefix, registered in waves of ``--prefix_budget``;
+  results stream to the shard as each question finishes; a failed question
+  is logged and skipped; ``--batch_size`` is ignored;
 - ``--serving_passes N`` serves the workload N times in-process and reports
   the last pass (the first holds the graph captures), writing results once;
   it prints one JSON line with ``serving_wall_s`` and ``questions_per_sec``.
 Scoring happens downstream (``scripts/eval_gpt_batch.py``, an LLM judge).
 
 The model runs on the card unless ``--device cpu`` is given. Not ported:
-``--use_engine`` and ``--speculative > 0`` (ROADMAP A9), ``--int8_kv`` (A4),
-``--quantize_llm`` (A2), ``--mesh_seq > 1`` (A12); each raises
-``NotImplementedError``.
+``--int8_kv`` (ROADMAP A4), ``--quantize_llm`` (A2), ``--mesh_seq > 1``
+(A12); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,8 +41,10 @@ from typing import Optional, Union
 
 import merv_tpu_torch.conf.registry as draccus
 from merv_tpu_torch.cli.eval_mcq import _clip, _resolve_video, get_chunk, load_model, refuse_unported
+from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.models.vidlms.merv import _load_media
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch.util.flops_utils import get_statistics
 from merv_tpu_torch.util.prefetch import prefetch_map
 
@@ -64,25 +74,29 @@ class EvalConfig:
     quantize_llm: bool = False                      # int8 LLM weights: not ported (ROADMAP A2)
     int8_kv: bool = False                           # int8 KV cache: not ported (ROADMAP A4)
     mesh_seq: int = 1                               # sequence-sharded KV cache: not ported (ROADMAP A12)
-    speculative: int = 0                            # prompt-lookup speculative decoding: not ported (ROADMAP A9)
-    speculative_autodisable: bool = True            # (engine only)
-    use_engine: bool = False                        # continuous-batching engine: not ported (ROADMAP A9)
-    engine_slots: int = 4                           # (engine only)
+    speculative: int = 0                            # prompt-lookup speculative decoding: draft length gamma
+    #                                               # (batch_size 1 only; greedy output is unchanged)
+    speculative_autodisable: bool = True            # (engine only) two-way monitor: plain decode below break-even,
+    #                                               # back on when the trailing acceptance estimate recovers
+    use_engine: bool = False                        # continuous-batching engine: per-slot retirement and
+    #                                               # shared-video prefix caching; --batch_size is ignored
+    engine_slots: int = 4                           # (engine only) concurrent decode slots
     serving_passes: int = 1                         # serve the workload N times in-process, report the LAST pass
     #                                               # (the first holds the decode graphs' captures); results
     #                                               # written once
-    share_video_prefix: bool = True                 # (engine only)
-    prefix_budget: int = 4                          # (engine only)
+    share_video_prefix: bool = True                 # (engine only) suffix-only admission per repeated video
+    prefix_budget: int = 4                          # (engine only) most prefixes registered at once
     device: Optional[str] = None                    # the card unless "cpu"
     # fmt: on
 
 
 @draccus.wrap()
 def evaluate(cfg: EvalConfig) -> None:
-    if cfg.use_engine:
-        raise NotImplementedError("--use_engine: the continuous-batching engine is not ported yet (ROADMAP A9)")
-    if cfg.speculative > 0:
-        raise NotImplementedError("--speculative: prompt-lookup speculative decoding is not ported yet (ROADMAP A9)")
+    if cfg.speculative > 0 and cfg.batch_size != 1:
+        raise ValueError(
+            "--speculative requires --batch_size 1: per-row acceptance counts desync a shared batch cache (serve "
+            "batched speculation through the continuous-batching engine, --use_engine or cli/serve.py)"
+        )
     refuse_unported(cfg)
     result_dir = Path(cfg.eval_result_root) / str(cfg.model_path)
     result_dir.mkdir(parents=True, exist_ok=True)
@@ -143,7 +157,8 @@ def evaluate(cfg: EvalConfig) -> None:
         video_name = _resolve_video(benchmark_dir, question["video_name"])
         return vidlm.generate(
             video_name, prompt_text, do_sample=cfg.do_sample, temperature=cfg.temperature,
-            max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length, num_frames=model_cfg.num_frames, **clip,
+            max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length, num_frames=model_cfg.num_frames,
+            speculative_gamma=cfg.speculative, **clip,
         )
 
     def _decode_group(group):
@@ -157,6 +172,13 @@ def evaluate(cfg: EvalConfig) -> None:
             except Exception as e:
                 arrays.append(e)
         return arrays
+
+    if cfg.use_engine:
+        _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, _prep, done_lines,
+                     temp_output_path)
+        os.rename(temp_output_path, done_output_path)
+        _merge_chunks(result_dir, tag, all_questions_id, merged_path)
+        return
 
     groups = [questions[s : s + cfg.batch_size] for s in range(0, len(questions), cfg.batch_size)]
 
@@ -241,6 +263,152 @@ def _merge_chunks(result_dir, tag, all_questions_id, merged_path) -> None:
         for jsonl in all_jsonls:
             os.remove(jsonl)
         overwatch.info(f"Merged predictions -> {merged_path}; score with scripts/eval_gpt_batch.py")
+
+
+def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, _prep, done_lines,
+                 temp_output_path) -> None:
+    """Continuous-batching engine serving for open-ended evaluation.
+
+    In place of the group loop, a fixed pool of decode slots stays live
+    (short answers retire their slot at once), and a repeated video
+    registers one shared ``[BOS | visual]`` prefix so that its questions admit
+    suffix-only. Questions group by (video, clip): a clipped question shares a
+    prefix only with identically clipped ones. Waves of ``--prefix_budget``
+    prefixes bound device memory. A corrupt video fails only its own
+    questions. Results stream through the engine's ``result_callback`` into
+    the shard (flushed per result), so the resume protocol holds: a killed
+    shard loses at most the in-flight slots."""
+    tok = vidlm.llm_backbone.tokenizer
+    stop = vidlm.llm_backbone.stop_token_id
+    gcfg = GenerationConfig(
+        max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature,
+        min_length=cfg.min_length, eos_token_id=stop, pad_token_id=vidlm.llm_backbone.pad_token_id,
+    )
+    by_q = {str(q["question_id"]): q for q in questions}
+
+    # extra passes serve the same workload again in-process, so that the LAST
+    # pass measures steady serving (the graph captures land in pass 1);
+    # results are written only on the last pass
+    passes = max(cfg.serving_passes, 1)
+    write_results = [passes == 1]
+    register_s = [0.0]
+    with open(temp_output_path, "w") as f:
+        for line in done_lines:  # re-emit carried-over results
+            f.write(line if line.endswith("\n") else line + "\n")
+
+        def on_result(res) -> None:
+            if not write_results[0]:
+                return
+            q = by_q[res.request_id]
+            if res.finish_reason == "error":
+                # per-item fault tolerance: logged and skipped; the resume
+                # protocol tries it again on the next run
+                overwatch.error(f"Failed on {res.request_id}: {res.error}")
+                return
+            ids = res.token_ids.tolist()
+            if stop in ids:
+                ids = ids[: ids.index(stop)]
+            out = {**q, **answers_dict[q["question_id"]]}
+            out["pred"] = tok.decode(ids, skip_special_tokens=True).strip()
+            f.write(json.dumps(out) + "\n")
+            f.flush()  # a killed shard loses at most the in-flight slots
+
+        engine = ContinuousBatchingEngine.for_vidlm(
+            vidlm, slots=cfg.engine_slots, max_len=vidlm.llm_backbone.llm_max_length, steps_per_sync=8,
+            config=gcfg, length_bucket=64, speculative_gamma=cfg.speculative,
+            speculative_autodisable=cfg.speculative_autodisable, result_callback=on_result,
+        )
+
+        # group questions by (video, clip): identical prefixes share the towers
+        # and the [BOS | visual] prefill through the engine's prefix caching
+        vgroups: dict = {}
+        order = []
+        for q in questions:
+            key = (q["video_name"], tuple(sorted(_clip(q).items())))
+            if key not in vgroups:
+                vgroups[key] = []
+                order.append(key)
+            vgroups[key].append(q)
+
+        budget = max(cfg.prefix_budget, 1)
+        wave_keys: list = []
+
+        def run_wave() -> None:
+            if not wave_keys:
+                return
+            live = []
+            for key in wave_keys:
+                video_name, clip_items = key
+                group = vgroups[key]
+                try:
+                    path = _resolve_video(benchmark_dir, video_name)
+                    video = _load_media(path, max(model_cfg.num_frames), **dict(clip_items))
+                except Exception as e:
+                    overwatch.error(f"{len(group)} question(s) failed: video {video_name} ({type(e).__name__}: {e})")
+                    continue
+                pid = None
+                if cfg.share_video_prefix and len(group) >= 2:
+                    pid = f"video:{video_name}:{hash(clip_items) & 0xFFFFFFFF:x}"
+                    try:
+                        t0 = time.perf_counter()
+                        engine.register_prefix_video(pid, video, num_frames=model_cfg.num_frames)
+                        register_s[-1] += time.perf_counter() - t0
+                        live.append(pid)
+                    except Exception as e:
+                        overwatch.error(f"prefix build failed for {video_name} ({type(e).__name__}: {e}); serving "
+                                        "un-shared")
+                        pid = None
+                for q in group:
+                    prompt_text, _ = _prep(q)
+                    engine.submit(Request(
+                        request_id=str(q["question_id"]), prompt_text=prompt_text, video=None if pid else video,
+                        prefix_id=pid, max_new_tokens=cfg.max_new_tokens,
+                    ))
+            engine.run()
+            for pid in live:
+                engine.unregister_prefix(pid)
+            wave_keys.clear()
+
+        pass_walls = []
+        prev = None
+        for p in range(passes):
+            write_results[0] = p == passes - 1
+            if p:
+                register_s.append(0.0)
+            s = engine.stats
+            prev = (s.admit_s, s.decode_s, s.prefills, s.prefix_admissions, s.errors, len(s.ttft_s))
+            t0 = time.perf_counter()
+            for key in order:
+                wave_keys.append(key)
+                if len(wave_keys) >= budget:
+                    run_wave()
+            run_wave()
+            pass_walls.append(time.perf_counter() - t0)
+
+    # the last pass's deltas: with extra passes the cumulative stats would count twice
+    s = engine.stats
+    prefills, prefix_admissions, errors = s.prefills - prev[2], s.prefix_admissions - prev[3], s.errors - prev[4]
+    ttft = sorted(s.ttft_s[prev[5]:])
+    wall = pass_walls[-1]
+    served = len(questions) - errors
+    overwatch.info(
+        f"Engine served chunk: slot utilization {s.slot_utilization:.1%}, {prefills} prefills ({prefix_admissions} "
+        f"suffix-only), {s.decode_chunks} chunks" + (f", {errors} failed" if errors else "")
+        + (f", {s.tokens_per_step:.2f} tokens/verify-step" if cfg.speculative else "")
+    )
+    overwatch.info(
+        f"Serving wall: {wall:.2f}s for {served} questions = {served / wall:.3f} questions/sec"
+        + (f" (pass 1 incl. graph captures: {pass_walls[0]:.2f}s)" if passes > 1 else "")
+    )
+    print(json.dumps({
+        "serving_wall_s": round(wall, 2), "questions": served,
+        "questions_per_sec": round(served / wall, 4) if wall else 0.0,
+        "prefills": prefills, "prefix_admissions": prefix_admissions,
+        "passes": passes, "cold_wall_s": round(pass_walls[0], 2),
+        "admit_s": round(s.admit_s - prev[0], 2), "decode_s": round(s.decode_s - prev[1], 2),
+        "register_s": round(register_s[-1], 2),
+        "ttft_p50_ms": round(1e3 * ttft[len(ttft) // 2], 1) if ttft else None,
+    }), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,19 +10,22 @@ Differences from ``merv_tpu``, all in idiom, not in function:
 - the KV cache is written IN PLACE (``index_copy_`` into the preallocated
   ``[L, B, H_kv, max_len, D]`` buffers), where JAX returns a new buffer. The
   returned :class:`KVCache` shares the tensors, with ``length`` advanced.
-  ``length`` is a host int, or, for the captured decode step, a 0-d tensor on
-  the device, so that one CUDA graph serves every step;
+  ``length`` is a host int; or, for the captured decode step, a 0-d tensor on
+  the device, so that one CUDA graph serves every step; or a [B] tensor of
+  per-slot write pointers (the serving engine: row b writes its T new tokens
+  at ``length[b]``, ``merv_tpu``'s scatter with ``mode="drop"``);
 - attention goes through :func:`merv_tpu_torch.ops.attention.attention`: every
-  call with T > 1 (no-cache forward and cache prefill) runs the flash kernel,
-  T = 1 decode runs plain torch. At T = 1 the causal bound is part of the key
-  mask (``kv_pos < length + 1``, as ``merv_tpu`` builds it), so no host value
+  call with T > 1 and a host-int offset (no-cache forward and cache prefill)
+  runs the flash kernel, T = 1 decode and the per-slot T > 1 verify (a [B]
+  offset) run plain torch. At T = 1 the causal bound is part of the key mask
+  (``kv_pos < length + 1``, as ``merv_tpu`` builds it), so no host value
   enters the step. The no-cache forward is differentiable through the flash
   backward kernel;
 - ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around each layer,
   where ``merv_tpu`` wraps its layer scan body in ``jax.checkpoint``.
 
-Int8 KV and int8 weights, per-slot pointers, ring/pipeline paths and
-``pack_serving_params`` wait for later slices (ROADMAP A4/A9/A12).
+Int8 KV and int8 weights, ring/pipeline paths and ``pack_serving_params``
+wait for later slices (ROADMAP A2/A4/A12).
 """
 
 from __future__ import annotations
@@ -68,9 +71,16 @@ class DecoderConfig:
 
 @dataclass
 class KVCache:
-    """Preallocated cache for all layers; ``length`` is the shared write
-    pointer: a host int, or a 0-d long tensor on the cache's device (T = 1
-    steps only: the captured decode step reads and advances it there)."""
+    """Preallocated cache for all layers. ``length`` is the write pointer: a
+    host int or a 0-d long tensor on the cache's device (shared by every row;
+    a 0-d tensor takes T = 1 steps only, as the captured decode step reads and
+    advances it there), or a [B] long tensor of per-slot pointers.
+
+    A per-slot cache keeps its LAST buffer row as a scratch row: a write at or
+    past it lands there, and no key mask admits it, so a slot whose pointer
+    walks past the end (it keeps stepping until the host retires it) neither
+    raises, nor asserts on the device, nor wraps. It holds ``max_len - 1``
+    positions."""
 
     k: torch.Tensor  # [L, B, H_kv, max_len, D]
     v: torch.Tensor  # [L, B, H_kv, max_len, D]
@@ -153,9 +163,17 @@ class DecoderLayer(nn.Module):
         q_offset, causal = None, True
         if cache is not None:
             ck, cv, start = cache  # this layer's [B, H_kv, max_len, D] buffers
-            rows = torch.arange(T, device=h.device) + start
-            ck.index_copy_(2, rows, k.to(ck.dtype))
-            cv.index_copy_(2, rows, v.to(cv.dtype))
+            if isinstance(start, torch.Tensor) and start.dim() == 1:
+                # per-slot pointers: row b writes at start[b] + t; at or past the scratch row (the last) it
+                # writes there, so an out-of-range write is dropped
+                rows = (start[:, None] + torch.arange(T, device=h.device)).clamp(max=ck.shape[2] - 1)
+                slot = torch.arange(B, device=h.device)[:, None].expand(B, T)
+                ck[slot, :, rows] = k.transpose(1, 2).to(ck.dtype)
+                cv[slot, :, rows] = v.transpose(1, 2).to(cv.dtype)
+            else:
+                rows = torch.arange(T, device=h.device) + start
+                ck.index_copy_(2, rows, k.to(ck.dtype))
+                cv.index_copy_(2, rows, v.to(cv.dtype))
             k, v = ck.to(q.dtype), cv.to(q.dtype)
             if T == 1:  # kv_mask already bounds the keys at kv_pos <= start: the causal mask adds nothing
                 causal = False
@@ -202,9 +220,12 @@ class LlamaDecoder(nn.Module):
         keeps every valid query off the padded keys). With a cache, the T new
         keys/values are written at ``kv_cache.length`` and attention spans the
         whole buffer with ``kv_pos < length + T`` AND ``attention_mask`` as
-        the key mask. A ``length`` held on the device takes T = 1 only, and
-        reads nothing back to the host. ``remat`` recomputes each layer in the
-        backward instead of keeping its activations (no-cache forward only)."""
+        the key mask. A 0-d ``length`` held on the device takes T = 1 only; a
+        [B] ``length`` (per-slot pointers) takes any T, with positions
+        ``length[b] + arange(T)`` by default and row b's queries causal at
+        offset ``length[b]``; neither reads anything back to the host.
+        ``remat`` recomputes each layer in the backward instead of keeping its
+        activations (no-cache forward only)."""
         c = self.cfg
         if remat and kv_cache is not None:
             raise ValueError(
@@ -219,14 +240,22 @@ class LlamaDecoder(nn.Module):
         if kv_cache is not None:
             start = kv_cache.length
             max_len = kv_cache.k.shape[3]
-            if isinstance(start, torch.Tensor):
-                if T != 1:
-                    raise ValueError(f"a write pointer on the device takes one token a step, got T={T}")
-            elif start + T > max_len:
-                raise ValueError(f"KV cache overflow: {start} + {T} > {max_len}")
+            kv_pos = torch.arange(max_len, device=dev)[None]
+            if isinstance(start, torch.Tensor) and start.dim() == 1:
+                if start.shape[0] != B:
+                    raise ValueError(f"{start.shape[0]} per-slot write pointers for a batch of {B}")
+                start_col = start[:, None]
+                kv_mask = (kv_pos < start_col + T) & (kv_pos < max_len - 1)  # the last row is scratch
+            else:
+                if isinstance(start, torch.Tensor):
+                    if T != 1:
+                        raise ValueError(f"a shared write pointer on the device takes one token a step, got T={T}")
+                elif start + T > max_len:
+                    raise ValueError(f"KV cache overflow: {start} + {T} > {max_len}")
+                start_col = start
+                kv_mask = (kv_pos < start_col + T).expand(B, max_len)
             if positions is None:
-                positions = (start + torch.arange(T, device=dev))[None].expand(B, T)
-            kv_mask = (torch.arange(max_len, device=dev) < start + T)[None].expand(B, max_len)
+                positions = (start_col + torch.arange(T, device=dev)[None]).expand(B, T)
             if attention_mask is not None:
                 am = attention_mask.bool()
                 if am.shape[1] != max_len:

@@ -6,7 +6,11 @@ then decodes greedily or by sampling, with EOS semantics (tokens after EOS
 become ``pad_token_id``), right-padded batches (RoPE positions count valid
 tokens only) and min-length EOS banning. :func:`prefill_prefix` and
 :func:`generate_with_prefix` share one video's ``[BOS | visual]`` cache
-across many questions.
+across many questions. :func:`generate_speculative` is prompt-lookup
+speculative decoding at B=1 (drafts from the prompt's n-grams, verified
+``gamma + 1`` tokens a forward); :func:`_ngram_propose` and
+:func:`_spec_accept` also serve the engine's batched verify
+(:mod:`merv_tpu_torch.serving.engine`).
 
 Decode as one program. ``merv_tpu`` compiles the decode loop once
 (``_decode_scan``, a ``lax.scan`` over the T=1 step with the cache donated).
@@ -20,7 +24,7 @@ plain version. The early exit (every row has emitted EOS) is read once per
 is what a step-by-step check, or ``merv_tpu``'s scan over every step, gives.
 Sampling draws from the caller's ``torch.Generator`` (the runner's own
 generator takes its state before and hands it back after, and is registered
-with the graph). Speculative decoding waits for the serving engine (ROADMAP A9).
+with the graph).
 """
 
 from __future__ import annotations
@@ -89,6 +93,12 @@ def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
     return logits
 
 
+def _categorical(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw per row from unnormalised probabilities [B, V] (argmax of p / q, q ~ Exp(1))."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
+
+
 def _sample_token(logits: torch.Tensor, cfg: GenerationConfig, generator: Optional[torch.Generator]) -> torch.Tensor:
     """logits [B, V] fp32 -> [B] int64. Sampling is ``torch.multinomial``'s own
     one-sample path written out (argmax of p / q with q ~ Exp(1) from the
@@ -96,9 +106,7 @@ def _sample_token(logits: torch.Tensor, cfg: GenerationConfig, generator: Option
     host: the same draws, and nothing that stops a graph capture."""
     if not cfg.do_sample:
         return logits.argmax(dim=-1)
-    probs = torch.softmax(_filter_logits(logits, cfg), dim=-1)
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
-    return (probs / q).argmax(dim=-1)
+    return _categorical(torch.softmax(_filter_logits(logits, cfg), dim=-1), generator)
 
 
 def _ban_eos_below_min_length(logits: torch.Tensor, cur_len: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -482,3 +490,192 @@ def generate_with_prefix(
     if runner is None:
         return first[:, None]
     return _decode(decoder, runner, made, first, total_valid, cache_mask, P + Ts, generator, None)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (prompt-lookup / n-gram drafting, no draft model)
+# ---------------------------------------------------------------------------
+
+
+def _ngram_propose(hist: torch.Tensor, hist_len: torch.Tensor, gamma: int, ngram: int, pad_id: int) -> torch.Tensor:
+    """Propose ``gamma`` draft tokens per row: the most recent PREVIOUS
+    occurrence of the row's last ``n`` tokens in its history, longest ``n``
+    (``ngram``, ``ngram - 1``, ..., 1) first, and what followed it; no match
+    gives pad tokens (they verify-reject at no extra cost).
+
+    hist [B, Hc] (pad past ``hist_len``), hist_len [B] -> [B, gamma]. Static
+    shapes, on the device, nothing read back: the counterpart of
+    ``merv_tpu``'s ``_ngram_propose`` ``vmap``-ed over rows, including its
+    clamped ``dynamic_slice`` starts."""
+    B, Hc = hist.shape
+    dev = hist.device
+    W = Hc - ngram - gamma + 1  # starts whose n-gram window and draft read stay in bounds
+    idx = torch.arange(W, device=dev)[None]
+    best_start = torch.zeros(B, dtype=torch.long, device=dev)
+    best_found = torch.zeros(B, dtype=torch.bool, device=dev)
+    hist_len = hist_len.long()
+    for n in range(ngram, 0, -1):
+        key_start = (hist_len - n).clamp(0, Hc - n)
+        key = hist.gather(1, key_start[:, None] + torch.arange(n, device=dev)[None])  # [B, n]
+        match = torch.ones((B, W), dtype=torch.bool, device=dev)
+        for j in range(n):
+            match &= hist[:, j : W + j] == key[:, j : j + 1]
+        match &= idx < (hist_len - n)[:, None]  # strictly previous: the current suffix starts at hist_len - n
+        found = match.any(dim=1)
+        last = (W - 1) - match.flip(1).to(torch.uint8).argmax(dim=1)  # the most recent match
+        best_start = torch.where(found & ~best_found, last + n, best_start)  # the draft begins after it
+        best_found |= found
+    draft_start = best_start.clamp(0, Hc - gamma)
+    draft = hist.gather(1, draft_start[:, None] + torch.arange(gamma, device=dev)[None])
+    return torch.where(best_found[:, None], draft, torch.full_like(draft, pad_id))
+
+
+def _spec_accept(probs: torch.Tensor, draft: torch.Tensor, generator: Optional[torch.Generator],
+                 pad_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rejection sampling against a deterministic (delta) proposal: accept
+    draft d_t with probability p_t(d_t); the first rejection emits a draw from
+    the residual (p_t with d_t removed); full acceptance emits a bonus draw
+    from p_gamma. Every position is marginally distributed as p_t, so sampled
+    speculation is lossless in distribution.
+
+    probs [B, gamma+1, V] (post-filter softmax), draft [B, gamma] ->
+    ([B, gamma+1] tokens, pad past each row's count; [B] counts). Draws come
+    from ``generator``; nothing is read back to the host."""
+    B, G1, _ = probs.shape
+    gamma = G1 - 1
+    rows = torch.arange(B, device=probs.device)
+    alive = torch.ones(B, dtype=torch.bool, device=probs.device)
+    emit_n = torch.zeros(B, dtype=torch.long, device=probs.device)
+    out = torch.full((B, G1), pad_id, dtype=torch.long, device=probs.device)
+    pad = torch.full_like(emit_n, pad_id)
+    for t in range(gamma):
+        p_t, d_t = probs[:, t], draft[:, t].long()
+        u = torch.rand(B, generator=generator, device=probs.device)
+        accept = u < p_t[rows, d_t]
+        resid = p_t.index_put((rows, d_t), torch.zeros_like(u))
+        tok_t = torch.where(accept, d_t, _categorical(resid, generator))
+        out[:, t] = torch.where(alive, tok_t, pad)
+        emit_n += alive.long()
+        alive &= accept
+    out[:, gamma] = torch.where(alive, _categorical(probs[:, gamma], generator), pad)
+    emit_n += alive.long()
+    return out, emit_n
+
+
+@torch.inference_mode()
+def generate_speculative(
+    decoder: LlamaDecoder,
+    *,
+    input_ids: Optional[torch.Tensor] = None,  # [1, T] right-padded
+    inputs_embeds: Optional[torch.Tensor] = None,  # [1, T, E] (multimodal prefill)
+    attention_mask: Optional[torch.Tensor] = None,  # [1, T]
+    prompt_lookup_ids: Optional[torch.Tensor] = None,  # [1, T'] right-padded text ids: the draft corpus
+    lookup_mask: Optional[torch.Tensor] = None,  # [1, T'] validity of prompt_lookup_ids
+    config: GenerationConfig = GenerationConfig(),
+    gamma: int = 4,
+    ngram: int = 2,
+    generator: Optional[torch.Generator] = None,
+    max_cache_len: Optional[int] = None,
+    attn_impl: str = "auto",
+    timings: Optional[Dict[str, float]] = None,
+) -> torch.Tensor:
+    """Prompt-lookup speculative decoding at B=1 -> [1, max_new_tokens].
+
+    Each step drafts ``gamma`` tokens by n-gram lookup in the prompt and the
+    tokens so far (:func:`_ngram_propose`) and verifies them in one
+    ``T = gamma + 1`` forward, which streams the same weights as a one-token
+    step. Greedy output is token-identical to :func:`generate`; sampled output
+    uses :func:`_spec_accept` (the same distribution, another random stream).
+
+    The prefill is :func:`generate`'s. The verify forward keeps the cache
+    length on the device, as a [1] per-slot pointer, so its attention runs
+    plain (``merv_tpu``'s runs XLA at this length) and the step reads nothing
+    back; the loop around it is a host loop that reads the step's ``done``
+    and emit count once per verify step. That one read per step stands for
+    ``merv_tpu``'s ``lax.while_loop``: the loop's end depends on the data, a
+    read costs microseconds against a verify forward of milliseconds, and a
+    captured graph would have to run a fixed number of steps past the end.
+    The batched form that the serving engine captures as one CUDA graph per
+    chunk is ``serving.engine._decode_chunk_spec``. ``timings`` receives
+    ``prefill_s``, ``decode_s`` and ``decode_steps`` (verify steps)."""
+    _check_kv_cache_dtype(config.kv_cache_dtype)
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    if inputs_embeds is None:
+        inputs_embeds = decoder.embed_input_ids(input_ids)
+    B, T = inputs_embeds.shape[:2]
+    if B != 1:
+        raise ValueError(f"speculative decoding supports B=1 (got B={B}); rows with "
+                         "different acceptance counts desync a shared scalar cache")
+    if prompt_lookup_ids is None:
+        if input_ids is None:
+            raise ValueError("multimodal (inputs_embeds) speculative decoding needs "
+                             "prompt_lookup_ids (the text token ids) for the draft corpus")
+        prompt_lookup_ids, lookup_mask = input_ids, attention_mask
+    dev = inputs_embeds.device
+    generator = _default_generator(config, generator, dev)
+    max_new, pad_id, eos_id = config.max_new_tokens, config.pad_token_id, config.eos_token_id
+    cache_len = max_cache_len or (T + max_new + gamma + 1)
+
+    t0 = _sync(dev) if timings is not None else 0.0
+    # one row past cache_len: the per-slot path's scratch row
+    last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len + 1, attn_impl)
+    first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
+    if timings is not None:
+        timings["prefill_s"] = _sync(dev) - t0
+    cache_mask = torch.ones((1, cache_len + 1), dtype=torch.bool, device=dev)
+    if attention_mask is not None:
+        cache_mask[:, :T] = attention_mask.bool()
+
+    # draft corpus: the valid prompt tokens (contiguous from 0, right padding), then the first token
+    lk = prompt_lookup_ids[0].long().to(dev)
+    n_lookup = int(lookup_mask[0].sum()) if lookup_mask is not None else lk.shape[0]
+    Hc = lk.shape[0] + max_new + 2 * gamma + ngram + 8
+    hist = torch.full((1, Hc), pad_id, dtype=torch.long, device=dev)
+    hist[0, : lk.shape[0]] = lk
+    hist[0, n_lookup] = first[0]
+    hist_len = torch.full((1,), n_lookup + 1, dtype=torch.long, device=dev)
+
+    out = torch.full((1, max_new + gamma + 1), pad_id, dtype=torch.long, device=dev)
+    out[:, 0] = first
+    length = torch.full((1,), T, dtype=torch.long, device=dev)  # cache rows written (pads included)
+    pos = n_valid.clone()  # RoPE position of the next token (valid tokens only)
+    tok = first.clone()
+    n_out = torch.ones(1, dtype=torch.long, device=dev)
+    done = first == eos_id
+    steps_v = torch.arange(gamma + 1, device=dev)
+    eos_vec = torch.arange(decoder.cfg.vocab_size, device=dev) == eos_id
+
+    t0 = _sync(dev) if timings is not None else 0.0
+    steps = 0
+    while not bool(done[0]) and int(n_out[0]) < max_new:  # the one host read per verify step
+        draft = _ngram_propose(hist, hist_len, gamma, ngram, pad_id)  # [1, gamma]
+        logits, _ = decoder(input_ids=torch.cat([tok[:, None], draft], dim=1), attention_mask=cache_mask,
+                            positions=pos[:, None] + steps_v[None], kv_cache=KVCache(cache.k, cache.v, length))
+        lg = logits[0].float()  # [gamma+1, V]
+        if config.min_length > 1:
+            lg = lg.masked_fill(((pos + 1 + steps_v) < config.min_length)[:, None] & eos_vec[None], float("-inf"))
+        if config.do_sample:
+            probs = torch.softmax(_filter_logits(lg, config), dim=-1)
+            w_all, nat_emit = _spec_accept(probs[None], draft, generator, pad_id)
+            w_all = w_all[0]
+        else:
+            w_all = lg.argmax(dim=-1)
+            nat_emit = (draft[0] == w_all[:gamma]).long().cumprod(0).sum()[None] + 1
+        is_eos = (w_all == eos_id) & (steps_v < nat_emit)
+        has_eos = is_eos.any()[None]
+        emit_n = torch.where(has_eos, is_eos.to(torch.uint8).argmax()[None] + 1, nat_emit)
+        window = torch.where(steps_v < emit_n, w_all, torch.full_like(w_all, pad_id))
+        out[0, n_out + steps_v] = window
+        hist[0, hist_len.clamp(max=Hc - gamma - 1) + steps_v] = window
+        tok = window[emit_n - 1]
+        length += emit_n
+        pos += emit_n
+        hist_len += emit_n
+        n_out += emit_n
+        done |= has_eos
+        steps += 1
+    if timings is not None:
+        timings.update(decode_s=_sync(dev) - t0, decode_steps=steps, decode_capture_s=0.0)
+    keep = torch.arange(max_new, device=dev) < n_out
+    return torch.where(keep, out[0, :max_new], torch.full_like(keep, pad_id, dtype=torch.long))[None]

@@ -10,7 +10,8 @@
   followed by zero embeddings with a False mask.
 - generation: towers -> projectors -> fusion -> splice -> cache prefill ->
   decode (the T=1 step captured as one CUDA graph on the card; the JAX
-  package jits the whole pipeline), for one video (:meth:`MERV.generate`), a
+  package jits the whole pipeline), or prompt-lookup speculation at B=1
+  (``speculative_gamma``), for one video (:meth:`MERV.generate`), a
   batch (:meth:`MERV.generate_batch`), or many questions on one video
   sharing its ``[BOS | visual]`` cache (:meth:`MERV.build_video_prefix`,
   :meth:`MERV.generate_batch_shared`); :meth:`MERV.score_options` reads a
@@ -48,6 +49,7 @@ from merv_tpu_torch.models.generation import (
     VideoPrefix,
     _sync,
     generate as _generate,
+    generate_speculative,
     generate_with_prefix,
     prefill_prefix,
 )
@@ -336,9 +338,17 @@ class MERV(VidLM):
         kv_cache_dtype: Optional[str] = None,
         attn_impl: str = "auto",
         timings: Optional[Dict[str, float]] = None,
+        speculative_gamma: int = 0,
+        speculative_ngram: int = 2,
     ) -> torch.Tensor:
         """Batched multimodal generation -> new token ids [B, max_new_tokens].
-        Inputs must lie on the model's device."""
+        Inputs must lie on the model's device.
+
+        ``speculative_gamma > 0`` decodes by prompt-lookup speculation
+        (:func:`~merv_tpu_torch.models.generation.generate_speculative`, B=1
+        only): drafts from the text prompt's n-grams, ``gamma + 1`` tokens
+        verified a forward; greedy output is token-identical to the plain
+        path."""
         dev = self.device
         for t in (input_ids, attention_mask, *video_values):
             if t.device != dev:
@@ -348,6 +358,12 @@ class MERV(VidLM):
         embeds, mask = self.build_inputs_embeds(
             input_ids, attention_mask, video_values, is_multimodal, attn_impl, timings
         )
+        if speculative_gamma > 0:
+            return generate_speculative(
+                self.llm_backbone.decoder, inputs_embeds=embeds, attention_mask=mask.long(),
+                prompt_lookup_ids=input_ids, lookup_mask=attention_mask, config=cfg, gamma=speculative_gamma,
+                ngram=speculative_ngram, generator=generator, attn_impl=attn_impl, timings=timings,
+            )
         return _generate(
             self.llm_backbone.decoder, inputs_embeds=embeds, attention_mask=mask.long(), config=cfg,
             generator=generator, attn_impl=attn_impl, timings=timings,
@@ -437,10 +453,13 @@ class MERV(VidLM):
         generator: Optional[torch.Generator] = None,
         attn_impl: str = "auto",
         timings: Optional[Dict[str, float]] = None,
+        speculative_gamma: int = 0,
+        speculative_ngram: int = 2,
     ) -> str:
         """Single-example API: ``video`` is a path (decoded within
         ``[clip_start_sec, clip_end_sec]`` or up to ``end_frame``), a uint8
-        [T, H, W, C] array, or None (text only)."""
+        [T, H, W, C] array, or None (text only). ``speculative_gamma > 0``:
+        see :meth:`generate_ids`."""
         t0 = time.perf_counter()
         input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
             [video], [prompt_text], num_frames,
@@ -452,7 +471,8 @@ class MERV(VidLM):
         tokens = self.generate_ids(
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
-            generator=generator, attn_impl=attn_impl, timings=timings,
+            generator=generator, attn_impl=attn_impl, timings=timings, speculative_gamma=speculative_gamma,
+            speculative_ngram=speculative_ngram,
         )
         return self._texts(tokens, 1)[0]
 
@@ -491,13 +511,17 @@ class MERV(VidLM):
         pad_to_batch: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,
         mesh: Optional[Any] = None,
+        speculative_gamma: int = 0,
+        speculative_ngram: int = 2,
     ) -> List[str]:
         """Batched multi-video generation: one prefill and one decode for the
         whole batch. ``videos`` entries: a path, a uint8 array or None. Prompt
         lengths pad to ``length_bucket`` multiples and, with ``pad_to_batch``,
         the batch to a fixed size (see :meth:`_prepare_batch_inputs`), which
         bounds the decode shapes, and so the captured graphs, of a run.
-        ``mesh`` (a serving mesh) is not ported (ROADMAP A12)."""
+        ``speculative_gamma > 0`` takes a batch of one (see
+        :meth:`generate_ids`). ``mesh`` (a serving mesh) is not ported
+        (ROADMAP A12)."""
         _no_mesh(mesh)
         input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
             videos, prompt_texts, num_frames, clip_args, pad_to_batch=pad_to_batch
@@ -505,7 +529,8 @@ class MERV(VidLM):
         tokens = self.generate_ids(
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
-            generator=generator, kv_cache_dtype=kv_cache_dtype,
+            generator=generator, kv_cache_dtype=kv_cache_dtype, speculative_gamma=speculative_gamma,
+            speculative_ngram=speculative_ngram,
         )
         return self._texts(tokens, len(videos))
 

@@ -43,7 +43,7 @@ path is inference-only, as in ``merv_tpu``: asking for its gradient raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -71,14 +71,17 @@ def attention_reference(
     kv_mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Materialized-scores attention. q [B,H,Tq,D], k/v [B,Hk,Tk,D], kv_mask [B,Tk] bool.
 
     Scores in fp32 (exact products of the inputs), masked entries set to
     ``DEFAULT_MASK_VALUE``, the softmax cast to the input dtype before PV.
     Causal masking is aligned to the right: query i sits at key ``q_offset + i``
-    (default ``Tk - Tq``)."""
+    (default ``Tk - Tq``). ``q_offset`` is a host int, a 0-d tensor, or a [B]
+    tensor (query i of row b at key ``q_offset[b] + i``: the serving engine's
+    batched verify, each slot at its own cache length); a tensor is never read
+    back to the host."""
     B, H, Tq, D = q.shape
     Hk, Tk = k.shape[1], k.shape[2]
     if Hk != H:
@@ -93,10 +96,13 @@ def attention_reference(
     if kv_mask is not None:
         logits = logits.masked_fill(~kv_mask[:, None, None, :].bool(), DEFAULT_MASK_VALUE)
     if causal:
-        offset = Tk - Tq if q_offset is None else int(q_offset)
         qi = torch.arange(Tq, device=q.device)[:, None]
         ki = torch.arange(Tk, device=q.device)[None, :]
-        logits = logits.masked_fill(~(ki <= qi + offset), DEFAULT_MASK_VALUE)
+        if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+            visible = (ki[None] <= qi[None] + q_offset.to(q.device)[:, None, None])[:, None]  # [B, 1, Tq, Tk]
+        else:
+            visible = ki <= qi + (Tk - Tq if q_offset is None else q_offset)
+        logits = logits.masked_fill(~visible, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
@@ -762,7 +768,7 @@ def attention(
     kv_mask: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Multi-head attention. q [B,H,Tq,D]; k/v [B,Hk,Tk,D]; kv_mask [B,Tk] bool.
@@ -775,7 +781,10 @@ def attention(
     plan (self-shaped tower frames, as ``merv_tpu``'s ``attention()`` plans
     it) through :class:`SmallAttention`. The towers reach it on the
     ``MERV_TPU_TOWER_ATTN=xla`` route; their default route calls
-    :class:`SmallAttentionKt` itself on its kt layout."""
+    :class:`SmallAttentionKt` itself on its kt layout. A ``q_offset`` held
+    in a tensor (the serving engine's per-slot verify gives a [B] vector)
+    takes the plain path, as ``merv_tpu`` routes a vector offset to XLA: the
+    kernels take a host int."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     D = q.shape[-1]
@@ -783,6 +792,8 @@ def attention(
     Tq, Tk = q.shape[2], k.shape[2]
     plan = dispatch_plan(Tq, Tk, D, causal=causal, has_bias=bias is not None, has_mask=kv_mask is not None,
                          self_shaped=q.shape == k.shape and q_offset is None)
+    if isinstance(q_offset, torch.Tensor):
+        plan = "plain"
     if plan == "small":
         return SmallAttention.apply(q, k, v, scale_val, impl)
     if plan == "flash":

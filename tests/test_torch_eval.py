@@ -156,11 +156,11 @@ def test_eval_mcq_on_a_run_directory_matches_script(run_dir, monkeypatch, tmp_pa
 
 @pytest.mark.parametrize("module, flag, item", [
     (port_mcq, "quantize_llm", "A2"), (port_mcq, "int8_kv", "A4"), (port_mcq, "mesh_seq", "A12"),
-    (port_oe, "use_engine", "A9"), (port_oe, "speculative", "A9"), (port_oe, "int8_kv", "A4"),
+    (port_oe, "int8_kv", "A4"),
     (port_oe, "quantize_llm", "A2"), (port_oe, "mesh_seq", "A12"),
 ])
 def test_unported_flags_raise(module, flag, item, tmp_path):
-    value = {"mesh_seq": 2, "speculative": 4}.get(flag, True)
+    value = {"mesh_seq": 2}.get(flag, True)
     with pytest.raises(NotImplementedError, match=item):
         module.evaluate(cfg=module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu", **{flag: value}))
 

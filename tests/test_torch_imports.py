@@ -33,6 +33,8 @@ import merv_tpu_torch.models.backbones.video.vision_import, merv_tpu_torch.model
 import merv_tpu_torch.util.safetensors_io
 import merv_tpu_torch.cli.eval_mcq, merv_tpu_torch.cli.eval_openended, merv_tpu_torch.conf.registry
 import merv_tpu_torch.util.prefetch, merv_tpu_torch.util.flops_utils
+import merv_tpu_torch.serving, merv_tpu_torch.serving.engine, merv_tpu_torch.cli.serve
+from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch import available_models, load_vid
 assert "merv-full" in available_models()
 
@@ -50,6 +52,11 @@ texts = model.generate_batch_shared(video, ["In: hi\nOut:", "In: what?\nOut:"], 
 assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
 picks = model.score_options([video, None], ["In: hi\nOut:", "In: a?\nOut:"], [["A", "B"], ["A", "B", "C"]])
 assert picks[0] in ("A", "B") and picks[1] in ("A", "B", "C")
+engine = ContinuousBatchingEngine.for_vidlm(model, slots=2, max_len=128, length_bucket=8, speculative_gamma=2)
+engine.register_prefix_video("v", video)
+served = engine.run([Request("a", prompt_text="In: hi\nOut:", prefix_id="v", max_new_tokens=3),
+                     Request("b", prompt_text="In: what?\nOut:", max_new_tokens=3)])
+assert sorted(served) == ["a", "b"] and all(r.finish_reason != "error" for r in served.values())
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
 assert not loaded, loaded
 print("OK")
@@ -100,6 +107,10 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from merv_tpu_torch.cli.serve import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(args=["--model_path", str(tmp_path), "--requests", str(tmp_path / "r.jsonl")])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
