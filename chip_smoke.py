@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
-                           --engine-only]
+                           --int8-only | --engine-only | --int8-serving-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
-cases; each prints them as one JSON line, with no result line: a quick way
-to compare two versions of those kernels within one call. ``--engine-only``
-runs phase 4e alone after the build and prints its numbers the same way.
+cases, ``--int8-only`` after K4's and K5's; each prints them as one JSON
+line, with no result line: a quick way to compare two versions of those
+kernels within one call. ``--engine-only`` and ``--int8-serving-only`` run
+phase 4e or 4f alone after the build and print their numbers the same way.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -42,7 +43,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    under ``--tower-only`` also its launches' device time by kernel
    (``kernel_device_ms``). K2 also at the shared-prefix suffix prefill (8
    ragged suffixes in a 64-token bucket at ``q_offset`` 1025), held and
-   graph-timed beside SDPA.
+   graph-timed beside SDPA. K4 (``int8_linear``) at Llama-2-7B's four weight
+   shapes and 1, 4, 8 and 36 rows of x and at an output width that is not a
+   multiple of its tile, beside the bf16 model's ``F.linear`` on the same
+   shape; K5 (``decode_attention``) at B = 1 over 1,120 cache rows (bf16 and
+   int8), 4 slots over 2,058 rows with ragged lengths and the scratch row,
+   the verify at Tq = 5 and 9 with [B] offsets, GQA 32 -> 8 and D = 64, beside
+   SDPA on the bf16 cache (after the dequantization for int8); a wrong scale
+   column in K4 and an off-by-one causal offset in K5 must be caught.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -113,7 +121,20 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    must be as predicted from the engine's counts
    (``engine_predicted_launches``). Requests/s, tokens/s, TTFT p50, slot
    utilisation, prefill stall share, capture seconds and peak memory are
-   printed per run.
+   printed per run. Every decode chunk now runs K5 on the bf16 slot cache;
+   its launches are predicted from the engine's forwards too.
+4f. int8 serving: merv-full's run directory (as 4c writes it) loaded with
+   ``load_vid(quantize_llm=True)``: (a) one ``MERV.generate`` on the demo
+   video with ``kv_cache_dtype="int8"``, K1 / K2 / K4 / K5 launches as
+   predicted, every K4 and K5 call of one eager decode step held against its
+   plain version, the decode graph's tokens against the eager loop's and its
+   ms per step beside phase 4's bf16 step, greedy agreement with 4c's bf16
+   request reported (random weights: not gated); (b) the engine's plain and
+   gamma-4 chunk graphs on the int8 model and int8 slot cache against the
+   eager chunk, ms per step; (c) one ``cli/serve.py --quantize_llm --int8_kv``
+   process with prefix sharing on 4e's 37 requests, every request answered,
+   only the missing video failing, launches as predicted from the engine's
+   counts; (d) int8 weight bytes and peak memory.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -131,10 +152,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    per-device batch runs under ``torch.profiler`` for the device time by
    kernel group and the device's idle share.
 6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
-   from the training path for K1-K3 and from the switched request of 4b for
-   B3, B5 and B6, ``launches_serving`` from the default serving path,
+   from the training path for K1-K3, from the switched request of 4b for
+   B3, B5 and B6 and from 4f's request for K4 and K5, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
-   4d's runs, ``launches_engine`` from each of 4e's serve runs), and
+   4d's runs, ``launches_engine`` from each of 4e's and 4f's serve runs), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -203,7 +224,8 @@ TRAIN_GLOBAL_BATCH = 32
 TRAIN_STEPS = 3
 TRAIN_LOSS_CHUNK = 256
 TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32,
-                                 "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
+                                 "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
+                                 "int8_linear": 0, "decode_attention": 0}
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 0.1
 
@@ -1094,6 +1116,131 @@ def sdpa_probe(call) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: K4 (int8_linear) and K5 (decode_attention)
+# ---------------------------------------------------------------------------
+
+# K4 at Llama-2-7B's weight shapes (N, K) and the row counts of x the paths give it: 1 (generate), 4 (the
+# engine's 4 slots), 8 (eval at batch 8), 36 (the engine's verify at gamma 8); and an N that is not a
+# multiple of the kernel's 16 output columns
+INT8_WEIGHTS = (("qkvo", 4096, 4096), ("gate_up", 11008, 4096), ("down", 4096, 11008), ("lm_head", 32064, 4096))
+INT8_ROWS = (1, 4, 8, 36)
+INT8_RAGGED = ("ragged_n", 5, 4100, 4096)
+# K5: (name, B, H, Hk, Tq, Tk, D, int8, valid rows per batch row, causal offsets [B] or None).
+# B = 1 at phase 4's decode shape (a 1,120-row cache, 1,100 rows written); the engine's 4 slots over a
+# 2,058-row cache (the last the scratch row) with ragged lengths; its verify at Tq = 5 and 9 with [B]
+# offsets; GQA 32 -> 8; D = 64
+ENGINE_LENGTHS = (2040, 1100, 317, 1)
+DECODE_CASES = (
+    ("b1_bf16", 1, 32, 32, 1, 1120, 128, False, (1100,), None),
+    ("b1_int8", 1, 32, 32, 1, 1120, 128, True, (1100,), None),
+    ("engine_bf16", 4, 32, 32, 1, 2058, 128, False, ENGINE_LENGTHS, None),
+    ("engine_int8", 4, 32, 32, 1, 2058, 128, True, ENGINE_LENGTHS, None),
+    ("verify5_bf16", 4, 32, 32, 5, 2058, 128, False, ENGINE_LENGTHS, "lengths"),
+    ("verify5_int8", 4, 32, 32, 5, 2058, 128, True, ENGINE_LENGTHS, "lengths"),
+    ("verify9_int8", 4, 32, 32, 9, 2058, 128, True, ENGINE_LENGTHS, "lengths"),
+    ("gqa_bf16", 1, 32, 8, 1, 1120, 128, False, (1100,), None),
+    ("d64_int8", 2, 12, 12, 1, 600, 64, True, (600, 233), None),
+)
+
+
+def int8_kernel_cases(dev, seed: int):
+    """K4 and K5 against their plain versions at the paths' shapes, each with
+    CUDA-event and graph-replay times of the kernel and of its library
+    yardstick (K4: the bf16 model's ``F.linear`` on the same shape, the call
+    int8 has to beat; K5: SDPA on the bf16 cache with the same boolean mask,
+    after the dequantization for an int8 cache), the plain time and the bound;
+    a planted fault in each (K4: the scales shifted by one column; K5: the
+    causal offset off by one) must fail the same hold."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import merv_tpu_torch.ops.decode_attention as K5
+    import merv_tpu_torch.ops.int8_linear as K4
+    from merv_tpu_torch.models.backbones.llm.transformer import _quantize_kv
+    from merv_tpu_torch.nn.quantization import quantize_kernel
+
+    cases = []
+    record = functools.partial(record_case, cases)
+    rng = np.random.default_rng(seed + 17)
+
+    def caught(kernel, name, fault, out, ref, mag):
+        h = hold(out, ref, mag)
+        log(f"[fault] {fault:24s} {kernel}/{name}: worst/limit {h['worst_share_of_limit']:.2f} -> "
+            f"{'not caught' if h['ok'] else 'caught'}")
+        if h["ok"]:
+            raise RuntimeError(f"planted fault {fault} was not caught on {kernel}/{name}")
+        return h["worst_share_of_limit"]
+
+    shapes = [(f"{w}_m{m}", m, n, k) for w, n, k in INT8_WEIGHTS for m in INT8_ROWS] + [INT8_RAGGED]
+    for name, M, N, K in shapes:
+        w = _randn(rng, (N, K), dev) * 0.02
+        q8, scale = quantize_kernel(w)
+        x = _randn(rng, (M, K), dev)
+        out = K4.int8_linear(x, q8, scale)
+        ref = K4.int8_linear_plain(x, q8, scale)
+        mag = K4.int8_linear_plain(x.abs(), q8.abs(), scale)
+        extra = {}
+        if name in ("qkvo_m4", INT8_RAGGED[0]):
+            extra["planted_scale_column_share"] = caught(
+                "int8_linear", name, "k4_scale_column_shifted", out,
+                K4.int8_linear_plain(x, q8, scale.roll(1)), K4.int8_linear_plain(x.abs(), q8.abs(), scale.roll(1)))
+        record("int8_linear", name, [M, N, K], out, ref, mag,
+               lambda: K4.int8_linear(x, q8, scale), lambda: K4.int8_linear_plain(x, q8, scale),
+               lambda: F.linear(x, w),
+               bytes_moved=N * K + 4 * N + 2 * M * K + 2 * M * N, flops=2.0 * M * N * K, extra=extra,
+               graph=("kernel", "library"))
+        del w, q8, x
+
+    for name, B, H, Hk, Tq, Tk, D, int8, lengths, offs in DECODE_CASES:
+        q = _randn(rng, (B, H, Tq, D), dev)
+        kf, vf = (_randn(rng, (B, Hk, Tk, D), dev) for _ in range(2))
+        length = torch.tensor(lengths, device=dev)
+        kv_pos = torch.arange(Tk, device=dev)[None]
+        # the decoder's key mask: the rows written (and the new ones), never a per-slot cache's scratch row
+        mask = (kv_pos < length[:, None] + (Tq if offs else 1)) & (kv_pos < Tk - (1 if B == 4 else 0))
+        if int8:
+            (k8, ks), (v8, vs) = _quantize_kv(kf), _quantize_kv(vf)
+            cache = (k8, v8, ks, vs)
+            kd, vd = K5.dequantize_kv(k8, ks, torch.bfloat16), K5.dequantize_kv(v8, vs, torch.bfloat16)
+        else:
+            cache, kd, vd = (kf, vf), kf, vf
+        kw = dict(kv_mask=mask, causal=offs is not None, q_offset=length if offs else None)
+        out = K5.decode_attention(q, *cache, **kw)
+        ref = K5.decode_attention_plain(q, *cache, **kw)
+        mag = K5.decode_attention_plain(q, kd, vd.abs(), **kw)
+        extra = {}
+        if offs:
+            kw_off = dict(kw, q_offset=length + 1)
+            extra["planted_offset_share"] = caught("decode_attention", name, "k5_causal_offset_plus_one", out,
+                                                   K5.decode_attention_plain(q, *cache, **kw_off),
+                                                   K5.decode_attention_plain(q, kd, vd.abs(), **kw_off))
+        valid = mask[:, None, :].expand(B, Tq, Tk)
+        if offs:
+            valid = valid & (kv_pos[:, None, :] <= torch.arange(Tq, device=dev)[None, :, None] + length[:, None, None])
+        rows = int(mask.sum())  # cache rows a key of which some query sees: each read once per kv head
+        row_bytes = 2 * D * (1 if int8 else 2) + (8 if int8 else 0)
+        bytes_moved = rows * Hk * row_bytes + 2 * 2 * q.numel() + mask.numel()
+        pairs = int(valid.sum()) * H
+        kr, vr = (kd, vd) if Hk == H else (kd.repeat_interleave(H // Hk, 1), vd.repeat_interleave(H // Hk, 1))
+        if int8:
+            def library():
+                k_, v_ = K5.dequantize_kv(k8, ks, torch.bfloat16), K5.dequantize_kv(v8, vs, torch.bfloat16)
+                if Hk != H:
+                    k_, v_ = k_.repeat_interleave(H // Hk, 1), v_.repeat_interleave(H // Hk, 1)
+                return F.scaled_dot_product_attention(q, k_, v_, attn_mask=valid[:, None])
+        else:
+            def library():
+                return F.scaled_dot_product_attention(q, kr, vr, attn_mask=valid[:, None])
+        record("decode_attention", name, [B, H, Hk, Tq, Tk, D, "int8" if int8 else "bf16"], out, ref, mag,
+               lambda: K5.decode_attention(q, *cache, **kw), lambda: K5.decode_attention_plain(q, *cache, **kw),
+               library, bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=dict(extra, valid_rows=rows),
+               graph=("kernel", "library"))
+        del q, kf, vf, kd, vd, kr, vr, cache
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -1380,7 +1527,8 @@ def profile_decode_step(advance) -> dict:
                 top_kernels=[dict(kernel=e.key[:100], ms=e.self_device_time_total / 1e3, count=e.count) for e in top])
 
 
-def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed: int) -> dict:
+def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed: int,
+                       kv_cache_dtype=None, sampled: bool = True) -> dict:
     """Request 0's prefill written into its decode runner's cache, then the
     same steps from the same state twice: the eager loop over the runner's step
     function (run on the card for this check only) and the captured graph's
@@ -1388,7 +1536,9 @@ def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed:
     bit or within DECODE_GRAPH_LOGITS_REL_TOL; both loops are timed (host
     clock between syncs, no copies) and one step of each is profiled. Then the
     same for a sampled decode (temperature 1, top-p 0.9) from one seed:
-    whether graph and eager draw the same tokens is reported."""
+    whether graph and eager draw the same tokens is reported (unless
+    ``sampled`` is False). ``kv_cache_dtype``: the runner's cache ("int8" or
+    None, the compute dtype)."""
     import torch
 
     from merv_tpu_torch.models import generation as G
@@ -1398,8 +1548,8 @@ def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed:
     with torch.inference_mode():
         embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
         B, T = embeds.shape[:2]
-        for name, sample in (("greedy", False), ("sampled", True)):
-            cfg = vidlm._generation_config(max_new_tokens, sample, 1.0, 0.9 if sample else 1.0, 0, 1, None)
+        for name, sample in (("greedy", False), ("sampled", True))[: 2 if sampled else 1]:
+            cfg = vidlm._generation_config(max_new_tokens, sample, 1.0, 0.9 if sample else 1.0, 0, 1, kv_cache_dtype)
             runner, made = G.decode_runner(dec, B, T + max_new_tokens, cfg, embeds.device)
             logits, _, n_valid = G.prefill(dec, embeds, emask.long(), T + max_new_tokens, cache=runner.cache)
             first = logits.argmax(-1)
@@ -1415,8 +1565,7 @@ def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed:
                 return runner.step(dec)
 
             def replay():
-                runner.graph.replay()
-                return runner.graph_logits
+                return runner.replay()
 
             runs = {}
             for mode, advance in (("eager", eager), ("graph", replay)):
@@ -1424,7 +1573,8 @@ def decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, seed:
                 logits_by_step = torch.stack([advance().clone() for _ in range(max_new_tokens - 1)])
                 runs[mode] = (runner.out.clone(), logits_by_step)
             tokens_equal = bool(torch.equal(runs["eager"][0], runs["graph"][0]))
-            row = dict(capture_s=runner.capture_s if made else None, tokens_equal=tokens_equal)
+            row = dict(capture_s=runner.capture_s if made else None, tokens_equal=tokens_equal,
+                       launches_per_step=runner.launches_per_step)
             if name == "greedy":
                 a, b = runs["graph"][1], runs["eager"][1]
                 row.update(logits_bit_equal=bool(torch.equal(a, b)), logits_max_abs_diff=(a - b).abs().max().item(),
@@ -1794,6 +1944,9 @@ def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
         raise RuntimeError(f"loaded request: launches (got, predicted) {wrong}")
 
     ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([video], [prompt], cfg.num_frames)
+    # the request's greedy tokens: phase 4f's int8 model answers the same request beside them
+    request["tokens"] = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm,
+                                           max_new_tokens=max_new_tokens)[0].tolist()
     _, run_held, compare = request_checks(vidlm, ids, mask, vids, is_mm, cfg.visual_feature_length, max_new_tokens)
     checks = compare()[0]
     held = run_held()
@@ -2036,18 +2189,36 @@ SERVE_RUNS = (
 )
 # K1 / K2 launches per program of the engine: a full VidLM prefill (a video or a text-only row: the towers run
 # either way) or a prefix build runs K1 in 23 DINOv2 + 23 LanguageBind layers and K2 in 12 ViViT + 32 LLM layers;
-# a suffix-only prefill runs K2 in the 32 LLM layers. Decode chunks (T=1 and the verify) run plain attention.
+# a suffix-only prefill runs K2 in the 32 LLM layers. Decode chunks (T=1 and the verify) run K5 (and K4 with int8
+# weights): engine_predicted_launches counts those from the engine's forwards.
 ENGINE_LAUNCHES = {"full": {"small_attention_kt": 46, "flash_attention_forward": 44},
                    "suffix": {"small_attention_kt": 0, "flash_attention_forward": 32}}
 CHUNK_GAMMAS = (0, 2, 4, 8)  # the plain chunk and the verify chunks the monitor may pick
 CHUNK_TIMED_REPLAYS = 5
 
 
-def engine_predicted_launches(summary: dict) -> dict:
-    """K1 / K2 launches a serve run must show, from the engine's own counts."""
+LLM_LAYERS = 32  # Llama-2-7B: one K5 launch a layer, and K4 7 a layer (q, k, v, o, gate, up, down) and the lm_head
+
+
+def engine_predicted_launches(summary: dict, quantized: bool = False) -> dict:
+    """K1 / K2 / K5 (and, with int8 weights, K4) launches a serve run must
+    show, from the engine's own counts: the chunks' decoder forwards (replays
+    and capture warm-ups, ``decode_forwards``) each launch K5 once a layer and
+    K4 once a Linear; an LLM prefill of n rows x T tokens (``prefill_shapes``)
+    sends its Linears to K4 when n x T <= 64 and its lm_head (n rows, the last
+    valid position's) when n <= 64, and its attention to K5 when T <= 16; a
+    prefix build of P rows (``prefix_rows``) runs its Linears and its lm_head
+    on all P rows (K4 when P <= 64) and its attention on P rows."""
+    L = LLM_LAYERS
     full = summary["prefills"] - summary["suffix_prefills"] + summary["prefix_builds"]
-    return {k: full * ENGINE_LAUNCHES["full"][k] + summary["suffix_prefills"] * ENGINE_LAUNCHES["suffix"][k]
-            for k in ENGINE_LAUNCHES["full"]}
+    out = {k: full * ENGINE_LAUNCHES["full"][k] + summary["suffix_prefills"] * ENGINE_LAUNCHES["suffix"][k]
+           for k in ENGINE_LAUNCHES["full"]}
+    shapes, fwd, prefixes = summary["prefill_shapes"], summary["decode_forwards"], summary["prefix_rows"]
+    out["decode_attention"] = L * (fwd + sum(t <= 16 for _, t in shapes) + sum(p <= 16 for p in prefixes))
+    if quantized:
+        out["int8_linear"] = ((7 * L + 1) * (fwd + sum(p <= 64 for p in prefixes))
+                              + sum(7 * L * (n * t <= 64) + (n <= 64) for n, t in shapes))
+    return out
 
 
 def serve_request_file(path: str, vidlm) -> list:
@@ -2077,14 +2248,14 @@ def run_serve_process(argv: list) -> tuple:
     return proc.returncode, proc.stdout, proc.stderr
 
 
-def serve_run(label: str, extra: list, requests: list, request_path: str) -> dict:
-    """One serve run at SERVE_SLOTS slots: every request must get a
-    line, only ``missing_video`` may (and must) fail, and the K1 / K2 launches
-    must be as predicted from the engine's counts."""
-    out_path = os.path.join("runs", f"{SERVE_RUN}_{label}.jsonl")
+def serve_run(label: str, extra: list, requests: list, request_path: str, run: str = SERVE_RUN) -> dict:
+    """One serve run at SERVE_SLOTS slots on ``runs/<run>``: every request must
+    get a line, only ``missing_video`` may (and must) fail, and the kernels'
+    launches must be as predicted from the engine's counts."""
+    out_path = os.path.join("runs", f"{run}_{label}.jsonl")
     if os.path.exists(out_path):
         os.remove(out_path)
-    argv = ["--model_path", SERVE_RUN, "--requests", request_path, "--output", out_path, "--slots", str(SERVE_SLOTS),
+    argv = ["--model_path", run, "--requests", request_path, "--output", out_path, "--slots", str(SERVE_SLOTS),
             "--max_len", str(SERVE_MAX_LEN), "--max_new_tokens", str(SERVE_MAX_NEW_TOKENS),
             "--allow_random_weights", "true"] + extra
     t = time.perf_counter()
@@ -2100,7 +2271,7 @@ def serve_run(label: str, extra: list, requests: list, request_path: str) -> dic
     shutil.copy(out_path, os.path.join("chiprun_out", "serve", f"{label}.jsonl"))
     missing = sorted({r["request_id"] for r in requests} - set(rows))
     failed = sorted(rid for rid, r in rows.items() if r["finish_reason"] == "error")
-    predicted = engine_predicted_launches(summary)
+    predicted = engine_predicted_launches(summary, quantized="--quantize_llm" in extra)
     launches = {k: summary["launches"][k] for k in predicted}
     others = {k: v for k, v in summary["launches"].items() if k not in predicted and v}
     phase_lines = [line for line in stderr.splitlines() if "Served" in line or "Phases:" in line]
@@ -2116,20 +2287,22 @@ def serve_run(label: str, extra: list, requests: list, request_path: str) -> dic
                 predicted_launches=predicted, texts={rid: r["text"][:60] for rid, r in rows.items()})
 
 
-def chunk_checks(vidlm, requests: list) -> dict:
+def chunk_checks(vidlm, requests: list, kv_cache_dtype=None, gammas=CHUNK_GAMMAS) -> dict:
     """(a) The engine's decode chunk by graph replay against the same chunk
     function run eagerly from the same state (4 live slots after one
     admission), plain and at gamma 4: greedy tokens must be identical. Then
     the plain chunk's and the verify chunks' (gamma 2, 4, 8) ms per step by
     graph replay at SERVE_SLOTS slots over the full-length cache, which give
-    the H100 ``_SPEC_COST_RATIO``, with each graph's capture time and pool."""
+    the H100 ``_SPEC_COST_RATIO``, with each graph's capture time and pool.
+    ``kv_cache_dtype``: the slot cache's ("int8" or None); ``gammas``: the
+    chunks timed (0 and 4 are checked against the eager chunk)."""
     import torch
 
     from merv_tpu_torch.models.generation import GenerationConfig
     from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 
     cfg = GenerationConfig(max_new_tokens=SERVE_MAX_NEW_TOKENS, eos_token_id=vidlm.llm_backbone.stop_token_id,
-                           pad_token_id=vidlm.llm_backbone.pad_token_id)
+                           pad_token_id=vidlm.llm_backbone.pad_token_id, kv_cache_dtype=kv_cache_dtype)
     engine = ContinuousBatchingEngine.for_vidlm(vidlm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, config=cfg,
                                                 speculative_gamma=4)
     for r in requests[:: 8][:SERVE_SLOTS]:  # one question of each video
@@ -2143,7 +2316,7 @@ def chunk_checks(vidlm, requests: list) -> dict:
     snap = st.snapshot()
     rows = st.k.shape[3]
     out = dict(slots=SERVE_SLOTS, cache_rows=rows, slot_lengths=snap["length"].tolist(), chunks={})
-    for gamma in CHUNK_GAMMAS:
+    for gamma in gammas:
         chunk = engine._chunk(gamma)
         window = (lambda c=chunk: (c.wins.clone(), c.emits.clone())) if gamma else (lambda c=chunk: (c.toks.clone(),))
         row = dict(capture_s=chunk.capture_s, pool_mib=chunk.pool_bytes / 2**20)
@@ -2152,7 +2325,7 @@ def chunk_checks(vidlm, requests: list) -> dict:
             chunk.run_eager(engine)
             eager = window()
             st.restore(snap)
-            chunk.graph.replay()
+            chunk.run(engine)
             graph = window()
             row["graph_equals_eager"] = all(torch.equal(a, b) for a, b in zip(eager, graph))
             if gamma:
@@ -2163,7 +2336,7 @@ def chunk_checks(vidlm, requests: list) -> dict:
             st.restore(snap)
             torch.cuda.synchronize()
             start.record()
-            chunk.graph.replay()
+            chunk.run(engine)
             end.record()
             torch.cuda.synchronize()
             if i:  # the first replay warms up
@@ -2172,10 +2345,10 @@ def chunk_checks(vidlm, requests: list) -> dict:
         row["ms_per_step_min"] = min(times) / engine.steps_per_sync
         if gamma in (0, 4):  # one replay under the profiler: where a chunk's device time goes
             st.restore(snap)
-            row["profiled_replay"] = profile_decode_step(chunk.graph.replay)
+            row["profiled_replay"] = profile_decode_step(lambda c=chunk: c.run(engine))
         out["chunks"][gamma] = row
     plain = out["chunks"][0]["ms_per_step"]
-    out["spec_cost_ratio"] = {g: out["chunks"][g]["ms_per_step"] / plain for g in CHUNK_GAMMAS if g}
+    out["spec_cost_ratio"] = {g: out["chunks"][g]["ms_per_step"] / plain for g in gammas if g}
     out["chunk_graphs_alive"] = len(engine._chunks)
     log(f"[engine] chunk graphs at {SERVE_SLOTS} slots, {rows} cache rows (slot lengths {out['slot_lengths']}): "
         + "; ".join(f"gamma {g}: {r['ms_per_step']:.3f} ms/step (min {r['ms_per_step_min']:.3f}), capture "
@@ -2185,6 +2358,7 @@ def chunk_checks(vidlm, requests: list) -> dict:
         + f"; verify cost / plain step {json.dumps({g: round(v, 4) for g, v in out['spec_cost_ratio'].items()})}")
     for g in (0, 4):
         p = out["chunks"][g]["profiled_replay"]
+        out["chunks"][g]["launches_per_run"] = engine._chunks[g].launches_per_run
         log(f"[engine] one replay of the gamma {g} chunk ({engine.steps_per_sync} steps) under the profiler: wall "
             f"{p['wall_ms']:.2f} ms, device {p['device_ms']} ms in {p['kernels']} kernels, idle share "
             f"{p['idle_share']}; largest kernels (ms, launches): "
@@ -2286,6 +2460,183 @@ def engine_path(dev, seed: int) -> dict:
     wall = time.perf_counter() - t0
     log(f"[engine] phase 4e: {wall:.1f} s")
     return dict(wall_s=wall, chunks=chunks, checks=checks, peak_memory_gib=peak_gib, runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: int8 serving (weight-only int8 LLM, int8 KV cache)
+# ---------------------------------------------------------------------------
+
+INT8_RUN = "chip_smoke_int8"  # runs/<INT8_RUN> (the run directory), its request and result files beside it
+INT8_SERVE_ARGS = ["--quantize_llm", "true", "--int8_kv", "true"]  # prefix sharing on (the serve default)
+
+
+def held_decode_step(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, kv_cache_dtype) -> dict:
+    """One eager T=1 decode step from the request's prefill, with every K4 and
+    K5 call held against its plain version on the call's own inputs (K4's mag:
+    the plain version on |x| and |q|; K5's: on |v| dequantized)."""
+    import torch
+
+    import merv_tpu_torch.ops.decode_attention as K5
+    import merv_tpu_torch.ops.int8_linear as K4
+    from merv_tpu_torch.models import generation as G
+
+    dec = vidlm.llm_backbone.decoder
+    calls = {"int8_linear": [], "decode_attention": []}
+    k4, k5 = K4.int8_linear, K5.decode_attention
+
+    def k4_held(x, q, scale, bias=None):
+        out = k4(x, q, scale, bias)
+        calls["int8_linear"].append(hold(out, K4.int8_linear_plain(x, q, scale, bias),
+                                         K4.int8_linear_plain(x.abs(), q.abs(), scale, bias)))
+        return out
+
+    def k5_held(q, k, v, k_scale=None, v_scale=None, **kw):
+        out = k5(q, k, v, k_scale, v_scale, **kw)
+        vd = v if v_scale is None else K5.dequantize_kv(v, v_scale, q.dtype)
+        kd = k if k_scale is None else K5.dequantize_kv(k, k_scale, q.dtype)
+        calls["decode_attention"].append(hold(out, K5.decode_attention_plain(q, k, v, k_scale, v_scale, **kw),
+                                              K5.decode_attention_plain(q, kd, vd.abs(), **kw)))
+        return out
+
+    with torch.inference_mode():
+        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
+        B, T = embeds.shape[:2]
+        cfg = vidlm._generation_config(max_new_tokens, False, 1.0, 1.0, 0, 1, kv_cache_dtype)
+        runner, _ = G.decode_runner(dec, B, T + max_new_tokens, cfg, embeds.device)
+        logits, _, n_valid = G.prefill(dec, embeds, emask.long(), T + max_new_tokens, cache=runner.cache)
+        cache_mask = torch.cat([emask.bool(), torch.ones((B, max_new_tokens), dtype=torch.bool, device=emask.device)],
+                               dim=1)
+        runner.load(logits.argmax(-1), n_valid, cache_mask, T, None)
+        with patched((K4, "int8_linear", k4_held), (K5, "decode_attention", k5_held)):
+            runner.step(dec)
+        torch.cuda.synchronize()
+    return {name: dict(calls=len(c), ok=all(x["ok"] for x in c),
+                       worst_share_of_limit=max((x["worst_share_of_limit"] for x in c), default=0.0),
+                       worst_mean_share=max((x["mean_abs_err"] / x["mean_limit"] for x in c), default=0.0))
+            for name, c in calls.items()}
+
+
+def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_tokens=None) -> dict:
+    """Phase 4f: merv-full's run directory (as 4c writes it) loaded with
+    ``quantize_llm=True``; (a) one request through ``MERV.generate`` with
+    ``kv_cache_dtype="int8"``, launches counted and predicted, every K4 and K5
+    call of one eager decode step held against its plain version, the graph
+    step's tokens against the eager loop's and its ms beside phase 4's bf16
+    step (``bf16_step_ms``); (b) the engine's plain and gamma-4 chunk graphs on
+    the int8 model and cache against the eager chunk, ms per step; (c) one
+    ``cli/serve.py --quantize_llm --int8_kv`` process with prefix sharing on
+    4e's 37 requests, launches predicted from the engine's counts; (d) weight
+    bytes and peak memory. Agreement with 4c's bf16 tokens (``bf16_tokens``)
+    is reported, not gated: random weights."""
+    import gc
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch import load_vid
+    from merv_tpu_torch.nn.core import Linear
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs", INT8_RUN)
+    write_run_dir(run_dir, dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):  # the random-weights route, whatever the caller set
+        os.environ.pop(name, None)
+    request_path = os.path.join("runs", f"{INT8_RUN}_requests.jsonl")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True, quantize_llm=True)
+        torch.cuda.synchronize()
+        load_s, load_peak_gib = time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**30
+        linears = [m for m in vidlm.llm_backbone.modules() if isinstance(m, Linear)]
+        if any(m.weight is not None or m.weight_q.dtype != torch.int8 for m in linears):
+            raise RuntimeError("quantize_llm: an LLM Linear kept a float weight")
+        n_q = sum(m.weight_q.numel() for m in linears)
+        weights = dict(linears=len(linears), int8_bytes=n_q, scale_bytes=4 * sum(m.scale.numel() for m in linears),
+                       bf16_bytes_of_the_same=2 * n_q,
+                       llm_bytes_total=sum(t.numel() * t.element_size() for t in vidlm.llm_backbone.state_dict().values()))
+        log(f"[int8] load_vid(quantize_llm=True): {load_s:.2f} s, peak {load_peak_gib:.2f} GiB; "
+            f"{len(linears)} LLM Linears in int8: {n_q / 1e9:.3f} GB of int8 weights + "
+            f"{weights['scale_bytes'] / 1e6:.2f} MB of scales (bf16: {2 * n_q / 1e9:.3f} GB), LLM state "
+            f"{weights['llm_bytes_total'] / 1e9:.3f} GB")
+
+        # (a) one request, int8 weights and cache
+        decoders = video_decoders(DEMO_VIDEO)
+        frames_from = next((name for name, state in decoders.items() if state == "ok"), "synthetic")
+        video = Path(DEMO_VIDEO) if frames_from != "synthetic" else \
+            np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+        prompt = vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
+        vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=2, kv_cache_dtype="int8")  # warm-up
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t = time.perf_counter()
+        text = vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=max_new_tokens,
+                              kv_cache_dtype="int8", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = A.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steps = timings["decode_steps"] + (2 if timings["decode_capture_s"] > 0 else 0)  # replays + capture warm-up
+        L = LLM_LAYERS
+        predicted = dict(LOADED_REQUEST_LAUNCHES, int8_linear=1 + (7 * L + 1) * steps, decode_attention=L * steps)
+        request = dict(wall_s=wall, prepare_s=timings["prepare_s"], towers_s=timings["towers_s"],
+                       prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
+                       decode_steps=timings["decode_steps"], decode_capture_s=timings["decode_capture_s"],
+                       decode_tokens_per_s=timings["decode_steps"] / timings["decode_s"] if timings["decode_steps"]
+                       else None, text=text, launches=counts, predicted_launches=predicted, peak_memory_gib=peak_gib)
+        log(f"[int8] request on {frames_from} frames (int8 weights, int8 cache): wall {wall:.3f} s = prepare "
+            f"{request['prepare_s']:.3f} + towers {request['towers_s']:.3f} + prefill {request['prefill_s']:.3f} + "
+            f"decode {request['decode_s']:.3f} s ({timings['decode_steps']} steps, {request['decode_tokens_per_s']} "
+            f"tok/s) + capture {request['decode_capture_s']:.3f} s; launches {counts} (predicted {predicted}); "
+            f"peak {peak_gib:.2f} GiB")
+        wrong = {k: (counts[k], n) for k, n in predicted.items() if counts[k] != n}
+        if wrong:
+            raise RuntimeError(f"int8 request: launches (got, predicted) {wrong}")
+        ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([video], [prompt], cfg.num_frames)
+        tokens = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+                                    kv_cache_dtype="int8")[0].tolist()
+        request["tokens"] = tokens
+        if bf16_tokens is not None:
+            request["agreement_with_bf16"] = sum(a == b for a, b in zip(tokens, bf16_tokens)) / len(tokens)
+            request["first_token_equal_bf16"] = tokens[0] == bf16_tokens[0]
+        held = held_decode_step(vidlm, ids, mask, vids, is_mm, max_new_tokens, "int8")
+        log(f"[int8] one eager decode step, each kernel call against its plain version: {show(held)}; greedy "
+            f"agreement with 4c's bf16 model {request.get('agreement_with_bf16')} (first token equal: "
+            f"{request.get('first_token_equal_bf16')}; reported, not gated)")
+        for name, h in held.items():
+            if h["calls"] != (7 * L + 1 if name == "int8_linear" else L) or not h["ok"]:
+                raise RuntimeError(f"int8 decode step: {name} {h['calls']} calls, or a call outside its limit")
+        graph = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, kv_cache_dtype="int8",
+                                   sampled=False)["greedy"]
+        step_ms = graph["graph"]["ms_per_step"]
+        log(f"[int8] decode step by graph replay: {step_ms:.3f} ms (bf16 weights and cache, phase 4: "
+            f"{bf16_step_ms if bf16_step_ms is None else round(bf16_step_ms, 3)} ms); launches per step "
+            f"{graph['launches_per_step']}")
+
+        # (b) the engine's chunk graphs on the int8 model and cache
+        requests = serve_request_file(request_path, vidlm)
+        chunks = chunk_checks(vidlm, requests, kv_cache_dtype="int8", gammas=(0, 4))
+        del vidlm
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) one serve process
+        run = serve_run("int8", INT8_SERVE_ARGS, requests, request_path, run=INT8_RUN)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        for path in (request_path, os.path.join("runs", f"{INT8_RUN}_int8.jsonl")):
+            if os.path.exists(path):
+                os.remove(path)
+    wall = time.perf_counter() - t0
+    log(f"[int8] phase 4f: {wall:.1f} s")
+    return dict(wall_s=wall, load_s=load_s, load_peak_memory_gib=load_peak_gib, weights=weights,
+                frames_from=frames_from, request=request, held_call_by_call=held, decode_graph=graph,
+                step_ms=step_ms, bf16_step_ms=bf16_step_ms, chunks=chunks, run=run)
 
 
 # ---------------------------------------------------------------------------
@@ -2609,9 +2960,9 @@ def train_path(dev, seed: int, run_dir: str):
 
 # ---------------------------------------------------------------------------
 
-# every kernel library: K2, K3, K1, B3, B6 and B5
+# every kernel library: K2, K3, K1, B3, B6, B5, K4 and K5
 COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention", "fused_vit_block",
-                 "packed_temporal")
+                 "packed_temporal", "int8_linear", "decode_attention")
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
@@ -2691,6 +3042,13 @@ KERNELS = {
     "fused_vit_attn_block": dict(source="merv_tpu_torch/csrc/fused_vit_block.cu",
                                  replaces="merv_tpu/ops/fused_vit_block.py:135", main_case="dinov2",
                                  request="fused_block"),
+    # K4 and K5 replace fused XLA work of merv_tpu's int8 serving, not a Pallas kernel: the int8 Linear's product
+    # and the attention over the (dequantized) cache at T = 1; their launches come from phase 4f's request
+    "int8_linear": dict(source="merv_tpu_torch/csrc/int8_linear.cu", replaces="merv_tpu/nn/core.py:128",
+                        main_case="qkvo_m1", int8=True),
+    "decode_attention": dict(source="merv_tpu_torch/csrc/decode_attention.cu",
+                             replaces="merv_tpu/models/backbones/llm/transformer.py:402", main_case="b1_int8",
+                             int8=True),
 }
 SERVING_KERNELS = ("small_attention_kt", "flash_attention_forward")
 
@@ -2707,6 +3065,11 @@ def main() -> int:
                          "for comparing two versions of the whole-sequence kernels within one call")
     ap.add_argument("--engine-only", action="store_true",
                     help="build, then run only phase 4e (the serving engine) and print its numbers (no result line)")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build, then run only K4's and K5's kernel cases and print them (no result line): for "
+                         "comparing two versions of the int8 and decode kernels within one call")
+    ap.add_argument("--int8-serving-only", action="store_true",
+                    help="build, then run only phase 4f (int8 serving) and print its numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -2744,6 +3107,20 @@ def main() -> int:
                 "library_device_ms", "bound_ms", "worst_share_of_limit")
         log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
+    if args.int8_only:
+        cases = int8_kernel_cases(dev, args.seed)
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
+                "bound_by", "worst_share_of_limit", "max_abs_err")
+        log(json.dumps({"int8_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
+    if args.int8_serving_only:
+        with switches({}):
+            out = int8_path(dev, args.seed, args.max_new_tokens)
+        log(json.dumps({"int8_serving": {k: out[k] for k in ("wall_s", "load_s", "weights", "step_ms", "request")},
+                        "chunks": {g: {k: v for k, v in r.items() if k != "profiled_replay"}
+                                   for g, r in out["chunks"]["chunks"].items()},
+                        "run": {k: out["run"][k] for k in ("process_wall_s", "summary")}}))
+        return 0
     if args.engine_only:
         with switches({}):
             engine = engine_path(dev, args.seed)
@@ -2759,11 +3136,14 @@ def main() -> int:
         return 0
 
     with switches({}):  # every phase sets the switches it runs under
-        cases = kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
+        cases = (kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
+                 + int8_kernel_cases(dev, args.seed))
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
         evals = eval_path(dev, args.seed)
         engine = engine_path(dev, args.seed)
+        int8 = int8_path(dev, args.seed, args.max_new_tokens, main["decode_graph"]["greedy"]["graph"]["ms_per_step"],
+                         loaded["request"]["tokens"])
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -2772,6 +3152,8 @@ def main() -> int:
         head = next(c for c in mine if c["case"] == meta["main_case"])
         if "request" in meta:  # the towers' opt-in kernels: launches of the request served with their switch
             launches = main["switched_requests"][meta["request"]]["launches"][name]
+        elif meta.get("int8"):  # K4 and K5: the int8 request of phase 4f (training runs neither)
+            launches = int8["request"]["launches"][name]
         else:
             launches = train["launches"][name]
         if launches <= 0:
@@ -2783,7 +3165,8 @@ def main() -> int:
             launches_eval={**{r["label"]: r["launches"].get(name, 0) for r in evals["runs"]},
                            **{f"shared_check_{k}": evals["shared_vs_batch"][k]["launches"].get(name, 0)
                               for k in SHARED_CHECK_LAUNCHES}},
-            launches_engine={r["label"]: r["summary"]["launches"].get(name, 0) for r in engine["runs"]},
+            launches_engine={**{r["label"]: r["summary"]["launches"].get(name, 0) for r in engine["runs"]},
+                             "int8": int8["run"]["summary"]["launches"].get(name, 0)},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -2793,7 +3176,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
-                       main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, train_path=train),
+                       main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
+                       train_path=train),
                   f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

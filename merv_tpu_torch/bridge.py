@@ -9,6 +9,11 @@ names follow the JAX tree, so the mapping is by rule:
   torch's ``(out, in)`` (this covers the fusion's q/k/v kernels, which the JAX
   tree already stores ``(in, out)``);
 - a norm ``scale`` and an ``Embed`` ``embedding`` -> ``weight``;
+- a weight-only int8 Linear (``merv_tpu/nn/quantization.py``: ``kernel_q``
+  int8 ``(in, out)`` beside ``scale`` fp32 ``(1, out)``) -> ``weight_q``
+  transposed to ``(out, in)`` and ``scale`` ``(out,)``, the layout of a
+  quantized ``Linear`` (the rename of ``scale`` keys on its ``kernel_q``
+  sibling: a norm's ``scale`` still becomes ``weight``);
 - a scanned layer stack ``layers`` (every leaf ``[L, ...]``) -> ``layers.<i>.``;
 - every other leaf (``pos_embed``, ``cls_token``, ``gamma``, ``Q``, ...) keeps its name.
 
@@ -44,6 +49,14 @@ def _convert(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor])
                 _convert(val, f"{prefix}{key}.", out)
             continue
         arr = np.asarray(val)
+        if "kernel_q" in tree and key in ("kernel_q", "scale"):
+            if key == "kernel_q":
+                if arr.ndim != 2:
+                    raise ValueError(f"{prefix}kernel_q: expected a 2-D (in, out) kernel, got {arr.shape}")
+                out[prefix + "weight_q"] = to_torch(arr.T)
+            else:
+                out[prefix + "scale"] = to_torch(arr.reshape(-1))
+            continue
         if key == "kernel":
             if arr.ndim != 2:
                 raise ValueError(f"{prefix}kernel: expected a 2-D (in, out) kernel, got {arr.shape}")

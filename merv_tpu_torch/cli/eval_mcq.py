@@ -16,9 +16,10 @@ video. Host video decode runs ahead of the card (``prefetch_map``); a group
 that fails is retried item by item, and an item that fails is logged and
 skipped, as ``merv_tpu``'s driver does.
 
-The model runs on the card unless ``--device cpu`` is given. Not ported:
-``--quantize_llm`` (ROADMAP A2), ``--int8_kv`` (A4), ``--mesh_seq > 1`` (A12);
-each raises ``NotImplementedError``.
+``--quantize_llm`` serves the LLM with weight-only int8 Linears and
+``--int8_kv`` keeps the KV cache in int8, as in ``merv_tpu``. The model runs
+on the card unless ``--device cpu`` is given. Not ported: ``--mesh_seq > 1``
+(ROADMAP A12), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,8 +70,8 @@ class EvalConfig:
     strategy: str = "naive"                         # answer-extraction: naive | likelihood
     share_video_prefix: bool = False                # group questions by video; towers + video-prefix KV run once per video
     allow_random_weights: bool = False              # random-init fallback (speed tests ONLY)
-    quantize_llm: bool = False                      # int8 LLM weights: not ported (ROADMAP A2)
-    int8_kv: bool = False                           # int8 KV cache: not ported (ROADMAP A4)
+    quantize_llm: bool = False                      # weight-only int8 LLM serving
+    int8_kv: bool = False                           # int8 KV cache (half the cache bytes decode reads)
     mesh_seq: int = 1                               # sequence-sharded KV cache: not ported (ROADMAP A12)
     filename_question: str = "test_q"
     filename_answer: str = "test_a"
@@ -82,10 +83,6 @@ class EvalConfig:
 
 def refuse_unported(cfg) -> None:
     """Raise for the flags whose paths the port does not have yet."""
-    if cfg.quantize_llm:
-        raise NotImplementedError("--quantize_llm: int8 LLM weights are not ported yet (ROADMAP A2)")
-    if cfg.int8_kv:
-        raise NotImplementedError("--int8_kv: the int8 KV cache is not ported yet (ROADMAP A4)")
     if cfg.mesh_seq > 1:
         raise NotImplementedError("--mesh_seq: the sequence-sharded KV cache is not ported yet (ROADMAP A12)")
 
@@ -188,6 +185,8 @@ def evaluate(cfg: EvalConfig) -> None:
                 arrays.append(e)
         return arrays
 
+    kv_cache_dtype = "int8" if cfg.int8_kv else None
+
     def _predict_one(question, prompt_text, letters):
         """Per-item path: path-based load, both strategies."""
         video = _resolve_video(benchmark_dir, question["video_name"])
@@ -198,7 +197,7 @@ def evaluate(cfg: EvalConfig) -> None:
         return vidlm.generate(
             video, prompt_text, do_sample=cfg.do_sample, temperature=cfg.temperature,
             max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length,
-            num_frames=model_cfg.num_frames, **_clip(question),
+            num_frames=model_cfg.num_frames, kv_cache_dtype=kv_cache_dtype, **_clip(question),
         )
 
     share = cfg.share_video_prefix and cfg.strategy != "likelihood"
@@ -258,12 +257,13 @@ def evaluate(cfg: EvalConfig) -> None:
                     gk = key(group[0])
                     if prefix_state["key"] != gk:
                         prefix_state = {"key": gk, "cache": vidlm.build_video_prefix(
-                            sub[0], num_frames=model_cfg.num_frames,
+                            sub[0], num_frames=model_cfg.num_frames, kv_cache_dtype=kv_cache_dtype,
                         )}
                     sub_preds = vidlm.generate_batch_shared(
                         sub[0], [prepped[i][0] for i in good], num_frames=model_cfg.num_frames,
                         max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature,
                         min_length=cfg.min_length, pad_to_batch=cfg.batch_size, prefix_cache=prefix_state["cache"],
+                        kv_cache_dtype=kv_cache_dtype,
                     )
                     for i, p in zip(good, sub_preds):
                         preds[i] = p
@@ -271,7 +271,7 @@ def evaluate(cfg: EvalConfig) -> None:
                     sub_preds = vidlm.generate_batch(
                         sub, [prepped[i][0] for i in good], num_frames=model_cfg.num_frames,
                         max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature,
-                        min_length=cfg.min_length, pad_to_batch=cfg.batch_size,
+                        min_length=cfg.min_length, pad_to_batch=cfg.batch_size, kv_cache_dtype=kv_cache_dtype,
                     )
                     for i, p in zip(good, sub_preds):
                         preds[i] = p

@@ -24,9 +24,11 @@ The chunked jsonl protocol of :mod:`merv_tpu_torch.cli.eval_mcq`, plus:
   it prints one JSON line with ``serving_wall_s`` and ``questions_per_sec``.
 Scoring happens downstream (``scripts/eval_gpt_batch.py``, an LLM judge).
 
-The model runs on the card unless ``--device cpu`` is given. Not ported:
-``--int8_kv`` (ROADMAP A4), ``--quantize_llm`` (A2), ``--mesh_seq > 1``
-(A12); each raises ``NotImplementedError``.
+``--quantize_llm`` serves the LLM with weight-only int8 Linears and
+``--int8_kv`` keeps the KV cache in int8 (the batch, batch-1, speculative and
+engine paths alike), as in ``merv_tpu``. The model runs on the card unless
+``--device cpu`` is given. Not ported: ``--mesh_seq > 1`` (ROADMAP A12),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ class EvalConfig:
     skip_flops: bool = False
     batch_size: int = 1                             # questions per prefill
     allow_random_weights: bool = False              # random-init fallback (speed tests ONLY)
-    quantize_llm: bool = False                      # int8 LLM weights: not ported (ROADMAP A2)
-    int8_kv: bool = False                           # int8 KV cache: not ported (ROADMAP A4)
+    quantize_llm: bool = False                      # weight-only int8 LLM serving
+    int8_kv: bool = False                           # int8 KV cache (half the cache bytes decode reads)
     mesh_seq: int = 1                               # sequence-sharded KV cache: not ported (ROADMAP A12)
     speculative: int = 0                            # prompt-lookup speculative decoding: draft length gamma
     #                                               # (batch_size 1 only; greedy output is unchanged)
@@ -158,7 +160,7 @@ def evaluate(cfg: EvalConfig) -> None:
         return vidlm.generate(
             video_name, prompt_text, do_sample=cfg.do_sample, temperature=cfg.temperature,
             max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length, num_frames=model_cfg.num_frames,
-            speculative_gamma=cfg.speculative, **clip,
+            speculative_gamma=cfg.speculative, kv_cache_dtype="int8" if cfg.int8_kv else None, **clip,
         )
 
     def _decode_group(group):
@@ -213,6 +215,7 @@ def evaluate(cfg: EvalConfig) -> None:
                                 num_frames=model_cfg.num_frames, max_new_tokens=cfg.max_new_tokens,
                                 do_sample=cfg.do_sample, temperature=cfg.temperature,
                                 min_length=cfg.min_length, pad_to_batch=cfg.batch_size,
+                                kv_cache_dtype="int8" if cfg.int8_kv else None,
                             )
                             for i, p_ in zip(good, sub_preds):
                                 preds[i] = p_
@@ -283,6 +286,7 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
     gcfg = GenerationConfig(
         max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature,
         min_length=cfg.min_length, eos_token_id=stop, pad_token_id=vidlm.llm_backbone.pad_token_id,
+        kv_cache_dtype="int8" if cfg.int8_kv else None,
     )
     by_q = {str(q["question_id"]): q for q in questions}
 

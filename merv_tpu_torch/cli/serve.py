@@ -22,9 +22,10 @@ draft length N. The last line on stdout is one JSON object with the run's
 numbers (walls, tokens/s, time to first token, slot utilisation, prefill
 stall share, the engine's program counts and the kernels' launches).
 
-The model runs on the card unless ``--device cpu`` is given. Not ported:
-``--quantize_llm`` (ROADMAP A2) and ``--int8_kv`` (A4); each raises
-``NotImplementedError``.
+``--quantize_llm`` serves the LLM with weight-only int8 Linears and
+``--int8_kv`` keeps the engine's slot cache (and the shared prefixes) in
+int8, as in ``merv_tpu``. The model runs on the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ class ServeConfig:
     top_p: float = 1.0
     min_length: int = 1
 
-    quantize_llm: bool = False           # int8 LLM weights: not ported (ROADMAP A2)
-    int8_kv: bool = False                # int8 KV cache: not ported (ROADMAP A4)
+    quantize_llm: bool = False           # weight-only int8 LLM
+    int8_kv: bool = False                # int8 KV cache
     speculative: int = 0                 # batched prompt-lookup speculation: draft length gamma
     speculative_ngram: int = 2
     speculative_autodisable: bool = True  # two-way monitor: plain decode below break-even, back on (gamma
@@ -79,13 +80,10 @@ class ServeConfig:
 
 @draccus.wrap()
 def serve(cfg: ServeConfig) -> None:
-    if cfg.quantize_llm:
-        raise NotImplementedError("--quantize_llm: int8 LLM weights are not ported yet (ROADMAP A2)")
-    if cfg.int8_kv:
-        raise NotImplementedError("--int8_kv: the int8 KV cache is not ported yet (ROADMAP A4)")
     local_run = Path("runs") / str(cfg.model_path)
     src = str(local_run) if local_run.exists() else str(cfg.model_path)
-    vidlm = load_vid(src, allow_random_weights=cfg.allow_random_weights, device=cfg.device)
+    vidlm = load_vid(src, allow_random_weights=cfg.allow_random_weights, quantize_llm=cfg.quantize_llm,
+                     device=cfg.device)
     dev = vidlm.device
 
     # resume: results append line by line the moment each request finishes, so
@@ -128,6 +126,7 @@ def serve(cfg: ServeConfig) -> None:
     gcfg = GenerationConfig(
         max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature, top_p=cfg.top_p,
         min_length=cfg.min_length, eos_token_id=stop, pad_token_id=vidlm.llm_backbone.pad_token_id,
+        kv_cache_dtype="int8" if cfg.int8_kv else None,
     )
     engine = ContinuousBatchingEngine.for_vidlm(
         vidlm, slots=cfg.slots, max_len=cfg.max_len, steps_per_sync=cfg.steps_per_sync, config=gcfg,
@@ -240,7 +239,8 @@ def serve(cfg: ServeConfig) -> None:
         "slot_utilization": s.slot_utilization, "prefill_stall_share": s.prefill_stall_share,
         "admit_s": s.admit_s, "decode_s": s.decode_s, "capture_s": s.capture_s,
         "prefills": s.prefills, "suffix_prefills": s.suffix_prefills, "prefix_admissions": s.prefix_admissions,
-        "prefix_builds": prefix_builds, "decode_chunks": s.decode_chunks, "spec_steps": s.spec_steps,
+        "prefix_builds": prefix_builds, "decode_chunks": s.decode_chunks, "decode_forwards": s.decode_forwards,
+        "prefill_shapes": [list(p) for p in s.prefill_shapes], "prefix_rows": s.prefix_rows, "spec_steps": s.spec_steps,
         "tokens_per_step": s.tokens_per_step, "spec_disables": s.spec_disables, "spec_reenables": s.spec_reenables,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
         "launches": launches,

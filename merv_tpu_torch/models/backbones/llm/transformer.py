@@ -2,8 +2,9 @@
 ``merv_tpu/models/backbones/llm/transformer.py``), main-path subset: the
 no-cache forward (with per-layer activation checkpointing, ``remat``, and the
 post-norm hidden states, ``return_hidden``, for training), the cache prefill
-with a scalar write pointer, and T=1 decode, with RoPE, GQA and a bf16 KV
-cache.
+with a scalar write pointer, and T=1 decode, with RoPE, GQA and a KV cache in
+the compute dtype or in int8 with per-position scales (``merv_tpu``'s
+``KVCache(dtype=int8)``: quantized on write, dequantized on read).
 
 Differences from ``merv_tpu``, all in idiom, not in function:
 - layers are an ``nn.ModuleList`` run in a Python loop (``lax.scan`` there);
@@ -14,18 +15,21 @@ Differences from ``merv_tpu``, all in idiom, not in function:
   the device, so that one CUDA graph serves every step; or a [B] tensor of
   per-slot write pointers (the serving engine: row b writes its T new tokens
   at ``length[b]``, ``merv_tpu``'s scatter with ``mode="drop"``);
-- attention goes through :func:`merv_tpu_torch.ops.attention.attention`: every
-  call with T > 1 and a host-int offset (no-cache forward and cache prefill)
-  runs the flash kernel, T = 1 decode and the per-slot T > 1 verify (a [B]
-  offset) run plain torch. At T = 1 the causal bound is part of the key mask
-  (``kv_pos < length + 1``, as ``merv_tpu`` builds it), so no host value
-  enters the step. The no-cache forward is differentiable through the flash
-  backward kernel;
+- attention: a call with a cache and at most ``DECODE_MAX_ROWS`` query rows
+  (decode, the speculative verify, short cached prefills) runs
+  :func:`merv_tpu_torch.ops.decode_attention.decode_attention` (K5) on the
+  layer's cache buffers as they lie, int8 or not; every other call goes
+  through :func:`merv_tpu_torch.ops.attention.attention` (the flash kernel for
+  T > 1 with a host-int offset), over the layer's cache dequantized first when
+  it is int8, as ``merv_tpu`` does. At T = 1 the causal bound is part of the
+  key mask (``kv_pos < length + 1``, as ``merv_tpu`` builds it), so no host
+  value enters the step. The no-cache forward is differentiable through the
+  flash backward kernel;
 - ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around each layer,
   where ``merv_tpu`` wraps its layer scan body in ``jax.checkpoint``.
 
-Int8 KV and int8 weights, ring/pipeline paths and ``pack_serving_params``
-wait for later slices (ROADMAP A2/A4/A12).
+Ring/pipeline paths and ``pack_serving_params`` wait for later slices
+(ROADMAP A12; the port keeps q/k/v and gate/up unpacked).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from merv_tpu_torch.nn.core import Embed, Linear, RMSNorm
+from merv_tpu_torch.nn.quantization import INV_127
+from merv_tpu_torch.ops import decode_attention as K5
 from merv_tpu_torch.ops.attention import attention
 
 
@@ -80,18 +86,59 @@ class KVCache:
     past it lands there, and no key mask admits it, so a slot whose pointer
     walks past the end (it keeps stepping until the host retires it) neither
     raises, nor asserts on the device, nor wraps. It holds ``max_len - 1``
-    positions."""
+    positions.
+
+    ``dtype=torch.int8`` stores keys and values quantized per (batch, head,
+    position) over D, with fp32 scales ``k_scale`` / ``v_scale``
+    ``[L, B, H_kv, max_len, 1]`` created as ones (:func:`_quantize_kv`): decode
+    reads the whole cache every step, so halving its bytes trims the per-token
+    time; the scales add 4 bytes a row."""
 
     k: torch.Tensor  # [L, B, H_kv, max_len, D]
     v: torch.Tensor  # [L, B, H_kv, max_len, D]
     length: Union[int, torch.Tensor]
+    k_scale: Optional[torch.Tensor] = None  # [L, B, H_kv, max_len, 1] fp32 (int8 mode)
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(
         cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
     ) -> "KVCache":
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device), 0)
+        k, v = (torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
+        if dtype != torch.int8:
+            return cls(k, v, 0)
+        ks, vs = (torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device) for _ in range(2))
+        return cls(k, v, 0, ks, vs)
+
+    def at(self, length: Union[int, torch.Tensor]) -> "KVCache":
+        """The same buffers (and scales) with write pointer ``length``."""
+        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale)
+
+    def layer(self, li: int) -> Tuple[Optional[torch.Tensor], ...]:
+        """Layer ``li``'s (K, V, K scales, V scales, write pointer); the scales are None unless int8."""
+        scales = (None, None) if self.k_scale is None else (self.k_scale[li], self.v_scale[li])
+        return (self.k[li], self.v[li], *scales, self.length)
+
+
+def cache_dtype(kv_cache_dtype: Optional[str], compute_dtype: torch.dtype) -> torch.dtype:
+    """A generation config's ``kv_cache_dtype`` ("int8", or None for the
+    decoder's compute dtype) as the cache's torch dtype."""
+    if kv_cache_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}")
+    return torch.int8 if kv_cache_dtype == "int8" else compute_dtype
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, H, T, D] float -> (int8 values, [B, H, T, 1] fp32 scales), bit for
+    bit ``merv_tpu``'s inside its jitted decoder: per-position ``amax / 127``
+    as XLA computes it (times fp32 ``1/127``, see
+    :mod:`merv_tpu_torch.nn.quantization`; 1.0 where 0), round half to even,
+    clipped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
 def _rope(cos_sin: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +196,7 @@ class DecoderLayer(nn.Module):
         h: torch.Tensor,
         cos_sin: Tuple[torch.Tensor, torch.Tensor],
         kv_mask: Optional[torch.Tensor],
-        cache: Optional[Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]],
+        cache: Optional[Tuple[Optional[torch.Tensor], ...]],
         attn_impl: str,
     ) -> torch.Tensor:
         c = self.cfg
@@ -160,28 +207,43 @@ class DecoderLayer(nn.Module):
         v = self.attn.v_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
         q = _rope(cos_sin, q).contiguous()
         k = _rope(cos_sin, k)
-        q_offset, causal = None, True
-        if cache is not None:
-            ck, cv, start = cache  # this layer's [B, H_kv, max_len, D] buffers
+        if cache is None:
+            out = attention(q, k.contiguous(), v.contiguous(), causal=True, impl=attn_impl)
+        else:
+            # this layer's [B, H_kv, max_len, D] buffers, and [B, H_kv, max_len, 1] scales in int8 mode
+            ck, cv, cks, cvs, start = cache
+            if cks is not None:  # quantize on write
+                (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
             if isinstance(start, torch.Tensor) and start.dim() == 1:
                 # per-slot pointers: row b writes at start[b] + t; at or past the scratch row (the last) it
-                # writes there, so an out-of-range write is dropped
+                # writes there, so an out-of-range write is dropped (the scales follow the same rows)
                 rows = (start[:, None] + torch.arange(T, device=h.device)).clamp(max=ck.shape[2] - 1)
                 slot = torch.arange(B, device=h.device)[:, None].expand(B, T)
-                ck[slot, :, rows] = k.transpose(1, 2).to(ck.dtype)
-                cv[slot, :, rows] = v.transpose(1, 2).to(cv.dtype)
+
+                def put(buf, val):
+                    buf[slot, :, rows] = val.transpose(1, 2).to(buf.dtype)
             else:
                 rows = torch.arange(T, device=h.device) + start
-                ck.index_copy_(2, rows, k.to(ck.dtype))
-                cv.index_copy_(2, rows, v.to(cv.dtype))
-            k, v = ck.to(q.dtype), cv.to(q.dtype)
-            if T == 1:  # kv_mask already bounds the keys at kv_pos <= start: the causal mask adds nothing
-                causal = False
+
+                def put(buf, val):
+                    buf.index_copy_(2, rows, val.to(buf.dtype))
+            put(ck, k)
+            put(cv, v)
+            if cks is not None:
+                put(cks, ks)
+                put(cvs, vs)
+            # T = 1: kv_mask already bounds the keys at kv_pos <= start, so the causal mask adds nothing
+            causal, q_offset = (False, None) if T == 1 else (True, start)
+            if T <= K5.DECODE_MAX_ROWS:
+                fn = K5.decode_attention if attn_impl == "auto" else K5.decode_attention_plain
+                out = fn(q, ck, cv, cks, cvs, kv_mask=kv_mask, causal=causal, q_offset=q_offset)
             else:
-                q_offset = start
-        out = attention(
-            q, k.contiguous(), v.contiguous(), causal=causal, kv_mask=kv_mask, q_offset=q_offset, impl=attn_impl
-        )
+                if cks is not None:  # dequantize on read: int8 -> fp32, times the scale, one rounding
+                    k, v = K5.dequantize_kv(ck, cks, q.dtype), K5.dequantize_kv(cv, cvs, q.dtype)
+                else:
+                    k, v = ck.to(q.dtype), cv.to(q.dtype)
+                out = attention(q, k.contiguous(), v.contiguous(), causal=causal, kv_mask=kv_mask, q_offset=q_offset,
+                                impl=attn_impl)
         h = h + self.attn.o_proj(out.transpose(1, 2).reshape(B, T, c.q_dim))
         return h + self.mlp(self.post_attn_norm(h))
 
@@ -261,6 +323,7 @@ class LlamaDecoder(nn.Module):
                 if am.shape[1] != max_len:
                     am = torch.cat([am, torch.ones((B, max_len - am.shape[1]), dtype=torch.bool, device=dev)], dim=1)
                 kv_mask = kv_mask & am
+            kv_mask = kv_mask.contiguous()  # one copy for every layer's attention
         else:
             if positions is None:
                 if attention_mask is not None:
@@ -279,12 +342,12 @@ class LlamaDecoder(nn.Module):
         cos_sin = _rope_tables(c, positions, h.dtype)
         remat = remat and torch.is_grad_enabled()
         for li, layer in enumerate(self.layers):
-            cache = None if kv_cache is None else (kv_cache.k[li], kv_cache.v[li], kv_cache.length)
+            cache = None if kv_cache is None else kv_cache.layer(li)
             if remat:
                 h = checkpoint(layer, h, cos_sin, kv_mask, cache, attn_impl, use_reentrant=False)
             else:
                 h = layer(h, cos_sin, kv_mask, cache, attn_impl)
-        new_cache = None if kv_cache is None else KVCache(kv_cache.k, kv_cache.v, kv_cache.length + T)
+        new_cache = None if kv_cache is None else kv_cache.at(kv_cache.length + T)
 
         h = self.final_norm(h)
         if return_hidden:

@@ -37,7 +37,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder
+import merv_tpu_torch.ops.attention as A
+from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder, cache_dtype
 
 # steps run between two reads of ``done`` (the early exit's host sync)
 DECODE_SYNC_EVERY = 16
@@ -59,8 +60,8 @@ class GenerationConfig:
     pad_token_id: int = 0
     # HF MinLengthLogitsProcessor: EOS banned while prompt + generated < min_length
     min_length: int = 1
-    # "int8" (merv_tpu's quantized KV cache) is not ported yet (ROADMAP A4);
-    # anything else stores the cache in the decoder's compute dtype
+    # "int8" stores the KV cache quantized (per-position fp32 scales): decode
+    # reads half the cache bytes; None stores it in the decoder's compute dtype
     kv_cache_dtype: Optional[str] = None
 
 
@@ -70,11 +71,6 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     is captured: cuBLAS keeps a workspace for each stream it has run on, so a
     stream per runner would add one per captured shape."""
     return torch.cuda.Stream(device)
-
-
-def _check_kv_cache_dtype(kv_cache_dtype: Optional[str]) -> None:
-    if kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP A4)")
 
 
 def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -132,14 +128,16 @@ def prefill(
     cache_len: int,
     attn_impl: str = "auto",
     cache: Optional[KVCache] = None,
+    kv_cache_dtype: Optional[str] = None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
-    """Fill a cache of ``cache_len`` positions with the prompt: a new one, or
-    ``cache`` (a decode runner's, written from row 0). Returns (fp32 logits of
-    each row's last valid position [B, V], cache, valid-token counts [B])."""
+    """Fill a cache of ``cache_len`` positions with the prompt: a new one (in
+    ``kv_cache_dtype``), or ``cache`` (a decode runner's, written from row 0).
+    Returns (fp32 logits of each row's last valid position [B, V], cache,
+    valid-token counts [B])."""
     B, T = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
     if cache is None:
-        cache = KVCache.create(decoder.cfg, B, cache_len, decoder.cfg.compute_dtype, dev)
+        cache = KVCache.create(decoder.cfg, B, cache_len, cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype), dev)
     elif tuple(cache.k.shape[1:4:2]) != (B, cache_len):
         raise ValueError(f"prefill: cache of {tuple(cache.k.shape)} for batch {B} and {cache_len} positions")
     if attention_mask is not None:
@@ -151,7 +149,7 @@ def prefill(
         n_valid = torch.full((B,), T, dtype=torch.long, device=dev)
     logits, cache = decoder(
         inputs_embeds=inputs_embeds, attention_mask=attention_mask, positions=positions,
-        kv_cache=KVCache(cache.k, cache.v, 0), logits_indices=n_valid - 1, attn_impl=attn_impl,
+        kv_cache=cache.at(0), logits_indices=n_valid - 1, attn_impl=attn_impl,
     )
     return logits[:, 0].float(), cache, n_valid
 
@@ -171,15 +169,18 @@ class DecodeRunner:
     last token, each row's RoPE position, the shared write pointer
     (``length``, a 0-d tensor), ``done``, the key mask and the output
     ``[B, max_new_tokens]`` with its next column. The decoder's weights must
-    stay where they were at capture. T=1 attention is plain torch under
-    either ``attn_impl``, as the dispatch plans it, so the step takes none.
+    stay where they were at capture. The step's kernels are K5
+    (``decode_attention``, every layer, on the bf16 or int8 cache as it lies)
+    and, with int8 weights, K4 (``int8_linear``, every Linear at B rows). A
+    replay calls no wrapper, so :meth:`replay` adds the launches the capture
+    recorded (``launches_per_step``) to the kernels' counts.
     """
 
     def __init__(self, decoder: LlamaDecoder, batch: int, max_len: int, config: GenerationConfig,
                  device: torch.device) -> None:
         c = decoder.cfg
         self.config = config
-        self.cache = KVCache.create(c, batch, max_len, c.compute_dtype, device)
+        self.cache = KVCache.create(c, batch, max_len, cache_dtype(config.kv_cache_dtype, c.compute_dtype), device)
         self.token = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.zeros(batch, dtype=torch.long, device=device)
         self.length = torch.zeros((), dtype=torch.long, device=device)
@@ -190,6 +191,7 @@ class DecodeRunner:
         self.generator = torch.Generator(device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.graph_logits: Optional[torch.Tensor] = None  # the captured step's logits, rewritten by each replay
+        self.launches_per_step: Dict[str, int] = {}  # kernel launches one replay makes
         self.capture_s = 0.0
 
     def step(self, decoder: LlamaDecoder) -> torch.Tensor:
@@ -199,7 +201,7 @@ class DecodeRunner:
         fp32 logits [B, V] (after the EOS ban)."""
         cfg = self.config
         logits, _ = decoder(
-            input_ids=self.token[:, None], kv_cache=KVCache(self.cache.k, self.cache.v, self.length),
+            input_ids=self.token[:, None], kv_cache=self.cache.at(self.length),
             attention_mask=self.cache_mask, positions=self.pos[:, None],
         )
         # pos = per-row sequence length so far (prompt + generated)
@@ -235,11 +237,21 @@ class DecodeRunner:
         if self.config.do_sample:
             graph.register_generator_state(self.generator)
         # thread_local: host threads (the eval drivers' prefetch) may call CUDA meanwhile
+        counted = A.launch_counts()
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             self.graph_logits = self.step(decoder)
         torch.cuda.synchronize(dev)
+        # the capture recorded these launches; each replay makes them
+        self.launches_per_step = A.launches_since(counted)
+        A.add_launch_counts({k: -n for k, n in self.launches_per_step.items()})
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> torch.Tensor:
+        """One captured step, its kernels' launches counted; returns the step's logits."""
+        self.graph.replay()
+        A.add_launch_counts(self.launches_per_step)
+        return self.graph_logits
 
     def load(self, first: torch.Tensor, start_pos: torch.Tensor, cache_mask: torch.Tensor, length: int,
              generator: Optional[torch.Generator]) -> None:
@@ -267,7 +279,7 @@ class DecodeRunner:
             n = min(DECODE_SYNC_EVERY, remaining)
             for _ in range(n):
                 if self.graph is not None:
-                    self.graph.replay()
+                    self.replay()
                 else:
                     self.step(decoder)
             remaining, steps = remaining - n, steps + n
@@ -343,7 +355,6 @@ def generate(
     ``decode_steps`` measured with a device synchronisation at each phase
     boundary, and ``decode_capture_s``, the graph capture's time when this
     call made the runner (else 0; outside both phases)."""
-    _check_kv_cache_dtype(config.kv_cache_dtype)
     if inputs_embeds is None:
         inputs_embeds = decoder.embed_input_ids(input_ids)
     B, T = inputs_embeds.shape[:2]
@@ -354,7 +365,8 @@ def generate(
 
     t0 = _sync(dev) if timings is not None else 0.0
     last_logits, _, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len, attn_impl,
-                                      cache=None if runner is None else runner.cache)
+                                      cache=None if runner is None else runner.cache,
+                                      kv_cache_dtype=config.kv_cache_dtype)
     first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
     if timings is not None:
         timings["prefill_s"] = _sync(dev) - t0
@@ -393,14 +405,15 @@ def prefill_prefix(
     inputs_embeds: torch.Tensor,  # [1, P, E]: the shared prefix, no padding
     kv_cache_dtype: Optional[str] = None,
 ) -> KVCache:
-    """Prefill a shared, pad-free prompt prefix into a fresh B=1 cache whose
-    buffer is exactly P rows (``length == P``): the suffix path tiles and
-    extends it (:func:`generate_with_prefix`), and reads P from its shape."""
-    _check_kv_cache_dtype(kv_cache_dtype)
+    """Prefill a shared, pad-free prompt prefix into a fresh B=1 cache (in
+    ``kv_cache_dtype``) whose buffer is exactly P rows (``length == P``): the
+    suffix path tiles and extends it (:func:`generate_with_prefix`), and reads
+    P from its shape."""
     B, P = inputs_embeds.shape[:2]
     if B != 1:
         raise ValueError(f"a shared prefix is per video (B=1), got B={B}")
-    cache = KVCache.create(decoder.cfg, 1, P, decoder.cfg.compute_dtype, inputs_embeds.device)
+    dtype = cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype)
+    cache = KVCache.create(decoder.cfg, 1, P, dtype, inputs_embeds.device)
     _, cache = decoder(inputs_embeds=inputs_embeds, kv_cache=cache)
     return cache
 
@@ -408,17 +421,26 @@ def prefill_prefix(
 def _tile_pad_cache(cache: KVCache, n: int, extra_rows: int, out: Optional[KVCache] = None) -> KVCache:
     """Broadcast a B=1 prefix cache to n rows and extend its buffer by
     ``extra_rows`` rows: into ``out`` (a decode runner's cache, whose rows past
-    the prefix are written before any step reads them) or into a new,
-    zero-filled cache. Shapes [L, B, H_kv, max_len, D]; returns ``length == P``."""
+    the prefix are written before any step reads them) or into a new cache
+    (K and V zero-filled; int8 scales filled with 1.0, the neutral scale
+    ``create`` uses). Shapes [L, B, H_kv, max_len, D]; returns ``length == P``."""
     L, _, H, P, D = cache.k.shape
     shape = (L, n, H, P + extra_rows, D)
     if out is None:
-        out = KVCache(*(torch.zeros(shape, dtype=cache.k.dtype, device=cache.k.device) for _ in range(2)), 0)
-    elif tuple(out.k.shape) != shape:
-        raise ValueError(f"_tile_pad_cache: target cache {tuple(out.k.shape)}, need {shape}")
+        c = cache.k
+        out = KVCache(torch.zeros(shape, dtype=c.dtype, device=c.device),
+                      torch.zeros(shape, dtype=c.dtype, device=c.device), 0,
+                      *((None, None) if cache.k_scale is None else
+                        (torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=c.device) for _ in range(2))))
+    elif tuple(out.k.shape) != shape or out.k.dtype != cache.k.dtype:
+        raise ValueError(f"_tile_pad_cache: target cache {tuple(out.k.shape)} {out.k.dtype}, need {shape} "
+                         f"{cache.k.dtype}")
     out.k[:, :, :, :P] = cache.k
     out.v[:, :, :, :P] = cache.v
-    return KVCache(out.k, out.v, P)
+    if cache.k_scale is not None:
+        out.k_scale[:, :, :, :P] = cache.k_scale
+        out.v_scale[:, :, :, :P] = cache.v_scale
+    return out.at(P)
 
 
 @torch.inference_mode()
@@ -475,7 +497,6 @@ def generate_with_prefix(
     runner's buffer, so the caller's cache serves further question batches.
     Every suffix row must hold at least one valid token (``MERV.generate_batch_shared``
     checks); an all-pad row reads its first suffix position."""
-    _check_kv_cache_dtype(config.kv_cache_dtype)
     B, Ts = suffix_ids.shape
     P = prefix_cache.k.shape[3]
     dev = suffix_ids.device
@@ -588,9 +609,9 @@ def generate_speculative(
     uses :func:`_spec_accept` (the same distribution, another random stream).
 
     The prefill is :func:`generate`'s. The verify forward keeps the cache
-    length on the device, as a [1] per-slot pointer, so its attention runs
-    plain (``merv_tpu``'s runs XLA at this length) and the step reads nothing
-    back; the loop around it is a host loop that reads the step's ``done``
+    length on the device, as a [1] per-slot pointer, so its attention (K5
+    with a [1] causal offset; ``merv_tpu``'s runs XLA at this length) reads
+    nothing back; the loop around it is a host loop that reads the step's ``done``
     and emit count once per verify step. That one read per step stands for
     ``merv_tpu``'s ``lax.while_loop``: the loop's end depends on the data, a
     read costs microseconds against a verify forward of milliseconds, and a
@@ -598,7 +619,6 @@ def generate_speculative(
     The batched form that the serving engine captures as one CUDA graph per
     chunk is ``serving.engine._decode_chunk_spec``. ``timings`` receives
     ``prefill_s``, ``decode_s`` and ``decode_steps`` (verify steps)."""
-    _check_kv_cache_dtype(config.kv_cache_dtype)
     if gamma < 1:
         raise ValueError(f"gamma must be >= 1, got {gamma}")
     if inputs_embeds is None:
@@ -619,7 +639,8 @@ def generate_speculative(
 
     t0 = _sync(dev) if timings is not None else 0.0
     # one row past cache_len: the per-slot path's scratch row
-    last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len + 1, attn_impl)
+    last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len + 1, attn_impl,
+                                          kv_cache_dtype=config.kv_cache_dtype)
     first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
     if timings is not None:
         timings["prefill_s"] = _sync(dev) - t0
@@ -651,7 +672,7 @@ def generate_speculative(
     while not bool(done[0]) and int(n_out[0]) < max_new:  # the one host read per verify step
         draft = _ngram_propose(hist, hist_len, gamma, ngram, pad_id)  # [1, gamma]
         logits, _ = decoder(input_ids=torch.cat([tok[:, None], draft], dim=1), attention_mask=cache_mask,
-                            positions=pos[:, None] + steps_v[None], kv_cache=KVCache(cache.k, cache.v, length))
+                            positions=pos[:, None] + steps_v[None], kv_cache=cache.at(length))
         lg = logits[0].float()  # [gamma+1, V]
         if config.min_length > 1:
             lg = lg.masked_fill(((pos + 1 + steps_v) < config.min_length)[:, None] & eos_vec[None], float("-inf"))

@@ -32,6 +32,7 @@ from merv_tpu_torch.models.materialize import (
 )
 from merv_tpu_torch.models.registry import GLOBAL_REGISTRY, MODEL_REGISTRY
 from merv_tpu_torch.nn.core import init_weights
+from merv_tpu_torch.nn.quantization import quantize_tree
 from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.training.checkpointing import latest_checkpoint, load_checkpoint
 
@@ -98,12 +99,12 @@ def load_vid(
 
     ``pack_llm`` is accepted for ``merv_tpu``'s signature: there it packs
     q/k/v and gate/up into wide GEMMs for speed, leaving the numbers as they
-    are; the port keeps them unpacked. ``quantize_llm=True`` raises (int8
-    weights, ROADMAP A2). ``device``: the card unless ``"cpu"`` is asked for.
+    are; the port keeps them unpacked. ``quantize_llm=True`` stores the LLM's
+    Linears as weight-only int8 (:mod:`merv_tpu_torch.nn.quantization`), after
+    the cast to its serving dtype, as ``merv_tpu`` does. ``device``: the card
+    unless ``"cpu"`` is asked for.
     """
     del pack_llm
-    if quantize_llm:
-        raise NotImplementedError("quantize_llm: the int8 LLM layout is not ported yet (ROADMAP A2)")
     dev = resolve_device(device)
     if not os.path.isdir(model_id_or_path):
         if model_id_or_path in GLOBAL_REGISTRY:
@@ -169,6 +170,13 @@ def load_vid(
             _unavailable("Base LLM weights", "Set MERV_TPU_LLM_DIR to a local safetensors dir", e,
                          allow_random_weights)
             init_weights(llm, generator)
+    if quantize_llm:
+        # merv_tpu's order: cast to the serving dtype (the LLM is built in it), then (pack, then) quantize;
+        # quantizing fp32 weights would give other int8 values. Packing q/k/v and gate/up only concatenates
+        # output columns, and every scale is per output column, so the unpacked Linears quantize to the same
+        # bytes as merv_tpu's packed kernels. One Linear at a time, each bf16 weight freed as its int8 copy
+        # is made: the peak stays near the bf16 model's.
+        quantize_tree(llm)
 
     # projectors and fusion keep the checkpoint's dtype
     modules = {"projectors": vidlm.projectors}

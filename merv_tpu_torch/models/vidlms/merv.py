@@ -451,6 +451,7 @@ class MERV(VidLM):
         clip_end_sec: Optional[float] = None,
         end_frame: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        kv_cache_dtype: Optional[str] = None,
         attn_impl: str = "auto",
         timings: Optional[Dict[str, float]] = None,
         speculative_gamma: int = 0,
@@ -471,8 +472,8 @@ class MERV(VidLM):
         tokens = self.generate_ids(
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
-            generator=generator, attn_impl=attn_impl, timings=timings, speculative_gamma=speculative_gamma,
-            speculative_ngram=speculative_ngram,
+            generator=generator, kv_cache_dtype=kv_cache_dtype, attn_impl=attn_impl, timings=timings,
+            speculative_gamma=speculative_gamma, speculative_ngram=speculative_ngram,
         )
         return self._texts(tokens, 1)[0]
 

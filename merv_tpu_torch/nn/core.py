@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from merv_tpu_torch.ops import int8_linear
+
 # ---------------------------------------------------------------------------
 # Initializers (all draw from an explicit generator, in place)
 # ---------------------------------------------------------------------------
@@ -60,7 +62,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class Linear(nn.Module):
     """``y = x @ W.T + b`` with ``W`` stored ``(out, in)``; ``init_std`` selects a
-    (clipped) normal init, otherwise torch's default bound ``1/sqrt(in)``."""
+    (clipped) normal init, otherwise torch's default bound ``1/sqrt(in)``.
+
+    :meth:`quantize_` turns it into ``merv_tpu``'s weight-only int8 serving
+    layout (``merv_tpu/nn/core.py:126-133``): buffers ``weight_q`` int8
+    ``(out, in)`` and ``scale`` fp32 ``(out,)`` in place of ``weight``, and a
+    forward through :func:`~merv_tpu_torch.ops.int8_linear.quantized_linear`
+    (the product rounded to the compute dtype, times the scale in the compute
+    dtype rounded again, then the bias)."""
 
     def __init__(
         self,
@@ -92,8 +101,24 @@ class Linear(nn.Module):
         if self.bias is not None:
             uniform_(self.bias, bound, generator)
 
+    @torch.no_grad()
+    def quantize_(self) -> "Linear":
+        """Replace ``weight`` by its int8 copy and per-output-channel scales
+        (:func:`merv_tpu_torch.nn.quantization.quantize_kernel`), on its device,
+        freeing the float weight."""
+        from merv_tpu_torch.nn.quantization import quantize_kernel
+
+        q, scale = quantize_kernel(self.weight)
+        del self.weight
+        self.weight = None
+        self.register_buffer("weight_q", q)
+        self.register_buffer("scale", scale)
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.weight is None:
+            return int8_linear.quantized_linear(x, self.weight_q, self.scale, b)
         return F.linear(x, self.weight.to(x.dtype), b)
 
 

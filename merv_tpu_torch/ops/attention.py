@@ -51,10 +51,12 @@ from merv_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# kernel launches per wrapper, counted where each launches its kernel
-# (fused_vit_attn_block's wrapper lives in ops/fused_vit_block.py)
+# kernel launches per wrapper, counted where each launches its kernel (the
+# wrappers of fused_vit_attn_block, int8_linear and decode_attention live in
+# ops/fused_vit_block.py, ops/int8_linear.py and ops/decode_attention.py)
 _LAUNCHES = {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
-             "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0}
+             "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
+             "int8_linear": 0, "decode_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -688,6 +690,18 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add launches the wrappers did not count themselves: a CUDA graph's
+    replay launches what its capture recorded, and calls no wrapper."""
+    for name, n in delta.items():
+        _LAUNCHES[name] += n
+
+
+def launches_since(before: dict) -> dict:
+    """The launches counted since ``before`` (a :func:`launch_counts`), the kernels that ran only."""
+    return {name: n - before[name] for name, n in _LAUNCHES.items() if n != before[name]}
+
+
 _SIGNATURES = {
     "small_attention_kt": (
         "small_attention_kt_bf16",
@@ -744,8 +758,11 @@ def dispatch_plan(
       prefill) and every call with ``min(Tq, Tk) >= 2048`` (ViViT's 3137
       tokens) -> flash_attention_forward;
     - the rest (SigLIP's 196-token frames, LanguageBind's temporal bias path,
-      the T=1 decode, anything with an additive bias) -> plain torch, as these
+      anything with an additive bias) -> plain torch, as these
       ran as plain XLA in ``merv_tpu``.
+
+    The decoder sends its cached calls of at most 16 query rows (decode, the
+    verify) to ``ops/decode_attention.py`` (K5) before this plan is asked.
 
     These rules route the main path through the kernels; no threshold here
     is a measured H100 crossover yet.

@@ -31,8 +31,15 @@ on stale storage). The two-way speculation monitor switches gamma among 2, 4
 and 8 and plain decode, so at most ``MAX_CHUNK_GRAPHS`` chunk graphs stay
 alive, least recently used evicted first.
 
+The slot cache is in the compute dtype, or in int8 with per-position fp32
+scales (``config.kv_cache_dtype == "int8"``), which follow the same rows and
+the same scratch-row rule. Every chunk graph runs K5 (``decode_attention``)
+on the slot cache as it lies and, with int8 weights, K4 (``int8_linear``); a
+replay calls no wrapper, so :meth:`_Chunk.run` adds the launches the capture
+recorded to the kernels' counts.
+
 Not ported: the mesh modes (tensor- and sequence-parallel serving, ROADMAP
-A12) and the int8 KV cache (A4); each raises ``NotImplementedError``.
+A12), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder
+import merv_tpu_torch.ops.attention as A
+from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder, cache_dtype
 from merv_tpu_torch.models.generation import (
     GenerationConfig,
     VideoPrefix,
@@ -121,6 +129,11 @@ class EngineStats:
     decode_s: float = 0.0  # host wall time inside decode chunks (with the sync and any capture)
     suffix_prefills: int = 0  # of ``prefills``, the suffix-only programs (the rest ran a full prompt)
     capture_s: float = 0.0  # time spent capturing chunk graphs (inside decode_s)
+    # decoder forwards the chunks ran (steps_per_sync a chunk run, and as many in each capture's warm-up)
+    decode_forwards: int = 0
+    # (rows, length) of each LLM prefill program, full and suffix-only: its Linears see rows x length rows of x
+    prefill_shapes: List[Tuple[int, int]] = field(default_factory=list)
+    prefix_rows: List[int] = field(default_factory=list)  # rows of each prefix registered
 
     @property
     def slot_utilization(self) -> float:
@@ -219,6 +232,15 @@ def _sim_spec_steps(h: List[int], start: int, gamma: int, ngram: int, pad_id: in
     return steps, emitted
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _cache_gib(cache: KVCache) -> float:
+    return sum(t.numel() * t.element_size() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+               if t is not None) / 2**30
+
+
 # ---------------------------------------------------------------------------
 # Device functions
 # ---------------------------------------------------------------------------
@@ -237,6 +259,11 @@ class _DecodeState:
     done: torch.Tensor  # [slots] bool, set by the host before each chunk
     hist: Optional[torch.Tensor] = None  # [slots, Hc] long: per-slot draft corpus (speculation-capable engines)
     hist_len: Optional[torch.Tensor] = None  # [slots] long
+    k_scale: Optional[torch.Tensor] = None  # [L, slots, H_kv, rows, 1] fp32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None
+
+    def cache(self, length: torch.Tensor) -> KVCache:
+        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale)
 
     def snapshot(self) -> Dict[str, torch.Tensor]:
         """Copies of everything but the cache (a chunk writes cache rows only
@@ -255,15 +282,16 @@ class _DecodeState:
 def _insert_into_slot(st: _DecodeState, small: Tuple[torch.Tensor, ...], row: int, slot: int,
                       n_valid: torch.Tensor, first: torch.Tensor) -> None:
     """Copy row ``row`` of a freshly prefilled cache ``small`` ([L, n, H, Tb, D]
-    K and V) into slot ``slot`` of the shared cache from row 0, and set the
-    slot's pointer to ``n_valid[row]`` and its last token to ``first[row]``, all
-    in place and on the device. Stale rows past ``n_valid`` from an earlier
-    occupant stay but are dead: the key masks never read past ``length[b]``,
-    and decode overwrites them in order."""
-    sk, sv = small[0], small[1]
-    n = min(sk.shape[3], st.k.shape[3] - 1)  # rows past the real ones hold padding only
-    st.k[:, slot, :, :n].copy_(sk[:, row, :, :n])
-    st.v[:, slot, :, :n].copy_(sv[:, row, :, :n])
+    K and V, and their [L, n, H, Tb, 1] scales or None) into slot ``slot`` of
+    the shared cache from row 0, and set the slot's pointer to ``n_valid[row]``
+    and its last token to ``first[row]``, all in place and on the device.
+    Stale rows past ``n_valid`` from an earlier occupant stay but are dead: the
+    key masks never read past ``length[b]``, and decode overwrites them in
+    order."""
+    n = min(small[0].shape[3], st.k.shape[3] - 1)  # rows past the real ones hold padding only
+    for dst, src in zip((st.k, st.v, st.k_scale, st.v_scale), small):
+        if dst is not None:
+            dst[:, slot, :, :n].copy_(src[:, row, :, :n])
     st.length[slot : slot + 1].copy_(n_valid[row : row + 1])
     st.last_tok[slot : slot + 1].copy_(first[row : row + 1])
 
@@ -277,7 +305,7 @@ def _decode_chunk(decoder: LlamaDecoder, st: _DecodeState, cfg: GenerationConfig
     its own dead position. Reads nothing back to the host."""
     pad = torch.full_like(st.last_tok, cfg.pad_token_id)
     for i in range(num_steps):
-        logits, _ = decoder(input_ids=st.last_tok[:, None], kv_cache=KVCache(st.k, st.v, st.length))
+        logits, _ = decoder(input_ids=st.last_tok[:, None], kv_cache=st.cache(st.length))
         lg = _ban_eos_below_min_length(logits[:, 0].float(), st.length + 1, cfg)
         nxt = torch.where(st.done, pad, _sample_token(lg, cfg, generator))
         # finished slots' pointers freeze, so that they never walk off their row
@@ -293,7 +321,7 @@ def _decode_chunk_spec(decoder: LlamaDecoder, st: _DecodeState, cfg: GenerationC
     """Batched speculative decode, in place on ``st``: every step drafts
     ``gamma`` tokens per slot from that slot's own history and verifies all
     slots' drafts in one ``[slots, gamma+1]`` forward (per-slot causal
-    offsets, plain attention); each slot's pointer advances by its own
+    offsets, K5 on the slot cache); each slot's pointer advances by its own
     accepted count. Greedy acceptance is exact-match; sampled acceptance is
     rejection sampling (:func:`_spec_accept`). ``wins`` [num_steps, slots,
     gamma+1] and ``emits`` [num_steps, slots] receive each step's token
@@ -307,7 +335,7 @@ def _decode_chunk_spec(decoder: LlamaDecoder, st: _DecodeState, cfg: GenerationC
         draft = _ngram_propose(st.hist, st.hist_len, gamma, ngram, cfg.pad_token_id)  # [B, gamma]
         old_len = st.length.clone()
         logits, _ = decoder(input_ids=torch.cat([st.last_tok[:, None], draft], dim=1),
-                            kv_cache=KVCache(st.k, st.v, old_len))
+                            kv_cache=st.cache(old_len))
         V = logits.shape[-1]
         cur_len = (old_len[:, None] + 1 + steps_v[None]).reshape(-1)
         lg = _ban_eos_below_min_length(logits.float().reshape(B * (gamma + 1), V), cur_len, cfg)
@@ -357,7 +385,7 @@ def _prefix_suffix_prefill(decoder: LlamaDecoder, cfg: GenerationConfig, prefix_
     ``q_offset = P`` on the card)."""
     logits, cache, total, _ = prefill_with_prefix(decoder, prefix_kv, suffix_ids, suffix_mask, decode_rows=0)
     first = _sample_token(_ban_eos_below_min_length(logits, total, cfg), cfg, generator)
-    return (cache.k, cache.v), first, total
+    return (cache.k, cache.v, cache.k_scale, cache.v_scale), first, total
 
 
 @torch.inference_mode()
@@ -370,9 +398,9 @@ def _llm_prefill(decoder: LlamaDecoder, cfg: GenerationConfig, input_ids: torch.
     min-length EOS ban). Several pending admissions of one length bucket
     prefill together: the weights stream once for all of them."""
     logits, cache, n_valid = prefill(decoder, decoder.embed_input_ids(input_ids), attention_mask,
-                                     input_ids.shape[1])
+                                     input_ids.shape[1], kv_cache_dtype=cfg.kv_cache_dtype)
     first = _sample_token(_ban_eos_below_min_length(logits, n_valid, cfg), cfg, generator)
-    return (cache.k, cache.v), first, n_valid
+    return (cache.k, cache.v, cache.k_scale, cache.v_scale), first, n_valid
 
 
 class _Chunk:
@@ -393,6 +421,7 @@ class _Chunk:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches_per_run: Dict[str, int] = {}  # kernel launches one replay makes
         self.capture_s = 0.0
         self.pool_bytes = 0
 
@@ -410,8 +439,10 @@ class _Chunk:
     def run(self, engine: "ContinuousBatchingEngine") -> None:
         if self.graph is not None:
             self.graph.replay()
+            A.add_launch_counts(self.launches_per_run)
         else:
             self.run_eager(engine)
+        engine.stats.decode_forwards += engine.steps_per_sync
 
     def capture(self, engine: "ContinuousBatchingEngine") -> None:
         """Capture the chunk as a CUDA graph, after one warm-up run on a side
@@ -430,6 +461,7 @@ class _Chunk:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.run_eager(engine)
+        engine.stats.decode_forwards += engine.steps_per_sync
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         st.restore(snap)
@@ -441,9 +473,13 @@ class _Chunk:
         if engine.config.do_sample:
             graph.register_generator_state(self.generator)
         # thread_local: the prefetch thread may call CUDA meanwhile
+        counted = A.launch_counts()
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             self.run_eager(engine)
         torch.cuda.synchronize(dev)
+        # the capture recorded these launches; each replay makes them
+        self.launches_per_run = A.launches_since(counted)
+        A.add_launch_counts({k: -n for k, n in self.launches_per_run.items()})
         self.graph = graph
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
@@ -479,8 +515,9 @@ class ContinuousBatchingEngine:
 
     ``rng`` is a ``torch.Generator`` on the decoder's device (default: one
     seeded 0); it draws the prefills' first tokens and seeds each chunk's own
-    generator. ``mesh`` (serving over a device mesh, ROADMAP A12) and
-    ``config.kv_cache_dtype == "int8"`` (A4) raise ``NotImplementedError``.
+    generator. ``config.kv_cache_dtype == "int8"`` keeps the slot cache in
+    int8 with per-position scales. ``mesh`` (serving over a device mesh,
+    ROADMAP A12) raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -508,8 +545,6 @@ class ContinuousBatchingEngine:
     ) -> None:
         if config.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {config.kv_cache_dtype!r}")
-        if config.kv_cache_dtype == "int8":
-            raise NotImplementedError("the engine's int8 KV cache is not ported yet (ROADMAP A4)")
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh (tensor- or sequence-parallel) is not ported "
                                       "yet (ROADMAP A12)")
@@ -610,11 +645,13 @@ class ContinuousBatchingEngine:
         spare_gamma = max(speculative_gamma, 8) if speculative_gamma else 0
         rows = max_len + (spare_gamma + 1 if spare_gamma else 0) + 1
         c = decoder.cfg
-        cache = KVCache.create(c, slots, rows, c.compute_dtype, self.device)
-        cache_gib = 2 * cache.k.numel() * cache.k.element_size() / 2**30
-        overwatch.info(f"engine KV cache: {slots} slots x {rows} rows = {cache_gib:.2f} GiB ({c.compute_dtype})")
+        self._cache_dtype = cache_dtype(config.kv_cache_dtype, c.compute_dtype)
+        cache = KVCache.create(c, slots, rows, self._cache_dtype, self.device)
+        overwatch.info(f"engine KV cache: {slots} slots x {rows} rows = {_cache_gib(cache):.2f} GiB "
+                       f"({_dtype_name(self._cache_dtype)})")
         state = dict(
-            k=cache.k, v=cache.v, length=torch.zeros(slots, dtype=torch.long, device=self.device),
+            k=cache.k, v=cache.v, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            length=torch.zeros(slots, dtype=torch.long, device=self.device),
             last_tok=torch.full((slots,), config.pad_token_id, dtype=torch.long, device=self.device),
             done=torch.ones(slots, dtype=torch.bool, device=self.device),
         )
@@ -662,10 +699,10 @@ class ContinuousBatchingEngine:
                     f"serves {want!r}"
                 )
             bos, prefix = prefix.bos_ids, prefix.cache
-        want_dtype = self.decoder.cfg.compute_dtype
-        if prefix.k.dtype != want_dtype:
+        if prefix.k.dtype != self._cache_dtype:
             raise ValueError(
-                f"prefix {prefix_id!r} cache dtype {prefix.k.dtype} does not match the engine's KV dtype {want_dtype}"
+                f"prefix {prefix_id!r} cache dtype {_dtype_name(prefix.k.dtype)} does not match "
+                f"the engine's KV dtype {_dtype_name(self._cache_dtype)}"
             )
         if prefix.k.shape[1] != 1:
             raise ValueError(f"prefix caches are per-video (B=1), got B={prefix.k.shape[1]}")
@@ -675,8 +712,9 @@ class ContinuousBatchingEngine:
                 f"prefix {prefix_id!r} is {P} rows: no room for a suffix token plus one generated token under "
                 f"max_len {self.max_len}"
             )
-        gib = 2 * prefix.k.numel() * prefix.k.element_size() / 2**30
+        gib = _cache_gib(prefix)
         self._prefixes[prefix_id] = (prefix, P, bos)
+        self.stats.prefix_rows.append(P)
         overwatch.info(
             f"registered prefix {prefix_id!r}: {P} rows = {gib:.2f} GiB ({len(self._prefixes)} prefixes live; "
             "unregister_prefix frees them)"
@@ -819,6 +857,7 @@ class ContinuousBatchingEngine:
         return padded, mask, ids
 
     def _llm_prefill(self, ids: np.ndarray, mask: np.ndarray):
+        self.stats.prefill_shapes.append(tuple(ids.shape))
         return _llm_prefill(self.decoder, self.config, torch.as_tensor(ids, device=self.device),
                             torch.as_tensor(mask, device=self.device), self._rng)
 
@@ -946,6 +985,7 @@ class ContinuousBatchingEngine:
                     self.stats.prefill_buckets.append(Tb)
                 cache, P, _bos = self._prefixes[pid]
                 ids, mask = self._pow2_rows(items)
+                self.stats.prefill_shapes.append(tuple(ids.shape))
                 small, first, n_valid = _prefix_suffix_prefill(
                     self.decoder, self.config, cache, torch.as_tensor(ids, device=self.device),
                     torch.as_tensor(mask, device=self.device), self._rng,
@@ -1309,10 +1349,13 @@ class ContinuousBatchingEngine:
                 seen_buckets.add(ids.shape[1])
                 engine.stats.prefill_buckets.append(ids.shape[1])
             embeds, m2 = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
-            logits, cache, n_valid = prefill(decoder, embeds, m2.long(), embeds.shape[1])
+            engine.stats.prefill_shapes.append(tuple(embeds.shape[:2]))
+            logits, cache, n_valid = prefill(decoder, embeds, m2.long(), embeds.shape[1],
+                                             kv_cache_dtype=engine.config.kv_cache_dtype)
             first = _sample_token(_ban_eos_below_min_length(logits, n_valid, engine.config), engine.config,
                                   engine._rng)
-            return (cache.k, cache.v), first, n_valid, text_ids  # the text ids are the draft corpus
+            # the text ids are the draft corpus
+            return (cache.k, cache.v, cache.k_scale, cache.v_scale), first, n_valid, text_ids
 
         def prepared_len(req: Request, prepared: Any) -> int:
             """Expected sequence length after the splice (text, plus the visual

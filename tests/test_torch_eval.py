@@ -8,23 +8,30 @@ own ``load_vid`` on a run directory that merv_tpu writes (the ``run_dir``
 fixture of tests/test_torch_load_vid.py: four tiny towers, an Orbax checkpoint). Each port run must give
 merv_tpu's ``pred`` for every ``question_id``, write the same merged and scored
 files, and log no per-group or per-item failure (a fallback would hide a fault
-of the batched path). Also: ``flops.json``'s parameter count equals merv_tpu's,
+of the batched path). ``--quantize_llm`` and ``--int8_kv`` are held the same way (both
+packages' scripts handed the pair with int8 LLM weights for the first). Also:
+``flops.json``'s parameter count equals merv_tpu's,
 and its GFLOPs (FlopCounterMode's products) are compared with merv_tpu's (XLA's
 cost analysis).
 """
 
+import copy
 import json
 import logging
 import os
 import types
 from pathlib import Path
 
+import jax
+import numpy as np
 import pytest
 
 import merv_tpu_torch.cli.eval_mcq as port_mcq
 import merv_tpu_torch.cli.eval_openended as port_oe
 import scripts.eval_mcq as jax_mcq
 import scripts.eval_openended as jax_oe
+from merv_tpu.nn.quantization import quantize_tree as jax_quantize_tree
+from merv_tpu_torch.nn.quantization import quantize_tree
 from test_torch_generation_shared import merv_pair
 from test_torch_load_vid import run_dir  # noqa: F401  (the fixture: a run directory merv_tpu writes)
 
@@ -154,15 +161,55 @@ def test_eval_mcq_on_a_run_directory_matches_script(run_dir, monkeypatch, tmp_pa
     assert len(want) == 6 and _preds(pdir / "dummy_mcq_naive_pred_merge.jsonl") == want
 
 
-@pytest.mark.parametrize("module, flag, item", [
-    (port_mcq, "quantize_llm", "A2"), (port_mcq, "int8_kv", "A4"), (port_mcq, "mesh_seq", "A12"),
-    (port_oe, "int8_kv", "A4"),
-    (port_oe, "quantize_llm", "A2"), (port_oe, "mesh_seq", "A12"),
-])
+@pytest.mark.parametrize("module, flag, item", [(port_mcq, "mesh_seq", "A12"), (port_oe, "mesh_seq", "A12")])
 def test_unported_flags_raise(module, flag, item, tmp_path):
-    value = {"mesh_seq": 2}.get(flag, True)
     with pytest.raises(NotImplementedError, match=item):
-        module.evaluate(cfg=module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu", **{flag: value}))
+        module.evaluate(cfg=module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu", **{flag: 2}))
+
+
+@pytest.fixture(scope="module")
+def int8_models(models):
+    """The tiny pair with its LLM's Linears in merv_tpu's weight-only int8 layout, on both sides."""
+    jm, params, pm = models
+    qparams = {**params, "llm_backbone": jax.tree_util.tree_map(np.asarray, jax_quantize_tree(params["llm_backbone"]))}
+    qpm = copy.deepcopy(pm)
+    quantize_tree(qpm.llm_backbone)
+    return jm, qparams, qpm
+
+
+@pytest.mark.parametrize("script, flag", [("mcq", "quantize_llm"), ("mcq", "int8_kv"), ("openended", "quantize_llm"),
+                                          ("openended", "int8_kv")])
+def test_int8_flags_match_script(script, flag, models, int8_models, monkeypatch, tmp_path, caplog):
+    """``--quantize_llm`` (both scripts' loaders asked for it and handed the
+    int8 pair) and ``--int8_kv``: merv_tpu's ``pred`` for every question, with
+    eval_mcq's shared video prefix (the int8 prefix cache) and eval_openended's
+    batch of 2."""
+    jm, params, pm = int8_models if flag == "quantize_llm" else models
+    asked = {"jax": [], "port": []}
+
+    def jax_load(*a, **k):
+        asked["jax"].append(k.get("quantize_llm"))
+        return jm, params, MODEL_CFG
+
+    def port_load(src, get_model_cfg=False, allow_random_weights=False, quantize_llm=False, device=None):
+        asked["port"].append(quantize_llm)
+        return pm, MODEL_CFG
+
+    jax_mod, port_mod = (jax_mcq, port_mcq) if script == "mcq" else (jax_oe, port_oe)
+    monkeypatch.setattr(jax_mod, "load_vid", jax_load)
+    monkeypatch.setattr(port_mcq, "load_vid", port_load)
+    monkeypatch.chdir(tmp_path)
+    dataset = "dummy_mcq" if script == "mcq" else "dummy_openended"
+    kw = dict(batch_size=2, **{flag: True}, **(dict(share_video_prefix=True) if script == "mcq" else
+                                                dict(skip_flops=True)))
+    jax_mod.evaluate(cfg=jax_mod.EvalConfig(**_common(dataset, tmp_path / "jax"), **kw))
+    with caplog.at_level(logging.INFO):
+        port_mod.evaluate(cfg=port_mod.EvalConfig(**_common(dataset, tmp_path / "port"), device="cpu", **kw))
+    assert not _port_failures(caplog)
+    assert asked["jax"] == asked["port"] == [flag == "quantize_llm"]
+    merged = f"{dataset}_naive_pred_merge.jsonl" if script == "mcq" else f"{dataset}_pred_merge.jsonl"
+    want = _preds(tmp_path / "jax" / "tiny-run" / merged)
+    assert len(want) == (6 if script == "mcq" else 3) and _preds(tmp_path / "port" / "tiny-run" / merged) == want
 
 
 def test_drivers_default_to_the_card(monkeypatch, tmp_path):

@@ -261,15 +261,31 @@ def test_shared_prefix_errors_match_jax(pair, case, match):
         jm.llm_backbone._tokenizer, pm.llm_backbone._tokenizer = jtok, ptok
 
 
-def test_int8_kv_cache_and_mesh_are_refused(pair):
+def test_int8_kv_prefix_and_batches_match_jax(pair):
+    """``kv_cache_dtype="int8"``: ``build_video_prefix``'s int8 cache (scales
+    within 1e-4, values within one step of merv_tpu's), and ``generate_batch``
+    and ``generate_batch_shared`` on it with merv_tpu's tokens; a prefix of
+    the other dtype is refused with merv_tpu's message."""
+    jm, params, pm = pair
+    video = _videos(1, seed=4)[0]
+    ref = jm.build_video_prefix(params, video, kv_cache_dtype="int8")
+    got = pm.build_video_prefix(video, kv_cache_dtype="int8")
+    assert got.kv_cache_dtype == "int8" and got.cache.k.dtype == torch.int8 and got.bos_ids == ref.bos_ids
+    np.testing.assert_allclose(got.cache.k_scale.numpy(), np.asarray(ref.cache.k_scale), **TOL)
+    assert (np.abs(got.cache.v.numpy().astype(int) - np.asarray(ref.cache.v).astype(int)) <= 1).all()
+    want = jm.generate_batch(params, [video, video], PROMPTS[:2], max_new_tokens=6, kv_cache_dtype="int8")
+    assert pm.generate_batch([video, video], PROMPTS[:2], max_new_tokens=6, kv_cache_dtype="int8") == want
+    assert pm.generate_batch_shared(video, PROMPTS[:2], max_new_tokens=6, prefix_cache=got,
+                                    kv_cache_dtype="int8") == \
+        jm.generate_batch_shared(params, video, PROMPTS[:2], max_new_tokens=6, prefix_cache=ref, kv_cache_dtype="int8")
+    with pytest.raises(ValueError, match="was built with kv_cache_dtype='int8' but this request asks for None"):
+        pm.generate_batch_shared(video, PROMPTS[:1], max_new_tokens=2, prefix_cache=got)
+
+
+def test_mesh_is_refused(pair):
     _, _, pm = pair
-    video = _videos(1)[0]
-    with pytest.raises(NotImplementedError, match="A4"):
-        pm.build_video_prefix(video, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A4"):
-        pm.generate_batch([video], PROMPTS[:1], max_new_tokens=2, kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="A12"):
-        pm.score_options([video], PROMPTS[:1], [["A", "B"]], mesh=object())
+        pm.score_options([_videos(1)[0]], PROMPTS[:1], [["A", "B"]], mesh=object())
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +297,7 @@ STEP_CONFIGS = {
     "greedy": GenerationConfig(max_new_tokens=6),
     "sampled": GenerationConfig(max_new_tokens=6, do_sample=True, temperature=0.7, top_k=20, top_p=0.9,
                                 min_length=40),
+    "int8_kv": GenerationConfig(max_new_tokens=6, kv_cache_dtype="int8"),
 }
 
 

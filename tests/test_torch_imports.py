@@ -34,6 +34,8 @@ import merv_tpu_torch.util.safetensors_io
 import merv_tpu_torch.cli.eval_mcq, merv_tpu_torch.cli.eval_openended, merv_tpu_torch.conf.registry
 import merv_tpu_torch.util.prefetch, merv_tpu_torch.util.flops_utils
 import merv_tpu_torch.serving, merv_tpu_torch.serving.engine, merv_tpu_torch.cli.serve
+import merv_tpu_torch.nn.quantization, merv_tpu_torch.ops.int8_linear, merv_tpu_torch.ops.decode_attention
+from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch import available_models, load_vid
 assert "merv-full" in available_models()
@@ -57,6 +59,13 @@ engine.register_prefix_video("v", video)
 served = engine.run([Request("a", prompt_text="In: hi\nOut:", prefix_id="v", max_new_tokens=3),
                      Request("b", prompt_text="In: what?\nOut:", max_new_tokens=3)])
 assert sorted(served) == ["a", "b"] and all(r.finish_reason != "error" for r in served.values())
+merv_tpu_torch.nn.quantization.quantize_tree(model.llm_backbone)
+text = model.generate(video, "In: hi\nOut:", max_new_tokens=4, kv_cache_dtype="int8")
+assert isinstance(text, str)
+engine = ContinuousBatchingEngine.for_vidlm(model, slots=2, max_len=128, length_bucket=8,
+                                            config=GenerationConfig(max_new_tokens=3, kv_cache_dtype="int8"))
+served = engine.run([Request("c", prompt_text="In: hi\nOut:", video=video, max_new_tokens=3)])
+assert served["c"].finish_reason != "error"
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
 assert not loaded, loaded
 print("OK")

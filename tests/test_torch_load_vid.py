@@ -543,13 +543,27 @@ def test_load_vid_answers_as_merv_tpu_does(run_dir):
     np.testing.assert_allclose(logits[0].numpy(), np.asarray(ref["logits"])[0, last], **TOL)
 
 
+def test_load_vid_quantize_llm_answers_as_merv_tpu_does(run_dir):
+    """``quantize_llm=True`` in both packages: every weight equal (the LLM's
+    int8 values and scales carried over by the bridge), and with an int8 KV
+    cache the same greedy tokens on the demo question as merv_tpu's default
+    (packed) int8 serving layout."""
+    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), pack_llm=False, quantize_llm=True)
+    pm, cfg = load_vid(run_dir, get_model_cfg=True, quantize_llm=True, device=CPU)
+    _assert_state_dicts_equal(pm.state_dict(), state_dict_from_jax(_np_tree(jparams)))
+    assert pm.llm_backbone.decoder.layers[0].attn.q_proj.weight_q.dtype == torch.int8
+    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), quantize_llm=True)
+    prompt = pm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
+    nf = cfg.num_frames
+    assert pm.generate(DEMO, prompt, num_frames=nf, max_new_tokens=16, kv_cache_dtype="int8") == \
+        jm.generate(jparams, DEMO, prompt, num_frames=nf, max_new_tokens=16, kv_cache_dtype="int8")
+
+
 def test_load_vid_errors(run_dir):
     next((Path(run_dir).parent / "towers").glob("dinov2*")).unlink()
     with pytest.raises(RuntimeError, match="dinov2-video-all-tokens"):
         jax_load_vid_mod.load_vid(str(run_dir))
     with pytest.raises(RuntimeError, match="dinov2-video-all-tokens"):
         load_vid(run_dir, device=CPU)
-    with pytest.raises(NotImplementedError, match="A2"):
-        load_vid(run_dir, quantize_llm=True, device=CPU)
     with pytest.raises(ValueError, match="local run directory"):
         load_vid("merv-full", device=CPU)

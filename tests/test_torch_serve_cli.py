@@ -77,10 +77,29 @@ def test_serve_answers_every_request_as_generate_does(mode, run_dir, tmp_path, c
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["requests"] == 0
 
 
-def test_serve_refuses_unported_flags(tmp_path):
-    for flag, item in (("quantize_llm", "A2"), ("int8_kv", "A4")):
-        with pytest.raises(NotImplementedError, match=item):
-            port_serve.serve(args=_args(model_path=tmp_path, device="cpu", **{flag: True}))
+def test_serve_int8_answers_as_merv_tpu_generates(run_dir, tmp_path, caplog, capsys):
+    """``--quantize_llm --int8_kv`` with prefix sharing: every request
+    answered (only the missing video fails) with the text merv_tpu's
+    ``generate`` gives on its int8 model and int8 cache."""
+    import merv_tpu.models.load_vid as jax_load_vid_mod
+
+    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), quantize_llm=True)
+    pm = load_vid(run_dir, device="cpu")
+    reqs = _requests(tmp_path / "reqs.jsonl", pm, tmp_path / "missing.mp4")
+    want = {r["request_id"]: jm.generate(jparams, r.get("video"), r["prompt"],
+                                         max_new_tokens=r.get("max_new_tokens", MAX_NEW), kv_cache_dtype="int8")
+            for r in reqs if r["request_id"] != "bad"}
+    out = tmp_path / "out.jsonl"
+    argv = _args(model_path=run_dir, requests=tmp_path / "reqs.jsonl", output=out, slots=2, max_len=256,
+                 max_new_tokens=MAX_NEW, device="cpu", quantize_llm=True, int8_kv=True)
+    capsys.readouterr()
+    with caplog.at_level(logging.INFO):
+        port_serve.serve(args=argv)
+    rows = {r["request_id"]: r for r in map(json.loads, out.read_text().splitlines())}
+    assert [rid for rid, r in rows.items() if r["finish_reason"] == "error"] == ["bad"]
+    assert {rid: r["text"] for rid, r in rows.items() if rid != "bad"} == want
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["prefix_builds"] == 1 and summary["decode_forwards"] > 0
 
 
 def _common(run_dir, root, **kw):
