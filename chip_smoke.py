@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
-                           --int8-only | --engine-only | --int8-serving-only]
+                           --int8-only | --decode-step-only | --engine-only | --int8-serving-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
 cases, ``--int8-only`` after K4's and K5's; each prints them as one JSON
 line, with no result line: a quick way to compare two versions of those
 kernels within one call. ``--engine-only`` and ``--int8-serving-only`` run
-phase 4e or 4f alone after the build and print their numbers the same way.
+phase 4e or 4f alone after the build and print their numbers the same way;
+``--decode-step-only`` times the B = 1 decode step of Llama-2-7B's widths at
+8 layers, bf16 and int8 (``decode_step_probe``), for ``chip_ab.sh``.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -50,7 +52,11 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    int8), 4 slots over 2,058 rows with ragged lengths and the scratch row,
    the verify at Tq = 5 and 9 with [B] offsets, GQA 32 -> 8 and D = 64, beside
    SDPA on the bf16 cache (after the dequantization for int8); a wrong scale
-   column in K4 and an off-by-one causal offset in K5 must be caught.
+   column in K4 and an off-by-one causal offset in K5 must be caught. K4, K5
+   and their yardsticks are graph-timed warm and L2-cold (rotating through
+   copies of the inputs larger than the L2), with the plan each wrapper picks
+   and the residency it read, and one call of each must capture as one
+   kernel node (``kernel_launches``).
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -1129,6 +1135,10 @@ INT8_RAGGED = ("ragged_n", 5, 4100, 4096)
 # B = 1 at phase 4's decode shape (a 1,120-row cache, 1,100 rows written); the engine's 4 slots over a
 # 2,058-row cache (the last the scratch row) with ragged lengths; its verify at Tq = 5 and 9 with [B]
 # offsets; GQA 32 -> 8; D = 64
+# L2-cold timing: the decode step reads each layer's weights and cache once, never from L2, so K4, K5 and
+# their yardsticks are also timed over calls that rotate through distinct copies of their inputs, together
+# more than the H100's 50 MB L2
+COLD_BYTES = 64 << 20
 ENGINE_LENGTHS = (2040, 1100, 317, 1)
 DECODE_CASES = (
     ("b1_bf16", 1, 32, 32, 1, 1120, 128, False, (1100,), None),
@@ -1143,14 +1153,87 @@ DECODE_CASES = (
 )
 
 
+def rotating(calls):
+    """One callable that runs ``calls[0]``, ``calls[1]``, ... in turn, one per call."""
+    turn = [0]
+
+    def call():
+        out = calls[turn[0] % len(calls)]()
+        turn[0] += 1
+        return out
+
+    return call
+
+
+def cold_copies(bytes_per_call: int) -> int:
+    """Copies of a call's inputs that together exceed ``COLD_BYTES``."""
+    return max(1, -(-COLD_BYTES // max(int(bytes_per_call), 1)))
+
+
+def kernel_launches(fn, strict: bool = True) -> dict:
+    """The kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+    graph that captures one call, read through the CUDA driver API
+    (``cuGraphGetNodes`` / ``cuGraphNodeGetType``), with ``torch.profiler``'s
+    kernel names and count of 5 calls beside them (its records of
+    ctypes-launched kernels can go missing, see ``device_ms``; the graph's
+    nodes cannot). ``strict``:
+    raise unless a call is exactly one kernel (a design of one launch a call;
+    an older tree timed beside it is read, not held)."""
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    side = capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    del graph
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    r = dict(graph_nodes=len(kinds), kernel_nodes=kinds.count(0),  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+             profiler_per_call=sum(e.count for e in events) / 5, profiler_names=sorted({e.key[:90] for e in events}))
+    log(f"[launches] {r}")
+    if strict and (r["kernel_nodes"] != 1 or r["graph_nodes"] != 1):
+        raise RuntimeError(f"one call is not one kernel: {r}")
+    return r
+
+
 def int8_kernel_cases(dev, seed: int):
     """K4 and K5 against their plain versions at the paths' shapes, each with
     CUDA-event and graph-replay times of the kernel and of its library
     yardstick (K4: the bf16 model's ``F.linear`` on the same shape, the call
     int8 has to beat; K5: SDPA on the bf16 cache with the same boolean mask,
     after the dequantization for an int8 cache), the plain time and the bound;
-    a planted fault in each (K4: the scales shifted by one column; K5: the
-    causal offset off by one) must fail the same hold."""
+    both graph-replay times also L2-cold (``cold_graph_ms``,
+    ``library_cold_graph_ms``: 20 calls rotating through ``cold_copies`` of the
+    inputs, more than 50 MB together); the plan the wrapper picks (K4's
+    splits, K5's cluster, and the residency it read); K4's and K5's kernels a
+    call at one shape each (``kernel_launches``: one kernel node in a captured
+    call); a planted fault in each (K4: the
+    scales shifted by one column; K5: the causal offset off by one) must fail
+    the same hold."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1185,12 +1268,29 @@ def int8_kernel_cases(dev, seed: int):
             extra["planted_scale_column_share"] = caught(
                 "int8_linear", name, "k4_scale_column_shifted", out,
                 K4.int8_linear_plain(x, q8, scale.roll(1)), K4.int8_linear_plain(x.abs(), q8.abs(), scale.roll(1)))
+        if hasattr(K4, "int8_linear_plan"):
+            idx = torch.cuda.current_device()
+            res = K4._residency(idx, -(-M // 8))
+            extra["splits"] = K4.int8_linear_plan(M, N, K, K4._sm_count(idx), res[0] // K4._sm_count(idx), res)
+            extra["residency"] = list(res)
+        if name == "qkvo_m1":
+            extra["launches_per_call"] = kernel_launches(lambda: K4.int8_linear(x, q8, scale),
+                                                         strict=hasattr(K4, "int8_linear_plan"))
+        kernel_copies = [(q8, scale, x)] + [(*quantize_kernel(_randn(rng, (N, K), dev) * 0.02), _randn(rng, (M, K), dev))
+                                            for _ in range(cold_copies(N * K) - 1)]
+        lib_copies = [(w, x)] + [(_randn(rng, (N, K), dev), _randn(rng, (M, K), dev))
+                                 for _ in range(cold_copies(2 * N * K) - 1)]
+        extra["cold_copies"] = [len(kernel_copies), len(lib_copies)]
+        extra["cold_graph_ms"] = graph_ms(rotating([functools.partial(K4.int8_linear, xc, qc, sc)
+                                                    for qc, sc, xc in kernel_copies]))
+        extra["library_cold_graph_ms"] = graph_ms(rotating([functools.partial(F.linear, xc, wc)
+                                                            for wc, xc in lib_copies]))
         record("int8_linear", name, [M, N, K], out, ref, mag,
                lambda: K4.int8_linear(x, q8, scale), lambda: K4.int8_linear_plain(x, q8, scale),
                lambda: F.linear(x, w),
                bytes_moved=N * K + 4 * N + 2 * M * K + 2 * M * N, flops=2.0 * M * N * K, extra=extra,
                graph=("kernel", "library"))
-        del w, q8, x
+        del w, q8, x, kernel_copies, lib_copies
 
     for name, B, H, Hk, Tq, Tk, D, int8, lengths, offs in DECODE_CASES:
         q = _randn(rng, (B, H, Tq, D), dev)
@@ -1232,12 +1332,98 @@ def int8_kernel_cases(dev, seed: int):
         else:
             def library():
                 return F.scaled_dot_product_attention(q, kr, vr, attn_mask=valid[:, None])
+        if hasattr(K5, "decode_plan"):
+            idx = torch.cuda.current_device()
+            res = K5._residency(idx, D, int8)
+            extra["cluster"] = K5.decode_plan(B, Hk, H // Hk * Tq, Tk, K5._sm_count(idx), res[0] // K5._sm_count(idx),
+                                              res)
+            extra["residency"] = list(res)
+        if name == "b1_bf16":
+            extra["launches_per_call"] = kernel_launches(lambda: K5.decode_attention(q, *cache, **kw),
+                                                         strict=hasattr(K5, "decode_plan"))
+
+        def one_copy():
+            kc, vc = _randn(rng, (B, Hk, Tk, D), dev), _randn(rng, (B, Hk, Tk, D), dev)
+            if not int8:
+                return (kc, vc), (kc, vc)
+            (k8c, ksc), (v8c, vsc) = _quantize_kv(kc), _quantize_kv(vc)
+            return (k8c, v8c, ksc, vsc), (k8c, v8c, ksc, vsc)
+
+
+        copies = [(cache, cache)] + [one_copy() for _ in range(cold_copies(bytes_moved) - 1)]
+
+        def lib_call(c):
+            if int8:
+                k_, v_ = K5.dequantize_kv(c[0], c[2], torch.bfloat16), K5.dequantize_kv(c[1], c[3], torch.bfloat16)
+            else:
+                k_, v_ = c
+            if Hk != H:
+                k_, v_ = k_.repeat_interleave(H // Hk, 1), v_.repeat_interleave(H // Hk, 1)
+            return F.scaled_dot_product_attention(q, k_, v_, attn_mask=valid[:, None])
+
+        extra["cold_copies"] = len(copies)
+        extra["cold_graph_ms"] = graph_ms(rotating([functools.partial(K5.decode_attention, q, *c, **kw)
+                                                    for c, _ in copies]))
+        extra["library_cold_graph_ms"] = graph_ms(rotating([functools.partial(lib_call, c) for _, c in copies]))
         record("decode_attention", name, [B, H, Hk, Tq, Tk, D, "int8" if int8 else "bf16"], out, ref, mag,
                lambda: K5.decode_attention(q, *cache, **kw), lambda: K5.decode_attention_plain(q, *cache, **kw),
                library, bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=dict(extra, valid_rows=rows),
                graph=("kernel", "library"))
-        del q, kf, vf, kd, vd, kr, vr, cache
+        del q, kf, vf, kd, vd, kr, vr, cache, copies
     return cases
+
+
+# Llama-2-7B's widths at a cut depth: the B = 1 decode step of --decode-step-only (its layers are identical, so
+# a step's time is about LLM_LAYERS / DECODE_STEP_LAYERS times this one's)
+DECODE_STEP_LAYERS = 8
+DECODE_STEP_LLM = dict(vocab_size=32064, hidden_size=4096, intermediate_size=11008, num_layers=DECODE_STEP_LAYERS,
+                       num_heads=32, num_kv_heads=32, head_dim=128, max_position_embeddings=4096)
+
+
+def decode_step_probe(dev, seed: int, cache_rows: int = 1120, prompt: int = 1080, replays: int = 30) -> dict:
+    """The B = 1 decode step (``DecodeRunner``'s graph) of Llama-2-7B's widths
+    cut to ``DECODE_STEP_LAYERS`` layers on seeded random weights, bf16 and
+    int8 (weights and cache), after a ``prompt``-token prefill into a
+    ``cache_rows``-row cache (phase 4's request shape): ms per step by CUDA
+    events over ``replays`` replays, the best of 3. Only the package's public
+    decode path is used, so two trees' packages time alike (``chip_ab.sh``)."""
+    import torch
+
+    import merv_tpu_torch.models.generation as G
+    from merv_tpu_torch.models.backbones.llm.transformer import LlamaDecoder, tiny_decoder_config
+    from merv_tpu_torch.nn.core import init_weights
+    from merv_tpu_torch.nn.quantization import quantize_tree
+
+    out = {}
+    for mode in ("bf16", "int8"):
+        dec = LlamaDecoder(tiny_decoder_config(param_dtype=torch.bfloat16, **DECODE_STEP_LLM), device=dev)
+        init_weights(dec, torch.Generator(device=dev).manual_seed(seed))
+        if mode == "int8":
+            dec = quantize_tree(dec)
+        cfg = G.GenerationConfig(max_new_tokens=40, eos_token_id=-1, kv_cache_dtype="int8" if mode == "int8" else None)
+        runner, _ = G.decode_runner(dec, 1, cache_rows, cfg, dev)
+        ids = torch.randint(3, 32000, (1, prompt), device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        mask = torch.ones((1, cache_rows), dtype=torch.bool, device=dev)
+        with torch.inference_mode():
+            logits, _, n_valid = G.prefill(dec, dec.embed_input_ids(ids), None, cache_rows, cache=runner.cache)
+        first = logits.argmax(-1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ms = []
+        for _ in range(4):
+            runner.load(first, n_valid, mask, prompt, None)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(replays):
+                runner.replay()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end) / replays)
+        out[mode] = dict(ms_per_step=min(ms[1:]), readings=ms[1:], layers=DECODE_STEP_LAYERS)
+        log(f"[decode-step] {mode}, {DECODE_STEP_LAYERS} layers of Llama-2-7B, B=1, {cache_rows} cache rows: "
+            f"{out[mode]['ms_per_step']:.4f} ms/step by graph replay (readings {[round(m, 4) for m in ms[1:]]})")
+        del runner, dec
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3068,6 +3254,9 @@ def main() -> int:
     ap.add_argument("--int8-only", action="store_true",
                     help="build, then run only K4's and K5's kernel cases and print them (no result line): for "
                          "comparing two versions of the int8 and decode kernels within one call")
+    ap.add_argument("--decode-step-only", action="store_true",
+                    help="build, then time only the B=1 decode step of Llama-2-7B's widths at 8 layers, bf16 and int8 "
+                         "(no result line): for comparing two versions of K4 and K5 in the step within one call")
     ap.add_argument("--int8-serving-only", action="store_true",
                     help="build, then run only phase 4f (int8 serving) and print its numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
@@ -3109,9 +3298,13 @@ def main() -> int:
         return 0
     if args.int8_only:
         cases = int8_kernel_cases(dev, args.seed)
-        keys = ("kernel", "case", "shape", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
-                "bound_by", "worst_share_of_limit", "max_abs_err")
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "cold_graph_ms", "plain_ms", "library_ms",
+                "library_graph_ms", "library_cold_graph_ms", "bound_ms", "bound_by", "worst_share_of_limit",
+                "max_abs_err", "splits", "cluster", "residency", "cold_copies", "launches_per_call")
         log(json.dumps({"int8_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
+    if args.decode_step_only:
+        log(json.dumps({"decode_step": decode_step_probe(dev, args.seed)}))
         return 0
     if args.int8_serving_only:
         with switches({}):

@@ -4,7 +4,10 @@
 // position for full/empty barrier pairs, named barriers, the async-proxy
 // fence, wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
 // instructions the kernels use, setmaxnreg, ex2.approx.ftz, and the kernels'
-// once-per-device host setup.
+// once-per-device host setup. The int8 product and the decode attention
+// (int8_linear.cu, decode_attention.cu) also use the tail of this file:
+// thread block clusters (launch, residency, barrier, distributed shared
+// memory), the m16n8k16 mma.sync product, ldmatrix, and exact int8 -> bf16.
 //
 // Tiles. Every operand tile in shared memory is a stack of "slabs": 64 bf16
 // columns (128 bytes) of `rows` rows, written by one TMA box {64, rows, 1}
@@ -29,6 +32,8 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing here links against libcuda
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -58,21 +63,31 @@ static cudaError_t encode_tiled_fn(EncodeTiledFn* fn) {
   return cudaSuccess;
 }
 
+// Tensor map over a contiguous tensor of `rank` (2 or 3) dimensions, innermost
+// first: dims[i] elements, strides[i] the bytes between steps of dimension
+// i + 1, box[i] elements a copy, no interleave, the given swizzle. Boxes that
+// reach past the tensor read as 0.
+static cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode;
+  cudaError_t e = encode_tiled_fn(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Tensor map over a contiguous bf16 [BH, T, D] tensor as the 3-D box grid
 // (D, T, BH), box {64, rows, 1}, 128-byte swizzle. Rows past T read as 0
 // (the hardware's out-of-bounds fill), so ragged edges need no copy.
 static cudaError_t make_tile_map(CUtensorMap* map, const void* base, int BH, int T, int D, int rows) {
-  EncodeTiledFn encode;
-  cudaError_t e = encode_tiled_fn(&encode);
-  if (e != cudaSuccess) return e;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(T) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -169,6 +184,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that stops the kernel with an error (a trap, which the launch's
+// caller sees) if the phase has not completed after `seconds`: a copy that
+// never lands fails the call instead of hanging the device.
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity, uint64_t seconds = 4) {
+  const uint32_t addr = smem_u32(bar);
+  const uint64_t t0 = global_ns();
+  uint32_t done;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (global_ns() - t0 > seconds * 1000000000ull) __trap();
+  }
+}
+
 // One TMA box of `map` at coordinates (c0, c1, c2) into shared memory `dst`,
 // counted on `bar`'s transaction bytes.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
@@ -176,6 +214,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
       "[%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One TMA box of a 2-D `map` at coordinates (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -395,4 +442,142 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
   } else {
     wgmma_rs_n128_tb(d, a, db, accumulate);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+// ---------------------------------------------------------------------------
+
+// Launch `kernel` with clusters of `cluster` blocks along x (gridDim.x a multiple of it).
+// `early`: programmatic dependent launch: the kernel may start once the kernel
+// before it on the stream has signalled (griddep_launch_dependents) in every
+// block, and must call griddep_wait before it touches what that kernel writes.
+template <typename... Params, typename... Args>
+static cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, int cluster,
+                                   cudaStream_t stream, bool early, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = early ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// Programmatic dependent launch: wait until the kernels this one may overlap
+// have finished and their writes are visible (returns at once if none), and
+// let the next kernel on the stream, if launched `early`, start.
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// How many clusters of 1 .. `n` blocks of `kernel` the card holds at once (its
+// real residency: shared memory, registers, and the SMs of a GPC that one
+// cluster must share): out[c - 1] for a cluster of c.
+template <typename Kernel>
+static cudaError_t cluster_residency(Kernel* kernel, int threads, size_t smem, int n, int* out) {
+  for (int c = 1; c <= n; ++c) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&out[c - 1], kernel, &cfg);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Every thread of every block of the cluster arrives; then waits for all. The
+// release / acquire pair makes each block's shared-memory writes before it
+// visible to the others' reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in the shared memory of cluster block `rank` that `p` has in this block's.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync, ldmatrix, int8 -> bf16
+// ---------------------------------------------------------------------------
+
+// d (+)= a b: m16n8k16, bf16 in, fp32 sum; fragments as common.cuh's layout.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices, transposed: lane i names row i % 8 of matrix i / 8;
+// r[j] is matrix j's B fragment (rows 2t, 2t+1 of column g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(void* p, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(p)), "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// Byte i of a word whose bytes were flipped by ^ 0x80808080 (a signed int8
+// made unsigned), as an exact float: 2^23 + (byte ^ 0x80) - (2^23 + 128).
+__device__ __forceinline__ float i8_to_float(uint32_t w_biased, int i) {
+  return __uint_as_float(__byte_perm(w_biased, 0x4B000000u, 0x7540u + i)) - 8388736.0f;
+}
+
+// Bytes (lo, lo + 1) of an int8 word as a bf16 pair (exact: |q| <= 128).
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, int lo) {
+  const uint32_t u = w ^ 0x80808080u;
+  return pack_bf16(i8_to_float(u, lo), i8_to_float(u, lo + 1));
+}
+
+// Bytes (lo, lo + 1) of an int8 word times `scale`, each rounded once to bf16.
+__device__ __forceinline__ uint32_t i8_pair_scaled(uint32_t w, int lo, float scale) {
+  const uint32_t u = w ^ 0x80808080u;
+  return pack_bf16(i8_to_float(u, lo) * scale, i8_to_float(u, lo + 1) * scale);
 }

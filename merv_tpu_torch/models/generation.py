@@ -29,7 +29,9 @@ with the graph).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -71,6 +73,25 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     is captured: cuBLAS keeps a workspace for each stream it has run on, so a
     stream per runner would add one per captured shape."""
     return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _capturing(graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream"):
+    """``torch.cuda.graph`` on ``stream`` with the cyclic garbage collector held
+    off. torch collects just before the capture begins; a collection during it
+    can free an object whose release is not permitted while a stream captures,
+    which invalidates the capture (it did so in a card test of the engine's
+    chunks, depending on where the collector's allocation count fell).
+    thread_local: host threads (the engine's and the eval CLIs' prefetch) may
+    call CUDA meanwhile."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -236,9 +257,8 @@ class DecodeRunner:
         graph = torch.cuda.CUDAGraph()
         if self.config.do_sample:
             graph.register_generator_state(self.generator)
-        # thread_local: host threads (the eval drivers' prefetch) may call CUDA meanwhile
         counted = A.launch_counts()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        with _capturing(graph, side):
             self.graph_logits = self.step(decoder)
         torch.cuda.synchronize(dev)
         # the capture recorded these launches; each replay makes them

@@ -43,6 +43,7 @@ path is inference-only, as in ``merv_tpu``: asking for its gradient raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import torch
@@ -125,6 +126,12 @@ def small_attention_kt_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return (o / l).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the kernels' launch plans read it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(name: str, *ts: torch.Tensor) -> None:

@@ -30,14 +30,15 @@ from typing import Optional, Union
 import torch
 
 from merv_tpu_torch.ops import _build
-from merv_tpu_torch.ops.attention import _LAUNCHES, attention_reference
+from merv_tpu_torch.ops.attention import _LAUNCHES, _sm_count, attention_reference
 
 DECODE_MAX_ROWS = 16  # query rows per call the kernel takes (and the decoder sends it)
-_TILE = 32  # keys per tile in the kernel
-_MAX_TILES_PER_SPLIT = 128
-# the split aims at this many blocks an SM: a block walks its tiles one after another, so the longest
-# slot's keys spread over many short blocks (a split with no valid key stops at once)
-_BLOCKS_PER_SM = 16
+DECODE_TILE = 16  # keys per tile in the kernel
+DECODE_WARPS = 4  # warps per block, each walking its own tiles
+DECODE_MAX_CLUSTER = 8  # blocks that split one unit's keys: a portable thread block cluster
+# a block walks at least this many tiles where the keys allow it: two for each warp's two stages, so its
+# loads stay in flight
+DECODE_MIN_TILES_PER_BLOCK = 2 * DECODE_WARPS
 
 
 def dequantize_kv(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -66,20 +67,47 @@ def decode_attention_plain(
     return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale, q_offset=q_offset)
 
 
+def decode_plan(B: int, Hk: int, rows: int, Tk: int, sms: int, blocks_per_sm: int, max_clusters=None) -> int:
+    """The cluster size c: how many blocks split the keys of one unit, a
+    (batch row, kv head, group of <= 16 query rows), from the shapes alone (a
+    graph replays it with any lengths): the most blocks one wave holds, so
+    that every SM runs as many warps as it can. The units fit the device's
+    residency for clusters of c blocks (``max_clusters[c - 1]``, the kernel's
+    own figure; without it ``sms * blocks_per_sm // c``); c <= 8 (portable)
+    and a block keeps at least ``DECODE_MIN_TILES_PER_BLOCK`` tiles. Among
+    those, the c with the fewest tiles a block, the smaller on a tie. More
+    units than one wave holds take c = 1."""
+    tiles = -(-Tk // DECODE_TILE)
+    units = B * Hk * -(-rows // DECODE_MAX_ROWS)
+    best, best_work = 1, tiles
+    for c in range(2, DECODE_MAX_CLUSTER + 1):
+        clusters = max_clusters[c - 1] if max_clusters is not None else sms * blocks_per_sm // c
+        per_block = -(-tiles // c)
+        if units > clusters or tiles // c < DECODE_MIN_TILES_PER_BLOCK:
+            continue
+        if per_block < best_work:
+            best, best_work = c, per_block
+    return best
+
+
+def decode_tiles(rank: int, warp: int, cluster: int, Tk: int) -> list:
+    """The key tiles (of ``DECODE_TILE`` keys) that warp ``warp`` of cluster
+    block ``rank`` walks: ``rank + cluster * (warp + DECODE_WARPS * i)``, as
+    the kernel's ``first`` and ``stride``."""
+    tiles = -(-Tk // DECODE_TILE)
+    return list(range(rank + cluster * warp, tiles, cluster * DECODE_WARPS))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_plan(B: int, Hk: int, rows: int, Tk: int, sms: int):
-    """(splits, tiles per split): the keys' 32-key tiles cut so that the grid
-    of (splits, Hk x row groups, B) blocks holds about ``_BLOCKS_PER_SM`` per
-    SM, and at least two tiles a split (a block's setup, the live-tile scan,
-    the q rows and its partial's write, is paid once for all its tiles)."""
-    tiles = -(-Tk // _TILE)
-    base = B * Hk * -(-rows // DECODE_MAX_ROWS)
-    per = min(max(2, -(-tiles * base // (sms * _BLOCKS_PER_SM))), _MAX_TILES_PER_SPLIT)
-    return -(-tiles // per), per
+def _residency(index: int, D: int, int8: bool) -> tuple:
+    """Clusters of 1..8 blocks of the kernel for (D, int8) the device holds at once."""
+    lib = _build.bind("decode_attention", "decode_attention_residency",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * DECODE_MAX_CLUSTER)()
+    with torch.cuda.device(index):
+        rc = lib.decode_attention_residency(D, int(int8), ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, rc, "decode_attention_residency")
+    return tuple(out)
 
 
 def decode_attention(
@@ -102,11 +130,12 @@ def decode_attention(
     so the call can be captured in a CUDA graph. CPU: the plain version.
 
     Bound on the H100 by bytes: each valid cache row's K and V (and scales)
-    read once. Design (flash-decoding): blocks over (batch, kv head, query
-    rows) and a split of a few keys' tiles, only the 32-key tiles that hold a
-    valid key loaded (cp.async, two stages), scores a lane per key and a warp
-    per quarter of D, the online softmax a warp per row, P.V a thread per
-    column; a second kernel combines the splits (see the source)."""
+    read once. Design: one launch; a unit (batch row, kv head, <= 16 query
+    rows) has its 16-key tiles split over the blocks of one thread block
+    cluster (:func:`decode_plan`) and their warps; each warp loads its live
+    tiles by TMA into two stages and runs both products on the tensor cores
+    (mma.sync) with the online softmax in registers; the warps' partials merge
+    through distributed shared memory in a fixed order (see the source)."""
     B, H, Tq, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -147,18 +176,18 @@ def decode_attention(
         else:
             offset = Tk - Tq if q_offset is None else int(q_offset)
     scale = D ** -0.5 if scale is None else scale
-    splits, per = split_plan(B, Hk, H // Hk * Tq, Tk, _sm_count(q.device.index or 0))
-    part_o = torch.empty((splits, B * H * Tq, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((splits, B * H * Tq, 2), dtype=torch.float32, device=q.device)
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    sms, residency = _sm_count(index), _residency(index, D, int8)
+    cluster = decode_plan(B, Hk, H // Hk * Tq, Tk, sms, residency[0] // sms, residency)
     out = torch.empty_like(q)
     lib = _build.bind("decode_attention", "decode_attention_bf16",
-                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, mask_ptr, offs_ptr, part_o.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), B, H, Hk, Tq, Tk, D, int(int8), int(causal), offset, splits, per, float(scale), stream,
+            v_scale.data_ptr() if int8 else None, mask_ptr, offs_ptr, out.data_ptr(), B, H, Hk, Tq, Tk, D, int(int8),
+            int(causal), offset, cluster, float(scale), stream,
         )
     _build.check(lib, rc, "decode_attention")
     _LAUNCHES["decode_attention"] += 1

@@ -21,18 +21,61 @@ then the bias.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from merv_tpu_torch.ops import _build
-from merv_tpu_torch.ops.attention import _LAUNCHES, _check_cuda
+from merv_tpu_torch.ops.attention import _LAUNCHES, _check_cuda, _sm_count
 
 INT8_KERNEL_MAX_ROWS = 64  # rows of x the kernel takes (8 mma tiles of 8)
-INT8_KERNEL_K_MULTIPLE = 64  # the kernel's K chunk
+INT8_KERNEL_K_MULTIPLE = 64  # K must be a multiple of this (the tensor maps' 16-byte rows, half a k step)
+INT8_COLS = 128  # output columns a block owns
+INT8_STEP_K = 128  # k per ring stage
+INT8_MAX_SPLITS = 8  # K splits of a column tile: one portable thread block cluster
+INT8_MIN_STEPS = 2  # k steps a split walks at least
 
 # calls of quantized_linear that took the plain matmul form (more than INT8_KERNEL_MAX_ROWS rows)
 _MATMUL = {"int8_linear_matmul": 0}
+
+
+def int8_linear_plan(M: int, N: int, K: int, sms: int, blocks_per_sm: int, max_clusters=None) -> int:
+    """The K splits s of each 128-column tile (one cluster of s blocks): as
+    many as one wave holds, so that every SM runs as many warps as it can. The
+    tiles fit the device's residency for clusters of s blocks
+    (``max_clusters[s - 1]``, the kernel's own figure at M's row tile;
+    without it ``sms * blocks_per_sm // s``); s <= 8 (portable) and a split
+    walks at least ``INT8_MIN_STEPS`` of the 128-wide k steps. Among those, the
+    s with the fewest steps a block, the smaller on a tie. More tiles than one
+    wave holds take s = 1."""
+    tiles, steps = -(-N // INT8_COLS), -(-K // INT8_STEP_K)
+    best, best_work = 1, steps
+    for s in range(2, INT8_MAX_SPLITS + 1):
+        clusters = max_clusters[s - 1] if max_clusters is not None else sms * blocks_per_sm // s
+        if tiles > clusters or steps // s < INT8_MIN_STEPS:
+            continue
+        if -(-steps // s) < best_work:
+            best, best_work = s, -(-steps // s)
+    return best
+
+
+def int8_linear_steps(split: int, splits: int, K: int) -> range:
+    """The 128-wide k steps that split ``split`` of ``splits`` walks, as the
+    kernel's ``s_begin`` / ``s_end``."""
+    steps = -(-K // INT8_STEP_K)
+    return range(split * steps // splits, (split + 1) * steps // splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _residency(index: int, row_tiles: int) -> tuple:
+    """Clusters of 1..8 blocks of the kernel for ``8 * row_tiles`` rows of x the device holds at once."""
+    lib = _build.bind("int8_linear", "int8_linear_residency", [ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * INT8_MAX_SPLITS)()
+    with torch.cuda.device(index):
+        rc = lib.int8_linear_residency(8 * row_tiles, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, rc, "int8_linear_residency")
+    return tuple(out)
 
 
 def int8_linear_plain(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
@@ -55,9 +98,11 @@ def int8_linear(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
     :func:`int8_linear_plain`.
 
     Bound on the H100 by bytes: N*K weight bytes against at most 128
-    operations a byte. Design: 16 output columns a block, 8 warps splitting K,
-    16-byte weight loads past L1, the m16n8k16 bf16 tensor-core product with
-    the weights as A and x as B (see the source)."""
+    operations a byte. Design: 128 output columns a block, K split over the
+    blocks of one thread block cluster (:func:`int8_linear_plan`); a producer
+    warp streams weights and x by TMA into a 4-stage ring; eight warps run the
+    m16n8k16 bf16 tensor-core product with the weights as A; the splits' sums
+    meet through distributed shared memory in split order (see the source)."""
     K = x.shape[-1]
     N = weight_q.shape[0]
     if weight_q.dim() != 2 or weight_q.shape[1] != K or tuple(scale.shape) != (N,):
@@ -78,12 +123,15 @@ def int8_linear(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int8_linear: {name} must be a contiguous, 16-byte-aligned {dtype} tensor on {x.device}")
     if bias is not None:
         bias = bias.to(torch.bfloat16).contiguous()
-    lib = _build.bind("int8_linear", "int8_linear_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    sms, residency = _sm_count(index), _residency(index, -(-M // 8))
+    splits = int8_linear_plan(M, N, K, sms, residency[0] // sms, residency)
+    lib = _build.bind("int8_linear", "int8_linear_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.int8_linear_bf16(x2.data_ptr(), weight_q.data_ptr(), scale.data_ptr(),
-                                  None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K, stream)
+                                  None if bias is None else bias.data_ptr(), y.data_ptr(), M, N, K, splits, stream)
     _build.check(lib, rc, "int8_linear")
     _LAUNCHES["int8_linear"] += 1
     return y.reshape(*lead, N)

@@ -61,6 +61,7 @@ from merv_tpu_torch.models.generation import (
     VideoPrefix,
     _ban_eos_below_min_length,
     _capture_stream,
+    _capturing,
     _filter_logits,
     _ngram_propose,
     _sample_token,
@@ -472,9 +473,8 @@ class _Chunk:
         graph = torch.cuda.CUDAGraph()
         if engine.config.do_sample:
             graph.register_generator_state(self.generator)
-        # thread_local: the prefetch thread may call CUDA meanwhile
         counted = A.launch_counts()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        with _capturing(graph, side):
             self.run_eager(engine)
         torch.cuda.synchronize(dev)
         # the capture recorded these launches; each replay makes them

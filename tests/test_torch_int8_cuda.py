@@ -6,15 +6,21 @@ mode). The file imports neither JAX nor merv_tpu:
     python -m pytest tests/test_torch_int8_cuda.py --noconftest -m cuda
 
 Each kernel is held against its plain version by ``chip_smoke.hold`` at the
-edges of its tiles: K4 at 1..64 rows of x, output widths that are not a
-multiple of its 16 columns, a bias; K5 at key counts around its 32-key tiles
-and splits, 1..16 query rows, GQA, D = 64 and 128, bf16 and int8 caches, a
-host-int and a [B] causal offset, a per-slot cache's scratch row, and a row
-with no valid key (the mean of V over the buffer, as the plain version gives).
+edges of its tiles: K4 at 1..64 rows of x across its x tile widths, output
+widths that are not a multiple of its 128 columns, K = 64 and K not a multiple
+of its splits x its 128-wide k step, every cluster size (K splits) 1..8, a
+bias; K5 at key counts around its 32-key tiles, every cluster size 1..8, the
+plan's one split, its cluster maximum and one past it, Tk = 4,096, 1..16 query
+rows, GQA, D = 64 and 128, bf16 and int8 caches, a host-int and a [B] causal
+offset, a per-slot cache's scratch row, and a row with no valid key (the mean
+of V over the buffer, as the plain version gives). Both give the same bits on
+a second call and on two replays of a captured call.
 Then a ``DecodeRunner`` and an engine chunk graph on a tiny int8 model: graph
 tokens equal to the eager loop's, and the launch counters advanced by what
 each replay launches.
 """
+
+import ctypes
 
 import pytest
 import torch
@@ -85,6 +91,100 @@ def test_int8_linear_refuses_what_it_does_not_take(cuda):
     assert K4.matmul_dispatches() == {"int8_linear_matmul": 1}
 
 
+def _int8_linear_case(dev, M, N, K, bias, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + M * 31 + N + K)
+    w = torch.randn((N, K), generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+    q8, scale = quantize_kernel(w)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    b = torch.randn((N,), generator=g, device=dev, dtype=torch.bfloat16) if bias else None
+    return x, q8, scale, b
+
+
+def _hold_int8_linear(out, x, q8, scale, b):
+    _held(out, K4.int8_linear_plain(x, q8, scale, b), K4.int8_linear_plain(x.abs(), q8.abs(), scale, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, N, K, bias", [
+    # N past a 128-column tile; K = 64 (half a k step); K not a multiple of the splits x the 128-wide k step
+    (1, 129, 64, True), (2, 255, 128, False), (3, 200, 192, True), (5, 4100, 1344, False), (6, 1000, 4160, True),
+    (12, 384, 11008, False),
+    # every x tile width 8..64 rows, and the widths' edges
+    (8, 4096, 4096, True), (9, 640, 2048, False), (17, 4096, 4096, True), (24, 1100, 512, False),
+    (40, 4096, 4096, True), (48, 130, 256, False), (57, 11008, 4096, True), (63, 257, 1024, False),
+])
+def test_int8_linear_tile_and_split_edges(cuda, M, N, K, bias):
+    x, q8, scale, b = _int8_linear_case(cuda, M, N, K, bias)
+    out = K4.int8_linear(x, q8, scale, b)
+    assert out.shape == (M, N)
+    _hold_int8_linear(out, x, q8, scale, b)
+    assert torch.equal(K4.int8_linear(x, q8, scale, b), out)
+
+
+def _int8_linear_raw(x, q8, scale, b, splits):
+    """The C entry point with a given number of K splits (the wrapper's plan picks one)."""
+    from merv_tpu_torch.ops import _build
+
+    M, K = x.shape
+    N = q8.shape[0]
+    lib = _build.bind("int8_linear", "int8_linear_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    rc = lib.int8_linear_bf16(x.data_ptr(), q8.data_ptr(), scale.data_ptr(), None if b is None else b.data_ptr(),
+                              y.data_ptr(), M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "int8_linear")
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", list(range(1, K4.INT8_MAX_SPLITS + 1)))
+def test_int8_linear_every_split_count(cuda, splits):
+    """Each cluster size 1..8 over an uneven K (10.5 k steps: splits of 1 and 2 steps, a half step last)."""
+    x, q8, scale, b = _int8_linear_case(cuda, 36, 300, 1344, True, seed=splits)
+    _hold_int8_linear(_int8_linear_raw(x, q8, scale, b, splits), x, q8, scale, b)
+
+
+@pytest.mark.cuda
+def test_int8_linear_plan_on_the_card(cuda):
+    """The wrapper's plan at Llama-2-7B's shapes on this card's residency: one wave, at most 8 splits."""
+    idx = torch.cuda.current_device()
+    sms = K4._sm_count(idx)
+    for M in (1, 4, 36, 64):
+        res = K4._residency(idx, -(-M // 8))
+        assert res[0] >= sms and all(r >= 0 for r in res)
+        for N, K in ((4096, 4096), (11008, 4096), (4096, 11008), (32064, 4096)):
+            s = K4.int8_linear_plan(M, N, K, sms, res[0] // sms, res)
+            assert 1 <= s <= 8 and (s == 1 or -(-N // 128) <= res[s - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["int8_linear", "decode_attention"])
+def test_graph_replays_give_the_eager_bits(cuda, kernel):
+    """Two replays of a captured call and the eager call give the same bits (nothing carried between calls)."""
+    if kernel == "int8_linear":
+        x, q8, scale, b = _int8_linear_case(cuda, 36, 4100, 4096, True)
+        fn = lambda: K4.int8_linear(x, q8, scale, b)  # noqa: E731
+    else:
+        q, cache, _, _, kw = _decode_case(cuda, 4, 32, 32, 5, 2058, 128, True, (2040, 1100, 317, 1), "vector",
+                                          scratch=True)
+        fn = lambda: K5.decode_attention(q, *cache, **kw)  # noqa: E731
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], eager) and torch.equal(replays[1], eager)
+
+
 def _decode_case(dev, B, H, Hk, Tq, Tk, D, int8, lengths, offset_kind, scratch=False, empty_row=False, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, Tq, D), generator=g, device=dev, dtype=torch.bfloat16)
@@ -130,6 +230,63 @@ def test_decode_attention_matches_plain(cuda, B, H, Hk, Tq, Tk, D, int8, lengths
     before = A.launch_counts()["decode_attention"]
     out = K5.decode_attention(q, *cache, **kw)
     assert A.launch_counts()["decode_attention"] == before + 1
+    _held(out, K5.decode_attention_plain(q, *cache, **kw), K5.decode_attention_plain(q, kd, vd.abs(), **kw))
+    assert torch.equal(K5.decode_attention(q, *cache, **kw), out)
+
+
+def _decode_raw(q, cache, kw, cluster):
+    """The C entry point with a given cluster size (the wrapper's plan picks one); non-causal or host-int offsets."""
+    from merv_tpu_torch.ops import _build
+
+    B, H, Tq, D = q.shape
+    k, v = cache[0], cache[1]
+    Hk, Tk = k.shape[1], k.shape[2]
+    int8 = len(cache) == 4
+    mask = kw["kv_mask"].contiguous()
+    out = torch.empty_like(q)
+    lib = _build.bind("decode_attention", "decode_attention_bf16",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    offset = (Tk - Tq if kw["q_offset"] is None else int(kw["q_offset"])) if kw["causal"] else 0
+    rc = lib.decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), cache[2].data_ptr() if int8 else None,
+                                   cache[3].data_ptr() if int8 else None, mask.data_ptr(), None, out.data_ptr(), B, H,
+                                   Hk, Tq, Tk, D, int(int8), int(kw["causal"]), offset, cluster, float(D ** -0.5),
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "decode_attention")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", list(range(1, K5.DECODE_MAX_CLUSTER + 1)))
+def test_decode_attention_every_cluster_size(cuda, cluster):
+    """Each cluster size 1..8 on ragged rows with a host-int causal offset (some blocks and warps with no live tile)."""
+    q, cache, kd, vd, kw = _decode_case(cuda, 2, 8, 2, 3, 1000, 128, cluster % 2 == 0, (700, 90), "int",
+                                        seed=cluster)
+    out = _decode_raw(q, cache, kw, cluster)
+    _held(out, K5.decode_attention_plain(q, *cache, **kw), K5.decode_attention_plain(q, kd, vd.abs(), **kw))
+
+
+def _plan_for(dev, B, H, Hk, Tq, Tk, D, int8):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms, res = K5._sm_count(idx), K5._residency(idx, D, int8)
+    return K5.decode_plan(B, Hk, H // Hk * Tq, Tk, sms, res[0] // sms, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, H, Hk, Tk, int8, lengths, expect", [
+    (8, 32, 32, 1120, False, (1100, 900, 700, 500, 300, 100, 50, 1), "one"),  # more units than a wave: splits = 1
+    (1, 4, 4, 2048, True, (2000,), "max"),   # 64 tiles over 4 units: the cluster's maximum, 8
+    (1, 4, 4, 2304, False, (2300,), "max"),  # 72 tiles: 9 would be asked, 8 is the most
+    (1, 32, 32, 4096, False, (4000,), None),  # Tk = 4,096
+    (1, 32, 8, 4096, True, (4095,), None),
+])
+def test_decode_attention_plan_edges(cuda, B, H, Hk, Tk, int8, lengths, expect):
+    cluster = _plan_for(cuda, B, H, Hk, 1, Tk, 128, int8)
+    if expect == "one":
+        assert cluster == 1
+    elif expect == "max":
+        assert cluster == K5.DECODE_MAX_CLUSTER
+    q, cache, kd, vd, kw = _decode_case(cuda, B, H, Hk, 1, Tk, 128, int8, lengths, None)
+    out = K5.decode_attention(q, *cache, **kw)
     _held(out, K5.decode_attention_plain(q, *cache, **kw), K5.decode_attention_plain(q, kd, vd.abs(), **kw))
     assert torch.equal(K5.decode_attention(q, *cache, **kw), out)
 

@@ -85,6 +85,35 @@ def test_chunk_graph_matches_eager_chunk(cuda, gamma, sample):
 
 
 @pytest.mark.cuda
+def test_no_collection_during_a_capture(cuda):
+    """The cyclic garbage collector does not run while a decode runner or an
+    engine chunk captures (a collection there can free an object whose release
+    invalidates the capture): with the collector's threshold at one allocation,
+    no collection starts while the stream captures."""
+    import gc
+
+    import merv_tpu_torch.models.generation as G
+
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            seen.append(info["generation"])
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = _admitted(cuda, GenerationConfig(max_new_tokens=40, eos_token_id=-1), 0)
+        eng._chunk(0)
+        G.decode_runner(_decoder(cuda), 1, 32, GenerationConfig(max_new_tokens=8, eos_token_id=-1), cuda)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(watch)
+    assert seen == []
+
+
+@pytest.mark.cuda
 def test_engine_serves_through_its_graphs(cuda):
     """A whole engine run on the card gives the tokens of the same run with
     the chunks eager (the graphs dropped after each capture)."""
