@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
-                           --int8-only | --decode-step-only | --engine-only | --int8-serving-only]
+                           --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
+                           --families-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -12,6 +13,9 @@ kernels within one call. ``--engine-only`` and ``--int8-serving-only`` run
 phase 4e or 4f alone after the build and print their numbers the same way;
 ``--decode-step-only`` times the B = 1 decode step of Llama-2-7B's widths at
 8 layers, bf16 and int8 (``decode_step_probe``), for ``chip_ab.sh``.
+``--families-only`` runs phase 3's cases at the LLM families' shapes, the
+packed-layout check and phase 4g alone and writes them to
+``chiprun_out/families.json``.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -56,7 +60,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    and their yardsticks are graph-timed warm and L2-cold (rotating through
    copies of the inputs larger than the L2), with the plan each wrapper picks
    and the residency it read, and one call of each must capture as one
-   kernel node (``kernel_launches``).
+   kernel node (``kernel_launches``). Then the same at the shapes of every
+   LLM family phase 4g serves (``family_kernel_cases``): K4 at each packed
+   serving Linear (qkv, gate/up, o, down, lm_head of Llama-2-7B / 13B,
+   Llama-3 / 3.1-8B, Qwen-2.5-7B / 3B: N from 2,560 to 152,064, K 2,048 to
+   18,944) at 1, 4 and 36 rows; K5 at GQA groups 7, 8, 4 and 1 (decode) and at
+   the verifies whose group x Tq rows cross a 16-row unit inside a head (21,
+   35, 24, 20 rows), bf16 and int8; K2 at the 28 -> 4, 16 -> 2 and 40-head
+   prefills and Qwen-2.5-7B's 28 -> 4 suffix prefill, beside SDPA.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -141,6 +152,29 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    process with prefix sharing on 4e's 37 requests, every request answered,
    only the missing video failing, launches as predicted from the engine's
    counts; (d) int8 weight bytes and peak memory.
+4f'. the packed serving layout (``packed_check``): merv-full's run directory
+   loaded with ``pack_llm=True`` and ``False`` side by side, bf16 and int8: the
+   packed prefill's logits held against the unpacked one's (relative L2),
+   greedy agreement reported, both through the same decode graph (tokens
+   equal to the eager loop's), K4 launches a step (129 packed, 225
+   unpacked), one profiled replay's cuBLAS GEMMs, and the two steps timed in
+   interleaved rounds.
+4g. the LLM families (``families_path``), each from a run directory with
+   merv-full's towers and projectors and the family's LLM at full width and
+   depth on random weights, loaded by ``load_vid``: Qwen-2.5-7B-Instruct
+   (28 layers, 28 -> 4 heads, q/k/v biases, a 152,064-row head, fp16 storage,
+   no BOS) in full: one ``generate`` on the demo video with launches as
+   predicted, held against its ``impl="plain"`` rerun and call by call, the
+   decode graph against the eager loop with its ms per step and one profiled
+   replay; the step again with the weights stored in fp16 and cast at every
+   use (same tokens, and the copies' cost); then ``quantize_llm=True``: an
+   int8-cache request with every K4 / K5 call of one eager step held, the
+   engine's plain and gamma-4 chunk graphs against the eager chunk, and one
+   ``cli/serve.py --quantize_llm --int8_kv`` process on 4e's 37 requests.
+   Llama-3.1-8B-chat (GQA 4, a 128,256-row head), Qwen-2.5-3B-Instruct (GQA
+   8, tied head) and the LLaVA-1.5-13B reproduction (Vicuna-13B: 40 layers,
+   hidden 5,120) one request each with the same request checks and decode
+   step. Every family runs at its full depth; peak memory per model.
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -161,7 +195,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    from the training path for K1-K3, from the switched request of 4b for
    B3, B5 and B6 and from 4f's request for K4 and K5, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
-   4d's runs, ``launches_engine`` from each of 4e's and 4f's serve runs), and
+   4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
+   ``launches_families`` from each of 4g's requests), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -177,6 +212,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -521,8 +557,9 @@ def record_case(cases, kernel, name, shape, out, ref, mag, fn, plain, lib, bytes
     cases.append(row)
 
 
-def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
-    """K1 (unless ``k1`` is False) and K2 (unless ``k2`` is False) against
+def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True, flash_cases=None):
+    """K1 (unless ``k1`` is False) and K2 (unless ``k2`` is False; at
+    ``flash_cases`` where given, else at the main paths' shapes) against
     their plain versions; K1 also with the graph-replay times of the kernel and
     of SDPA."""
     import numpy as np
@@ -567,7 +604,7 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
         # each row's valid suffix tokens (ragged: SUFFIX_LENGTHS), not its pads nor the rows not written yet
         ("llama_suffix_prefill", 8, 32, 32, 64, 1153, 128, True, 1025, "suffix"),
     ]
-    for name, B, H, Hk, Tq, Tk, D, causal, q_offset, mask_kind in flash if k2 else ():
+    for name, B, H, Hk, Tq, Tk, D, causal, q_offset, mask_kind in (flash_cases or flash) if k2 else ():
         q = _randn(rng, (B, H, Tq, D), dev)
         k, v = (_randn(rng, (B, Hk, Tk, D), dev) for _ in range(2))
         mask = None
@@ -583,6 +620,7 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
             for b, n in enumerate(SUFFIX_LENGTHS):
                 mask[b, q_offset : q_offset + n] = True
         kw = dict(causal=causal, kv_mask=mask, q_offset=q_offset)
+        extra = {}
         out = A.flash_attention_forward(q, k, v, **kw)
         ref = A.flash_attention_forward_plain(q, k, v, **kw)
         mag = A.flash_attention_forward_plain(q, k, v.abs(), **kw)
@@ -601,7 +639,7 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
             raise RuntimeError(f"flash_attention_forward/{name}: lse outside its limit or +inf on other rows")
         if planted["ok"]:
             raise RuntimeError(f"flash_attention_forward/{name}: the lse check misses an offset of {LSE_PLANTED_OFFSET}")
-        extra = dict(lse=lse_h, lse_planted_offset_share=planted["worst_share_of_limit"])
+        extra.update(lse=lse_h, lse_planted_offset_share=planted["worst_share_of_limit"])
         if mask_kind == "row1_empty":
             torch.cuda.synchronize()
             if out[1].abs().max().item() != 0.0:
@@ -628,7 +666,7 @@ def kernel_cases(dev, seed: int, k1: bool = True, k2: bool = True):
             lambda: A.flash_attention_forward_plain(q, k, v, **kw),
             lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=sdpa_mask, is_causal=sdpa_causal),
             bytes_moved=bytes_moved, flops=4.0 * pairs * D, extra=extra, device=True,
-            graph=("kernel", "library") if mask_kind == "suffix" else (),
+            graph=("kernel", "library") if mask_kind == "suffix" or flash_cases else (),
         )
         del valid
     return cases
@@ -1152,6 +1190,42 @@ DECODE_CASES = (
     ("d64_int8", 2, 12, 12, 1, 600, 64, True, (600, 233), None),
 )
 
+# phase 3's cases at the LLM families' shapes (phase 4g serves them): K4 at each packed serving Linear that
+# INT8_WEIGHTS does not already hold, (name, N, K) ...
+FAMILY_K4_WEIGHTS = (
+    ("llama2_7b_qkv", 12288, 4096), ("llama2_7b_gate_up", 22016, 4096),
+    ("llama2_13b_qkv", 15360, 5120), ("llama2_13b_gate_up", 27648, 5120), ("llama2_13b_o", 5120, 5120),
+    ("llama2_13b_down", 5120, 13824), ("llama2_13b_lm_head", 32064, 5120),
+    ("llama3_8b_qkv", 6144, 4096), ("llama3_8b_gate_up", 28672, 4096), ("llama3_8b_down", 4096, 14336),
+    ("llama3_8b_lm_head", 128320, 4096), ("llama31_8b_lm_head", 128256, 4096),
+    ("qwen25_7b_qkv", 4608, 3584), ("qwen25_7b_gate_up", 37888, 3584), ("qwen25_7b_o", 3584, 3584),
+    ("qwen25_7b_down", 3584, 18944), ("qwen25_7b_lm_head", 152064, 3584),
+    ("qwen25_3b_qkv", 2560, 2048), ("qwen25_3b_gate_up", 22016, 2048), ("qwen25_3b_o", 2048, 2048),
+    ("qwen25_3b_down", 2048, 11008),
+)
+FAMILY_K4_ROWS = (1, 4, 36)
+FAMILY_K4_SHAPES = tuple((f"{w}_m{m}", m, n, k) for w, n, k in FAMILY_K4_WEIGHTS for m in FAMILY_K4_ROWS)
+# ... K5 at the families' GQA groups (28 -> 4, 16 -> 2, 32 -> 8, 40 heads), decode and the verifies whose group x Tq
+# rows cross a 16-row unit inside a head (7 x 3 = 21, 7 x 5 = 35, 8 x 3 = 24, 4 x 5 = 20), bf16 and int8 ...
+FAMILY_K5_CASES = tuple(
+    (f"{name}_{'int8' if int8 else 'bf16'}", B, H, Hk, Tq, Tk, 128, int8, lengths, offs)
+    for name, B, H, Hk, Tq, Tk, lengths, offs in (
+        ("qwen25_7b_b1", 1, 28, 4, 1, 1120, (1100,), None), ("qwen25_3b_b1", 1, 16, 2, 1, 1120, (1100,), None),
+        ("llama3_8b_b1", 1, 32, 8, 1, 1120, (1100,), None), ("llama2_13b_b1", 1, 40, 40, 1, 1120, (1100,), None),
+        ("qwen25_7b_verify3", 4, 28, 4, 3, 2058, ENGINE_LENGTHS, "lengths"),
+        ("qwen25_7b_verify5", 4, 28, 4, 5, 2058, ENGINE_LENGTHS, "lengths"),
+        ("qwen25_3b_verify3", 4, 16, 2, 3, 2058, ENGINE_LENGTHS, "lengths"),
+        ("llama3_8b_verify5", 4, 32, 8, 5, 2058, ENGINE_LENGTHS, "lengths"))
+    for int8 in (False, True))
+# ... and K2 at the families' prefills (1,088 tokens into a 1,120-row cache) and Qwen-2.5-7B's suffix prefill
+# (8 suffixes in a 64-token bucket at q_offset 1,024: no BOS before the 1,024 visual tokens)
+FAMILY_FLASH_CASES = (
+    ("qwen25_7b_cache_prefill", 1, 28, 4, 1088, 1120, 128, True, 0, "prefill"),
+    ("qwen25_3b_cache_prefill", 1, 16, 2, 1088, 1120, 128, True, 0, "prefill"),
+    ("llama2_13b_cache_prefill", 1, 40, 40, 1088, 1120, 128, True, 0, "prefill"),
+    ("qwen25_7b_suffix_prefill", 8, 28, 4, 64, 1152, 128, True, 1024, "suffix"),
+)
+
 
 def rotating(calls):
     """One callable that runs ``calls[0]``, ``calls[1]``, ... in turn, one per call."""
@@ -1220,7 +1294,7 @@ def kernel_launches(fn, strict: bool = True) -> dict:
     return r
 
 
-def int8_kernel_cases(dev, seed: int):
+def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng: bool = False):
     """K4 and K5 against their plain versions at the paths' shapes, each with
     CUDA-event and graph-replay times of the kernel and of its library
     yardstick (K4: the bf16 model's ``F.linear`` on the same shape, the call
@@ -1255,11 +1329,27 @@ def int8_kernel_cases(dev, seed: int):
             raise RuntimeError(f"planted fault {fault} was not caught on {kernel}/{name}")
         return h["worst_share_of_limit"]
 
-    shapes = [(f"{w}_m{m}", m, n, k) for w, n, k in INT8_WEIGHTS for m in INT8_ROWS] + [INT8_RAGGED]
+    # device_rng: weights from a seeded generator on the card (the families' lm_heads hold up to 545 M values,
+    # too many to draw on the host in time), each (N, K)'s weights and cold copies kept across its row counts
+    gen = torch.Generator(device=dev).manual_seed(seed + 17) if device_rng else None
+
+    def rand(shape):
+        if gen is None:
+            return _randn(rng, shape, dev)
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    weights = {}
+    shapes = k4_shapes if k4_shapes is not None else \
+        [(f"{w}_m{m}", m, n, k) for w, n, k in INT8_WEIGHTS for m in INT8_ROWS] + [INT8_RAGGED]
     for name, M, N, K in shapes:
-        w = _randn(rng, (N, K), dev) * 0.02
-        q8, scale = quantize_kernel(w)
-        x = _randn(rng, (M, K), dev)
+        if gen is None or (N, K) not in weights:
+            weights.clear()
+            w = rand((N, K)) * 0.02
+            weights[(N, K)] = (w, *quantize_kernel(w),
+                               [quantize_kernel(rand((N, K)) * 0.02) for _ in range(cold_copies(N * K) - 1)],
+                               [rand((N, K)) for _ in range(cold_copies(2 * N * K) - 1)])
+        w, q8, scale, kq, lw = weights[(N, K)]
+        x = rand((M, K))
         out = K4.int8_linear(x, q8, scale)
         ref = K4.int8_linear_plain(x, q8, scale)
         mag = K4.int8_linear_plain(x.abs(), q8.abs(), scale)
@@ -1276,10 +1366,8 @@ def int8_kernel_cases(dev, seed: int):
         if name == "qkvo_m1":
             extra["launches_per_call"] = kernel_launches(lambda: K4.int8_linear(x, q8, scale),
                                                          strict=hasattr(K4, "int8_linear_plan"))
-        kernel_copies = [(q8, scale, x)] + [(*quantize_kernel(_randn(rng, (N, K), dev) * 0.02), _randn(rng, (M, K), dev))
-                                            for _ in range(cold_copies(N * K) - 1)]
-        lib_copies = [(w, x)] + [(_randn(rng, (N, K), dev), _randn(rng, (M, K), dev))
-                                 for _ in range(cold_copies(2 * N * K) - 1)]
+        kernel_copies = [(q8, scale, x)] + [(qc, sc, rand((M, K))) for qc, sc in kq]
+        lib_copies = [(w, x)] + [(wc, rand((M, K))) for wc in lw]
         extra["cold_copies"] = [len(kernel_copies), len(lib_copies)]
         extra["cold_graph_ms"] = graph_ms(rotating([functools.partial(K4.int8_linear, xc, qc, sc)
                                                     for qc, sc, xc in kernel_copies]))
@@ -1290,9 +1378,10 @@ def int8_kernel_cases(dev, seed: int):
                lambda: F.linear(x, w),
                bytes_moved=N * K + 4 * N + 2 * M * K + 2 * M * N, flops=2.0 * M * N * K, extra=extra,
                graph=("kernel", "library"))
-        del w, q8, x, kernel_copies, lib_copies
+        del w, q8, x, kq, lw, kernel_copies, lib_copies
+    weights.clear()
 
-    for name, B, H, Hk, Tq, Tk, D, int8, lengths, offs in DECODE_CASES:
+    for name, B, H, Hk, Tq, Tk, D, int8, lengths, offs in (DECODE_CASES if k5_cases is None else k5_cases):
         q = _randn(rng, (B, H, Tq, D), dev)
         kf, vf = (_randn(rng, (B, Hk, Tk, D), dev) for _ in range(2))
         length = torch.tensor(lengths, device=dev)
@@ -1687,6 +1776,10 @@ def main_path(dev, seed: int, max_new_tokens: int):
                 decode_graph=graph_check, tower_routes=routes, switched_requests=switched)
 
 
+# cuBLAS's GEMM and GEMV kernels by name (Hopper's nvjet and xmma kernels, CUTLASS-built ones, the GEMV fallbacks)
+GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|splitk", re.IGNORECASE)
+
+
 def profile_decode_step(advance) -> dict:
     """One decode step (``advance()``: an eager step or a graph replay) under
     ``torch.profiler``: the host wall from its launch to a device sync, the
@@ -1707,8 +1800,10 @@ def profile_decode_step(advance) -> dict:
     if device_ms <= 0:
         return dict(wall_ms=wall_ms, device_ms=None, kernels=0, idle_share=None)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    gemms = [e for e in events if GEMM_KERNEL.search(e.key)]
     # one stream: kernels do not overlap, so busy time is their sum
     return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=sum(e.count for e in events),
+                gemm_kernels=sum(e.count for e in gemms), gemm_ms=sum(e.self_device_time_total for e in gemms) / 1e3,
                 idle_share=1 - device_ms / wall_ms if device_ms <= wall_ms else None,
                 top_kernels=[dict(kernel=e.key[:100], ms=e.self_device_time_total / 1e3, count=e.count) for e in top])
 
@@ -2019,12 +2114,28 @@ def video_decoders(path: str) -> dict:
     return out
 
 
-def write_run_dir(run_dir: str, dev, seed: int) -> dict:
-    """config.json with merv-full's model dict, and the align-stage layout the
-    released checkpoints use: projectors and fusion only, fp32, random from a
-    seeded generator, written by the port's ``save_checkpoint``. The model is
-    built on the meta device (no memory) and only the trainables on the card.
-    Returns the saved state dicts."""
+def demo_video(seed: int):
+    """(the demo video's path where a decoder opens it, else seeded synthetic
+    frames of its decoded shape; the backend that opened it or "synthetic";
+    what each backend gave, ``video_decoders``)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    decoders = video_decoders(DEMO_VIDEO)
+    frames_from = next((name for name, state in decoders.items() if state == "ok"), "synthetic")
+    video = Path(DEMO_VIDEO) if frames_from != "synthetic" else \
+        np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+    return video, frames_from, decoders
+
+
+def write_run_dir(run_dir: str, dev, seed: int, model: dict = None) -> dict:
+    """config.json with ``model`` (merv-full's model dict unless given), and
+    the align-stage layout the released checkpoints use: projectors and fusion
+    only, fp32, random from a seeded generator, written by the port's
+    ``save_checkpoint``. The model is built on the meta device (no memory) and
+    only the trainables on the card. Returns the saved state dicts."""
+    model = MERV_FULL_MODEL if model is None else model
     import torch
 
     from merv_tpu_torch.conf import MERV_Base
@@ -2040,8 +2151,8 @@ def write_run_dir(run_dir: str, dev, seed: int) -> dict:
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump({"model": MERV_FULL_MODEL}, f)
-    cfg, meta = MERV_Base(**MERV_FULL_MODEL), torch.device("meta")
+        json.dump({"model": model}, f)
+    cfg, meta = MERV_Base(**model), torch.device("meta")
     vbs, _ = get_video_backbone_and_transform(cfg.video_backbone_ids, cfg.image_resize_strategy, cfg.num_frames,
                                               device=meta)
     llm, _ = get_llm_backbone_and_tokenizer(cfg.llm_backbone_id, cfg.llm_max_length, inference_mode=True, device=meta)
@@ -2065,9 +2176,7 @@ def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
     (or on synthetic frames of its decoded shape where no decoder opens it)
     with the launches counted, held against its plain rerun as request 0 is."""
     import gc
-    from pathlib import Path
 
-    import numpy as np
     import torch
 
     import merv_tpu_torch.ops.attention as A
@@ -2097,10 +2206,7 @@ def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
         f"params in {load_s:.1f} s, peak {load_peak_gib:.2f} GiB; projectors and fusion bit-identical to the "
         f"saved checkpoint (fp32); {len(frozen)} tower and LLM parameters bf16 on the card")
 
-    decoders = video_decoders(DEMO_VIDEO)
-    frames_from = next((name for name, state in decoders.items() if state == "ok"), "synthetic")
-    video = Path(DEMO_VIDEO) if frames_from != "synthetic" else \
-        np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+    video, frames_from, decoders = demo_video(seed)
     log(json.dumps({"video_decode": decoders, "frames_from": frames_from}))
     prompt = vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
     vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=2)  # warm-up, outside the counted window
@@ -2374,36 +2480,45 @@ SERVE_RUNS = (
     ("speculative", ["--speculative", "4", "--share_video_prefix", "true"]),
 )
 # K1 / K2 launches per program of the engine: a full VidLM prefill (a video or a text-only row: the towers run
-# either way) or a prefix build runs K1 in 23 DINOv2 + 23 LanguageBind layers and K2 in 12 ViViT + 32 LLM layers;
-# a suffix-only prefill runs K2 in the 32 LLM layers. Decode chunks (T=1 and the verify) run K5 (and K4 with int8
-# weights): engine_predicted_launches counts those from the engine's forwards.
-ENGINE_LAUNCHES = {"full": {"small_attention_kt": 46, "flash_attention_forward": 44},
-                   "suffix": {"small_attention_kt": 0, "flash_attention_forward": 32}}
+# either way) or a prefix build runs K1 in 23 DINOv2 + 23 LanguageBind layers and K2 in 12 ViViT + the LLM's
+# layers; a suffix-only prefill runs K2 in the LLM's layers. Decode chunks (T=1 and the verify) run K5 (and K4 with
+# int8 weights): engine_predicted_launches counts those from the engine's forwards.
+TOWER_K1, TOWER_K2 = 46, 12
 CHUNK_GAMMAS = (0, 2, 4, 8)  # the plain chunk and the verify chunks the monitor may pick
 CHUNK_TIMED_REPLAYS = 5
 
 
-LLM_LAYERS = 32  # Llama-2-7B: one K5 launch a layer, and K4 7 a layer (q, k, v, o, gate, up, down) and the lm_head
+LLM_LAYERS = 32  # Llama-2-7B: one K5 launch a layer, and K4 one a Linear and the lm_head
+# Linears a decoder layer runs: 4 in the packed serving layout (load_vid's default: qkv, o, gate/up, down), 7 unpacked
+PACKED_LINEARS, UNPACKED_LINEARS = 4, 7
 
 
-def engine_predicted_launches(summary: dict, quantized: bool = False) -> dict:
+def engine_launches(layers: int = LLM_LAYERS) -> dict:
+    """K1 / K2 launches of a full VidLM prefill and of a suffix-only prefill."""
+    return {"full": {"small_attention_kt": TOWER_K1, "flash_attention_forward": TOWER_K2 + layers},
+            "suffix": {"small_attention_kt": 0, "flash_attention_forward": layers}}
+
+
+def engine_predicted_launches(summary: dict, quantized: bool = False, layers: int = LLM_LAYERS,
+                              linears: int = PACKED_LINEARS, head: int = 1) -> dict:
     """K1 / K2 / K5 (and, with int8 weights, K4) launches a serve run must
     show, from the engine's own counts: the chunks' decoder forwards (replays
     and capture warm-ups, ``decode_forwards``) each launch K5 once a layer and
-    K4 once a Linear; an LLM prefill of n rows x T tokens (``prefill_shapes``)
-    sends its Linears to K4 when n x T <= 64 and its lm_head (n rows, the last
-    valid position's) when n <= 64, and its attention to K5 when T <= 16; a
-    prefix build of P rows (``prefix_rows``) runs its Linears and its lm_head
-    on all P rows (K4 when P <= 64) and its attention on P rows."""
-    L = LLM_LAYERS
+    K4 once a Linear (``linears`` a layer, and ``head``: 1 for an int8
+    lm_head, 0 for a tied one, a bf16 matmul); an LLM prefill of n rows x T
+    tokens (``prefill_shapes``) sends its Linears to K4 when n x T <= 64 and
+    its lm_head (n rows, the last valid position's) when n <= 64, and its
+    attention to K5 when T <= 16; a prefix build of P rows (``prefix_rows``)
+    runs its Linears and its lm_head on all P rows (K4 when P <= 64) and its
+    attention on P rows."""
+    L, per = layers, engine_launches(layers)
     full = summary["prefills"] - summary["suffix_prefills"] + summary["prefix_builds"]
-    out = {k: full * ENGINE_LAUNCHES["full"][k] + summary["suffix_prefills"] * ENGINE_LAUNCHES["suffix"][k]
-           for k in ENGINE_LAUNCHES["full"]}
+    out = {k: full * per["full"][k] + summary["suffix_prefills"] * per["suffix"][k] for k in per["full"]}
     shapes, fwd, prefixes = summary["prefill_shapes"], summary["decode_forwards"], summary["prefix_rows"]
     out["decode_attention"] = L * (fwd + sum(t <= 16 for _, t in shapes) + sum(p <= 16 for p in prefixes))
     if quantized:
-        out["int8_linear"] = ((7 * L + 1) * (fwd + sum(p <= 64 for p in prefixes))
-                              + sum(7 * L * (n * t <= 64) + (n <= 64) for n, t in shapes))
+        out["int8_linear"] = ((linears * L + head) * (fwd + sum(p <= 64 for p in prefixes))
+                              + sum(linears * L * (n * t <= 64) + head * (n <= 64) for n, t in shapes))
     return out
 
 
@@ -2434,10 +2549,12 @@ def run_serve_process(argv: list) -> tuple:
     return proc.returncode, proc.stdout, proc.stderr
 
 
-def serve_run(label: str, extra: list, requests: list, request_path: str, run: str = SERVE_RUN) -> dict:
+def serve_run(label: str, extra: list, requests: list, request_path: str, run: str = SERVE_RUN,
+              layers: int = LLM_LAYERS, head: int = 1) -> dict:
     """One serve run at SERVE_SLOTS slots on ``runs/<run>``: every request must
     get a line, only ``missing_video`` may (and must) fail, and the kernels'
-    launches must be as predicted from the engine's counts."""
+    launches must be as predicted from the engine's counts (for an LLM of
+    ``layers`` layers, ``head`` as in ``engine_predicted_launches``)."""
     out_path = os.path.join("runs", f"{run}_{label}.jsonl")
     if os.path.exists(out_path):
         os.remove(out_path)
@@ -2457,7 +2574,7 @@ def serve_run(label: str, extra: list, requests: list, request_path: str, run: s
     shutil.copy(out_path, os.path.join("chiprun_out", "serve", f"{label}.jsonl"))
     missing = sorted({r["request_id"] for r in requests} - set(rows))
     failed = sorted(rid for rid, r in rows.items() if r["finish_reason"] == "error")
-    predicted = engine_predicted_launches(summary, quantized="--quantize_llm" in extra)
+    predicted = engine_predicted_launches(summary, quantized="--quantize_llm" in extra, layers=layers, head=head)
     launches = {k: summary["launches"][k] for k in predicted}
     others = {k: v for k, v in summary["launches"].items() if k not in predicted and v}
     phase_lines = [line for line in stderr.splitlines() if "Served" in line or "Phases:" in line]
@@ -2715,9 +2832,7 @@ def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_token
     bytes and peak memory. Agreement with 4c's bf16 tokens (``bf16_tokens``)
     is reported, not gated: random weights."""
     import gc
-    from pathlib import Path
 
-    import numpy as np
     import torch
 
     import merv_tpu_torch.ops.attention as A
@@ -2751,10 +2866,7 @@ def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_token
             f"{weights['llm_bytes_total'] / 1e9:.3f} GB")
 
         # (a) one request, int8 weights and cache
-        decoders = video_decoders(DEMO_VIDEO)
-        frames_from = next((name for name, state in decoders.items() if state == "ok"), "synthetic")
-        video = Path(DEMO_VIDEO) if frames_from != "synthetic" else \
-            np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+        video, frames_from, _ = demo_video(seed)
         prompt = vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
         vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=2, kv_cache_dtype="int8")  # warm-up
         torch.cuda.synchronize()
@@ -2770,7 +2882,8 @@ def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_token
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         steps = timings["decode_steps"] + (2 if timings["decode_capture_s"] > 0 else 0)  # replays + capture warm-up
         L = LLM_LAYERS
-        predicted = dict(LOADED_REQUEST_LAUNCHES, int8_linear=1 + (7 * L + 1) * steps, decode_attention=L * steps)
+        predicted = dict(LOADED_REQUEST_LAUNCHES, int8_linear=1 + (PACKED_LINEARS * L + 1) * steps,
+                         decode_attention=L * steps)
         request = dict(wall_s=wall, prepare_s=timings["prepare_s"], towers_s=timings["towers_s"],
                        prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
                        decode_steps=timings["decode_steps"], decode_capture_s=timings["decode_capture_s"],
@@ -2796,7 +2909,7 @@ def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_token
             f"agreement with 4c's bf16 model {request.get('agreement_with_bf16')} (first token equal: "
             f"{request.get('first_token_equal_bf16')}; reported, not gated)")
         for name, h in held.items():
-            if h["calls"] != (7 * L + 1 if name == "int8_linear" else L) or not h["ok"]:
+            if h["calls"] != (PACKED_LINEARS * L + 1 if name == "int8_linear" else L) or not h["ok"]:
                 raise RuntimeError(f"int8 decode step: {name} {h['calls']} calls, or a call outside its limit")
         graph = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, kv_cache_dtype="int8",
                                    sampled=False)["greedy"]
@@ -2823,6 +2936,398 @@ def int8_path(dev, seed: int, max_new_tokens: int, bf16_step_ms=None, bf16_token
     return dict(wall_s=wall, load_s=load_s, load_peak_memory_gib=load_peak_gib, weights=weights,
                 frames_from=frames_from, request=request, held_call_by_call=held, decode_graph=graph,
                 step_ms=step_ms, bf16_step_ms=bf16_step_ms, chunks=chunks, run=run)
+
+
+def family_kernel_cases(dev, seed: int):
+    """Phase 3 at the LLM families' shapes: K2 (FAMILY_FLASH_CASES), K4
+    (FAMILY_K4_SHAPES) and K5 (FAMILY_K5_CASES), each held against its plain
+    version and timed beside its library call and its bound as the main
+    paths' cases are."""
+    return (kernel_cases(dev, seed + 5, k1=False, flash_cases=FAMILY_FLASH_CASES)
+            + int8_kernel_cases(dev, seed + 5, k4_shapes=FAMILY_K4_SHAPES, k5_cases=FAMILY_K5_CASES, device_rng=True))
+
+
+def family_summary(families: dict) -> dict:
+    """Phase 4g's numbers per model, without the profiles."""
+    keys = ("wall_s", "prefill_s", "decode_s", "step_ms", "eager_step_ms", "launches", "launches_per_step",
+            "peak_memory_gib", "embeds_rel_diff", "logits_rel_diff", "greedy_agreement")
+    out = {}
+    for label, m in families["models"].items():
+        row = {k: v for k, v in m.items() if k not in ("request", "int8_request", "int8_chunks", "serve_run")}
+        row["request"] = {k: m["request"].get(k) for k in keys}
+        if "int8_request" in m:
+            row["int8_request"] = {k: m["int8_request"].get(k) for k in keys}
+            row["int8_chunks"] = {g: {k: v for k, v in r.items() if k != "profiled_replay"}
+                                  for g, r in m["int8_chunks"]["chunks"].items()}
+            row["serve_run"] = {k: m["serve_run"][k] for k in ("process_wall_s", "summary")}
+        out[label] = row
+    return dict(out, wall_s=families["wall_s"])
+
+
+# ---------------------------------------------------------------------------
+# phase 4f, continued: the packed serving layout against the unpacked one (Llama-2-7B)
+# ---------------------------------------------------------------------------
+
+PACKED_RUN = "chip_smoke_packed"
+
+
+
+
+PACKED_TIMED_ROUNDS = 3  # interleaved rounds of the packed and the unpacked step's timing (packed, unpacked, unpacked, packed)
+
+
+def step_timer(vidlm, ids, mask, vids, is_mm, max_new_tokens: int, kv_cache_dtype=None):
+    """A callable giving the ms per step of the request's decode graph
+    (``max_new_tokens - 1`` replays between CUDA events, from the same state
+    each time), and the runner it replays."""
+    import torch
+
+    from merv_tpu_torch.models import generation as G
+
+    dec = vidlm.llm_backbone.decoder
+    with torch.inference_mode():
+        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
+        B, T = embeds.shape[:2]
+        cfg = vidlm._generation_config(max_new_tokens, False, 1.0, 1.0, 0, 1, kv_cache_dtype)
+        runner, _ = G.decode_runner(dec, B, T + max_new_tokens, cfg, embeds.device)
+        logits, _, n_valid = G.prefill(dec, embeds, emask.long(), T + max_new_tokens, cache=runner.cache)
+    first = logits.argmax(-1)
+    cache_mask = torch.cat([emask.bool(), torch.ones((B, max_new_tokens), dtype=torch.bool, device=emask.device)], 1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed() -> float:
+        with torch.inference_mode():  # the runner's state tensors were made under it
+            runner.load(first, n_valid, cache_mask, T, None)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(max_new_tokens - 1):
+                runner.replay()
+            end.record()
+            torch.cuda.synchronize()
+        return start.elapsed_time(end) / (max_new_tokens - 1)
+
+    return timed
+
+
+def packed_check(dev, seed: int, max_new_tokens: int) -> dict:
+    """merv-full (as 4c writes it) loaded with ``pack_llm`` True (the default)
+    and False side by side, with bf16 weights, then with int8 weights (and
+    cache). The same request through each: the packed load's prefill
+    last-position logits held against the unpacked one's (relative L2,
+    LOGITS_REL_TOL), greedy agreement reported; each through the same decode
+    path (``decode_graph_check``, greedy): graph tokens equal to the eager
+    loop's, the kernels one step launches (K4 129 packed and 225 unpacked: 4
+    or 7 Linears a layer and the lm_head), one profiled replay's cuBLAS GEMMs;
+    then the two steps' ms by graph replay in interleaved rounds
+    (PACKED_TIMED_ROUNDS)."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch import load_vid
+    from merv_tpu_torch.models.generation import prefill
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs", PACKED_RUN)
+    write_run_dir(run_dir, dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    out = {}
+    try:
+        video, _, _ = demo_video(seed)
+        for quant in (False, True):
+            kv, kind = ("int8" if quant else None), ("int8" if quant else "bf16")
+            p, u = f"{kind}_packed", f"{kind}_unpacked"
+            gc.collect()
+            torch.cuda.empty_cache()
+            kept, timers = {}, {}
+            for label, pack in ((p, True), (u, False)):
+                vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True, pack_llm=pack,
+                                      quantize_llm=quant)
+                if ("qkv_proj" in vidlm.llm_backbone.decoder.layers[0].attn._modules) != pack:
+                    raise RuntimeError(f"load_vid(pack_llm={pack}): the decoder's layout is not as asked")
+                prompt = vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt(
+                    "What is happening in this video?")
+                ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([video], [prompt], cfg.num_frames)
+                with torch.inference_mode():
+                    embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
+                    logits = prefill(vidlm.llm_backbone.decoder, embeds, emask.long(),
+                                     embeds.shape[1] + max_new_tokens)[0].float()
+                tokens = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+                                            kv_cache_dtype=kv)[0]
+                graph = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, kv_cache_dtype=kv,
+                                           sampled=False)["greedy"]
+                prof = graph["graph"]["profiled_step"]
+                out[label] = dict(step_ms=graph["graph"]["ms_per_step"], eager_ms=graph["eager"]["ms_per_step"],
+                                  launches_per_step=graph["launches_per_step"], step_kernels=prof["kernels"],
+                                  step_device_ms=prof["device_ms"], gemm_kernels=prof["gemm_kernels"],
+                                  gemm_ms=prof["gemm_ms"], idle_share=prof["idle_share"],
+                                  top_kernels=prof.get("top_kernels"), readings=[])
+                kept[label] = (logits, tokens, vidlm)
+                timers[label] = step_timer(vidlm, ids, mask, vids, is_mm, max_new_tokens, kv)
+                del embeds, emask
+            for _ in range(PACKED_TIMED_ROUNDS):
+                for label in (p, u, u, p):
+                    out[label]["readings"].append(timers[label]())
+            for label in (p, u):
+                out[label]["interleaved_step_ms"] = min(out[label]["readings"])
+            out[p]["logits_rel_diff_to_unpacked"] = rel_l2(kept[p][0], kept[u][0])
+            out[p]["greedy_agreement_with_unpacked"] = (kept[p][1] == kept[u][1]).float().mean().item()
+            del kept, timers, vidlm  # the timers' graphs read the models' weights: freed only now
+            k4 = {lab: out[lab]["launches_per_step"].get("int8_linear", 0) for lab in (p, u)}
+            log(f"[packed] {p} against {u}: prefill logits rel L2 {out[p]['logits_rel_diff_to_unpacked']:.3e} (tol "
+                f"{LOGITS_REL_TOL}), greedy agreement {out[p]['greedy_agreement_with_unpacked']:.3f}; decode step "
+                f"by graph replay, interleaved (best of {2 * PACKED_TIMED_ROUNDS}): "
+                f"{out[p]['interleaved_step_ms']:.4f} / {out[u]['interleaved_step_ms']:.4f} ms (readings "
+                f"{[round(x, 4) for x in out[p]['readings']]} / {[round(x, 4) for x in out[u]['readings']]}); K4 a "
+                f"step {k4[p]} / {k4[u]}; one profiled replay: {out[p]['step_kernels']} / {out[u]['step_kernels']} "
+                f"kernels, cuBLAS GEMMs {out[p]['gemm_kernels']} / {out[u]['gemm_kernels']} ({out[p]['gemm_ms']:.3f} "
+                f"/ {out[u]['gemm_ms']:.3f} ms)")
+            if not out[p]["logits_rel_diff_to_unpacked"] <= LOGITS_REL_TOL:
+                raise RuntimeError(f"packed layout: logits differ from the unpacked layout's beyond {LOGITS_REL_TOL}")
+            want = {p: PACKED_LINEARS * LLM_LAYERS + 1, u: UNPACKED_LINEARS * LLM_LAYERS + 1} if quant else {p: 0, u: 0}
+            if k4 != want:
+                raise RuntimeError(f"packed layout: K4 launches a step {k4}, predicted {want}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[packed] packed against unpacked: {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the LLM families (Qwen-2.5-7B in full; Llama-3.1-8B, Qwen-2.5-3B, LLaVA-1.5-13B one request each)
+# ---------------------------------------------------------------------------
+
+FAMILY_RUN = "chip_smoke_family"  # runs/<FAMILY_RUN> (each model's run directory in turn)
+FAMILY_FULL = "qwen2.5-7b-instruct"
+# (label, the model dict's LLM id, or a registered model id whose config gives the whole dict)
+FAMILY_MODELS = (
+    ("qwen2.5-7b-instruct", dict(llm_backbone_id="qwen2.5-7b-instruct")),
+    ("llama3.1-8b-chat", dict(llm_backbone_id="llama3.1-8b-chat")),
+    ("qwen2.5-3b-instruct", dict(llm_backbone_id="qwen2.5-3b-instruct")),
+    ("reproduction-llava-v15+13b", dict(model_id="reproduction-llava-v15+13b")),
+)
+
+
+def family_model_dict(spec: dict) -> dict:
+    """merv-full's model dict with another LLM, or a registered model's config as a model dict."""
+    import dataclasses
+
+    from merv_tpu_torch.conf import ModelConfig
+
+    if "model_id" in spec:
+        cfg = dataclasses.asdict(ModelConfig.get_choice_class(spec["model_id"])())
+        return {k: cfg[k] for k in MERV_FULL_MODEL}
+    return dict(MERV_FULL_MODEL, **spec)
+
+
+def request_launches(layers: int, steps: int, int8: bool = False, head: int = 1) -> dict:
+    """A request's launches: the towers' K1 / K2, K2 in each LLM layer of the
+    prefill, K5 in each layer of every decode step (``steps``: replays and the
+    capture's warm-ups) and, with int8 weights, K4 on each packed Linear of a
+    step and on the lm_head (``head``: 0 for a tied one, a bf16 matmul) of the
+    prefill's last position and of each step."""
+    out = dict(LOADED_REQUEST_LAUNCHES, flash_attention_forward=TOWER_K2 + layers, decode_attention=layers * steps,
+               int8_linear=0)
+    if int8:
+        out["int8_linear"] = head + (PACKED_LINEARS * layers + head) * steps
+    return out
+
+
+def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_dtype=None) -> dict:
+    """One request on ``video``: a warm-up, then ``MERV.generate`` with the
+    launch counters zeroed just before and read just after (as predicted by
+    ``request_launches``); for bf16 weights the request against its
+    ``impl="plain"`` rerun (spliced embeddings, prefill logits, greedy
+    tokens) and every K1 / K2 call of the prefill held against its plain
+    version, for int8 weights every K4 / K5 call of one eager decode step;
+    then the decode graph's tokens and step logits against the eager loop's,
+    with its ms per step and one profiled replay."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+
+    llm = vidlm.llm_backbone
+    dcfg, int8 = llm.decoder_config, llm.decoder.layers[0].attn.o_proj.weight is None
+    head = 0 if dcfg.tie_word_embeddings else 1
+    builder = llm.prompt_builder_fn("merv")
+    builder.add_turn("human", "What is happening in this video?")
+    prompt = builder.get_prompt()
+    vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=2, kv_cache_dtype=kv_cache_dtype)
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t = time.perf_counter()
+    text = vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=max_new_tokens,
+                          kv_cache_dtype=kv_cache_dtype, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = A.launch_counts()
+    steps = timings["decode_steps"] + (2 if timings["decode_capture_s"] > 0 else 0)
+    predicted = request_launches(dcfg.num_layers, steps, int8, head)
+    row = dict(wall_s=wall, prepare_s=timings["prepare_s"], towers_s=timings["towers_s"],
+               prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=timings["decode_steps"],
+               decode_capture_s=timings["decode_capture_s"], text=text, launches=counts, predicted_launches=predicted,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    wrong = {k: (counts[k], n) for k, n in predicted.items() if counts[k] != n}
+    ids, mask, vids, is_mm = vidlm._prepare_batch_inputs([video], [prompt], cfg.num_frames)
+    if llm.bos_token_length == 0 and int(ids[0, 0]) == llm.tokenizer.bos_token_id:
+        raise RuntimeError("a family without BOS got a BOS id first")
+    if int8:
+        row["held_call_by_call"] = held = held_decode_step(vidlm, ids, mask, vids, is_mm, max_new_tokens,
+                                                           kv_cache_dtype)
+        want = {"int8_linear": PACKED_LINEARS * dcfg.num_layers + head, "decode_attention": dcfg.num_layers}
+        bad = {n: h["calls"] for n, h in held.items() if h["calls"] != want[n] or not h["ok"]}
+    else:
+        _, run_held, compare = request_checks(vidlm, ids, mask, vids, is_mm, cfg.visual_feature_length,
+                                              max_new_tokens)
+        row.update(compare()[0])
+        row["held_call_by_call"] = held = run_held()
+        bad = {n: h["calls"] for n, h in held.items() if h["calls"] == 0 or not h["ok"]}
+        if not (row["embeds_rel_diff"] <= EMBEDS_REL_TOL and row["logits_rel_diff"] <= LOGITS_REL_TOL):
+            bad["whole_path"] = (row["embeds_rel_diff"], row["logits_rel_diff"])
+    graph = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, kv_cache_dtype=kv_cache_dtype,
+                               sampled=False)["greedy"]
+    row.update(step_ms=graph["graph"]["ms_per_step"], eager_step_ms=graph["eager"]["ms_per_step"],
+               launches_per_step=graph["launches_per_step"], decode_graph=graph)
+    log(f"[family] {vidlm.llm_backbone.identifier} ({'int8 weights, ' + str(kv_cache_dtype) + ' cache' if int8 else 'bf16'}"
+        f"): wall {wall:.3f} s = prepare {row['prepare_s']:.3f} + towers {row['towers_s']:.3f} + prefill "
+        f"{row['prefill_s']:.3f} + decode {row['decode_s']:.3f} s ({row['decode_steps']} steps) + capture "
+        f"{row['decode_capture_s']:.3f} s; launches {counts} (predicted {predicted}); peak "
+        f"{row['peak_memory_gib']:.2f} GiB; " + (
+            f"kernels vs plain: embeds {row['embeds_rel_diff']:.3e}, logits {row['logits_rel_diff']:.3e}, greedy "
+            f"agreement {row['greedy_agreement']:.3f}; " if not int8 else "")
+        + f"call by call: {show(held)}; decode step {row['step_ms']:.3f} ms by graph replay (eager "
+        f"{row['eager_step_ms']:.2f}), launches a step {row['launches_per_step']}")
+    if wrong or bad:
+        raise RuntimeError(f"{llm.identifier}: launches (got, predicted) {wrong}; failed holds {bad}")
+    return row
+
+
+def as_fp16_storage(decoder):
+    """The decoder's float parameters stored in fp16, as ``merv_tpu`` stores
+    Qwen-2.5: each use casts to bf16 again (exact here: the bf16 values came
+    from fp16 ones)."""
+    import torch
+
+    from merv_tpu_torch.models.generation import release_decode_runners
+
+    release_decode_runners(decoder)  # their graphs hold the bf16 tensors this replaces
+    with torch.no_grad():
+        for p in decoder.parameters():
+            if p.dtype == torch.bfloat16:
+                p.data = p.data.to(torch.float16)
+
+
+def families_path(dev, seed: int, max_new_tokens: int) -> dict:
+    """Phase 4g. Each of FAMILY_MODELS from a run directory (merv-full's
+    towers and projectors at full width, the family's LLM at full width and
+    depth, random weights) loaded by ``load_vid``: one request each
+    (``family_request``) and the peak memory. Qwen-2.5-7B in full besides:
+    its decode step again with the weights stored in fp16 and cast at every
+    use (``as_fp16_storage``: the same tokens and step logits, bit for bit,
+    and the time the per-call copies cost); then with ``quantize_llm=True``
+    an int8-cache request, the engine's plain and gamma-4 chunk graphs
+    against the eager chunk, and one ``cli/serve.py --quantize_llm --int8_kv``
+    process on 4e's 37 requests."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch import load_vid
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs", FAMILY_RUN)
+    request_path = os.path.join("runs", f"{FAMILY_RUN}_requests.jsonl")
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    video, frames_from, _ = demo_video(seed)
+    out = dict(frames_from=frames_from, models={})
+    try:
+        for label, spec in FAMILY_MODELS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            write_run_dir(run_dir, dev, seed, family_model_dict(spec))
+            before = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True)
+            torch.cuda.synchronize()
+            load_s, load_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**30
+            loaded = torch.cuda.memory_allocated() / 2**30
+            llm = vidlm.llm_backbone
+            dtypes = sorted({str(p.dtype) for p in llm.parameters()})
+            if dtypes != ["torch.bfloat16"] or "qkv_proj" not in llm.decoder.layers[0].attn._modules:
+                raise RuntimeError(f"{label}: LLM not packed in bf16 after load_vid: {dtypes}")
+            c = llm.decoder_config
+            model = dict(llm=llm.identifier, model_id=cfg.model_id, layers=c.num_layers, hidden=c.hidden_size,
+                         heads=c.num_heads, kv_heads=c.num_kv_heads, vocab=c.vocab_size, tied=c.tie_word_embeddings,
+                         bias=c.attention_bias, stored_dtype=str(llm.half_precision_dtype), has_bos=llm.spec.has_bos,
+                         params=sum(p.numel() for p in vidlm.parameters()), load_s=load_s,
+                         load_peak_memory_gib=load_peak, allocated_before_load_gib=before,
+                         allocated_after_load_gib=loaded)
+            log(f"[family] {label}: load_vid {load_s:.2f} s, allocated {before:.2f} GiB before and {loaded:.2f} after, "
+                f"peak {load_peak:.2f} GiB, {model['params'] / 1e9:.3f} B "
+                f"params; LLM {c.num_layers} layers, hidden {c.hidden_size}, {c.num_heads} -> {c.num_kv_heads} heads, "
+                f"vocab {c.vocab_size}, tied {c.tie_word_embeddings}, bias {c.attention_bias}, stored "
+                f"{llm.half_precision_dtype} (rounded once to bf16), BOS {llm.spec.has_bos}")
+            del llm  # a name left holding the LLM would keep it allocated into the next model's load
+            model["request"] = family_request(vidlm, cfg, video, max_new_tokens, seed)
+            if label == FAMILY_FULL:
+                ids, mask, vids, is_mm = vidlm._prepare_batch_inputs(
+                    [video], [vidlm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is it?")],
+                    cfg.num_frames)
+                rounded = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, sampled=False)
+                g_round = rounded["greedy"]
+                tok_round = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
+                as_fp16_storage(vidlm.llm_backbone.decoder)
+                g16 = decode_graph_check(vidlm, ids, mask, vids, is_mm, max_new_tokens, seed, sampled=False)["greedy"]
+                tok16 = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
+                model["fp16_storage"] = dict(
+                    step_ms_fp16_per_call_cast=g16["graph"]["ms_per_step"],
+                    step_ms_bf16_rounded=g_round["graph"]["ms_per_step"],
+                    device_ms_fp16=g16["graph"]["profiled_step"]["device_ms"],
+                    device_ms_bf16=g_round["graph"]["profiled_step"]["device_ms"],
+                    kernels_fp16=g16["graph"]["profiled_step"]["kernels"],
+                    kernels_bf16=g_round["graph"]["profiled_step"]["kernels"],
+                    tokens_equal=bool(torch.equal(tok16, tok_round)))
+                log(f"[family] {label} decode step, weights stored fp16 and cast at each use: "
+                    f"{model['fp16_storage']['step_ms_fp16_per_call_cast']:.3f} ms by graph replay "
+                    f"({model['fp16_storage']['kernels_fp16']} kernels) against "
+                    f"{model['fp16_storage']['step_ms_bf16_rounded']:.3f} ms rounded once to bf16 at load "
+                    f"({model['fp16_storage']['kernels_bf16']} kernels); greedy tokens equal: "
+                    f"{model['fp16_storage']['tokens_equal']}")
+                if not model["fp16_storage"]["tokens_equal"]:
+                    raise RuntimeError(f"{label}: fp16 storage cast per call gives other tokens than bf16 rounded once")
+                del vidlm
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True, quantize_llm=True)
+                model["int8_request"] = family_request(vidlm, cfg, video, max_new_tokens, seed, kv_cache_dtype="int8")
+                requests = serve_request_file(request_path, vidlm)
+                model["int8_chunks"] = chunk_checks(vidlm, requests, kv_cache_dtype="int8", gammas=(0, 4))
+                del vidlm
+                gc.collect()
+                torch.cuda.empty_cache()
+                model["serve_run"] = serve_run("family_int8", INT8_SERVE_ARGS, requests, request_path, run=FAMILY_RUN,
+                                               layers=c.num_layers, head=0 if c.tie_word_embeddings else 1)
+            else:
+                del vidlm
+            out["models"][label] = model
+            shutil.rmtree(run_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        for path in (request_path, os.path.join("runs", f"{FAMILY_RUN}_family_int8.jsonl")):
+            if os.path.exists(path):
+                os.remove(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[family] phase 4g: {out['wall_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3259,6 +3764,9 @@ def main() -> int:
                          "(no result line): for comparing two versions of K4 and K5 in the step within one call")
     ap.add_argument("--int8-serving-only", action="store_true",
                     help="build, then run only phase 4f (int8 serving) and print its numbers (no result line)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="build, then run only phase 3's cases at the LLM families' shapes, the packed-layout check "
+                         "and phase 4g (the LLM families) and print their numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -3321,6 +3829,22 @@ def main() -> int:
                                    "runs": [{k: r[k] for k in ("label", "process_wall_s", "summary")}
                                             for r in engine["runs"]]}}))
         return 0
+    if args.families_only:
+        with switches({}):
+            cases = family_kernel_cases(dev, args.seed)
+            packed = packed_check(dev, args.seed, args.max_new_tokens)
+            families = families_path(dev, args.seed, args.max_new_tokens)
+        keys = ("kernel", "case", "shape", "graph_ms", "cold_graph_ms", "library_graph_ms", "library_cold_graph_ms",
+                "bound_ms", "bound_by", "plain_ms", "library_ms", "worst_share_of_limit", "splits", "cluster")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "families.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, cases=cases, packed_check=packed, families_path=families), f,
+                      indent=1, default=str)
+        log(json.dumps({"family_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        log(json.dumps({"packed": {k: {kk: vv for kk, vv in v.items() if kk != "top_kernels"} if isinstance(v, dict)
+                                   else v for k, v in packed.items()}}))
+        log(json.dumps({"families": family_summary(families)}))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -3330,13 +3854,15 @@ def main() -> int:
 
     with switches({}):  # every phase sets the switches it runs under
         cases = (kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
-                 + int8_kernel_cases(dev, args.seed))
+                 + int8_kernel_cases(dev, args.seed) + family_kernel_cases(dev, args.seed))
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
         evals = eval_path(dev, args.seed)
         engine = engine_path(dev, args.seed)
         int8 = int8_path(dev, args.seed, args.max_new_tokens, main["decode_graph"]["greedy"]["graph"]["ms_per_step"],
                          loaded["request"]["tokens"])
+        packed = packed_check(dev, args.seed, args.max_new_tokens)
+        families = families_path(dev, args.seed, args.max_new_tokens)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -3359,7 +3885,12 @@ def main() -> int:
                            **{f"shared_check_{k}": evals["shared_vs_batch"][k]["launches"].get(name, 0)
                               for k in SHARED_CHECK_LAUNCHES}},
             launches_engine={**{r["label"]: r["summary"]["launches"].get(name, 0) for r in engine["runs"]},
-                             "int8": int8["run"]["summary"]["launches"].get(name, 0)},
+                             "int8": int8["run"]["summary"]["launches"].get(name, 0),
+                             FAMILY_FULL + "_int8": families["models"][FAMILY_FULL]["serve_run"]["summary"]["launches"]
+                             .get(name, 0)},
+            launches_families={**{label: m["request"]["launches"].get(name, 0) for label, m in families["models"].items()},
+                               FAMILY_FULL + "_int8": families["models"][FAMILY_FULL]["int8_request"]["launches"]
+                               .get(name, 0)},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -3370,7 +3901,7 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
-                       train_path=train),
+                       packed_check=packed, families_path=families, train_path=train),
                   f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

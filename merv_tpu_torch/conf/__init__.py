@@ -1,3 +1,23 @@
-from merv_tpu_torch.conf.models import MERV_Base, MERV_Full, ModelConfig
+from merv_tpu_torch.conf.models import (
+    DINOv2_Single_Encoder,
+    LanguageBind_Single_Encoder,
+    LLaVa_v15_Reproduction_13B,
+    MERV_Base,
+    MERV_Full,
+    ModelConfig,
+    ModelRegistry,
+    SigLIP_Single_Encoder,
+    ViViT_Single_Encoder,
+)
 
-__all__ = ["MERV_Base", "MERV_Full", "ModelConfig"]
+__all__ = [
+    "DINOv2_Single_Encoder",
+    "LanguageBind_Single_Encoder",
+    "LLaVa_v15_Reproduction_13B",
+    "MERV_Base",
+    "MERV_Full",
+    "ModelConfig",
+    "ModelRegistry",
+    "SigLIP_Single_Encoder",
+    "ViViT_Single_Encoder",
+]

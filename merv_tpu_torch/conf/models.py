@@ -1,20 +1,24 @@
-"""Model configurations of the main path (counterpart of ``merv_tpu/conf/models.py``).
+"""Model configurations (counterpart of ``merv_tpu/conf/models.py``).
 
-The fields of ``merv_tpu``'s ``ModelConfig`` (names, defaults and the
-``merv-base`` / ``merv-full`` values): the towers and LLM, the projector
-grammar, the fusion, the token lengths and the two stages' training recipes.
-The draccus-style CLI registry and the single-encoder variants wait (ROADMAP
-A1, A10).
+The fields of ``merv_tpu``'s ``ModelConfig`` (names, defaults and values):
+the towers and LLM, the projector grammar, the fusion, the token lengths and
+the two stages' training recipes; and its seven registered variants
+(``merv-base``, ``merv-full``, the four single-encoder models and the
+LLaVA-1.5-13B reproduction), each registered under ``merv_tpu``'s id
+(``ModelConfig.get_choice_class(model_id)``, ``ModelRegistry``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from enum import Enum, unique
 from typing import List, Optional, Union
+
+from merv_tpu_torch.conf.registry import ChoiceRegistry
 
 
 @dataclass
-class ModelConfig:
+class ModelConfig(ChoiceRegistry):
     model_id: str
     arch_specifier: str
     feature_fusion: str
@@ -110,3 +114,58 @@ class MERV_Full(MERV_Base):
     align_train_strategy: str = "fsdp-full-shard"
     align_learning_rate: float = 1e-4
 
+
+
+@dataclass
+class LanguageBind_Single_Encoder(MERV_Base):
+    model_id: str = "languagebind-single"
+    video_backbone_ids: List[str] = field(default_factory=lambda: ["languagebind-video-noclass"])
+    num_frames: Union[int, List[int]] = field(default_factory=lambda: [16])
+
+
+@dataclass
+class DINOv2_Single_Encoder(MERV_Base):
+    model_id: str = "dinov2-single"
+    video_backbone_ids: List[str] = field(default_factory=lambda: ["dinov2-video-all-tokens"])
+    num_frames: Union[int, List[int]] = field(default_factory=lambda: [16])
+
+
+@dataclass
+class ViViT_Single_Encoder(MERV_Base):
+    model_id: str = "vivit-single"
+    video_backbone_ids: List[str] = field(default_factory=lambda: ["vivit-google-b-all-no-cls-16frames"])
+    num_frames: Union[int, List[int]] = field(default_factory=lambda: [32])
+
+
+@dataclass
+class SigLIP_Single_Encoder(MERV_Base):
+    model_id: str = "siglip-single"
+    video_backbone_ids: List[str] = field(default_factory=lambda: ["siglip-vit-b16-224px-all-no-cls"])
+    num_frames: Union[int, List[int]] = field(default_factory=lambda: [16])
+
+
+@dataclass
+class LLaVa_v15_Reproduction_13B(MERV_Base):
+    model_id: str = "reproduction-llava-v15+13b"
+    llm_backbone_id: str = "vicuna-v15-13b"
+
+
+@unique
+class ModelRegistry(Enum):
+    MERV_BASE = MERV_Base
+    MERV_FULL = MERV_Full
+
+    LANGUAGEBIND_SINGLE = LanguageBind_Single_Encoder
+    DINOV2_SINGLE = DINOv2_Single_Encoder
+    VIVIT_SINGLE = ViViT_Single_Encoder
+    SIGLIP_SINGLE = SigLIP_Single_Encoder
+
+    LLAVA_REPRO_13B = LLaVa_v15_Reproduction_13B
+
+    @property
+    def model_id(self) -> str:
+        return self.value.model_id
+
+
+for model_variant in ModelRegistry:
+    ModelConfig.register_subclass(model_variant.model_id, model_variant.value)

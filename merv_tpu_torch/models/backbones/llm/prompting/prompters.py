@@ -1,9 +1,11 @@
 """Prompt builders (counterpart of ``merv_tpu/models/backbones/llm/prompting/prompters.py``).
 
-The generic table-driven builder and the ``PurePromptBuilder`` style that the
-main path's ``llama2-7b-pure`` LLM uses; the chat styles wait with the other
-LLM families (ROADMAP A10). Emitted strings match ``merv_tpu`` exactly, since
-they feed tokenization.
+One generic table-driven builder and the five styles ``merv_tpu`` registers:
+pure (``In: ... Out:``), Llama-2 chat (with the reference's malformed
+``<<SYS>`` opening tag, kept), Vicuna-1.5, Llama-3.1 and Qwen-2 ChatML (the
+last two seed the prompt with the system block and neither strip the
+``<image>`` sentinel nor right-strip the prompt). Emitted strings match
+``merv_tpu``'s byte for byte, since they feed tokenization.
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ MERV_VL_SYSTEM_PROMPT = (
     "You are a helpful language and vision assistant. "
     "You are able to understand the visual content that the user provides, "
     "and assist the user with a variety of tasks using natural language."
+)
+
+VICUNA_SYSTEM_PROMPT = (
+    "A chat between a curious user and an artificial intelligence assistant. "
+    "The assistant gives helpful, detailed, and polite answers to the user's questions."
 )
 
 SYS_PROMPTS: Dict[str, str] = {"merv": MERV_VL_SYSTEM_PROMPT}
@@ -107,6 +114,75 @@ def _pure_style() -> PromptStyle:
     )
 
 
+def _llama2_chat_style() -> PromptStyle:
+    bos, eos = "<s>", "</s>"
+    return PromptStyle(
+        wrap_human=lambda msg: f"{bos}[INST] {msg} [/INST] ",
+        wrap_gpt=lambda msg: f"{msg if msg != '' else ' '}{eos}",
+        system_mode="first-human",
+        # the reference's malformed opening tag "<<SYS>" (one '>'), kept for the same bytes
+        system_formatter=lambda s: f"<<SYS>\n{s.strip()}\n<</SYS>>\n\n",
+    )
+
+
+def _vicuna_v15_style() -> PromptStyle:
+    eos = "</s>"
+    return PromptStyle(
+        wrap_human=lambda msg: f"USER: {msg} ASSISTANT: ",
+        wrap_gpt=lambda msg: f"{msg if msg != '' else ' '}{eos}",
+        system_mode="prefix-human",
+        system_formatter=lambda s: s.strip() + " ",
+    )
+
+
+def _llama31_style() -> PromptStyle:
+    return PromptStyle(
+        wrap_human=lambda msg: (
+            f"<|start_header_id|>user<|end_header_id|>\n\n{msg}<|eot_id|>"
+            f"<|start_header_id|>assistant<|end_header_id|>\n\n"
+        ),
+        wrap_gpt=lambda msg: f"{msg}<|eot_id|>",
+        system_mode="seed",
+        system_formatter=lambda s: f"<|start_header_id|>system<|end_header_id|>\n\n{s}<|eot_id|>",
+        strip_image_sentinel=False,
+        rstrip_output=False,
+    )
+
+
+def _qwen2_style() -> PromptStyle:
+    return PromptStyle(
+        wrap_human=lambda msg: f"<|im_start|>user\n{msg}<|im_end|>\n<|im_start|>assistant\n",
+        wrap_gpt=lambda msg: f"{msg}<|im_end|>",
+        system_mode="seed",
+        system_formatter=lambda s: f"<|im_start|>system\n{s}<|im_end|>\n",
+        strip_image_sentinel=False,
+        rstrip_output=False,
+    )
+
+
 class PurePromptBuilder(PromptBuilder):
     def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
         super().__init__(_pure_style(), model_family, system_prompt)
+
+
+class LLaMa2ChatPromptBuilder(PromptBuilder):
+    def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
+        super().__init__(_llama2_chat_style(), model_family, system_prompt)
+
+
+class VicunaV15ChatPromptBuilder(PromptBuilder):
+    def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
+        super().__init__(_vicuna_v15_style(), model_family, system_prompt)
+
+    def _default_system_prompt(self) -> str:
+        return {"merv": VICUNA_SYSTEM_PROMPT}[self.model_family]
+
+
+class LLaMa31PromptBuilder(PromptBuilder):
+    def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
+        super().__init__(_llama31_style(), model_family, system_prompt)
+
+
+class Qwen2PromptBuilder(PromptBuilder):
+    def __init__(self, model_family: str, system_prompt: Optional[str] = None) -> None:
+        super().__init__(_qwen2_style(), model_family, system_prompt)

@@ -1,6 +1,7 @@
 """Llama-family causal decoder (counterpart of
-``merv_tpu/models/backbones/llm/transformer.py``), main-path subset: the
-no-cache forward (with per-layer activation checkpointing, ``remat``, and the
+``merv_tpu/models/backbones/llm/transformer.py``) for every family
+``merv_tpu`` registers (Llama-2 7B / 13B, Vicuna-1.5, Llama-3 / 3.1,
+Qwen-2.5: GQA, q/k/v biases, tied embeddings): the no-cache forward (with per-layer activation checkpointing, ``remat``, and the
 post-norm hidden states, ``return_hidden``, for training), the cache prefill
 with a scalar write pointer, and T=1 decode, with RoPE, GQA and a KV cache in
 the compute dtype or in int8 with per-position scales (``merv_tpu``'s
@@ -28,12 +29,19 @@ Differences from ``merv_tpu``, all in idiom, not in function:
 - ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around each layer,
   where ``merv_tpu`` wraps its layer scan body in ``jax.checkpoint``.
 
-Ring/pipeline paths and ``pack_serving_params`` wait for later slices
-(ROADMAP A12; the port keeps q/k/v and gate/up unpacked).
+:func:`pack_serving_params` is ``merv_tpu``'s serving layout: each layer's
+q/k/v Linears become one ``attn.qkv_proj`` (``[q_dim + 2 kv_dim, hidden]``,
+with the bias where the family has one) and gate/up one ``mlp.gate_up_proj``
+(``[2 intermediate, hidden]``), whose output the layer splits by ``q_dim`` /
+``kv_dim`` / ``intermediate_size`` as ``merv_tpu``'s ``_layer`` does. It is
+applied in place to a serving decoder (``load_vid``'s default); training keeps
+the unpacked layers. Ring and pipeline paths wait for a later slice (ROADMAP
+A12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -165,10 +173,18 @@ def _linear(c: DecoderConfig, i: int, o: int, bias: bool, device) -> Linear:
 class _Attn(nn.Module):
     def __init__(self, c: DecoderConfig, device) -> None:
         super().__init__()
+        self.cfg = c
         self.q_proj = _linear(c, c.hidden_size, c.q_dim, c.attention_bias, device)
         self.k_proj = _linear(c, c.hidden_size, c.kv_dim, c.attention_bias, device)
         self.v_proj = _linear(c, c.hidden_size, c.kv_dim, c.attention_bias, device)
         self.o_proj = _linear(c, c.q_dim, c.hidden_size, False, device)
+
+    def qkv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x [B, T, hidden] -> q [B, T, q_dim], k and v [B, T, kv_dim]: one GEMM when packed."""
+        c = self.cfg
+        if "qkv_proj" in self._modules:
+            return self.qkv_proj(x).split([c.q_dim, c.kv_dim, c.kv_dim], dim=-1)
+        return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
 
 class _MLP(nn.Module):
@@ -179,7 +195,11 @@ class _MLP(nn.Module):
         self.down_proj = _linear(c, c.intermediate_size, c.hidden_size, False, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if "gate_up_proj" in self._modules:
+            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class DecoderLayer(nn.Module):
@@ -201,10 +221,10 @@ class DecoderLayer(nn.Module):
     ) -> torch.Tensor:
         c = self.cfg
         B, T, _ = h.shape
-        x = self.input_norm(h)
-        q = self.attn.q_proj(x).view(B, T, c.num_heads, c.head_dim).transpose(1, 2)
-        k = self.attn.k_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
-        v = self.attn.v_proj(x).view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
+        q, k, v = self.attn.qkv(self.input_norm(h))
+        q = q.view(B, T, c.num_heads, c.head_dim).transpose(1, 2)
+        k = k.view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
+        v = v.view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
         q = _rope(cos_sin, q).contiguous()
         k = _rope(cos_sin, k)
         if cache is None:
@@ -362,11 +382,101 @@ class LlamaDecoder(nn.Module):
         return self.lm_head(h)
 
 
+def _packed_linear(parts) -> Linear:
+    """One Linear whose output columns are ``parts``' outputs in order (their
+    weights and biases concatenated on the output dimension)."""
+    w = parts[0].weight
+    out = Linear(parts[0].in_dim, sum(p.out_dim for p in parts), use_bias=parts[0].bias is not None,
+                 param_dtype=w.dtype, device=w.device)
+    with torch.no_grad():
+        torch.cat([p.weight for p in parts], dim=0, out=out.weight)
+        if out.bias is not None:
+            torch.cat([p.bias for p in parts], dim=0, out=out.bias)
+    return out
+
+
+def pack_serving_params(decoder: LlamaDecoder) -> LlamaDecoder:
+    """``merv_tpu``'s ``pack_serving_params`` on a module, in place: in every
+    layer, q/k/v become one ``attn.qkv_proj`` and gate/up one
+    ``mlp.gate_up_proj``, so a step runs 4 Linears a layer where it ran 7.
+    Float weights only (pack, then quantize, as ``merv_tpu``'s ``load_vid``
+    does); a layer's parts are freed as its packed copy is made. Every output
+    column keeps its weights, so the numbers change only by the order in which
+    a wide and a narrow GEMM sum. Training keeps the unpacked layers: its
+    optimizer states key on them, as ``merv_tpu``'s do."""
+    from merv_tpu_torch.models.generation import release_decode_runners
+
+    release_decode_runners(decoder)  # a captured step would keep reading the parts
+    for layer in decoder.layers:
+        a, m = layer.attn, layer.mlp
+        if "qkv_proj" in a._modules:
+            continue
+        if a.q_proj.weight is None or m.gate_proj.weight is None:
+            raise ValueError("pack_serving_params: pack the float weights, then quantize")
+        a.qkv_proj = _packed_linear([a.q_proj, a.k_proj, a.v_proj])
+        del a.q_proj, a.k_proj, a.v_proj
+        m.gate_up_proj = _packed_linear([m.gate_proj, m.up_proj])
+        del m.gate_proj, m.up_proj
+    return decoder
+
+
+def round_to_compute_dtype(decoder: LlamaDecoder) -> LlamaDecoder:
+    """Every float parameter (weights, biases, norms, the embedding) rounded
+    once to the compute dtype, in place; int8 weights and their fp32 scales
+    (buffers) stay as they are. Each such parameter reaches the model only
+    through a cast to the compute dtype (``Linear``, ``RMSNorm``, ``Embed``,
+    the tied head), so the numbers are bit for bit those of the stored dtype,
+    while a step no longer makes a compute-dtype copy of every weight it reads
+    (fp16 storage, Qwen-2.5's, under bf16 compute)."""
+    from merv_tpu_torch.models.generation import release_decode_runners
+
+    release_decode_runners(decoder)  # a captured step would keep reading the replaced tensors
+    dtype = decoder.cfg.compute_dtype
+    with torch.no_grad():
+        for p in decoder.parameters():
+            if p.is_floating_point() and p.dtype != dtype:
+                p.data = p.data.to(dtype)
+    return decoder
+
+
+# Registered decoder configs, with merv_tpu's values (HF config parity for weight import)
 LLAMA2_7B = DecoderConfig(
     vocab_size=32064,  # 32000 + <PAD> resized to a multiple of 64
     hidden_size=4096, intermediate_size=11008, num_layers=32,
     num_heads=32, num_kv_heads=32, head_dim=128,
     max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+)
+
+LLAMA2_13B = DecoderConfig(
+    vocab_size=32064,
+    hidden_size=5120, intermediate_size=13824, num_layers=40,
+    num_heads=40, num_kv_heads=40, head_dim=128,
+    max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+)
+
+LLAMA3_8B = DecoderConfig(
+    vocab_size=128320,  # 128256 + <PAD> resized to a multiple of 64
+    hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, head_dim=128,
+    max_position_embeddings=8192, rope_theta=500000.0, rms_norm_eps=1e-5,
+)
+
+LLAMA31_8B = dataclasses.replace(LLAMA3_8B, vocab_size=128256, max_position_embeddings=131072)
+
+QWEN25_7B = DecoderConfig(
+    vocab_size=152064,
+    hidden_size=3584, intermediate_size=18944, num_layers=28,
+    num_heads=28, num_kv_heads=4, head_dim=128,
+    max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    attention_bias=True,
+)
+
+QWEN25_3B = DecoderConfig(
+    vocab_size=151936,
+    hidden_size=2048, intermediate_size=11008, num_layers=36,
+    num_heads=16, num_kv_heads=2, head_dim=128,
+    max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    attention_bias=True, tie_word_embeddings=True,
 )
 
 

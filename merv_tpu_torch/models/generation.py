@@ -331,6 +331,14 @@ def decode_runner(decoder: LlamaDecoder, batch: int, max_len: int, config: Gener
     return runner, True
 
 
+def release_decode_runners(decoder: LlamaDecoder) -> None:
+    """Drop the decoder's runners (and their graphs): a captured step keeps
+    the addresses of the weights it read, so replacing a weight's storage
+    (a dtype change) must come with this."""
+    for runner in decoder.__dict__.pop("_decode_runners", {}).values():
+        runner.release()
+
+
 def _decode(decoder: LlamaDecoder, runner: DecodeRunner, made: bool, first: torch.Tensor, start_pos: torch.Tensor,
             cache_mask: torch.Tensor, length: int, generator: Optional[torch.Generator],
             timings: Optional[Dict[str, float]]) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 from merv_tpu_torch.conf import MERV_Base
 from merv_tpu_torch.device import make_generator, resolve_device
 from merv_tpu_torch.models.backbones.llm.hf_import import load_safetensors_dir
+from merv_tpu_torch.models.backbones.llm.transformer import pack_serving_params, round_to_compute_dtype
 from merv_tpu_torch.models.backbones.video.vision_import import load_pretrained_tower
 from merv_tpu_torch.models.ckpt_import import import_merv_checkpoint
 from merv_tpu_torch.models.materialize import (
@@ -97,14 +98,19 @@ def load_vid(
     ``torch.Generator`` on ``device`` seeded with ``RANDOM_INIT_SEED``; they
     cannot equal ``merv_tpu``'s, which come from ``jax.random.PRNGKey(7)``.
 
-    ``pack_llm`` is accepted for ``merv_tpu``'s signature: there it packs
-    q/k/v and gate/up into wide GEMMs for speed, leaving the numbers as they
-    are; the port keeps them unpacked. ``quantize_llm=True`` stores the LLM's
-    Linears as weight-only int8 (:mod:`merv_tpu_torch.nn.quantization`), after
-    the cast to its serving dtype, as ``merv_tpu`` does. ``device``: the card
-    unless ``"cpu"`` is asked for.
+    The LLM is assembled in ``merv_tpu``'s order: stored in the family's
+    ``half_precision_dtype`` (fp16 for Qwen-2.5), then, with ``pack_llm`` (the
+    default), packed into the serving layout (q/k/v and gate/up as one wide
+    Linear each, :func:`~merv_tpu_torch.models.backbones.llm.transformer.pack_serving_params`),
+    then, with ``quantize_llm=True``, its Linears stored as weight-only int8
+    (:mod:`merv_tpu_torch.nn.quantization`) from those half-precision values.
+    Last, every float leaf left is rounded once to the compute dtype
+    (:func:`~merv_tpu_torch.models.backbones.llm.transformer.round_to_compute_dtype`):
+    each reaches the model only through that cast, so the numbers are the
+    stored dtype's bit for bit, and a decode step reads each weight once
+    instead of casting a copy of it. ``device``: the card unless ``"cpu"`` is
+    asked for.
     """
-    del pack_llm
     dev = resolve_device(device)
     if not os.path.isdir(model_id_or_path):
         if model_id_or_path in GLOBAL_REGISTRY:
@@ -170,13 +176,15 @@ def load_vid(
             _unavailable("Base LLM weights", "Set MERV_TPU_LLM_DIR to a local safetensors dir", e,
                          allow_random_weights)
             init_weights(llm, generator)
+    # merv_tpu's order: cast to the serving dtype (the LLM is built in it), pack, quantize (from those values:
+    # quantizing fp32 weights would give other int8 values), then round what is left to the compute dtype.
+    # One layer, or one Linear, at a time, each part freed as its copy is made: the peak stays near the
+    # half-precision model's.
+    if pack_llm:
+        pack_serving_params(llm.decoder)
     if quantize_llm:
-        # merv_tpu's order: cast to the serving dtype (the LLM is built in it), then (pack, then) quantize;
-        # quantizing fp32 weights would give other int8 values. Packing q/k/v and gate/up only concatenates
-        # output columns, and every scale is per output column, so the unpacked Linears quantize to the same
-        # bytes as merv_tpu's packed kernels. One Linear at a time, each bf16 weight freed as its int8 copy
-        # is made: the peak stays near the bf16 model's.
         quantize_tree(llm)
+    round_to_compute_dtype(llm.decoder)
 
     # projectors and fusion keep the checkpoint's dtype
     modules = {"projectors": vidlm.projectors}

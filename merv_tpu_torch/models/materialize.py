@@ -1,6 +1,6 @@
 """Factory layer: registry ids -> backbones / VidLM (counterpart of
-``merv_tpu/models/materialize.py``), for the four main-path towers and
-``llama2-7b-pure``. The ``get_*`` entry points keep ``merv_tpu``'s
+``merv_tpu/models/materialize.py``), for the four main-path towers and every
+LLM id ``merv_tpu`` registers. The ``get_*`` entry points keep ``merv_tpu``'s
 signatures plus ``device`` (default: the card; raises without one),
 ``param_dtype`` and an optional ``generator``: when given, the built modules
 are random-initialised from it. Trained weights are loaded by
@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from merv_tpu_torch.device import resolve_device
-from merv_tpu_torch.models.backbones.llm.base_llm import LLMBackbone
+from merv_tpu_torch.models.backbones.llm.base_llm import LLM_SPECS, LLMBackbone
 from merv_tpu_torch.models.backbones.video import (
     DinoV2VideoBackbone,
     LangBindVideoBackbone,
@@ -33,7 +33,7 @@ VIDEO_BACKBONES: Dict[str, Dict[str, Any]] = {
     "siglip-vit-b16-224px-all-no-cls": {"cls": SiglipVideoBackbone, "kwargs": {"default_image_size": 224}},
 }
 
-LLM_BACKBONES = ("llama2-7b-pure",)
+LLM_BACKBONES = tuple(LLM_SPECS)
 
 
 def _maybe_init(module: torch.nn.Module, generator: Optional[torch.Generator]) -> None:
@@ -73,7 +73,7 @@ def get_llm_backbone_and_tokenizer(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[LLMBackbone, Any]:
     if llm_backbone_id not in LLM_BACKBONES:
-        raise NotImplementedError(f"LLM backbone {llm_backbone_id!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"unknown LLM backbone {llm_backbone_id!r}; known: {list(LLM_BACKBONES)}")
     llm = LLMBackbone(
         llm_backbone_id, llm_max_length=llm_max_length, inference_mode=inference_mode, device=resolve_device(device)
     )

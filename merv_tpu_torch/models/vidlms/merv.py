@@ -6,14 +6,17 @@
   asserts of ``merv_tpu``; fusion ``cross_attention*`` (or ``first``).
   Other resamplers, MLP projectors and fusions raise ``NotImplementedError``
   naming ROADMAP A10.
-- multimodal splice: visual tokens after BOS; text-only rows keep their text
-  followed by zero embeddings with a False mask.
+- multimodal splice: visual tokens after BOS (first, for an LLM without
+  one: Qwen-2.5's ``bos_token_length == 0``); text-only rows keep their text
+  followed by zero embeddings with a False mask. The projectors' output
+  width is the LLM's hidden size, and generation stops on the LLM's
+  ``stop_token_id`` and pads with its ``pad_token_id``.
 - generation: towers -> projectors -> fusion -> splice -> cache prefill ->
   decode (the T=1 step captured as one CUDA graph on the card; the JAX
   package jits the whole pipeline), or prompt-lookup speculation at B=1
   (``speculative_gamma``), for one video (:meth:`MERV.generate`), a
   batch (:meth:`MERV.generate_batch`), or many questions on one video
-  sharing its ``[BOS | visual]`` cache (:meth:`MERV.build_video_prefix`,
+  sharing its ``[BOS | visual]`` (or ``[visual]``) cache (:meth:`MERV.build_video_prefix`,
   :meth:`MERV.generate_batch_shared`); :meth:`MERV.score_options` reads a
   multiple-choice answer from one forward's last-position logits.
 - training: :meth:`MERV.forward` is differentiable (the towers, frozen in

@@ -30,7 +30,12 @@ import merv_tpu_torch.models.generation as G
 import merv_tpu_torch.ops.attention as A
 import merv_tpu_torch.ops.decode_attention as K5
 import merv_tpu_torch.ops.int8_linear as K4
-from merv_tpu_torch.models.backbones.llm.transformer import LlamaDecoder, _quantize_kv, tiny_decoder_config
+from merv_tpu_torch.models.backbones.llm.transformer import (
+    LlamaDecoder,
+    _quantize_kv,
+    pack_serving_params,
+    tiny_decoder_config,
+)
 from merv_tpu_torch.nn.core import init_weights
 from merv_tpu_torch.nn.quantization import quantize_kernel, quantize_tree
 from merv_tpu_torch.serving import ContinuousBatchingEngine
@@ -71,6 +76,34 @@ def test_int8_linear_matches_plain(cuda, M, N, K, bias):
     assert A.launch_counts()["int8_linear"] == before + 1 and out.shape == (M, N) and out.dtype == torch.bfloat16
     _held(out, K4.int8_linear_plain(x, q8, scale, b), K4.int8_linear_plain(x.abs(), q8.abs(), scale, b))
     assert torch.equal(K4.int8_linear(x, q8, scale, b), out)  # no atomics: the same bits every call
+
+
+# (N, K) of each LLM family's packed serving Linears: qkv, gate/up, o, down and the lm_head (Llama-2-7B,
+# Llama-2-13B / Vicuna-13B, Llama-3 / 3.1-8B, Qwen-2.5-7B, Qwen-2.5-3B; Qwen-3B's head is tied, a bf16 matmul)
+FAMILY_WIDTHS = sorted({
+    (12288, 4096), (22016, 4096), (4096, 4096), (4096, 11008), (32064, 4096),
+    (15360, 5120), (27648, 5120), (5120, 5120), (5120, 13824), (32064, 5120),
+    (6144, 4096), (28672, 4096), (4096, 14336), (128320, 4096), (128256, 4096),
+    (4608, 3584), (37888, 3584), (3584, 3584), (3584, 18944), (152064, 3584),
+    (2560, 2048), (22016, 2048), (2048, 2048), (2048, 11008),
+})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 36])
+@pytest.mark.parametrize("N, K", FAMILY_WIDTHS)
+def test_int8_linear_at_the_families_widths(cuda, N, K, M):
+    """K4 at every width the families' packed int8 steps give it (the lm_heads: more 128-column tiles than one
+    wave holds, so one split), with a bias where Qwen's qkv has one."""
+    g = torch.Generator(device=cuda).manual_seed(N + K + M)
+    w = torch.randn((N, K), generator=g, device=cuda, dtype=torch.bfloat16) * 0.02
+    q8, scale = quantize_kernel(w)
+    x = torch.randn((M, K), generator=g, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn((N,), generator=g, device=cuda, dtype=torch.bfloat16) if (N, K) in ((4608, 3584), (2560, 2048)) \
+        else None
+    out = K4.int8_linear(x, q8, scale, b)
+    _held(out, K4.int8_linear_plain(x, q8, scale, b), K4.int8_linear_plain(x.abs(), q8.abs(), scale, b))
+    assert torch.equal(K4.int8_linear(x, q8, scale, b), out)
 
 
 @pytest.mark.cuda
@@ -234,6 +267,26 @@ def test_decode_attention_matches_plain(cuda, B, H, Hk, Tq, Tk, D, int8, lengths
     assert torch.equal(K5.decode_attention(q, *cache, **kw), out)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B, H, Hk, Tq, Tk, lengths, offset_kind", [
+    # decode at the families' groups: 28 -> 4 (7), 16 -> 2 (8), 32 -> 8 (4), 40 -> 40 (1)
+    (1, 28, 4, 1, 1120, (1100,), None), (1, 16, 2, 1, 1120, (1100,), None), (1, 32, 8, 1, 1120, (1100,), None),
+    (1, 40, 40, 1, 1120, (1100,), None),
+    # verifies whose group x Tq rows cross a 16-row unit inside a head: 21, 35, 24, 20 (and 63, 72)
+    (4, 28, 4, 3, 2058, (2040, 1100, 317, 1), "vector"), (4, 28, 4, 5, 2058, (2040, 1100, 317, 1), "vector"),
+    (4, 16, 2, 3, 2058, (2040, 1100, 317, 1), "vector"), (4, 32, 8, 5, 2058, (2040, 1100, 317, 1), "vector"),
+    (2, 28, 4, 9, 600, (590, 17), "vector"), (2, 16, 2, 9, 600, (590, 17), "vector"),
+])
+def test_decode_attention_at_the_families_groups(cuda, B, H, Hk, Tq, Tk, lengths, offset_kind, int8):
+    """K5's row -> (head, query) mapping where a unit of 16 rows splits a head."""
+    q, cache, kd, vd, kw = _decode_case(cuda, B, H, Hk, Tq, Tk, 128, int8, lengths, offset_kind,
+                                        scratch=B == 4)
+    out = K5.decode_attention(q, *cache, **kw)
+    _held(out, K5.decode_attention_plain(q, *cache, **kw), K5.decode_attention_plain(q, kd, vd.abs(), **kw))
+    assert torch.equal(K5.decode_attention(q, *cache, **kw), out)
+
+
 def _decode_raw(q, cache, kw, cluster):
     """The C entry point with a given cluster size (the wrapper's plan picks one); non-causal or host-int offsets."""
     from merv_tpu_torch.ops import _build
@@ -313,24 +366,27 @@ def test_decode_attention_refuses_what_it_does_not_take(cuda):
         K5.decode_attention(q, cache[0].transpose(2, 3).contiguous().transpose(2, 3), cache[1], **kw)
 
 
-def _int8_decoder(dev):
+def _int8_decoder(dev, packed=False):
     dec = LlamaDecoder(tiny_decoder_config(param_dtype=torch.bfloat16, **LLM), device=dev)
     init_weights(dec, torch.Generator(device=dev).manual_seed(0))
+    if packed:
+        pack_serving_params(dec)
     return quantize_tree(dec)
 
 
 @pytest.mark.cuda
-def test_decode_runner_launches_k4_and_k5_and_counts_replays(cuda):
+@pytest.mark.parametrize("packed", [False, True])
+def test_decode_runner_launches_k4_and_k5_and_counts_replays(cuda, packed):
     """The captured T=1 step on int8 weights and an int8 cache: its tokens equal
     the eager loop's, one replay launches K4 once per Linear (7 per layer and
-    the lm_head) and K5 once per layer, and ``launch_counts`` adds them per
-    replay."""
-    dec = _int8_decoder(cuda)
+    the lm_head; 4 per layer in the packed serving layout) and K5 once per
+    layer, and ``launch_counts`` adds them per replay."""
+    dec = _int8_decoder(cuda, packed)
     L = len(dec.layers)
     ids = torch.randint(3, LLM["vocab_size"], (2, 20), generator=torch.Generator().manual_seed(2)).to(cuda)
     cfg = G.GenerationConfig(max_new_tokens=12, eos_token_id=-1, kv_cache_dtype="int8")
     runner, _ = G.decode_runner(dec, 2, 32, cfg, cuda)
-    assert runner.launches_per_step == {"int8_linear": 7 * L + 1, "decode_attention": L}
+    assert runner.launches_per_step == {"int8_linear": (4 if packed else 7) * L + 1, "decode_attention": L}
     assert runner.cache.k.dtype == torch.int8
     with torch.inference_mode():
         embeds = dec.embed_input_ids(ids)

@@ -148,6 +148,31 @@ def test_flash_forward_matches_plain(cuda, H, Hk, Tq, Tk, D, causal, q_offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,H,Hk,Tq,Tk,q_offset,valid",
+    # the LLM families' prefills (1,088 tokens into a 1,120-row cache: Qwen-2.5-7B 28 -> 4, Qwen-2.5-3B 16 -> 2,
+    # Llama-2-13B 40 heads) and Qwen-2.5-7B's suffix prefill (8 suffixes of 64 tokens at q_offset 1,024, no BOS)
+    [(1, 28, 4, 1088, 1120, 0, 1088), (1, 16, 2, 1088, 1120, 0, 1088), (1, 40, 40, 1088, 1120, 0, 1088),
+     (8, 28, 4, 64, 1152, 1024, None)],
+)
+def test_flash_forward_at_the_families_gqa_groups(cuda, B, H, Hk, Tq, Tk, q_offset, valid):
+    """K2 maps query head h to kv head h / (H / Hk): at groups 7 and 8 against the plain version."""
+    rng = np.random.default_rng(H * Hk + Tq)
+    q = _bf16(rng, (B, H, Tq, 128), cuda)
+    k, v = (_bf16(rng, (B, Hk, Tk, 128), cuda) for _ in range(2))
+    mask = torch.zeros((B, Tk), dtype=torch.bool, device=cuda)
+    if valid is not None:
+        mask[:, :valid] = True
+    else:
+        mask[:, :q_offset] = True
+        for b in range(B):
+            mask[b, q_offset: q_offset + 64 - 7 * b] = True
+    kw = dict(causal=True, kv_mask=mask, q_offset=q_offset)
+    out = A.flash_attention_forward(q, k, v, **kw)
+    _assert_close(out, A.flash_attention_forward_plain(q, k, v, **kw), A.flash_attention_forward_plain(q, k, v.abs(), **kw))
+
+
+@pytest.mark.cuda
 def test_flash_forward_fully_masked_row_is_zero(cuda):
     rng = np.random.default_rng(0)
     q, k, v = (_bf16(rng, (2, 2, 64, 64), cuda) for _ in range(3))

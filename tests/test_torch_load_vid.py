@@ -511,16 +511,16 @@ def run_dir(tmp_path, monkeypatch):
 
 
 def test_load_vid_answers_as_merv_tpu_does(run_dir):
-    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), pack_llm=False)
+    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir))
     pm, cfg = load_vid(run_dir, get_model_cfg=True, device=CPU)
     assert cfg.num_frames == RUN_CONFIG["num_frames"] and cfg.model_id == "merv-full"
 
-    # every weight as merv_tpu assembled it, in its dtype
+    # every weight as merv_tpu assembled it, in its dtype and its default (packed) serving layout
     _assert_state_dicts_equal(pm.state_dict(), state_dict_from_jax(_np_tree(jparams)))
     assert {p.device.type for p in pm.parameters()} == {"cpu"}
+    assert "qkv_proj" in pm.llm_backbone.decoder.layers[0].attn._modules
 
-    # the question, on the demo video, through merv_tpu's default (packed) serving layout
-    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir))
+    # the question, on the demo video
     prompt = pm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
     nf = cfg.num_frames
     ids, mask, vids, is_mm = pm._prepare_batch_inputs([DEMO], [prompt], nf)
@@ -545,14 +545,20 @@ def test_load_vid_answers_as_merv_tpu_does(run_dir):
 
 def test_load_vid_quantize_llm_answers_as_merv_tpu_does(run_dir):
     """``quantize_llm=True`` in both packages: every weight equal (the LLM's
-    int8 values and scales carried over by the bridge), and with an int8 KV
-    cache the same greedy tokens on the demo question as merv_tpu's default
-    (packed) int8 serving layout."""
-    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), pack_llm=False, quantize_llm=True)
+    packed int8 values and scales carried over by the bridge), and with an int8
+    KV cache the same greedy tokens on the demo question, both in the default
+    (packed) int8 serving layout; unpacked, each Linear's bytes are the
+    packed ones' columns."""
+    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), quantize_llm=True)
     pm, cfg = load_vid(run_dir, get_model_cfg=True, quantize_llm=True, device=CPU)
     _assert_state_dicts_equal(pm.state_dict(), state_dict_from_jax(_np_tree(jparams)))
-    assert pm.llm_backbone.decoder.layers[0].attn.q_proj.weight_q.dtype == torch.int8
-    jm, jparams = jax_load_vid_mod.load_vid(str(run_dir), quantize_llm=True)
+    assert pm.llm_backbone.decoder.layers[0].attn.qkv_proj.weight_q.dtype == torch.int8
+    _, junpacked = jax_load_vid_mod.load_vid(str(run_dir), pack_llm=False, quantize_llm=True)
+    unpacked = load_vid(run_dir, quantize_llm=True, pack_llm=False, device=CPU)
+    _assert_state_dicts_equal(unpacked.state_dict(), state_dict_from_jax(_np_tree(junpacked)))
+    qkv = pm.llm_backbone.decoder.layers[1].attn.qkv_proj.weight_q
+    parts = unpacked.llm_backbone.decoder.layers[1].attn
+    assert torch.equal(qkv, torch.cat([parts.q_proj.weight_q, parts.k_proj.weight_q, parts.v_proj.weight_q]))
     prompt = pm.llm_backbone.prompt_builder_fn("merv").get_potential_prompt("What is happening in this video?")
     nf = cfg.num_frames
     assert pm.generate(DEMO, prompt, num_frames=nf, max_new_tokens=16, kv_cache_dtype="int8") == \
