@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
                            --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
-                           --families-only]
+                           --families-only | --zoo-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -15,7 +15,9 @@ phase 4e or 4f alone after the build and print their numbers the same way;
 8 layers, bf16 and int8 (``decode_step_probe``), for ``chip_ab.sh``.
 ``--families-only`` runs phase 3's cases at the LLM families' shapes, the
 packed-layout check and phase 4g alone and writes them to
-``chiprun_out/families.json``.
+``chiprun_out/families.json``; ``--zoo-only`` runs K1's and B3's head-dim-72
+cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``.
+``--small-only`` covers the head-dim-72 cases too.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -23,7 +25,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    for every library, ``ptxas -v``'s
    registers, spills and shared memory and, where ``cuobjdump`` exists, the
    counts of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load)
-   and ``UBLKCP`` (1-D bulk copy) in their SASS.
+   and ``UBLKCP`` (1-D bulk copy) in their SASS, per library and per kernel
+   instance (K1 and B3 are each built for head dims 64 and 72).
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes (bf16, inputs from a numpy seed), with max/mean abs
    error against a stated tolerance and CUDA-event times of the kernel, the
@@ -67,7 +70,11 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    18,944) at 1, 4 and 36 rows; K5 at GQA groups 7, 8, 4 and 1 (decode) and at
    the verifies whose group x Tq rows cross a 16-row unit inside a head (21,
    35, 24, 20 rows), bf16 and int8; K2 at the 28 -> 4, 16 -> 2 and 40-head
-   prefills and Qwen-2.5-7B's 28 -> 4 suffix prefill, beside SDPA.
+   prefills and Qwen-2.5-7B's 28 -> 4 suffix prefill, beside SDPA. K1 and B3
+   at SigLIP so400m's head dim 72 (``head_dim_72_cases``: [16, 16, 256, 72],
+   ragged T = 229, T = 512, and B3's GQA [4, 16 -> 4, 256, 72]) beside SDPA,
+   graph-timed, where a fault that ignores head-dim columns 64-71 (and, on
+   the GQA case, B3's kv-head fault) must be caught.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -175,6 +182,19 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    8, tied head) and the LLaVA-1.5-13B reproduction (Vicuna-13B: 40 layers,
    hidden 5,120) one request each with the same request checks and decode
    step. Every family runs at its full depth; peak memory per model.
+4h. the vision zoo (``zoo_path``), each from a run directory loaded by
+   ``load_vid`` with merv-full's Llama-2-7B at full width and depth on random
+   weights: Z1, Hiera-base-plus (32 frames, 2 clips), the pooled SigLIP
+   so400m (its 27 layers on K1 at head dim 72), DINOv2 and LanguageBind
+   through ``attntv+gelu-mlp`` and ``cross_attention_avg_lq_pe``; Z2,
+   merv-full's towers through ``3dconv+fused-gelu-mlp`` and
+   ``concat_channel_ln``. Each: one ``generate`` on the demo video with the
+   request checks of 4g (launches as predicted, ``ZOO_TOWER_LAUNCHES``; held
+   against its plain rerun and call by call; the decode graph against the
+   eager loop; peak memory and the phase split). On Z1 also Hiera-base-plus
+   and so400m timed on the default route and on ``MERV_TPU_TOWER_ATTN=xla``,
+   and, on its tower features, every resampler and fusion at full width
+   (``zoo_projector_sweep``: finite, of the expected shape, its ms).
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -196,7 +216,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    B3, B5 and B6 and from 4f's request for K4 and K5, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
    4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
-   ``launches_families`` from each of 4g's requests), and
+   ``launches_families`` from each of 4g's requests, ``launches_zoo`` from
+   each of 4h's), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -902,8 +923,9 @@ def stage_text(h: dict) -> str:
 
 
 def planted_tower_faults():
-    """Faulty stand-ins for the plain versions of B3, B5 and B6, as (module,
-    name, function): faults the call-by-call checks must catch."""
+    """Faulty stand-ins for the plain versions of K1 and B3 at head dim 72, B3,
+    B5 and B6, as (module, name, function): faults the call-by-call checks must
+    catch."""
     import torch
 
     import merv_tpu_torch.ops.attention as A
@@ -916,6 +938,18 @@ def planted_tower_faults():
         # query head h reads kv head h % Hk (heads tiled), not h // (H / Hk) (grouped)
         rep = q.shape[1] // k.shape[1]
         return small_kt_plain(q, k.repeat(1, rep, 1, 1).transpose(-1, -2), v.repeat(1, rep, 1, 1), scale)
+
+    def head_dim_tail_ignored_kt(q, kt, v, scale):
+        q64 = q.clone()
+        q64[..., 64:] = 0
+        out = small_kt_plain(q64, kt, v, scale)
+        out[..., 64:] = 0
+        return out
+
+    def head_dim_tail_ignored(q, k, v, scale):
+        rep = q.shape[1] // k.shape[1]
+        return head_dim_tail_ignored_kt(q, k.repeat_interleave(rep, 1).transpose(-1, -2), v.repeat_interleave(rep, 1),
+                                        scale)
 
     def b5_mask_dropped(q, kt, v, scale, heads):
         # every packed row attends every row, of every head
@@ -934,6 +968,9 @@ def planted_tower_faults():
 
     return {
         "b3_kv_head_ignored": (A, "small_attention_plain", b3_kv_head_ignored),
+        # a kernel that still reads 64-column slabs at head dim 72: scores over columns 0-63, columns 64-71 left 0
+        "k1_head_dim_tail_ignored": (A, "small_attention_kt_plain", head_dim_tail_ignored_kt),
+        "b3_head_dim_tail_ignored": (A, "small_attention_plain", head_dim_tail_ignored),
         "b5_mask_dropped": (A, "packed_temporal_attention_plain", b5_mask_dropped),
         "b6_gamma_ignored": (TF, "_plain_out", b6_gamma_ignored),
         "b6_scores_unscaled": (TF, "_plain_attention", b6_scores_unscaled),
@@ -1130,6 +1167,71 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False, by_launch: bool = 
             graph=("kernel", "yardstick"),
         )
         del layer
+    return cases
+
+
+# K1 and B3 at SigLIP so400m's head dim 72: (name, B, H, Hk, T); so400m's 16 frames of 256 tokens (16 heads),
+# a ragged T, the longest T the kernels take, and a GQA case for B3's kv-head fault
+D72_CASES = (("so400m_frames", 16, 16, 16, 256), ("ragged_t229", 16, 16, 16, 229), ("t512", 16, 16, 16, 512),
+             ("gqa_16_to_4", 4, 16, 4, 256))
+
+
+def head_dim_72_cases(dev, seed: int):
+    """K1 (small_attention_kt) and B3 (small_attention) at head dim 72, each
+    held element by element against its plain version, timed by CUDA events,
+    graph replay and the profiler beside SDPA on the same shape and the byte
+    bound (q, k, v, o read or written once); the planted faults that a kernel
+    still reading 64-column slabs would make (columns 64-71 ignored) and B3's
+    kv-head fault (on the GQA case) must fail the same hold."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    import merv_tpu_torch.ops.attention as A
+
+    cases, faults = [], planted_tower_faults()
+    record = functools.partial(record_case, cases)
+    rng = np.random.default_rng(seed + 72)
+
+    def caught(kernel, name, fault, out, args, mag):
+        h = hold(out, faults[fault][2](*args), mag)
+        log(f"[fault] {fault:24s} {kernel}/{name}: worst/limit {h['worst_share_of_limit']:.2f} -> "
+            f"{'not caught' if h['ok'] else 'caught'}")
+        if h["ok"]:
+            raise RuntimeError(f"planted fault {fault} was not caught on {kernel}/{name}")
+        return h["worst_share_of_limit"]
+
+    for name, B, H, Hk, T in D72_CASES:
+        D = 72
+        scale = D ** -0.5
+        q = _randn(rng, (B, H, T, D), dev)
+        k, v = (_randn(rng, (B, Hk, T, D), dev) for _ in range(2))
+        bytes_moved = (2 * q.numel() + 2 * k.numel()) * 2
+        flops = 4.0 * B * H * T * T * D
+        if Hk == H:
+            kt = k.transpose(-1, -2).contiguous()
+            out = A.small_attention_kt(q, kt, v, scale)
+            mag = A.small_attention_kt_plain(q, kt, v.abs(), scale)
+            extra = dict(fault_k1_head_dim_tail_ignored_share=caught(
+                "small_attention_kt", name, "k1_head_dim_tail_ignored", out, (q, kt, v, scale), mag))
+            record(
+                "small_attention_kt", f"d72_{name}", [B, H, T, D], out, A.small_attention_kt_plain(q, kt, v, scale),
+                mag, lambda: A.small_attention_kt(q, kt, v, scale), lambda: A.small_attention_kt_plain(q, kt, v, scale),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), bytes_moved=bytes_moved, flops=flops,
+                extra=extra, device=True, graph=("kernel", "library"),
+            )
+        out = A.small_attention(q, k, v, scale)
+        mag = A.small_attention_plain(q, k, v.abs(), scale)
+        extra = dict(fault_b3_head_dim_tail_ignored_share=caught(
+            "small_attention", name, "b3_head_dim_tail_ignored", out, (q, k, v, scale), mag))
+        if Hk != H:
+            extra["fault_b3_kv_head_ignored_share"] = caught("small_attention", name, "b3_kv_head_ignored", out,
+                                                             (q, k, v, scale), mag)
+        record(
+            "small_attention", f"d72_{name}", [B, H, Hk, T, D], out, A.small_attention_plain(q, k, v, scale), mag,
+            lambda: A.small_attention(q, k, v, scale), lambda: A.small_attention_plain(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, enable_gqa=Hk != H),
+            bytes_moved=bytes_moved, flops=flops, extra=extra, device=True, graph=("kernel", "library"),
+        )
     return cases
 
 
@@ -3122,20 +3224,22 @@ def family_model_dict(spec: dict) -> dict:
     return dict(MERV_FULL_MODEL, **spec)
 
 
-def request_launches(layers: int, steps: int, int8: bool = False, head: int = 1) -> dict:
-    """A request's launches: the towers' K1 / K2, K2 in each LLM layer of the
-    prefill, K5 in each layer of every decode step (``steps``: replays and the
-    capture's warm-ups) and, with int8 weights, K4 on each packed Linear of a
-    step and on the lm_head (``head``: 0 for a tied one, a bf16 matmul) of the
-    prefill's last position and of each step."""
-    out = dict(LOADED_REQUEST_LAUNCHES, flash_attention_forward=TOWER_K2 + layers, decode_attention=layers * steps,
-               int8_linear=0)
+def request_launches(layers: int, steps: int, int8: bool = False, head: int = 1, towers=None) -> dict:
+    """A request's launches: the towers' K1 / K2 (``towers``: their counts,
+    merv-full's by default), K2 in each LLM layer of the prefill, K5 in each
+    layer of every decode step (``steps``: replays and the capture's warm-ups)
+    and, with int8 weights, K4 on each packed Linear of a step and on the
+    lm_head (``head``: 0 for a tied one, a bf16 matmul) of the prefill's last
+    position and of each step."""
+    k1, k2 = (TOWER_K1, TOWER_K2) if towers is None else towers
+    out = dict(LOADED_REQUEST_LAUNCHES, small_attention_kt=k1, flash_attention_forward=k2 + layers,
+               decode_attention=layers * steps, int8_linear=0)
     if int8:
         out["int8_linear"] = head + (PACKED_LINEARS * layers + head) * steps
     return out
 
 
-def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_dtype=None) -> dict:
+def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_dtype=None, towers=None) -> dict:
     """One request on ``video``: a warm-up, then ``MERV.generate`` with the
     launch counters zeroed just before and read just after (as predicted by
     ``request_launches``); for bf16 weights the request against its
@@ -3143,7 +3247,8 @@ def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_d
     tokens) and every K1 / K2 call of the prefill held against its plain
     version, for int8 weights every K4 / K5 call of one eager decode step;
     then the decode graph's tokens and step logits against the eager loop's,
-    with its ms per step and one profiled replay."""
+    with its ms per step and one profiled replay. ``towers``: the towers'
+    (K1, K2) launches a request, merv-full's by default."""
     import torch
 
     import merv_tpu_torch.ops.attention as A
@@ -3166,9 +3271,9 @@ def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_d
     wall = time.perf_counter() - t
     counts = A.launch_counts()
     steps = timings["decode_steps"] + (2 if timings["decode_capture_s"] > 0 else 0)
-    predicted = request_launches(dcfg.num_layers, steps, int8, head)
+    predicted = request_launches(dcfg.num_layers, steps, int8, head, towers)
     row = dict(wall_s=wall, prepare_s=timings["prepare_s"], towers_s=timings["towers_s"],
-               prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=timings["decode_steps"],
+               project_fuse_s=timings["project_fuse_s"], prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=timings["decode_steps"],
                decode_capture_s=timings["decode_capture_s"], text=text, launches=counts, predicted_launches=predicted,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     wrong = {k: (counts[k], n) for k, n in predicted.items() if counts[k] != n}
@@ -3193,7 +3298,8 @@ def family_request(vidlm, cfg, video, max_new_tokens: int, seed: int, kv_cache_d
     row.update(step_ms=graph["graph"]["ms_per_step"], eager_step_ms=graph["eager"]["ms_per_step"],
                launches_per_step=graph["launches_per_step"], decode_graph=graph)
     log(f"[family] {vidlm.llm_backbone.identifier} ({'int8 weights, ' + str(kv_cache_dtype) + ' cache' if int8 else 'bf16'}"
-        f"): wall {wall:.3f} s = prepare {row['prepare_s']:.3f} + towers {row['towers_s']:.3f} + prefill "
+        f"): wall {wall:.3f} s = prepare {row['prepare_s']:.3f} + towers {row['towers_s']:.3f} + projectors and "
+        f"fusion {row['project_fuse_s']:.3f} + prefill "
         f"{row['prefill_s']:.3f} + decode {row['decode_s']:.3f} s ({row['decode_steps']} steps) + capture "
         f"{row['decode_capture_s']:.3f} s; launches {counts} (predicted {predicted}); peak "
         f"{row['peak_memory_gib']:.2f} GiB; " + (
@@ -3328,6 +3434,209 @@ def families_path(dev, seed: int, max_new_tokens: int) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     log(f"[family] phase 4g: {out['wall_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the vision zoo
+# ---------------------------------------------------------------------------
+
+ZOO_RUN = "chip_smoke_zoo"  # runs/<ZOO_RUN> (each request's run directory in turn)
+# Z1: Hiera-base-plus (32 frames, 2 clips), pooled SigLIP so400m, DINOv2 and LanguageBind (16 frames each) through
+# attntv + gelu-mlp and cross_attention_avg_lq_pe; Z2: merv-full's towers through 3dconv + fused-gelu-mlp and
+# concat_channel_ln. Both on merv-full's Llama-2-7B at full width and depth.
+ZOO_REQUESTS = (
+    ("Z1", dict(MERV_FULL_MODEL, arch_specifier="no-align+attntv+gelu-mlp", feature_fusion="cross_attention_avg_lq_pe",
+                video_backbone_ids=["hiera-base-plus-video", "siglip-vit-so400m", "dinov2-video-all-tokens",
+                                    "languagebind-video-noclass"], num_frames=[32, 16, 16, 16])),
+    ("Z2", dict(MERV_FULL_MODEL, arch_specifier="3dconv+fused-gelu-mlp", feature_fusion="concat_channel_ln")),
+)
+# the towers' (K1, K2) launches a request: K1 on each run layer of so400m (27, full depth for the MAP head), DINOv2
+# and LanguageBind (23 each, the penultimate tap); K2 on ViViT's 12 layers; Hiera runs no kernel
+ZOO_TOWER_LAUNCHES = {"Z1": (27 + 23 + 23, 0), "Z2": (TOWER_K1, TOWER_K2)}
+ZOO_TIMED_TOWERS = ("hiera-base-plus-video", "siglip-vit-so400m")
+ZOO_RESAMPLERS = ("avg", "attntv", "conv", "3davg", "3dconv")
+ZOO_FUSIONS = ("concat", "concat_channel", "concat_channel_ln", "scalar", "cross_attention_avg_lq",
+               "cross_attention_avg_lq_pe")
+
+
+def zoo_tower_times(vidlm, vids) -> dict:
+    """Hiera-base-plus and so400m on the default route and on
+    MERV_TPU_TOWER_ATTN=xla: ms per tower (CUDA events over 10 runs), launches
+    of one run, and the output against the same route with impl="plain"."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+
+    out = {}
+    for vb, v in zip(vidlm.video_backbones, vids):
+        if vb.identifier not in ZOO_TIMED_TOWERS:
+            continue
+        for route, env in (("default", {}), ("tower_attn_xla", {"MERV_TPU_TOWER_ATTN": "xla"})):
+            with switches(env), torch.no_grad():
+                ref = vb(v, impl="plain")
+                A.reset_launch_counts()
+                got = vb(v)
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in A.launch_counts().items() if n}
+                ms = time_ms(lambda: vb(v), 10)
+            r = rel_l2(got.float(), ref.float())
+            out[f"{vb.identifier}/{route}"] = dict(ms=ms, launches=launches, rel_diff_plain=r)
+            log(f"[zoo] {vb.identifier:24s} {route:16s} {ms:8.3f} ms per tower (shape {list(v.shape)}); launches "
+                f"{launches}; vs plain {r:.3e}")
+            if not torch.isfinite(got.float()).all() or not r <= EMBEDS_REL_TOL:
+                raise RuntimeError(f"{vb.identifier} on {route}: output differs from plain by {r}")
+    return out
+
+
+def zoo_projector_sweep(vidlm, vids, seed: int) -> dict:
+    """On Z1's tower features, each resampler (gelu-mlp) and each fusion (on the
+    attntv projections) at full width, random bf16 weights from a seeded
+    generator: the output finite and of the expected shape, and its ms (CUDA
+    events over 5 runs)."""
+    import torch
+
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.nn import fusion as FU
+    from merv_tpu_torch.nn import projectors as P
+    from merv_tpu_torch.nn.core import init_weights
+
+    dev = vids[0].device
+    g = make_generator(dev, seed + 41)
+    llm_dim, vfl, ptl = vidlm.llm_backbone.embed_dim, vidlm.visual_feature_length, vidlm.projector_token_length
+    S = math.isqrt(ptl)
+    kw = dict(param_dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        feats = [f.reshape(f.shape[0], vb.temporal_resolution, vb.spatial_resolution, f.shape[-1])
+                 for f, vb in zip(vidlm.encode_videos(vids), vidlm.video_backbones)]
+
+    def make(kind, vb):
+        T, C = vb.temporal_resolution, vb.embed_dim
+        return {"avg": lambda: P.AveragePoolingProjector(C, llm_dim, S, T, "gelu-mlp", **kw),
+                "attntv": lambda: P.AttentivePooler(C, llm_dim, ptl, 8, T, "gelu-mlp", **kw),
+                "conv": lambda: P.ConvolutionalProjector(C, llm_dim, S, 3, T, "gelu-mlp", **kw),
+                "3davg": lambda: P.AveragePooling3DProjector(C, llm_dim, T, S, "gelu-mlp", **kw),
+                "3dconv": lambda: P.Convolutional3DProjector(C, llm_dim, T, S, "gelu-mlp", **kw)}[kind]()
+
+    out, projected = {}, None
+    for kind in ZOO_RESAMPLERS:
+        projs = [init_weights(make(kind, vb), g).eval() for vb in vidlm.video_backbones]
+
+        def run():
+            with torch.no_grad():
+                return [p(f) for p, f in zip(projs, feats)]
+
+        ys = run()
+        ok = all(tuple(y.shape) == (1, vfl, llm_dim) and bool(torch.isfinite(y.float()).all()) for y in ys)
+        ms = time_ms(run, 5)
+        out[kind] = dict(ms=ms, shapes=[list(y.shape) for y in ys], finite_and_shaped=ok,
+                         params=sum(q.numel() for p in projs for q in p.parameters()))
+        log(f"[zoo] resampler {kind:8s}: {ms:8.3f} ms for the towers, {out[kind]['params'] / 1e6:.1f} M params, "
+            f"outputs {out[kind]['shapes']}, finite and [1, {vfl}, {llm_dim}]: {ok}")
+        if not ok:
+            raise RuntimeError(f"resampler {kind}: output not finite or not [1, {vfl}, {llm_dim}]")
+        if kind == "attntv":
+            projected = ys
+        del projs, ys
+    E = len(projected)
+    for name in ZOO_FUSIONS:
+        if name == "concat":
+            module, want = None, (1, E * vfl, llm_dim)
+        elif name.startswith("concat_channel"):
+            module, want = P.LinearProjector(E * llm_dim, llm_dim, pre_proj_layernorm=name.endswith("_ln"), **kw), \
+                (1, vfl, llm_dim)
+        elif name == "scalar":
+            module, want = FU.ScalarAdapter(E, **kw), (1, vfl, llm_dim)
+        else:
+            module, want = FU.CrossAttentionAdapterLearnableQuery(
+                embed_dim=3072, llm_dim=llm_dim, token_length=vfl, averagetoken=True, num_encoder=E,
+                positional_embedding=name.endswith("_pe"), **kw), (1, vfl, llm_dim)
+        if module is not None:
+            init_weights(module, g).eval()
+
+        def fuse(module=module, name=name):
+            with torch.no_grad():
+                if module is None:
+                    return torch.cat(projected, dim=1)
+                if name.startswith("concat_channel"):
+                    return module(torch.cat(projected, dim=-1))
+                return module(projected)[0]
+
+        y = fuse()
+        ok = tuple(y.shape) == want and bool(torch.isfinite(y.float()).all())
+        ms = time_ms(fuse, 5)
+        out[name] = dict(ms=ms, shape=list(y.shape), finite_and_shaped=ok)
+        log(f"[zoo] fusion {name:26s}: {ms:8.3f} ms, output {list(y.shape)}, finite and {list(want)}: {ok}")
+        if not ok:
+            raise RuntimeError(f"fusion {name}: output not finite or not {want}")
+    return out
+
+
+def zoo_path(dev, seed: int, max_new_tokens: int, requests=None) -> dict:
+    """Phase 4h. Each of ZOO_REQUESTS (``requests``: their labels, all by
+    default) from a run directory (the towers, projectors and fusion it names
+    at full width, merv-full's Llama-2-7B at full width and depth, random
+    weights) loaded by ``load_vid``: one request (``family_request``: launches
+    as predicted from ZOO_TOWER_LAUNCHES, the request against its plain rerun
+    and call by call, the decode graph against the eager loop, peak memory and
+    the phase split). On Z1 also the timed towers (``zoo_tower_times``) and,
+    on its tower features, every resampler and fusion (``zoo_projector_sweep``)."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch import load_vid
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs", ZOO_RUN)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    video, frames_from, _ = demo_video(seed)
+    out = dict(frames_from=frames_from, requests={})
+    try:
+        for label, model in ZOO_REQUESTS:
+            if requests is not None and label not in requests:
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            write_run_dir(run_dir, dev, seed, model)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True)
+            torch.cuda.synchronize()
+            row = dict(model=model, load_s=time.perf_counter() - t, load_peak_memory_gib=torch.cuda.max_memory_allocated()
+                       / 2**30, params=sum(p.numel() for p in vidlm.parameters()),
+                       projector_params=sum(p.numel() for p in vidlm.projectors.parameters()),
+                       towers=[dict(id=vb.identifier, embed_dim=vb.embed_dim, num_patches=vb.num_patches,
+                                    frames=vb.num_frames) for vb in vidlm.video_backbones])
+            log(f"[zoo] {label}: {model['arch_specifier']} / {model['feature_fusion']} over {model['video_backbone_ids']}"
+                f" ({model['num_frames']} frames): load_vid {row['load_s']:.2f} s, peak {row['load_peak_memory_gib']:.2f}"
+                f" GiB, {row['params'] / 1e9:.3f} B params ({row['projector_params'] / 1e6:.1f} M in the projectors)")
+            row["request"] = family_request(vidlm, cfg, video, max_new_tokens, seed, towers=ZOO_TOWER_LAUNCHES[label])
+            if label == "Z1":
+                vids = vidlm._prepare_batch_inputs([video], ["What is it?"], cfg.num_frames)[2]
+                row["towers_timed"] = zoo_tower_times(vidlm, vids)
+                row["projector_sweep"] = zoo_projector_sweep(vidlm, vids, seed)
+                del vids
+            del vidlm
+            out["requests"][label] = row
+            shutil.rmtree(run_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[zoo] phase 4h: {out['wall_s']:.1f} s")
+    return out
+
+
+def zoo_summary(zoo: dict) -> dict:
+    """4h's numbers without the per-call detail, for one JSON line."""
+    keys = ("wall_s", "towers_s", "project_fuse_s", "prefill_s", "decode_s", "decode_steps", "step_ms", "eager_step_ms",
+            "peak_memory_gib", "launches", "predicted_launches", "embeds_rel_diff", "logits_rel_diff",
+            "greedy_agreement")
+    return {label: dict(load_s=r["load_s"], params=r["params"], request={k: r["request"].get(k) for k in keys},
+                        **{k: r[k] for k in ("towers_timed", "projector_sweep") if k in r})
+            for label, r in zoo["requests"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3672,6 +3981,13 @@ def compile_report() -> dict:
     cuobjdump = shutil.which("cuobjdump") or next(
         (p for p in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),)
          if os.path.exists(p)), None)
+    def kernel_name(mangled):
+        short = re.search(r"([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", mangled)
+        if short:  # template arguments: ints (Li128E) or bools (Lb1E)
+            args = [n if k == "i" else ("false", "true")[int(n)] for k, n in re.findall(r"L([ib])(\d+)E", short.group(2))]
+            return f"{short.group(1)}<{', '.join(args)}>"
+        return re.search(r"([a-z_]+_kernel)", mangled).group(1) if "_kernel" in mangled else mangled
+
     report = {}
     for lib in COMPILED_LIBS:
         kernels, current, warnings = {}, None, []
@@ -3680,14 +3996,7 @@ def compile_report() -> dict:
                 warnings.append(line.strip())
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                short = re.search(r"([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
-                if short:  # template arguments: ints (Li128E) or bools (Lb1E)
-                    args = [n if k == "i" else ("false", "true")[int(n)]
-                            for k, n in re.findall(r"L([ib])(\d+)E", short.group(2))]
-                    current = f"{short.group(1)}<{', '.join(args)}>"
-                else:
-                    current = re.search(r"([a-z_]+_kernel)", m.group(1)).group(1) if "_kernel" in m.group(1) \
-                        else m.group(1)
+                current = kernel_name(m.group(1))
                 kernels[current] = {}
                 continue
             if current is None:
@@ -3706,10 +4015,15 @@ def compile_report() -> dict:
                                   text=True, timeout=120)
             if dump.returncode == 0:
                 sass = {op: len(re.findall(rf"\b{op}\b", dump.stdout)) for op in SASS_OPS}
+                # each kernel's own counts (a library holds several instances: K1 / B3 one a head dim)
+                for part in re.split(r"\n\s*Function : ", dump.stdout)[1:]:
+                    name = kernel_name(part.split(None, 1)[0])
+                    kernels.setdefault(name, {})["sass"] = {op: len(re.findall(rf"\b{op}\b", part)) for op in SASS_OPS}
         report[lib] = dict(kernels=kernels, sass=sass, ptxas_warnings=warnings)
         for name, k in kernels.items():
             log(f"[compile] {lib}: {name}: {k.get('registers')} registers, {k.get('spill_stores')} bytes spill stores, "
-                f"{k.get('spill_loads')} bytes spill loads, {k.get('static_smem_bytes')} bytes static shared memory")
+                f"{k.get('spill_loads')} bytes spill loads, {k.get('static_smem_bytes')} bytes static shared memory; "
+                f"SASS {k.get('sass', 'not measured')}")
         for line in warnings:
             log(f"[compile] {lib}: ptxas: {line}")
         log(f"[compile] {lib}: SASS instruction counts {sass}" if sass is not None else
@@ -3767,6 +4081,9 @@ def main() -> int:
     ap.add_argument("--families-only", action="store_true",
                     help="build, then run only phase 3's cases at the LLM families' shapes, the packed-layout check "
                          "and phase 4g (the LLM families) and print their numbers (no result line)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="build, then run only K1's and B3's head-dim-72 cases and phase 4h (the vision zoo) and print "
+                         "their numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -3799,7 +4116,8 @@ def main() -> int:
         log(json.dumps({"flash_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
     if args.small_only:
-        cases = kernel_cases(dev, args.seed, k2=False) + tower_kernel_cases(dev, args.seed, b3_only=True)
+        cases = (kernel_cases(dev, args.seed, k2=False) + tower_kernel_cases(dev, args.seed, b3_only=True)
+                 + head_dim_72_cases(dev, args.seed))
         keys = ("kernel", "case", "ms", "graph_ms", "device_ms", "library_ms", "library_graph_ms",
                 "library_device_ms", "bound_ms", "worst_share_of_limit")
         log(json.dumps({"small_cases": [{k: c.get(k) for k in keys} for c in cases]}))
@@ -3845,6 +4163,19 @@ def main() -> int:
                                    else v for k, v in packed.items()}}))
         log(json.dumps({"families": family_summary(families)}))
         return 0
+    if args.zoo_only:
+        with switches({}):
+            cases = head_dim_72_cases(dev, args.seed)
+            zoo = zoo_path(dev, args.seed, args.max_new_tokens)
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "device_ms", "library_ms", "library_graph_ms",
+                "library_device_ms", "plain_ms", "bound_ms", "bound_by", "worst_share_of_limit")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "zoo.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, compiled=compiled, cases=cases, zoo_path=zoo), f, indent=1,
+                      default=str)
+        log(json.dumps({"d72_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        log(json.dumps({"zoo": zoo_summary(zoo)}, default=str))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -3854,7 +4185,8 @@ def main() -> int:
 
     with switches({}):  # every phase sets the switches it runs under
         cases = (kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
-                 + int8_kernel_cases(dev, args.seed) + family_kernel_cases(dev, args.seed))
+                 + head_dim_72_cases(dev, args.seed) + int8_kernel_cases(dev, args.seed)
+                 + family_kernel_cases(dev, args.seed))
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
         evals = eval_path(dev, args.seed)
@@ -3863,6 +4195,7 @@ def main() -> int:
                          loaded["request"]["tokens"])
         packed = packed_check(dev, args.seed, args.max_new_tokens)
         families = families_path(dev, args.seed, args.max_new_tokens)
+        zoo = zoo_path(dev, args.seed, args.max_new_tokens)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
 
     kernels = []
@@ -3891,6 +4224,7 @@ def main() -> int:
             launches_families={**{label: m["request"]["launches"].get(name, 0) for label, m in families["models"].items()},
                                FAMILY_FULL + "_int8": families["models"][FAMILY_FULL]["int8_request"]["launches"]
                                .get(name, 0)},
+            launches_zoo={label: r["request"]["launches"].get(name, 0) for label, r in zoo["requests"].items()},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -3901,8 +4235,8 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
-                       packed_check=packed, families_path=families, train_path=train),
-                  f, indent=1)
+                       packed_check=packed, families_path=families, zoo_path=zoo, train_path=train),
+                  f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -7,7 +7,9 @@ names follow the JAX tree, so the mapping is by rule:
 
 - a ``Linear`` ``kernel`` is stored ``(in, out)`` -> ``weight`` transposed to
   torch's ``(out, in)`` (this covers the fusion's q/k/v kernels, which the JAX
-  tree already stores ``(in, out)``);
+  tree already stores ``(in, out)``); a convolution's 4-D / 5-D ``kernel``
+  (``merv_tpu`` keeps torch's OIHW / OIDHW layout: the projectors' convs,
+  Hiera's patch embed) -> ``weight`` as it lies;
 - a norm ``scale`` and an ``Embed`` ``embedding`` -> ``weight``;
 - a weight-only int8 Linear (``merv_tpu/nn/quantization.py``: ``kernel_q``
   int8 ``(in, out)`` beside ``scale`` fp32 ``(1, out)``) -> ``weight_q``
@@ -19,7 +21,8 @@ names follow the JAX tree, so the mapping is by rule:
 
 Given a whole MERV tree (keys ``video_backbones`` / ``projectors`` /
 ``feature_fusion`` / ``llm_backbone``) it yields the ``MERV`` module's keys
-(towers under ``video_backbones.<i>.vit.``, the decoder under
+(ViT towers under ``video_backbones.<i>.vit.``, Hiera under
+``video_backbones.<i>.model.``, the decoder under
 ``llm_backbone.decoder.``); given one tower's, projector's, fusion's or
 decoder's tree it yields that module's keys.
 """
@@ -58,9 +61,10 @@ def _convert(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor])
                 out[prefix + "scale"] = to_torch(arr.reshape(-1))
             continue
         if key == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{prefix}kernel: expected a 2-D (in, out) kernel, got {arr.shape}")
-            arr = arr.T
+            if arr.ndim not in (2, 4, 5):
+                raise ValueError(f"{prefix}kernel: expected a 2-D (in, out) or a conv kernel, got {arr.shape}")
+            if arr.ndim == 2:
+                arr = arr.T
         out[prefix + _LEAF_NAMES.get(key, key)] = to_torch(arr)
 
 
@@ -100,7 +104,7 @@ def module_state_dicts(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Ten
         sd: Dict[str, torch.Tensor] = {}
         if key == "video_backbones":
             for i, tower in sub.items():
-                _convert(tower, f"{i}.vit.", sd)
+                _convert(tower, f"{i}.{'model' if 'pos_embed_spatial' in tower else 'vit'}.", sd)
         else:
             _convert(sub, "decoder." if key == "llm_backbone" else "", sd)
         out[key] = sd

@@ -90,6 +90,17 @@ static cudaError_t make_tile_map(CUtensorMap* map, const void* base, int BH, int
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// Tensor map over the same [BH, T, D] tensor for the columns past 64 (D <= 80):
+// box {16, rows, 1}, 32-byte swizzle, loaded at column 64, so a box row is 32
+// bytes and the columns past D read as 0. This is the 32-byte-wide slab of the
+// head dims 64..79 (the k step that follows the first 64 columns).
+static cudaError_t make_tail_map(CUtensorMap* map, const void* base, int BH, int T, int D, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(T) * D * 2};
+  const cuuint32_t box[3] = {16, static_cast<cuuint32_t>(rows), 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
 // ---------------------------------------------------------------------------
 // Host: once-per-device setup
 // ---------------------------------------------------------------------------
@@ -285,6 +296,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo_by
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | (1ull << 62);
 }
 
+// Shared-memory matrix descriptor, 32-byte swizzle (layout type 3): the
+// 32-byte-wide slabs of make_tail_map (16-byte chunk c of row r at chunk
+// c ^ ((r / 4) % 2)), 8 rows = 256 bytes a swizzle atom.
+//   K-major: start = slab + row0 * 32 bytes (16 reduction columns, one k step), SBO = 256.
+//   MN-major: start = slab + k * 32 bytes (k the first of 16 reduction rows; 16 output
+//   columns), SBO = 256, LBO the next 16 output columns (unused at N = 16).
+__device__ __forceinline__ uint64_t sw32_desc(const void* smem, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | (3ull << 62);
+}
+
 // K-major operand: rows [row0, row0 + 64 or N) and reduction columns [k, k + 16) of a slab.
 __device__ __forceinline__ uint64_t kmajor_desc(const bf16* slab, int row0, int k) {
   return sw128_desc(slab + row0 * 64 + k, 16, 1024);
@@ -409,6 +432,17 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]: A from registers (the m16n8k16 A fragment of each
+// warp's 16 rows), B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

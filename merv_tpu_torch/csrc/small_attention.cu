@@ -1,9 +1,9 @@
 // small_attention: whole-sequence, non-causal, unmasked self-attention with
-// K row-major: q [B, H, T, 64], k/v [B, Hk, T, 64] (H % Hk == 0, GQA by the
-// kv-head index h / (H / Hk): nothing is repeated in device memory), all
-// bf16, contiguous, 16-byte aligned, 1 <= T <= 512. The towers' frame
-// attention takes it on the `MERV_TPU_TOWER_ATTN=xla` route (DINOv2 T=261,
-// LanguageBind spatial T=257).
+// K row-major: q [B, H, T, D], k/v [B, Hk, T, D], D = 64 or 72 (H % Hk == 0,
+// GQA by the kv-head index h / (H / Hk): nothing is repeated in device
+// memory), all bf16, contiguous, 16-byte aligned, 1 <= T <= 512. The towers'
+// frame attention takes it on the `MERV_TPU_TOWER_ATTN=xla` route (DINOv2
+// T=261, LanguageBind spatial T=257, SigLIP so400m T=256 at D=72).
 //
 // Replaces merv_tpu/ops/attention.py::_small_attention
 // (_small_attention_fwd_impl / _small_attn_kernel, pallas_call :473).
@@ -18,9 +18,12 @@
 // scores in registers (T <= 272) and the TPU kernel's exact softmax order.
 #include "small_attn_hopper.cuh"
 
-// q, k, v, o: device pointers (bf16, contiguous, 16-byte aligned).
+// q, k, v, o: device pointers (bf16, contiguous, 16-byte aligned); D = 64 or 72
+// (any other head dim: cudaErrorInvalidValue).
 MERV_EXPORT int small_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Hk, int T,
                                      int D, float scale, void* stream) {
-  if (D != small_attn::kD) return static_cast<int>(cudaErrorInvalidValue);
-  return small_attn::launch<false>(q, k, nullptr, v, o, B, H, Hk, T, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return small_attn::launch<false, false, 64>(q, k, nullptr, v, o, B, H, Hk, T, scale, st);
+  if (D == 72) return small_attn::launch<false, false, 72>(q, k, nullptr, v, o, B, H, Hk, T, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
 // small_attention_kt: whole-sequence, non-causal, unmasked attention for the
 // towers' frame attention (DINOv2 T=261, LanguageBind spatial T=257, head
-// dim 64), with K given pre-transposed: q, v [B, H, T, 64], kt [B, H, 64, T],
-// all bf16, contiguous, 16-byte aligned, 1 <= T <= 512.
+// dim 64; SigLIP so400m T=256, head dim 72), with K given pre-transposed:
+// q, v [B, H, T, D], kt [B, H, D, T], D = 64 or 72, all bf16, contiguous,
+// 16-byte aligned, 1 <= T <= 512.
 //
 // Replaces merv_tpu/ops/attention.py::small_attention_kt
 // (_small_attention_kt_fwd_impl / _small_attn_kernel_kt, pallas_call :540).
@@ -22,9 +23,13 @@
 // the TPU kernel's exact softmax order.
 #include "small_attn_hopper.cuh"
 
-// q, kt, v, o: device pointers (bf16, contiguous, 16-byte aligned); BH = batch * heads.
+// q, kt, v, o: device pointers (bf16, contiguous, 16-byte aligned); BH = batch * heads;
+// D = 64 or 72 (any other head dim: cudaErrorInvalidValue).
 MERV_EXPORT int small_attention_kt_bf16(const void* q, const void* kt, const void* v, void* o, int BH, int T, int D,
                                         float scale, void* stream) {
-  if (D != small_attn::kD || BH <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return small_attn::launch<true>(q, nullptr, kt, v, o, BH, 1, 1, T, scale, static_cast<cudaStream_t>(stream));
+  if (BH <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return small_attn::launch<true, false, 64>(q, nullptr, kt, v, o, BH, 1, 1, T, scale, st);
+  if (D == 72) return small_attn::launch<true, false, 72>(q, nullptr, kt, v, o, BH, 1, 1, T, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

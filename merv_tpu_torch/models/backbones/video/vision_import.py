@@ -8,7 +8,14 @@ The three namings the main-path towers come in:
   CLIP's ``pre_layrnorm`` spelling;
 - ``hf_vit`` (ViViT, DINOv2 through HF): ``encoder.layer.<i>.attention.attention``.
 
-Each writes straight into :class:`VisionTransformer`'s names. Linear weights
+Each writes straight into :class:`VisionTransformer`'s names. timm's MAP head
+(``attn_pool.latent/q/kv/proj/norm/mlp``, SigLIP's pooled variants) maps by
+the same names whatever the body's naming; a config with ``attn_pool`` and a
+state dict without the head raises (``require_attn_pool=False`` imports the
+body alone, for a caller that grafts a head of another naming). Hiera's
+original-repo ``.pth`` layout is Hiera's own
+(:func:`~merv_tpu_torch.models.backbones.video.hiera.import_hiera_state_dict`);
+:func:`extract_hiera_state` reads such a file. Linear weights
 keep torch's ``(out, in)`` layout; a Conv2d / Conv3d patch weight is laid out
 as the patchify matmul reads it, ``(out, p*p*C)`` / ``(out, t*p*p*C)``; a
 position-embedding grid of another resolution is resampled (bicubic,
@@ -16,9 +23,11 @@ antialiased, as timm's ``resample_abs_pos_embed``). Every value is rounded to
 ``param_dtype`` (``VideoBackbone.import_state_dict`` passes bf16, as
 ``merv_tpu``'s ``load_state_dict`` does).
 
-:func:`load_pretrained_tower` reads only ``$MERV_TPU_TOWER_DIR/{identifier}.safetensors``
-(``scripts/export_towers.py`` writes such files). ``merv_tpu``'s timm and
-HF-cache routes are not ported: without the file it raises, naming that script.
+:func:`load_pretrained_tower` reads ``$MERV_TPU_TOWER_DIR/{identifier}.safetensors``
+(``scripts/export_towers.py`` writes such files) and, for Hiera, a ``.pth`` in
+the torch-hub checkpoint cache under ``$TORCH_HOME`` when that is set
+(``merv_tpu`` also looks under ``~/.cache/torch``). ``merv_tpu``'s timm and
+HF-cache routes and Hiera's download are not ported: without a file it raises.
 """
 
 from __future__ import annotations
@@ -74,9 +83,11 @@ def _strip_prefix(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def import_vision_state_dict(
-    cfg: ViTConfig, raw_state: Mapping[str, Any], *, param_dtype: torch.dtype = torch.float32
+    cfg: ViTConfig, raw_state: Mapping[str, Any], *, param_dtype: torch.dtype = torch.float32,
+    require_attn_pool: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """A timm / HF tower state dict -> the ``state_dict`` of ``VisionTransformer(cfg)``."""
+    """A timm / HF tower state dict -> the ``state_dict`` of ``VisionTransformer(cfg)``
+    (without ``attn_pool.*`` when ``require_attn_pool`` is False and the state has no head)."""
     state = _strip_prefix(raw_state)
     naming = _detect_naming(state)
     D, L = cfg.hidden_size, cfg.num_layers
@@ -203,6 +214,14 @@ def import_vision_state_dict(
         pos = grid_pos
     out["pos_embed"] = pos
 
+    if cfg.attn_pool and require_attn_pool and "attn_pool.latent" not in state:
+        raise KeyError("config requires the MAP attention-pool head but the checkpoint has no attn_pool.* keys "
+                       "(pooled-variant weights must include the head, or pass require_attn_pool=False)")
+    if cfg.attn_pool and "attn_pool.latent" in state:
+        out["attn_pool.latent"] = get("attn_pool.latent")[0]
+        for name in ("q", "kv", "proj", "norm", "mlp.fc1", "mlp.fc2"):
+            copy(f"attn_pool.{name}", f"attn_pool.{name}")
+
     for i in range(L):
         layer(i)
     return {k: v.to(param_dtype) if v.is_floating_point() else v for k, v in out.items()}
@@ -215,15 +234,55 @@ def load_pretrained_tower(backbone: Any) -> None:
     from merv_tpu_torch.util.safetensors_io import load_file
 
     ident = backbone.identifier
-    if "hiera" in ident:
-        raise NotImplementedError(f"Hiera's checkpoint layout ({ident}) is not ported yet (ROADMAP A10)")
     tower_dir = os.environ.get("MERV_TPU_TOWER_DIR")
     if tower_dir:
         f = Path(tower_dir) / f"{ident}.safetensors"
         if f.exists():
             backbone.import_state_dict(load_file(f))
             return
+    if "hiera" in ident and os.environ.get("TORCH_HOME"):  # the torch-hub cache, where the caller names it
+        backbone.import_state_dict(extract_hiera_state(None, online=os.environ.get("MERV_TPU_ONLINE", "0") == "1"))
+        return
     raise FileNotFoundError(
         f"No pretrained source for {ident}: run scripts/export_towers.py to produce "
         f"$MERV_TPU_TOWER_DIR/{ident}.safetensors (the port reads no timm or HF cache)"
     )
+
+
+def load_torch_ckpt_file(path: Any) -> Dict[str, Any]:
+    """``torch.load`` (tensors only) with the usual nesting keys
+    (``model_state`` / ``state_dict`` / ``model`` / ``module``) unwrapped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state", "state_dict", "model", "module"):
+        if isinstance(obj, dict) and key in obj and isinstance(obj[key], dict):
+            obj = obj[key]
+            break
+    if not isinstance(obj, dict):
+        raise ValueError(f"unrecognized checkpoint structure in {path}")
+    return obj
+
+
+def extract_hiera_state(source: Any, online: bool) -> Dict[str, torch.Tensor]:
+    """An original-repo Hiera ``.pth`` (torch-hub layout) -> its flat state dict
+    without the classifier ``head.*``: from ``source``, else the newest
+    ``*hiera_base_plus_16x224*`` in ``$TORCH_HOME/hub/checkpoints`` (default
+    ``~/.cache/torch``), as ``merv_tpu`` looks for it. ``merv_tpu``'s download
+    (``online``) is not ported: it raises, as does a missing file."""
+    if source:
+        raw = load_torch_ckpt_file(Path(source))
+    else:
+        hub_dir = Path(os.environ.get("TORCH_HOME", Path.home() / ".cache/torch")) / "hub" / "checkpoints"
+        cands = sorted(hub_dir.glob("*hiera_base_plus_16x224*")) if hub_dir.exists() else []
+        if cands:
+            raw = load_torch_ckpt_file(cands[-1])
+        elif online:
+            raise NotImplementedError("downloading Hiera's checkpoint is not ported (ROADMAP, out of reach: no "
+                                      "network); pass a local .pth")
+        else:
+            raise FileNotFoundError("Hiera checkpoint not cached; pass a local .pth")
+    out = {}
+    for k, v in raw.items():
+        if not k.startswith("head."):
+            t = as_tensor(v)
+            out[k] = t.float() if t.is_floating_point() else t
+    return out

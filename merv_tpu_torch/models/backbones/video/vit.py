@@ -1,19 +1,22 @@
-"""Generic Vision Transformer covering the four main-path tower families
+"""Generic Vision Transformer covering the ViT tower families
 (counterpart of ``merv_tpu/models/backbones/video/vit.py``).
 
 - DINOv2-reg (ViT-L/14, cls + 4 register tokens, LayerScale)
-- SigLIP (ViT-B/16, no cls token, tanh-GELU)
+- SigLIP (ViT-B/16 and so400m/14, no cls token, tanh-GELU; the pooled
+  variants end in timm's MAP head, :class:`AttnPool`)
 - CLIP / LanguageBind-Video (ViT-L/14, pre-LN, QuickGELU, per-layer temporal
   attention over frames)
 - ViViT (3D tubelet embedding 2x16x16 over 32 frames)
 
 Patch/tubelet embedding is a reshape plus one matmul (stride == kernel).
-Frame attention at tower lengths (224..512 tokens) runs the
-``small_attention_kt`` kernel (through its autograd Function,
+Frame attention at tower lengths (224..512 tokens, head dim 64 or 72) runs
+the ``small_attention_kt`` kernel (through its autograd Function,
 :class:`~merv_tpu_torch.ops.attention.SmallAttentionKt`) with q/v written
 ``[B, H, S, Dh]`` and k written ``[B, H, Dh, S]`` straight out of their
 projections; other lengths go through
-:func:`merv_tpu_torch.ops.attention.attention`.
+:func:`merv_tpu_torch.ops.attention.attention`. The MAP head's attention (one
+latent query) goes through :func:`attention` too, whose plan keeps it plain,
+as ``merv_tpu`` plans ``"xla"`` at Tq = 1.
 
 ``ViTLayer`` reads ``merv_tpu``'s three switches, with its names, values,
 defaults and gates, at the same places (where ``merv_tpu`` also asks
@@ -74,6 +77,12 @@ class ViTConfig:
 
     temporal_attn: bool = False
     temporal_frames: int = 8
+
+    # timm's MAP head (AttentionPoolLatent), SigLIP's pooled variants
+    attn_pool: bool = False
+    attn_pool_heads: int = 12
+    attn_pool_mlp_ratio: float = 4.0
+    attn_pool_act: str = "gelu"  # exact GELU, as timm's head
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -264,6 +273,44 @@ class ViTLayer(nn.Module):
         return x + (self.ls2(h) if c.use_layerscale else h)
 
 
+class AttnPool(nn.Module):
+    """timm ``AttentionPoolLatent`` (one latent token): the latent probe -> q,
+    the tokens -> packed kv, attention, proj, then ``x + mlp(norm(x))``; the
+    latent token's output. [B, N, D] -> [B, D]."""
+
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.hidden_size
+        kw = dict(param_dtype=cfg.param_dtype, device=device, init_std=0.02, init_trunc=True)
+        self.latent = _param((1, D), cfg, device)
+        self.q = Linear(D, D, **kw)
+        self.kv = Linear(D, 2 * D, **kw)
+        self.proj = Linear(D, D, **kw)
+        self.norm = _layer_norm(cfg, device)
+        hidden = int(D * cfg.attn_pool_mlp_ratio)
+        self.mlp = nn.Module()
+        self.mlp.fc1 = Linear(D, hidden, **kw)
+        self.mlp.fc2 = Linear(hidden, D, **kw)
+        self.act = ACT2FN[cfg.attn_pool_act]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.latent, 0.02, generator)
+
+    def forward(self, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        B, N, D = x.shape
+        H = self.cfg.attn_pool_heads
+        hd = D // H
+        q = self.q(self.latent.to(x.dtype).expand(B, 1, D)).reshape(B, 1, H, hd).transpose(1, 2)
+        kv = self.kv(x).reshape(B, N, 2, H, hd)
+        k = kv[:, :, 0].transpose(1, 2).contiguous()
+        v = kv[:, :, 1].transpose(1, 2).contiguous()
+        out = attention(q.contiguous(), k, v, causal=False, impl=impl).transpose(1, 2).reshape(B, 1, D)
+        out = self.proj(out)
+        out = out + self.mlp.fc2(self.act(self.mlp.fc1(self.norm(out))))
+        return out[:, 0]
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
@@ -283,6 +330,8 @@ class VisionTransformer(nn.Module):
             self.pre_norm = _layer_norm(c, device)
         self.layers = nn.ModuleList([ViTLayer(c, device) for _ in range(c.num_layers)])
         self.final_norm = _layer_norm(c, device)
+        if c.attn_pool:
+            self.attn_pool = AttnPool(c, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for name in ("pos_embed", "cls_token", "register_tokens"):
@@ -335,18 +384,25 @@ class VisionTransformer(nn.Module):
         skip_last_layers: int = 0,
         apply_final_norm: bool = False,
         frames: int = 1,
+        apply_attn_pool: bool = False,
         impl: str = "auto",
     ) -> torch.Tensor:
         """skip_last_layers=1 + apply_final_norm=False is the penultimate-layer
-        tap; 0 + True is the HF last_hidden_state contract."""
+        tap; 0 + True is the HF last_hidden_state contract. apply_attn_pool
+        (``cfg.attn_pool``, full depth, after the final norm) returns the MAP
+        head's pooled embedding [B, D]: timm's default SigLIP forward."""
         c = self.cfg
         x = self.embed(pixels.to(c.compute_dtype))
         if c.pre_norm:
             x = self.pre_norm(x)
         for layer in self.layers[: c.num_layers - skip_last_layers]:
             x = layer(x, frames, impl)
-        if apply_final_norm:
+        if apply_final_norm or apply_attn_pool:
             x = self.final_norm(x)
+        if apply_attn_pool:
+            if not c.attn_pool or skip_last_layers:
+                raise ValueError("the MAP head runs on the full-depth, normed features of a config with attn_pool")
+            x = self.attn_pool(x, impl)
         return x
 
 
@@ -364,6 +420,12 @@ DINOV2_LARGE_REG4 = ViTConfig(
 SIGLIP_BASE_224 = ViTConfig(
     image_size=224, patch_size=16, hidden_size=768, intermediate_size=3072,
     num_layers=12, num_heads=12, num_cls_tokens=0,
+    pos_embed_includes_prefix=False, act="gelu_tanh", layer_norm_eps=1e-6,
+)
+
+SIGLIP_SO400M_224 = ViTConfig(
+    image_size=224, patch_size=14, hidden_size=1152, intermediate_size=4304,
+    num_layers=27, num_heads=16, num_cls_tokens=0,
     pos_embed_includes_prefix=False, act="gelu_tanh", layer_norm_eps=1e-6,
 )
 

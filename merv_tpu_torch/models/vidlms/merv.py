@@ -1,11 +1,15 @@
 """MERV: the multi-encoder video-language model (counterpart of
-``merv_tpu/models/vidlms/merv.py``), main-path subset.
+``merv_tpu/models/vidlms/merv.py``).
 
-- arch grammar ``{,no-align}+3davg{,+frame{N}}+linear`` selects one
-  :class:`AveragePooling3DProjector` per encoder, with the token-consistency
-  asserts of ``merv_tpu``; fusion ``cross_attention*`` (or ``first``).
-  Other resamplers, MLP projectors and fusions raise ``NotImplementedError``
-  naming ROADMAP A10.
+- arch grammar ``{,no-align}+{avg,attntv,conv,3davg,3dconv}{,+frame{N}}+
+  {linear,gelu-mlp,fused-gelu-mlp,none}`` selects one projector per encoder
+  (a resampler, or with none of them an MLP projector, or ``Identity`` for
+  ``none``; ``frame{N}`` divides the 3D resamplers' output frames), with the
+  token-consistency asserts of ``merv_tpu``; fusion ``first`` / ``None``,
+  ``concat``, ``concat_channel``, ``concat_channel_ln``, ``cross_attention*``
+  (``avg``: averaged summaries, ``pe``: an encoder embedding on them),
+  ``scalar``, and ``query_mlp``, whose module is built and whose forward
+  raises, as in ``merv_tpu``.
 - multimodal splice: visual tokens after BOS (first, for an LLM without
   one: Qwen-2.5's ``bos_token_length == 0``); text-only rows keep their text
   followed by zero embeddings with a False mask. The projectors' output
@@ -57,8 +61,18 @@ from merv_tpu_torch.models.generation import (
     prefill_prefix,
 )
 from merv_tpu_torch.models.vidlms.base_vidlm import IGNORE_INDEX, VidLM
-from merv_tpu_torch.nn.fusion import CrossAttentionAdapterLearnableQuery
-from merv_tpu_torch.nn.projectors import AveragePooling3DProjector
+from merv_tpu_torch.nn.fusion import CrossAttentionAdapterLearnableQuery, ScalarAdapter
+from merv_tpu_torch.nn.projectors import (
+    AttentivePooler,
+    AveragePooling3DProjector,
+    AveragePoolingProjector,
+    Convolutional3DProjector,
+    ConvolutionalProjector,
+    FusedMLPProjector,
+    Identity,
+    LinearProjector,
+    MLPProjector,
+)
 from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.preprocessing.transforms import subsample_frames
 
@@ -94,6 +108,7 @@ class MERV(VidLM):
         feature_fusion: Optional[str] = None,
         projector_token_length: int = 64,
         visual_feature_length: int = 512,
+        pre_proj_layernorm: bool = False,
         text_embedding_dim: int = 3072,
         param_dtype: torch.dtype = torch.float32,
         device: Optional[torch.device] = None,
@@ -102,37 +117,62 @@ class MERV(VidLM):
         device = resolve_device(device)
         self.feature_fusion_type = feature_fusion
         self.arch_specifier = arch_specifier
+        self.pre_proj_layernorm = pre_proj_layernorm
         llm_dim = llm_backbone.embed_dim
+        kw = dict(param_dtype=param_dtype, device=device)
 
-        if not arch_specifier.endswith("linear"):
-            raise NotImplementedError(
-                f"arch_specifier {arch_specifier!r}: only '+linear' projectors are ported (ROADMAP A10)"
-            )
+        # projector selection, as merv_tpu's (merv.py:118-176)
+        mlp_type = next((t for t in ("linear", "fused-gelu-mlp", "gelu-mlp", "none") if arch_specifier.endswith(t)),
+                        None)
+        if mlp_type is None:
+            raise ValueError(f"MERV with arch_specifier = {arch_specifier!r} is not supported!")
         parts = arch_specifier.split("+")
-        if "3davg" not in parts:
-            raise NotImplementedError(
-                f"arch_specifier {arch_specifier!r}: only the 3davg resampler is ported (ROADMAP A10)"
-            )
         factor = _extract_frame_number(arch_specifier) if "frame" in arch_specifier else 1
         output_size = math.isqrt(projector_token_length)
         if projector_token_length != output_size ** 2:
             raise ValueError("projector_token_length should be a square number")
-        self.projectors = nn.ModuleList([
-            AveragePooling3DProjector(
-                vb.embed_dim, llm_dim, vb.temporal_resolution // factor, output_size, "linear",
-                param_dtype=param_dtype, device=device,
-            )
-            for vb in video_backbones
-        ])
+        resampler = next((p for p in ("avg", "attntv", "conv", "3davg", "3dconv") if p in parts), None)
+        self.tokens_resampled = resampler is not None
 
+        def make_resampler(vb: VideoBackbone) -> nn.Module:
+            # frame{N} divides the output frames of the 3D resamplers only
+            out_frames = vb.temporal_resolution // (factor if resampler in ("3davg", "3dconv") else 1)
+            if resampler == "avg":
+                return AveragePoolingProjector(vb.embed_dim, llm_dim, output_size, out_frames, mlp_type, **kw)
+            if resampler == "attntv":
+                return AttentivePooler(vb.embed_dim, llm_dim, projector_token_length, 8, out_frames, mlp_type, **kw)
+            if resampler == "conv":
+                return ConvolutionalProjector(vb.embed_dim, llm_dim, output_size, 3, out_frames, mlp_type, **kw)
+            if resampler == "3davg":
+                return AveragePooling3DProjector(vb.embed_dim, llm_dim, out_frames, output_size, mlp_type, **kw)
+            return Convolutional3DProjector(vb.embed_dim, llm_dim, out_frames, output_size, mlp_type, **kw)
+
+        if self.tokens_resampled:
+            projectors = [make_resampler(vb) for vb in video_backbones]
+        elif mlp_type == "none":
+            projectors = [Identity() for _ in video_backbones]
+        else:
+            proj_cls = {"linear": LinearProjector, "gelu-mlp": MLPProjector, "fused-gelu-mlp": FusedMLPProjector}
+            projectors = [proj_cls[mlp_type](vb.embed_dim, llm_dim, pre_proj_layernorm=pre_proj_layernorm, **kw)
+                          for vb in video_backbones]
+        self.projectors = nn.ModuleList(projectors)
+
+        # token-length consistency (merv.py:178-200)
         if len(video_backbones) > 1:
-            lengths = [p.output_token_length * p.output_frame_length for p in self.projectors]
+            if self.tokens_resampled:
+                lengths = [p.output_token_length * p.output_frame_length for p in self.projectors]
+            else:
+                lengths = [p.output_token_length * vb.temporal_resolution
+                           for p, vb in zip(self.projectors, video_backbones)]
             assert all(n in (1, visual_feature_length) for n in lengths), (
                 f"Output token length is not consistent across all projectors! visual_feature_length="
                 f"{visual_feature_length}, projector outputs {lengths}"
             )
         else:
-            correct = self.projectors[0].output_token_length * self.projectors[0].output_frame_length
+            if self.tokens_resampled:
+                correct = self.projectors[0].output_token_length * self.projectors[0].output_frame_length
+            else:
+                correct = video_backbones[0].num_patches
             if correct != visual_feature_length:
                 overwatch.info(
                     f"Visual feature length {visual_feature_length} is not consistent with the output token "
@@ -140,17 +180,27 @@ class MERV(VidLM):
                 )
                 visual_feature_length = correct
         self.visual_feature_length = visual_feature_length
+        self.projector_token_length = projector_token_length
 
-        if feature_fusion is not None and "cross_attention" in feature_fusion:
+        # the fusion module (merv.py:203-219); concat and first / None have none
+        E = len(video_backbones)
+        self.feature_fusion: Optional[nn.Module]
+        if feature_fusion == "query_mlp":
+            self.feature_fusion = MLPProjector(text_embedding_dim, E, **kw)
+        elif feature_fusion is not None and "cross_attention" in feature_fusion:
             self.feature_fusion = CrossAttentionAdapterLearnableQuery(
                 embed_dim=text_embedding_dim, llm_dim=llm_dim, token_length=visual_feature_length,
-                averagetoken="avg" in feature_fusion, num_encoder=len(video_backbones),
-                positional_embedding="pe" in feature_fusion, param_dtype=param_dtype, device=device,
+                averagetoken="avg" in feature_fusion, num_encoder=E,
+                positional_embedding="pe" in feature_fusion, **kw,
             )
-        elif feature_fusion in (None, "first"):
-            self.feature_fusion = None
+        elif feature_fusion == "concat_channel":
+            self.feature_fusion = LinearProjector(E * llm_dim, llm_dim, **kw)
+        elif feature_fusion == "concat_channel_ln":
+            self.feature_fusion = LinearProjector(E * llm_dim, llm_dim, pre_proj_layernorm=True, **kw)
+        elif feature_fusion == "scalar":
+            self.feature_fusion = ScalarAdapter(E, **kw)
         else:
-            raise NotImplementedError(f"feature_fusion {feature_fusion!r} is not ported yet (ROADMAP A10)")
+            self.feature_fusion = None
 
         self.trainable_module_keys: List[str] = []
         # MCQ likelihood readout tokens, resolved at first use so that building
@@ -184,16 +234,26 @@ class MERV(VidLM):
         with torch.no_grad():
             return [vb(v, impl=impl) for vb, v in zip(self.video_backbones, video_values)]
 
-    def project_and_fuse(self, video_features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Per-encoder projection + fusion -> ([B, V, llm_dim], mixer weights)."""
-        feats = [
-            f.reshape(f.shape[0], vb.temporal_resolution, vb.spatial_resolution, f.shape[-1])
-            for f, vb in zip(video_features, self.video_backbones)
-        ]
-        projected = [p(f) for p, f in zip(self.projectors, feats)]
-        if self.feature_fusion is None:
+    def project_and_fuse(
+        self, video_features: Sequence[torch.Tensor], impl: str = "auto"
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Per-encoder projection + fusion -> ([B, V, llm_dim], mixer weights).
+        ``impl`` reaches the attentive pooler's attention (plain at its shapes)."""
+        feats = list(video_features)
+        if self.tokens_resampled:
+            feats = [f.reshape(f.shape[0], vb.temporal_resolution, vb.spatial_resolution, f.shape[-1])
+                     for f, vb in zip(feats, self.video_backbones)]
+        projected = [p(f, impl) if isinstance(p, AttentivePooler) else p(f) for p, f in zip(self.projectors, feats)]
+        ff = self.feature_fusion_type
+        if ff == "first" or ff is None:
             return projected[0], None
-        return self.feature_fusion(projected)
+        if ff == "concat":
+            return torch.cat(projected, dim=1), None
+        if ff in ("concat_channel", "concat_channel_ln"):
+            return self.feature_fusion(torch.cat(projected, dim=-1)), None
+        if "cross_attention" in ff or ff == "scalar":
+            return self.feature_fusion(projected)
+        raise NotImplementedError(f'feature_fusion "{ff}" doesn\'t exist')
 
     def embed_multimodal(
         self,
@@ -259,7 +319,7 @@ class MERV(VidLM):
         feats = self.encode_videos(video_values, attn_impl)
         if timings is not None:
             timings["towers_s"] = timings.get("towers_s", 0.0) + _sync(input_ids.device) - t0
-        visual, mixer = self.project_and_fuse(feats)
+        visual, mixer = self.project_and_fuse(feats, attn_impl)
         embeds, mask, fused_labels = self.embed_multimodal(input_ids, attention_mask, visual, labels, is_multimodal)
         dec = self.llm_backbone.decoder
         out = {"logits": None, "loss": None, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
@@ -318,7 +378,7 @@ class MERV(VidLM):
         if timings is not None:
             t1 = _sync(dev)
             timings["towers_s"] = t1 - t0
-        visual, _ = self.project_and_fuse(feats)
+        visual, _ = self.project_and_fuse(feats, attn_impl)
         embeds, mask, _ = self.embed_multimodal(input_ids, attention_mask, visual, None, is_multimodal)
         if timings is not None:
             timings["project_fuse_s"] = _sync(dev) - t1

@@ -115,6 +115,9 @@ def attention_reference(
 # ---------------------------------------------------------------------------
 
 SMALL_KT_MAX_T = 512  # K and V of one head fit the block's shared memory
+# the head dims K1 and B3 are built for: 64 (DINOv2, LanguageBind, ViViT, SigLIP-B)
+# and 72 (SigLIP so400m, 1152 / 16)
+SMALL_HEAD_DIMS = (64, 72)
 
 
 def small_attention_kt_plain(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -150,7 +153,7 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 def small_attention_kt(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Tower-frame attention with K pre-transposed: q/v [B,H,T,D], kt [B,H,D,T].
 
-    CUDA: ``csrc/small_attention_kt.cu`` (bf16, D == 64, T <= 512).
+    CUDA: ``csrc/small_attention_kt.cu`` (bf16, D in :data:`SMALL_HEAD_DIMS`, T <= 512).
     CPU: :func:`small_attention_kt_plain`.
 
     Replaces ``merv_tpu/ops/attention.py::small_attention_kt`` (Pallas,
@@ -162,7 +165,9 @@ def small_attention_kt(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale
     loads V by TMA into a ring of two stages; two consumer warpgroups run
     Q K^T and P V by wgmma on 64-row query tiles with a whole row of scores
     in registers for T <= 272 and the TPU kernel's exact softmax order (see
-    the source). Every base pointer must be 16-byte aligned."""
+    the source). At D = 72 the head dims 64-71 take a fifth k step and an
+    m64n16 P V product from 32-byte-wide slabs. Every base pointer must be
+    16-byte aligned."""
     B, H, T, D = q.shape
     if kt.shape != (B, H, D, T) or v.shape != q.shape:
         raise ValueError(f"small_attention_kt: q {tuple(q.shape)}, kt {tuple(kt.shape)}, v {tuple(v.shape)}")
@@ -171,8 +176,9 @@ def small_attention_kt(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor, scale
     if q.device.type != "cuda":
         raise ValueError(f"small_attention_kt: unsupported device {q.device}")
     _check_cuda("small_attention_kt", q, kt, v)
-    if D != 64 or not 0 < T <= SMALL_KT_MAX_T:
-        raise ValueError(f"small_attention_kt: the CUDA kernel takes D == 64 and T <= {SMALL_KT_MAX_T}, got D={D} T={T}")
+    if D not in SMALL_HEAD_DIMS or not 0 < T <= SMALL_KT_MAX_T:
+        raise ValueError(f"small_attention_kt: the CUDA kernel takes D in {SMALL_HEAD_DIMS} and T <= {SMALL_KT_MAX_T}, "
+                         f"got D={D} T={T}")
     lib = _kernel_lib("small_attention_kt")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -205,7 +211,7 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """Whole-sequence, non-causal, unmasked attention: q [B,H,T,D],
     k/v [B,Hk,T,D] (GQA through the kv-head index, nothing repeated).
 
-    CUDA: ``csrc/small_attention.cu`` (bf16, D == 64, T <= 512, H % Hk == 0).
+    CUDA: ``csrc/small_attention.cu`` (bf16, D in :data:`SMALL_HEAD_DIMS`, T <= 512, H % Hk == 0).
     CPU: :func:`small_attention_plain`.
 
     Replaces ``merv_tpu/ops/attention.py::_small_attention`` (Pallas,
@@ -223,9 +229,9 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if q.device.type != "cuda":
         raise ValueError(f"small_attention: unsupported device {q.device}")
     _check_cuda("small_attention", q, k, v)
-    if D != 64 or not 0 < T <= SMALL_KT_MAX_T or H % Hk:
-        raise ValueError(f"small_attention: the CUDA kernel takes D == 64, T <= {SMALL_KT_MAX_T} and H % Hk == 0, "
-                         f"got D={D} T={T} H={H} Hk={Hk}")
+    if D not in SMALL_HEAD_DIMS or not 0 < T <= SMALL_KT_MAX_T or H % Hk:
+        raise ValueError(f"small_attention: the CUDA kernel takes D in {SMALL_HEAD_DIMS}, T <= {SMALL_KT_MAX_T} and "
+                         f"H % Hk == 0, got D={D} T={T} H={H} Hk={Hk}")
     lib = _kernel_lib("small_attention")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -759,8 +765,9 @@ def dispatch_plan(
       ``_mha`` runs it as small_attention_kt (K1) on its kt layout, and
       :func:`attention` (``self_shaped`` is ``q.shape == k.shape``) as
       small_attention (B3). ``merv_tpu`` plans this for D <= 128; the port
-      only for D == 64, the head dim whose K and V^T fit a block's shared
-      memory at T = 512, so other head dims stay plain;
+      for the head dims its kernels are built for, :data:`SMALL_HEAD_DIMS`
+      (64, and SigLIP so400m's 72): no tower ``merv_tpu`` registers reaches
+      another head dim at 224-512 tokens, and any other D stays plain;
     - every causal call with ``Tq > 1`` (the LLM's no-cache forward and cache
       prefill) and every call with ``min(Tq, Tk) >= 2048`` (ViViT's 3137
       tokens) -> flash_attention_forward;
@@ -776,7 +783,8 @@ def dispatch_plan(
     """
     if has_bias:
         return "plain"
-    if not causal and not has_mask and self_shaped and Tq == Tk and 224 <= Tq <= SMALL_KT_MAX_T and D == 64:
+    if (not causal and not has_mask and self_shaped and Tq == Tk and 224 <= Tq <= SMALL_KT_MAX_T
+            and D in SMALL_HEAD_DIMS):
         return "small"
     if D in (64, 128) and ((causal and Tq > 1) or min(Tq, Tk) >= 2048):
         return "flash"

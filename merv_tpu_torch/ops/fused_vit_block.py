@@ -174,8 +174,10 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
     _check_cuda("fused_vit_attn_block", x, wq, wk, wv, wo)
     B, S, D = x.shape
     if D != 64 * heads or D > 2048:
+        # SigLIP so400m (head dim 72) reaches this route under MERV_TPU_FUSED_VIT_BLOCK=1 in merv_tpu: its
+        # port waits in ROADMAP.md section B ("B6 at D = 72")
         raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dim 64 and D <= 2048, got D={D} "
-                         f"heads={heads}")
+                         f"heads={heads} (head dim {D // max(heads, 1)}; B6 at other head dims: ROADMAP B)")
     if key_tiled is False and S > 512:
         raise ValueError(f"fused_vit_attn_block: the whole-head stage takes S <= 512, got S={S}")
     if any(t.device != x.device for t in vecs):

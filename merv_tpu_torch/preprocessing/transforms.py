@@ -25,6 +25,8 @@ OPENAI_DATASET_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_DATASET_STD = (0.26862954, 0.26130258, 0.27577711)
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
+HIERA_MEAN = (0.45, 0.45, 0.45)
+HIERA_STD = (0.225, 0.225, 0.225)
 
 
 @dataclass(frozen=True)

@@ -291,6 +291,66 @@ def test_small_attention_matches_plain(cuda, H, Hk, T):
         assert not hold(out, fault(q, k, v, 0.125), mag)["ok"]
 
 
+# K1 and B3 at SigLIP so400m's head dim 72: its 256-token frames at 16 heads, the ragged 229, the one-pass
+# bound (272 / 273), one stage of kt (320 / 321) and 512, the tile edges and a persistent grid that wraps
+D72_EDGE_T = [1, 40, 64, 65, 229, 256, 257, 272, 273, 320, 321, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["small_attention_kt", "small_attention"])
+@pytest.mark.parametrize("B,H,Hk,T", [(2, 4, 4, T) for T in D72_EDGE_T] + [(16, 16, 16, 256), (4, 16, 4, 256),
+                                                                           (18, 16, 16, 512)])
+def test_small_kernels_at_head_dim_72_match_plain(cuda, kernel, B, H, Hk, T):
+    """Head dim 72: both kernels against their plain versions; a plain version
+    that ignores head-dim columns 64-71 (what 64-column slabs would give) and,
+    for B3 on GQA, one that tiles the kv heads, are caught."""
+    if kernel == "small_attention_kt" and Hk != H:
+        pytest.skip("K1 has no GQA")
+    rng = np.random.default_rng(T + 72 * Hk)
+    q = _bf16(rng, (B, H, T, 72), cuda)
+    k, v = (_bf16(rng, (B, Hk, T, 72), cuda) for _ in range(2))
+    faults = planted_tower_faults()
+    if kernel == "small_attention_kt":
+        kt = k.transpose(-1, -2).contiguous()
+        out, args, plain = A.small_attention_kt(q, kt, v, 72 ** -0.5), (q, kt, v), A.small_attention_kt_plain
+        tail_fault = faults["k1_head_dim_tail_ignored"][2]
+    else:
+        out, args, plain = A.small_attention(q, k, v, 72 ** -0.5), (q, k, v), A.small_attention_plain
+        tail_fault = faults["b3_head_dim_tail_ignored"][2]
+    mag = plain(args[0], args[1], args[2].abs(), 72 ** -0.5)
+    _assert_close(out, plain(*args, 72 ** -0.5), mag)
+    if T > 16:  # a few rows can all fall within the limit
+        assert not hold(out, tail_fault(*args, 72 ** -0.5), mag)["ok"]
+    if 1 < Hk < H:
+        assert not hold(out, faults["b3_kv_head_ignored"][2](q, k, v, 72 ** -0.5), mag)["ok"]
+
+
+@pytest.mark.cuda
+def test_small_kernels_raise_on_other_head_dims(cuda):
+    """The C entry points take head dims 64 and 72; the wrappers raise on any other for CUDA tensors."""
+    for D in (80, 128, 32):
+        q = torch.zeros((1, 2, 256, D), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="D in"):
+            A.small_attention_kt(q, q.transpose(-1, -2).contiguous(), q, 1.0)
+        with pytest.raises(ValueError, match="D in"):
+            A.small_attention(q, q, q, 1.0)
+    for name in ("small_attention_kt", "small_attention"):
+        fn, args = A._kernel_lib(name), [0, 0, 0, 0]
+        dims = [2, 256, 80] if name == "small_attention_kt" else [1, 2, 2, 256, 80]
+        assert getattr(fn, {"small_attention_kt": "small_attention_kt_bf16",
+                            "small_attention": "small_attention_bf16"}[name])(*args, *dims, 1.0, 0) != 0
+
+
+@pytest.mark.cuda
+def test_fused_vit_block_refuses_head_dim_72(cuda):
+    """SigLIP so400m's head dim under MERV_TPU_FUSED_VIT_BLOCK=1: B6 takes 64 only and says where its port waits."""
+    x = torch.zeros((1, 16, 1152), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((1152, 1152), dtype=torch.bfloat16, device=cuda)
+    vec = torch.zeros(1152, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 16, 1e-6)
+
+
 # B5's edges: the towers' 16 heads of 8 frames, rows of 32 and of 12 keys (more than one chunk of 8
 # keys a row), R % heads != 0 (rows of 9 and of 8 keys), one head (every row sees all 512), one key a
 # row, and more windows than the persistent grid has blocks (2 a SM)

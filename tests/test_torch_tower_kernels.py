@@ -124,8 +124,8 @@ DISPATCH_ROWS = [(T, D, causal, masked) for T in (261, 257, 240, 196, 3137) for 
 
 def _differs_on_purpose(T, D, causal, masked):
     """The rows where the port's plan differs from merv_tpu's, and why."""
-    if D != 64 and not causal and not masked and 224 <= T <= 512:
-        return "plain"  # B3's kernel stages K and V^T of a head at D == 64 only (shared memory)
+    if D not in (64, 72) and not causal and not masked and 224 <= T <= 512:
+        return "plain"  # K1 and B3 are built for head dims 64 and 72 (SigLIP so400m) only
     if causal and T < 1024:
         # the port sends every causal call with Tq > 1 to K2 (its dispatch rule), which takes D in (64, 128)
         return "flash" if D in (64, 128) else "plain"
