@@ -27,5 +27,5 @@ run . this2
 run "$other" other2
 for f in other1 this1 this2 other2; do
   echo "== $f"
-  grep -E "^\[(kernel|decode-step)\]" "chiprun_out/ab/$f$flag.log" | sed -E 's/ max_err.* ms=/ ms=/' | cut -c1-260
+  grep -E "^\[(kernel|decode-step|digest)\]" "chiprun_out/ab/$f$flag.log" | sed -E 's/ max_err.* ms=/ ms=/' | cut -c1-260
 done

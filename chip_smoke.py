@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
                            --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
-                           --families-only | --zoo-only]
+                           --families-only | --zoo-only | --pretrain-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -16,8 +16,9 @@ phase 4e or 4f alone after the build and print their numbers the same way;
 ``--families-only`` runs phase 3's cases at the LLM families' shapes, the
 packed-layout check and phase 4g alone and writes them to
 ``chiprun_out/families.json``; ``--zoo-only`` runs K1's and B3's head-dim-72
-cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``.
-``--small-only`` covers the head-dim-72 cases too.
+cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``; ``--pretrain-only`` runs B6's head-dim-72 cases and
+phase 5b alone and writes them to ``chiprun_out/pretrain.json``.
+``--small-only`` covers K1's and B3's head-dim-72 cases too.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. device: the card's name and ``nvidia-smi`` power limit; no CUDA -> exit 2.
@@ -74,7 +75,15 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    at SigLIP so400m's head dim 72 (``head_dim_72_cases``: [16, 16, 256, 72],
    ragged T = 229, T = 512, and B3's GQA [4, 16 -> 4, 256, 72]) beside SDPA,
    graph-timed, where a fault that ignores head-dim columns 64-71 (and, on
-   the GQA case, B3's kv-head fault) must be caught.
+   the GQA case, B3's kv-head fault) must be caught. B6 at head dim 72
+   (``fused_d72_cases``: so400m's layer at [16, 256, 1152] H 16, ragged
+   S = 229, S = 257 and 513, where the stages switch at head dim 64, and
+   [256, 256, 1152], phase 5b's align micro-batch),
+   each call counted under its own counter, held end to end and stage by
+   stage, three planted faults caught (the q bias dropped, the scores
+   unscaled, the softmax scale of head dim 64), timed by CUDA events and
+   graph replay beside the default route's composed half-layer, and on
+   so400m's shape its device time by launch.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
@@ -193,7 +202,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    against its plain rerun and call by call; the decode graph against the
    eager loop; peak memory and the phase split). On Z1 also Hiera-base-plus
    and so400m timed on the default route and on ``MERV_TPU_TOWER_ATTN=xla``,
-   and, on its tower features, every resampler and fusion at full width
+   so400m also on ``MERV_TPU_FUSED_VIT_BLOCK=1`` (B6 at head dim 72, 27
+   launches, its output against the default route's), and, on its tower
+   features, every resampler and fusion at full width
    (``zoo_projector_sweep``: finite, of the expected shape, its ms).
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
@@ -211,13 +222,36 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    catch. One more micro-step of the
    per-device batch runs under ``torch.profiler`` for the device time by
    kernel group and the device's idle share.
+5b. the pretrain entry point (``pretrain_path``): ``cli/pretrain.py``'s
+   ``pretrain()`` in process under ``MERV_TPU_FUSED_VIT_BLOCK=1`` on a
+   dataset written under ``runs/`` (align and chat JSONs, video entries on
+   copies of the demo video; seeded synthetic frames where no decoder opens
+   it, and the phase prints which): align (merv-full with SigLIP ViT-B/16
+   swapped for the pooled so400m, Llama-2-7B at full width and depth, 2 steps
+   at per-device batch 16 with accumulation 2, a checkpoint every step, the
+   periodic ones async), finetune (the align checkpoint discovered beside it,
+   the LLM cut to one layer at full width, 2 steps at per-device batch 8),
+   then that finetune resumed from its step-1 checkpoint. Each run: launches
+   as worked out from the configs (B6 at head dims 64 and 72 counted apart,
+   K2, K3) with the counters zeroed just before its loop and read just after,
+   finite losses, frozen modules' bits unchanged and trainable ones moved,
+   ``latest-checkpoint`` on a directory with its meta.json. After the counts
+   were read: B6 held stage by stage, with its planted faults caught, on the
+   inputs of its first call at each shape of the first micro-step (so400m's
+   [256, 256, 1152] at head dim 72 in the align run, the other towers' at
+   64); the first micro-step's loss against the same micro-batch and weights
+   with the switch off within PRETRAIN_LOSS_REL_TOL, and the planted scale of
+   head dim 64 at so400m's layers outside it. The finetune
+   starts from the align projectors and the resume trains step 2 alone. Step
+   and micro-step times, the async saves' copy, write and wait.
 6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
    from the training path for K1-K3, from the switched request of 4b for
    B3, B5 and B6 and from 4f's request for K4 and K5, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
    4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
    ``launches_families`` from each of 4g's requests, ``launches_zoo`` from
-   each of 4h's), and
+   each of 4h's, ``launches_pretrain`` from each of 5b's runs; B6's head-dim-72
+   instance as ``fused_vit_attn_block_d72``, its launches from 5b's align run), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -229,6 +263,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -288,7 +323,7 @@ TRAIN_STEPS = 3
 TRAIN_LOSS_CHUNK = 256
 TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32,
                                  "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
-                                 "int8_linear": 0, "decode_attention": 0}
+                                 "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0}
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 0.1
 
@@ -508,7 +543,7 @@ def kernel_device_ms(fn, calls: int = 10) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = e.key.split("(")[0].replace("void ", "")[:60]
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")[:60]
             out[name] = out.get(name, 0.0) + e.self_device_time_total / calls / 1e3
     return out
 
@@ -878,7 +913,8 @@ def fused_block_mags(x, ns, nb, wq, bq, wk, bk, wv, bv, wo, bo, gamma, heads, ep
 def hold_fused(args, out, stages) -> dict:
     """B6 held end to end and stage by stage, each stage against the plain
     version's on the kernel's own inputs to it (``stages`` from
-    ``fused_vit_attn_block_stages``):
+    ``fused_vit_attn_block_stages``), at either head dim (the scale
+    1 / sqrt(D / heads) throughout):
 
     - output: ``hold`` against the plain version, mag ``fused_block_mags``;
     - ln_stats: mean and 1/sqrt(var + eps) per row within STATS_REL_TOL;
@@ -963,6 +999,9 @@ def planted_tower_faults():
     def b6_scores_unscaled(q, k, v, scale):
         return plain_attention(q, k, v, 0.0)  # scale 0: every key weighted alike
 
+    def b6_scale_of_head_dim_64(q, k, v, scale):
+        return plain_attention(q, k, v, 64 ** -0.5)  # the softmax scale of head dim 64 at any head dim
+
     def b6_q_bias_dropped(xn, wq, bq, wk, bk, wv, bv, heads):
         return plain_qkv(xn, wq, torch.zeros_like(bq), wk, bk, wv, bv, heads)
 
@@ -974,6 +1013,7 @@ def planted_tower_faults():
         "b5_mask_dropped": (A, "packed_temporal_attention_plain", b5_mask_dropped),
         "b6_gamma_ignored": (TF, "_plain_out", b6_gamma_ignored),
         "b6_scores_unscaled": (TF, "_plain_attention", b6_scores_unscaled),
+        "b6_scale_of_head_dim_64": (TF, "_plain_attention", b6_scale_of_head_dim_64),
         "b6_q_bias_dropped": (TF, "_plain_qkv", b6_q_bias_dropped),
     }
 
@@ -1019,8 +1059,9 @@ B3_CASES = (("dinov2_frames", 16, 16, 16, 261), ("languagebind_spatial", 16, 16,
             ("ragged_t229", 16, 16, 16, 229), ("gqa_16_to_4", 4, 16, 4, 261))
 # (Bn, R, D, heads): B5 on LanguageBind's packed windows (2 windows x 257 tokens; 8 frames x 16 heads)
 B5_CASE = (514, 128, 64, 16)
-# (tower, B, S): B6 on each tower's attention half-layer at merv-base's batch shapes
-B6_CASES = (("dinov2", 16, 261), ("languagebind", 16, 257), ("siglip", 16, 196), ("vivit", 1, 3137))
+# (tower, B, S): B6 on each tower's attention half-layer at merv-base's batch shapes, and DINOv2's at phase 5b's
+B6_CASES = (("dinov2", 16, 261), ("languagebind", 16, 257), ("siglip", 16, 196), ("vivit", 1, 3137),
+            ("dinov2_b256", 256, 261))  # phase 5b's align micro-batch: 16 videos x 16 frames
 
 
 def tower_kernel_cases(dev, seed: int, b3_only: bool = False, by_launch: bool = False):
@@ -1108,7 +1149,7 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False, by_launch: bool = 
     towers = dict(dinov2=DINOV2_LARGE_REG4, languagebind=LANGUAGEBIND_VIDEO_LARGE, siglip=SIGLIP_BASE_224,
                   vivit=VIVIT_BASE_16x2)
     for name, B, S in B6_CASES:
-        cfg = towers[name]
+        cfg = towers[name.split("_")[0]]
         layer = fused_layer(dev, cfg, seed + S)
         D = cfg.hidden_size
         x = _randn(rng, (B, S, D), dev)
@@ -1116,9 +1157,12 @@ def tower_kernel_cases(dev, seed: int, b3_only: bool = False, by_launch: bool = 
         out, stages = TF.fused_vit_attn_block_stages(*args)
         held = hold_fused(args, out, stages)
         log(f"[kernel] fused_vit_attn_block     {name:22s} by stage, worst/limit: {stage_text(held)}")
+        # the output's bits, to compare two trees' kernels on the same inputs (chip_ab.sh --tower-only)
+        digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        log(f"[digest] fused_vit_attn_block {name} {list(out.shape)} sha256 {digest}")
         if not held["ok"]:
             raise RuntimeError(f"fused_vit_attn_block/{name}: a stage is outside its limit: {held['stages']}")
-        extra = dict(stages=held["stages"])
+        extra = dict(stages=held["stages"], sha256=digest)
         b6_faults = ("b6_q_bias_dropped", "b6_scores_unscaled") + (("b6_gamma_ignored",) if cfg.use_layerscale else ())
         for fault in b6_faults:
             with patched(faults[fault]):
@@ -1232,6 +1276,79 @@ def head_dim_72_cases(dev, seed: int):
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, enable_gqa=Hk != H),
             bytes_moved=bytes_moved, flops=flops, extra=extra, device=True, graph=("kernel", "library"),
         )
+    return cases
+
+
+# B6 at SigLIP so400m's head dim 72 (hidden 1152, 16 heads): (name, B, S). so400m's 16 frames of 256 tokens, a
+# ragged S, the lengths that cross B6's stage boundaries at head dim 64 (257: the whole-head stage's first;
+# 513: past its last; at 72 the key-tiled stage takes all of them), and phase 5b's align micro-batch (16 videos x
+# 16 frames)
+B6_D72_CASES = (("so400m_frames", 16, 256), ("ragged_s229", 16, 229), ("s257", 16, 257), ("s513", 8, 513),
+                ("so400m_b256", 256, 256))
+B6_D72_FAULTS = ("b6_q_bias_dropped", "b6_scores_unscaled", "b6_scale_of_head_dim_64")
+
+
+def fused_d72_cases(dev, seed: int) -> list:
+    """B6 (fused_vit_attn_block) at head dim 72 on so400m's layers (random
+    init from a seeded generator): held end to end and stage by stage
+    (``hold_fused``), its launch counted under its own counter, the planted
+    faults of ``B6_D72_FAULTS`` (the scale of head dim 64 among them) caught;
+    timed by CUDA events and graph replay beside the default route's composed
+    half-layer; on so400m's shape also its device time by launch."""
+    import numpy as np
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.fused_vit_block as TF
+    from merv_tpu_torch.models.backbones.video.vit import SIGLIP_SO400M_224 as cfg
+
+    cases, faults = [], planted_tower_faults()
+    record = functools.partial(record_case, cases)
+    rng = np.random.default_rng(seed + 1152)
+    D, H = cfg.hidden_size, cfg.num_heads
+    for name, B, S in B6_D72_CASES:
+        layer = fused_layer(dev, cfg, seed + 72 + S)
+        x = _randn(rng, (B, S, D), dev)
+        args = fused_args(layer, x)
+        before = A.launch_counts()
+        out, stages = TF.fused_vit_attn_block_stages(*args)
+        torch.cuda.synchronize()
+        if A.launches_since(before) != {"fused_vit_attn_block_d72": 1}:
+            raise RuntimeError(f"fused_vit_attn_block_d72/{name}: one call counted {A.launches_since(before)}")
+        held = hold_fused(args, out, stages)
+        log(f"[kernel] fused_vit_attn_block_d72 {name:22s} by stage, worst/limit: {stage_text(held)}")
+        if not held["ok"]:
+            raise RuntimeError(f"fused_vit_attn_block_d72/{name}: a stage is outside its limit: {held['stages']}")
+        extra = dict(stages=held["stages"])
+        for fault in B6_D72_FAULTS:
+            with patched(faults[fault]):
+                h = hold_fused(args, out, stages)
+            log(f"[fault] {fault:24s} fused_vit_attn_block_d72/{name}: worst/limit {h['worst_share_of_limit']:.2f}, "
+                f"mean err/mean limit {h['mean_share']:.3f} -> {'not caught' if h['ok'] else 'caught'}")
+            if h["ok"]:
+                raise RuntimeError(f"planted fault {fault} was not caught on fused_vit_attn_block_d72/{name}")
+            extra[f"fault_{fault}"] = h["stages"]
+        del stages
+        if name == "so400m_frames":
+            extra["kernel_device_ms"] = kernel_device_ms(lambda: TF.fused_vit_attn_block(*args))
+            log(f"[kernel] fused_vit_attn_block_d72 {name:22s} device ms by kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in extra["kernel_device_ms"].items())
+                + f" (sum {sum(extra['kernel_device_ms'].values()):.4f})")
+
+        def composed(layer=layer, x=x):  # the default route's attention half-layer (K1 at head dim 72 at 224-512)
+            with torch.no_grad():
+                h = layer._mha(layer.attn, layer.norm1(x), "auto")
+                return x + (layer.ls1(h) if layer.cfg.use_layerscale else h)
+
+        record(
+            "fused_vit_attn_block_d72", name, [B, S, D, H], out, TF.fused_vit_attn_block_plain(*args),
+            fused_block_mags(*args), lambda: TF.fused_vit_attn_block(*args),
+            lambda: TF.fused_vit_attn_block_plain(*args), None,
+            bytes_moved=2 * x.numel() * 2 + 4 * D * D * 2 + 7 * D * 4,
+            flops=2.0 * B * S * D * 4 * D + 4.0 * B * S * S * D, extra=extra, yardstick=composed,
+            graph=("kernel", "yardstick"),
+        )
+        del layer, out
     return cases
 
 
@@ -3454,6 +3571,8 @@ ZOO_REQUESTS = (
 # and LanguageBind (23 each, the penultimate tap); K2 on ViViT's 12 layers; Hiera runs no kernel
 ZOO_TOWER_LAUNCHES = {"Z1": (27 + 23 + 23, 0), "Z2": (TOWER_K1, TOWER_K2)}
 ZOO_TIMED_TOWERS = ("hiera-base-plus-video", "siglip-vit-so400m")
+# so400m under MERV_TPU_FUSED_VIT_BLOCK=1: B6 at head dim 72 on each of its 27 layers (the K1 count of 4h's request)
+ZOO_SO400M_FUSED_LAUNCHES = {"fused_vit_attn_block_d72": 27}
 ZOO_RESAMPLERS = ("avg", "attntv", "conv", "3davg", "3dconv")
 ZOO_FUSIONS = ("concat", "concat_channel", "concat_channel_ln", "scalar", "cross_attention_avg_lq",
                "cross_attention_avg_lq_pe")
@@ -3461,8 +3580,12 @@ ZOO_FUSIONS = ("concat", "concat_channel", "concat_channel_ln", "scalar", "cross
 
 def zoo_tower_times(vidlm, vids) -> dict:
     """Hiera-base-plus and so400m on the default route and on
-    MERV_TPU_TOWER_ATTN=xla: ms per tower (CUDA events over 10 runs), launches
-    of one run, and the output against the same route with impl="plain"."""
+    MERV_TPU_TOWER_ATTN=xla, so400m also on MERV_TPU_FUSED_VIT_BLOCK=1 (B6 at
+    head dim 72 on each of its 27 layers): ms per tower (CUDA events over 10
+    runs), launches of one run, and the output against the same route with
+    impl="plain" and (so400m under the switch) against the default route's,
+    within EMBEDS_REL_TOL (relative L2: the routes round to bf16 at other
+    places)."""
     import torch
 
     import merv_tpu_torch.ops.attention as A
@@ -3471,7 +3594,11 @@ def zoo_tower_times(vidlm, vids) -> dict:
     for vb, v in zip(vidlm.video_backbones, vids):
         if vb.identifier not in ZOO_TIMED_TOWERS:
             continue
-        for route, env in (("default", {}), ("tower_attn_xla", {"MERV_TPU_TOWER_ATTN": "xla"})):
+        routes = (("default", {}), ("tower_attn_xla", {"MERV_TPU_TOWER_ATTN": "xla"}))
+        if vb.identifier == "siglip-vit-so400m":
+            routes += (("fused_block", {"MERV_TPU_FUSED_VIT_BLOCK": "1"}),)
+        default = None
+        for route, env in routes:
             with switches(env), torch.no_grad():
                 ref = vb(v, impl="plain")
                 A.reset_launch_counts()
@@ -3480,11 +3607,23 @@ def zoo_tower_times(vidlm, vids) -> dict:
                 launches = {k: n for k, n in A.launch_counts().items() if n}
                 ms = time_ms(lambda: vb(v), 10)
             r = rel_l2(got.float(), ref.float())
-            out[f"{vb.identifier}/{route}"] = dict(ms=ms, launches=launches, rel_diff_plain=r)
+            row = dict(ms=ms, launches=launches, rel_diff_plain=r)
+            if route == "default":
+                default = got
+            elif route == "fused_block":
+                row["rel_diff_default_route"] = rel_l2(got.float(), default.float())
+            out[f"{vb.identifier}/{route}"] = row
             log(f"[zoo] {vb.identifier:24s} {route:16s} {ms:8.3f} ms per tower (shape {list(v.shape)}); launches "
-                f"{launches}; vs plain {r:.3e}")
+                f"{launches}; vs plain {r:.3e}"
+                + (f"; vs the default route {row['rel_diff_default_route']:.3e}" if "rel_diff_default_route" in row else ""))
             if not torch.isfinite(got.float()).all() or not r <= EMBEDS_REL_TOL:
                 raise RuntimeError(f"{vb.identifier} on {route}: output differs from plain by {r}")
+            if not row.get("rel_diff_default_route", 0.0) <= EMBEDS_REL_TOL:
+                raise RuntimeError(f"{vb.identifier} on {route}: output differs from the default route's by "
+                                   f"{row['rel_diff_default_route']}")
+            if route == "fused_block" and launches != ZOO_SO400M_FUSED_LAUNCHES:
+                raise RuntimeError(f"{vb.identifier} on {route}: launches {launches}, predicted "
+                                   f"{ZOO_SO400M_FUSED_LAUNCHES}")
     return out
 
 
@@ -3959,6 +4098,454 @@ def train_path(dev, seed: int, run_dir: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the pretrain entry point (cli/pretrain.py), align then finetune then a resume
+# ---------------------------------------------------------------------------
+
+PRETRAIN_ROOT = os.path.join("runs", "chip_smoke_pretrain")  # the dataset and the three run directories
+PRETRAIN_SEED = 7  # the CLI's default seed (set_global_seed takes seeds > 0)
+# merv-full (its arch takes the align projectors into finetune: merv-base's "no-align" skips the hand-off in both
+# packages) with SigLIP ViT-B/16 swapped for the pooled so400m (so400m's all-tokens ids raise NotImplementedError in
+# both packages), Llama-2-7B at full width; the recipe's per-device batches (align 16, finetune 8) over two steps
+PRETRAIN_MODEL_ARGS = [
+    "--model.type", "merv-full", "--model.model_id", "merv-full-so400m",
+    "--model.video_backbone_ids",
+    "[languagebind-video-noclass,dinov2-video-all-tokens,vivit-google-b-all-no-cls-16frames,siglip-vit-so400m]",
+    "--model.align_max_steps", "2", "--model.align_global_batch_size", "32",
+    "--model.finetune_max_steps", "2", "--model.finetune_global_batch_size", "16",
+]
+PRETRAIN_RUN_ARGS = ["--save_checkpoint_after", "1", "--trackers", "[jsonl]"]
+PRETRAIN_FINETUNE_LLM_LAYERS = 1  # full finetune at 7B needs ~108 GB for params, grads and AdamW: one card holds 1 layer's
+# kernel launches a micro-step under MERV_TPU_FUSED_VIT_BLOCK=1 (the counts of the configs): B6 at head dim 64 on
+# LanguageBind's and DINOv2's 23 run layers (the penultimate tap) and ViViT's 12, at 72 on so400m's 27 (all, for the
+# MAP head); K2 twice a decoder layer (the forward and its recompute under remat), K3 once
+PRETRAIN_TOWER_LAUNCHES = {"fused_vit_attn_block": 23 + 23 + 12, "fused_vit_attn_block_d72": 27}
+PRETRAIN_LLM_LAYERS = 32
+PRETRAIN_DEVICE_ARGS = []  # the card (the CLI's default)
+PRETRAIN_D72_TOWER = "siglip-vit-so400m"  # the tower whose layers B6 runs at head dim 72
+# the first micro-step on the card (NVIDIA H100 80GB HBM3, 700 W), against the same micro-batch and weights with the
+# switch off. The loss, relative: with B6 2.8e-5 to 6.0e-5 in every run, with the planted scale of head dim 64 at
+# so400m's layers 1.65e-4 in the align run; the limit sits between. In the finetune runs (one LLM layer) the loss
+# hardly depends on the towers at random init: the fault reads 6e-6 to 1.1e-5, below B6's own, so there the fault
+# is left to so400m's output. That output, relative L2: with B6 5.1e-3, with the fault 1.8e-2 (EMBEDS_REL_TOL, 2e-2,
+# would pass it); the limit sits between (PERF.md, section 6)
+PRETRAIN_LOSS_REL_TOL = 1e-4
+PRETRAIN_TOWER_REL_L2 = 1e-2
+
+
+def pretrain_launches(llm_layers: int, micro_steps: int) -> dict:
+    """Every counter's launches for ``micro_steps`` micro-steps of the pretrain phase's model."""
+    import merv_tpu_torch.ops.attention as A
+
+    per = dict(PRETRAIN_TOWER_LAUNCHES, flash_attention_forward=2 * llm_layers, flash_attention_backward=llm_layers)
+    return {k: per.get(k, 0) * micro_steps for k in A.launch_counts()}
+
+
+def bits_digest(module) -> dict:
+    """{top-level child: a digest of its parameters' bits} (two int64 sums of
+    each tensor's raw integers, one weighted by position), computed on the
+    device: any changed bit changes it, so "unchanged" needs no host copy of a
+    7B model."""
+    import torch
+
+    out = {}
+    for key, child in module.named_children():
+        total = torch.zeros(2, dtype=torch.int64, device=next(module.parameters()).device)
+        for p in child.parameters():
+            flat = p.detach().reshape(-1)
+            ints = flat.view(torch.int32 if flat.element_size() == 4 else torch.int16)
+            for i in range(0, ints.numel(), 1 << 24):
+                part = ints[i:i + (1 << 24)].to(torch.int64)
+                pos = torch.arange(i, i + part.numel(), device=part.device) % 8191 + 1
+                total += torch.stack([part.sum(), (part * pos).sum()])
+        out[key] = tuple(total.tolist())
+    return out
+
+
+def write_pretrain_dataset(root: str, seed: int, n_align: int, n_finetune: int) -> dict:
+    """The align stage's annotation JSON (a caption a video) and the finetune
+    stage's chat JSON (two rounds of questions and answers a video), their
+    video entries on copies of the demo video under ``media/``."""
+    import numpy as np
+
+    media = os.path.join(root, "media")
+    os.makedirs(media, exist_ok=True)
+    clips = [f"clip{i}.mp4" for i in range(4)]
+    for c in clips:
+        shutil.copyfile(DEMO_VIDEO, os.path.join(media, c))
+    rng = np.random.default_rng(seed)
+
+    def words(lo, hi):
+        return " ".join(rng.choice(WORDS, size=int(rng.integers(lo, hi))))
+
+    align = [{"video": clips[i % 4], "conversations": [{"from": "human", "value": "<video>\nDescribe the video."},
+                                                        {"from": "gpt", "value": words(20, 61)}]}
+             for i in range(n_align)]
+    chat = [{"video": clips[i % 4], "conversations": [
+        {"from": "human", "value": "<video>\nWhat happens first?"}, {"from": "gpt", "value": words(10, 40)},
+        {"from": "human", "value": "And then?"}, {"from": "gpt", "value": words(10, 40)}]} for i in range(n_finetune)]
+    for name, rows in (("align.json", align), ("chat.json", chat)):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(rows, f)
+    return dict(align=len(align), finetune=len(chat), clips=len(clips))
+
+
+def hold_fused_by_rows(args, out, stages, rows: int | None = None) -> dict:
+    """``hold_fused`` on slices of ``rows`` of x's batch rows (by default as
+    many as keep the plain version's fp32 scores of a slice within 1 GiB).
+    Each row's attention is its own, so each slice is a hold of its own: ok
+    only if every slice's is; each share the largest of any slice's."""
+    x, heads = args[0], args[12]
+    B, S = x.shape[:2]
+    rows = rows or max(1, 2**30 // (heads * S * S * 4))
+    parts = [hold_fused((x[i:i + rows],) + tuple(args[1:]), out[i:i + rows],
+                        {k: v[i:i + rows] for k, v in stages.items()}) for i in range(0, B, rows)]
+    merged = {k: dict(worst_share_of_limit=max(p["stages"][k]["worst_share_of_limit"] for p in parts),
+                      mean_share=max(p["stages"][k]["mean_share"] for p in parts),
+                      ok=all(p["stages"][k]["ok"] for p in parts)) for k in parts[0]["stages"]}
+    return dict(ok=all(p["ok"] for p in parts), worst_share_of_limit=max(p["worst_share_of_limit"] for p in parts),
+                mean_share=max(p["mean_share"] for p in parts), stages=merged, slices=len(parts))
+
+
+def hold_path_b6(captured: dict, label: str) -> dict:
+    """B6 held at the shapes a pretrain run gave it: for each (x's shape,
+    heads) of its first micro-step, the first call's inputs (captured as the
+    run went) launched once more through ``fused_vit_attn_block_stages``
+    after the run's counts were read, held end to end (on the output the run
+    itself got) and stage by stage by ``hold_fused_by_rows``, and B6's
+    planted faults tried there (the scale of head dim 64 at 72; LayerScale's
+    gamma taken as 1 where a tower has one): whether each is caught is
+    recorded, and ``pretrain_final_checks`` fails the phase on a miss."""
+    import torch
+
+    import merv_tpu_torch.ops.fused_vit_block as TF
+
+    faults, out = planted_tower_faults(), {}
+    for (shape, heads), (args, path_out) in captured.items():
+        hd = shape[-1] // heads
+        name = f"{TF.launch_counter(hd)}/{label} {list(shape)} H{heads}"
+        got, stages = TF.fused_vit_attn_block_stages(*args)
+        held = hold_fused_by_rows(args, path_out, stages)
+        rec = dict(shape=list(shape), heads=heads, head_dim=hd, slices=held["slices"], stages=held["stages"],
+                   relaunch_same_bits=bool(torch.equal(got, path_out)))
+        del got
+        log(f"[pretrain] B6 held at the path's shape {name} ({held['slices']} slices; the relaunch's output bit-equal "
+            f"to the run's: {rec['relaunch_same_bits']}), by stage, worst/limit: {stage_text(held)}")
+        if not held["ok"]:
+            raise RuntimeError(f"{name}: a stage is outside its limit on the path's inputs: {held['stages']}")
+        names = ("b6_q_bias_dropped", "b6_scores_unscaled") + (
+            ("b6_scale_of_head_dim_64",) if hd != 64 else ()) + (
+            ("b6_gamma_ignored",) if not bool((args[11] == 1).all()) else ())
+        for fault in names:
+            with patched(faults[fault]):
+                h = hold_fused_by_rows(args, path_out, stages)
+            log(f"[fault] {fault:24s} {name}: worst/limit {h['worst_share_of_limit']:.2f} "
+                f"({stage_text(h)}) -> {'not caught' if h['ok'] else 'caught'}")
+            rec.setdefault("faults", {})[fault] = dict(worst_share_of_limit=h["worst_share_of_limit"], caught=not h["ok"])
+        out[f"{list(shape)} H{heads}"] = rec
+        del stages
+    return out
+
+
+def pretrain_run(stage: str, run_id: str, extra: list, records: list, held_shapes: set) -> tuple:
+    """One ``pretrain()`` in this process under MERV_TPU_FUSED_VIT_BLOCK=1,
+    with the launch counters set to 0 just before its training loop and read
+    just after, the parameters' digests before and after it, its steps' split
+    and losses. During its first micro-step it keeps that micro-batch and the
+    inputs and output of B6's first call at each shape it has not held yet
+    (nothing launched for that). After the counts were read: B6 held at those
+    shapes (``hold_path_b6``), and, with the trainable weights set back to
+    their start, the kept micro-batch's loss with the switch off and with a
+    planted fault (the plain version with the scale of head dim 64 at
+    so400m's head dim 72), then the trained weights restored."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.fused_vit_block as TF
+    import merv_tpu_torch.training.checkpointing as ckpt
+    import merv_tpu_torch.training.strategies.base_strategy as BS
+    from merv_tpu_torch.cli.pretrain import pretrain
+
+    rec = dict(stage=stage, run_id=run_id)
+    records.append(rec)
+    run_training, make_loss_fn, b6 = BS.TrainingStrategy.run_training, BS.make_loss_fn, TF.fused_vit_attn_block
+    first, captured = {}, {}
+
+    def capturing_b6(*a):
+        y = b6(*a)
+        key = (tuple(a[0].shape), a[12])
+        if "batch" in first and not first.get("done") and key not in held_shapes and key not in captured:
+            captured[key] = ((a[0].detach().clone(),) + tuple(t.detach() for t in a[1:12]) + tuple(a[12:]),
+                             y.detach().clone())
+        return y
+
+    def checked_make_loss_fn(model, **kw):
+        fn = make_loss_fn(model, **kw)
+
+        def loss_fn(batch, timings=None):
+            if "batch" not in first:
+                first.update(batch=batch, fn=fn, transforms=kw["video_transforms"])
+            loss = fn(batch, timings)
+            if "loss" not in first:
+                first.update(loss=loss.detach(), done=True)
+            return loss
+
+        return loss_fn
+
+    def traced_run_training(self, dataset, collator, metrics, **kw):
+        rec["digest_before"] = bits_digest(self.vidlm)
+        rec["resume_step"] = self._resume_step
+        trainable = [p for p in self.vidlm.parameters() if p.requires_grad]
+        start = [p.detach().clone() for p in trainable]
+        saves = len(ckpt.ASYNC_SAVES)
+        timings = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        t = time.perf_counter()
+        run_training(self, dataset, collator, metrics, step_timings=timings, **kw)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t
+        rec["launches"] = A.launch_counts()
+        rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["digest_after"] = bits_digest(self.vidlm)
+        rec["step_timings"], rec["async_saves"] = timings, ckpt.ASYNC_SAVES[saves:]
+        rec["grad_accumulation_steps"] = self.grad_accumulation_steps
+        # past the counted window: what follows launches kernels the counts above do not see
+        rec["b6_held_at_path_shapes"] = hold_path_b6(captured, stage)
+        held_shapes.update(captured)
+        captured.clear()
+        faults = planted_tower_faults()
+
+        def scale_fault_b6(*a):  # the plain version with head dim 64's scale at head dim 72; the kernel elsewhere
+            if a[0].shape[-1] // a[12] != 72:
+                return b6(*a)
+            with patched(faults["b6_scale_of_head_dim_64"]):
+                return TF.fused_vit_attn_block_plain(*a)
+
+        final = [p.detach().clone() for p in trainable]
+
+        def route(name):  # the switch off, on, or on with the planted fault in place of B6 at head dim 72
+            stack = contextlib.ExitStack()
+            stack.enter_context(switches({} if name == "switch_off" else {"MERV_TPU_FUSED_VIT_BLOCK": "1"}))
+            if name == "planted_scale_of_head_dim_64":
+                stack.enter_context(patched((TF, "fused_vit_attn_block", scale_fault_b6)))
+            return stack
+
+        with torch.no_grad():
+            for p, s in zip(trainable, start):
+                p.copy_(s)
+            del start
+            loss = {}
+            for name in ("switch_off", "planted_scale_of_head_dim_64"):
+                with route(name):
+                    loss[name] = first["fn"](first["batch"]).item()
+            for p, f in zip(trainable, final):
+                p.copy_(f)
+            del final
+            # so400m's output on the same micro-batch: the tower B6 changes, before the projectors and the LLM
+            i, vb = next((i, vb) for i, vb in enumerate(self.vidlm.video_backbones)
+                         if vb.identifier == PRETRAIN_D72_TOWER)
+            video = first["transforms"][i].device_finish(first["batch"]["video_values"][i])
+            feats = {}
+            for name in ("switch_on", "switch_off", "planted_scale_of_head_dim_64"):
+                with route(name):
+                    feats[name] = vb(video).float()
+        rec["first_micro_step_loss"] = dict(switch_on=first["loss"].item(), **loss)
+        rec["so400m_rel_l2"] = {name: rel_l2(feats[name], feats["switch_off"])
+                                for name in ("switch_on", "planted_scale_of_head_dim_64")}
+        del feats, video
+        first.clear()
+
+    argv = (PRETRAIN_MODEL_ARGS + ["--dataset.dataset_root_dir", PRETRAIN_ROOT,
+                                   "--dataset.align_stage_components", "[align.json,media]",
+                                   "--dataset.finetune_stage_components", "[chat.json,media]", "--stage", stage,
+                                   "--run_id", run_id, "--run_root_dir", os.path.join(PRETRAIN_ROOT, "runs"),
+                                   "--seed", str(PRETRAIN_SEED)] + PRETRAIN_RUN_ARGS + PRETRAIN_DEVICE_ARGS + extra)
+    rec["argv"] = argv
+    t = time.perf_counter()
+    with switches({"MERV_TPU_FUSED_VIT_BLOCK": "1"}), patched(
+            (BS.TrainingStrategy, "run_training", traced_run_training), (BS, "make_loss_fn", checked_make_loss_fn),
+            (TF, "fused_vit_attn_block", capturing_b6)):
+        strategy = pretrain(args=argv)
+    rec["process_s"] = time.perf_counter() - t
+    rec["run_dir"] = os.path.join(PRETRAIN_ROOT, "runs", run_id)
+    key = "Align" if stage.endswith("align") else "Finetune"
+    rec["logged_steps"] = [json.loads(x)[f"{key}/Step"] for x in open(os.path.join(rec["run_dir"], f"{run_id}.jsonl"))]
+    return rec, strategy
+
+
+def pretrain_checks(rec: dict, predicted: dict, trainable: tuple, frozen: tuple) -> None:
+    """The run's checks: launches as predicted, finite losses, the frozen
+    modules' bits unchanged and the trainable ones moved, and
+    ``latest-checkpoint`` on a directory with its meta.json. The first
+    micro-step's loss with the switch on and off, and with the planted scale
+    fault, are held by ``pretrain_final_checks``."""
+    from merv_tpu_torch.training.checkpointing import latest_checkpoint
+
+    label = f"pretrain {rec['stage']} ({rec['run_id']})"
+    if rec["launches"] != predicted:
+        raise RuntimeError(f"{label}: launches {rec['launches']}, predicted {predicted}")
+    losses = [st["loss"] for st in rec["step_timings"]]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: losses {losses}")
+    before, after = rec["digest_before"], rec["digest_after"]
+    if [k for k in frozen if before[k] != after[k]]:
+        raise RuntimeError(f"{label}: frozen modules changed: {[k for k in frozen if before[k] != after[k]]}")
+    if [k for k in trainable if before[k] == after[k]]:
+        raise RuntimeError(f"{label}: trainable modules did not move: {[k for k in trainable if before[k] == after[k]]}")
+    first = rec["first_micro_step_loss"]
+    rec["first_micro_step_rel_diff"] = abs(first["switch_on"] - first["switch_off"]) / abs(first["switch_off"])
+    rec["planted_fault_rel_diff"] = (abs(first["planted_scale_of_head_dim_64"] - first["switch_off"])
+                                     / abs(first["switch_off"]))
+    latest = latest_checkpoint(rec["run_dir"])
+    if latest is None or not os.path.exists(os.path.join(latest, "meta.json")):
+        raise RuntimeError(f"{label}: latest-checkpoint {latest} has no meta.json")
+    rec["latest_checkpoint"] = os.path.basename(latest)
+
+
+def pretrain_final_checks(records: list) -> None:
+    """Run once every run's readings were logged. B6's planted faults were
+    caught at every shape of the path (``hold_path_b6``); each run's first
+    micro-step's loss with B6 is within PRETRAIN_LOSS_REL_TOL of the
+    switch-off loss, and the align run's (the LLM at full depth) with the
+    planted scale fault outside it; so400m's output with B6 is within
+    PRETRAIN_TOWER_REL_L2 of the switch-off route's in every run, the planted
+    fault's outside it (so that each limit can fail a wrong kernel)."""
+    missed = [f"{f} at {shape} ({r['stage']})" for r in records for shape, h in r["b6_held_at_path_shapes"].items()
+              for f, v in h.get("faults", {}).items() if not v["caught"]]
+    loss = [f"{r['stage']} ({r['run_id']}): with B6 {r['first_micro_step_rel_diff']:.3e}, planted fault "
+            f"{r['planted_fault_rel_diff']:.3e}" for r in records
+            if not r["first_micro_step_rel_diff"] <= PRETRAIN_LOSS_REL_TOL
+            or (r["stage"] == "align" and not r["planted_fault_rel_diff"] > PRETRAIN_LOSS_REL_TOL)]
+    tower = [f"{r['stage']} ({r['run_id']}): {r['so400m_rel_l2']}" for r in records if not
+             r["so400m_rel_l2"]["switch_on"] <= PRETRAIN_TOWER_REL_L2 < r["so400m_rel_l2"]["planted_scale_of_head_dim_64"]]
+    if missed or loss or tower:
+        raise RuntimeError(f"B6's planted faults not caught on the path's inputs: {missed}; the first micro-step's "
+                           f"loss against the switch-off loss, limit {PRETRAIN_LOSS_REL_TOL} (B6 within it, the "
+                           f"planted fault outside in the align run): {loss}; so400m's output against the switch-off "
+                           f"route's, limit {PRETRAIN_TOWER_REL_L2} (B6 within it, the planted fault outside): {tower}")
+
+
+def pretrain_path(dev, seed: int) -> dict:
+    """Phase 5b: ``cli/pretrain.py``'s ``pretrain()`` in process under
+    MERV_TPU_FUSED_VIT_BLOCK=1 on a dataset written to ``PRETRAIN_ROOT``:
+    align (merv-full with the pooled so400m, Llama-2-7B at full width and
+    depth, 2 steps at per-device batch 16, accumulation 2, a checkpoint every
+    step, written async), finetune (the align checkpoint discovered beside it,
+    the LLM cut to PRETRAIN_FINETUNE_LLM_LAYERS at full width, 2 steps at
+    per-device batch 8, accumulation 2), then the finetune resumed from its
+    step-1 checkpoint (the consumed batch skipped). Checks of ``pretrain_checks``
+    on each, B6 held at each shape it met (``hold_path_b6``), and
+    ``pretrain_final_checks`` once every run's readings are logged; the align
+    projectors are the finetune's start; the resume trains step 2 alone."""
+    import dataclasses
+    import gc
+    import multiprocessing
+
+    import torch
+
+    import merv_tpu_torch.models.backbones.llm.base_llm as base_llm
+    from merv_tpu_torch.training.checkpointing import latest_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shutil.rmtree(PRETRAIN_ROOT, ignore_errors=True)
+    os.makedirs(PRETRAIN_ROOT)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    out = dict(dataset=write_pretrain_dataset(PRETRAIN_ROOT, seed, n_align=64, n_finetune=32),
+               disk_free_gib=shutil.disk_usage(PRETRAIN_ROOT).free / 2**30)
+    _, frames_from, decoders = demo_video(seed)
+    out["frames_from"] = frames_from
+    synthetic = []
+    if frames_from == "synthetic":  # no decoder opens the file here: seeded frames of the decoded shape
+        import numpy as np
+
+        import merv_tpu_torch.preprocessing.datasets.datasets as DS
+
+        frames = np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+        synthetic.append((DS, "load_video", lambda path, num_frames=8, **kw: frames[:num_frames]))
+    log(f"[pretrain] dataset {out['dataset']} at {PRETRAIN_ROOT}; frames from {frames_from} ({decoders}); "
+        f"{out['disk_free_gib']:.1f} GiB free on its disk")
+    records, held_shapes = [], set()
+    tag = f"x{PRETRAIN_SEED}"
+    align_id, ft_id = f"merv-full-so400m+7b+stage-align+{tag}", f"merv-full-so400m+7b+stage-finetune+{tag}"
+    spec = base_llm.LLM_SPECS["llama2-7b-pure"]
+    reduced = dataclasses.replace(spec, decoder_config=dataclasses.replace(spec.decoder_config,
+                                                                           num_layers=PRETRAIN_FINETUNE_LLM_LAYERS))
+    try:
+        with patched(*synthetic):
+            align, strategy = pretrain_run("align", align_id, [], records, held_shapes)
+            micro = align["grad_accumulation_steps"] * len(align["step_timings"])
+            pretrain_checks(align, pretrain_launches(PRETRAIN_LLM_LAYERS, micro), ("projectors", "feature_fusion"),
+                            ("video_backbones", "llm_backbone"))
+            del strategy
+            gc.collect()
+            torch.cuda.empty_cache()
+            with patched((base_llm, "LLM_SPECS", dict(base_llm.LLM_SPECS, **{"llama2-7b-pure": reduced}))):
+                ft, strategy = pretrain_run("finetune", ft_id, [], records, held_shapes)
+                micro = ft["grad_accumulation_steps"] * len(ft["step_timings"])
+                pretrain_checks(ft, pretrain_launches(PRETRAIN_FINETUNE_LLM_LAYERS, micro),
+                                ("projectors", "llm_backbone"), ("video_backbones",))
+                if ft["digest_before"]["projectors"] != align["digest_after"]["projectors"]:
+                    raise RuntimeError("finetune did not start from the align run's trained projectors")
+                final = {k: v for k, v in ft["digest_after"].items()}
+                del strategy
+                gc.collect()
+                torch.cuda.empty_cache()
+                ckpts = os.path.join(PRETRAIN_ROOT, "runs", ft_id, "checkpoints")
+                step1 = next(os.path.join(ckpts, d) for d in sorted(os.listdir(ckpts)) if d.startswith("step-000001-"))
+                for d in os.listdir(ckpts):  # the straight run's step-2 checkpoints: disk the resume does not need
+                    if d.startswith("step-000002-") or d == "latest-checkpoint":
+                        path = os.path.join(ckpts, d)
+                        os.unlink(path) if os.path.islink(path) else shutil.rmtree(path)
+                res, strategy = pretrain_run(
+                    "finetune", f"merv-full-so400m+7b-resumed+stage-finetune+{tag}",
+                    ["--pretrained_checkpoint", str(latest_checkpoint(os.path.join(PRETRAIN_ROOT, "runs", align_id))),
+                     "--resume_from_checkpoint", step1], records, held_shapes)
+                micro = res["grad_accumulation_steps"] * len(res["step_timings"])
+                pretrain_checks(res, pretrain_launches(PRETRAIN_FINETUNE_LLM_LAYERS, micro),
+                                ("projectors", "llm_backbone"), ("video_backbones",))
+                if res["resume_step"] != 1 or res["logged_steps"] != [2] or ft["logged_steps"] != [1, 2]:
+                    raise RuntimeError(f"resume: from step {res['resume_step']}, logged {res['logged_steps']} "
+                                       f"(straight {ft['logged_steps']})")
+                # the resume ends where the straight run did: not bit for bit (the card's kernels' sums may take
+                # other orders across runs), so the digests are reported, not gated
+                res["same_bits_as_straight_run"] = {k: res["digest_after"][k] == final[k] for k in final}
+                del strategy
+        if multiprocessing.active_children():
+            raise RuntimeError(f"processes left running: {multiprocessing.active_children()}")
+    finally:
+        shutil.rmtree(PRETRAIN_ROOT, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for rec in records:
+        for k in ("digest_before", "digest_after"):
+            rec.pop(k, None)
+        st = rec["step_timings"]
+        rec["step_s"] = [x["step_s"] for x in st]
+        rec["micro_step_s"] = [x["step_s"] / rec["grad_accumulation_steps"] for x in st]
+        rec["losses"] = [x["loss"] for x in st]
+        log(f"[pretrain] {rec['stage']} {rec['run_id']}: pretrain() {rec['process_s']:.1f} s, training loop "
+            f"{rec['wall_s']:.1f} s; steps {[round(x, 3) for x in rec['step_s']]} s (micro-steps "
+            f"{[round(x, 3) for x in rec['micro_step_s']]} s; split " +
+            "; ".join(f"towers {x['towers_s']:.3f} LLM {x['llm_s']:.3f} optimizer {x['optimizer_s']:.3f}" for x in st)
+            + f"); losses {rec['losses']}; first micro-step loss with B6 / switch off / planted fault "
+            f"{rec['first_micro_step_loss']} (relative: B6 {rec['first_micro_step_rel_diff']:.2e}, planted fault "
+            f"{rec['planted_fault_rel_diff']:.2e}; limit {PRETRAIN_LOSS_REL_TOL}); so400m's output against the switch "
+            f"off, relative L2: {rec['so400m_rel_l2']} (limit {PRETRAIN_TOWER_REL_L2}); "
+            f"launches {rec['launches']}; peak {rec['peak_memory_gib']:.2f} GiB; async saves "
+            + "; ".join(f"{a['checkpoint']} copy {a['copy_s']:.3f} s write {a.get('write_s', 0):.3f} s waited "
+                        f"{a.get('waited_s', 0):.3f} s" for a in rec["async_saves"])
+            + f"; latest {rec['latest_checkpoint']}; steps logged {rec['logged_steps']}")
+    out.update(align=records[0], finetune=records[1], resume=records[2], wall_s=time.perf_counter() - t0)
+    log(f"[pretrain] phase 5b: {out['wall_s']:.1f} s; the resume's bits equal the straight run's: "
+        f"{records[2]['same_bits_as_straight_run']}")
+    pretrain_final_checks(records)
+    return out
+
+# ---------------------------------------------------------------------------
 
 # every kernel library: K2, K3, K1, B3, B6, B5, K4 and K5
 COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention", "fused_vit_block",
@@ -4047,6 +4634,10 @@ KERNELS = {
     "fused_vit_attn_block": dict(source="merv_tpu_torch/csrc/fused_vit_block.cu",
                                  replaces="merv_tpu/ops/fused_vit_block.py:135", main_case="dinov2",
                                  request="fused_block"),
+    # B6's head-dim-72 instance (SigLIP so400m), counted apart; its launches come from phase 5b's align run
+    "fused_vit_attn_block_d72": dict(source="merv_tpu_torch/csrc/fused_vit_block.cu",
+                                     replaces="merv_tpu/ops/fused_vit_block.py:135", main_case="so400m_frames",
+                                     pretrain=True),
     # K4 and K5 replace fused XLA work of merv_tpu's int8 serving, not a Pallas kernel: the int8 Linear's product
     # and the attention over the (dequantized) cache at T = 1; their launches come from phase 4f's request
     "int8_linear": dict(source="merv_tpu_torch/csrc/int8_linear.cu", replaces="merv_tpu/nn/core.py:128",
@@ -4084,6 +4675,9 @@ def main() -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="build, then run only K1's and B3's head-dim-72 cases and phase 4h (the vision zoo) and print "
                          "their numbers (no result line)")
+    ap.add_argument("--pretrain-only", action="store_true",
+                    help="build, then run only B6's head-dim-72 cases and phase 5b (the pretrain entry point) and "
+                         "print their numbers (no result line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -4176,6 +4770,23 @@ def main() -> int:
         log(json.dumps({"d72_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         log(json.dumps({"zoo": zoo_summary(zoo)}, default=str))
         return 0
+    if args.pretrain_only:
+        with switches({}):
+            cases = fused_d72_cases(dev, args.seed)
+            pretrain = pretrain_path(dev, args.seed)
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "plain_ms", "yardstick_ms", "yardstick_graph_ms",
+                "bound_ms", "bound_by", "worst_share_of_limit", "kernel_device_ms")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "pretrain.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, compiled=compiled, cases=cases, pretrain_path=pretrain), f,
+                      indent=1, default=str)
+        log(json.dumps({"d72_b6_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        log(json.dumps({"pretrain": {run: {k: pretrain[run][k] for k in (
+            "step_s", "micro_step_s", "losses", "launches", "peak_memory_gib", "async_saves",
+            "first_micro_step_loss", "first_micro_step_rel_diff", "planted_fault_rel_diff", "so400m_rel_l2",
+            "b6_held_at_path_shapes",
+            "wall_s", "process_s")} for run in ("align", "finetune", "resume")}}, default=str))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -4185,7 +4796,7 @@ def main() -> int:
 
     with switches({}):  # every phase sets the switches it runs under
         cases = (kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
-                 + head_dim_72_cases(dev, args.seed) + int8_kernel_cases(dev, args.seed)
+                 + fused_d72_cases(dev, args.seed) + head_dim_72_cases(dev, args.seed) + int8_kernel_cases(dev, args.seed)
                  + family_kernel_cases(dev, args.seed))
         main = main_path(dev, args.seed, args.max_new_tokens)
         loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
@@ -4197,6 +4808,7 @@ def main() -> int:
         families = families_path(dev, args.seed, args.max_new_tokens)
         zoo = zoo_path(dev, args.seed, args.max_new_tokens)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
+        pretrain = pretrain_path(dev, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -4206,6 +4818,8 @@ def main() -> int:
             launches = main["switched_requests"][meta["request"]]["launches"][name]
         elif meta.get("int8"):  # K4 and K5: the int8 request of phase 4f (training runs neither)
             launches = int8["request"]["launches"][name]
+        elif meta.get("pretrain"):  # B6 at head dim 72: phase 5b's align run
+            launches = pretrain["align"]["launches"][name]
         else:
             launches = train["launches"][name]
         if launches <= 0:
@@ -4225,6 +4839,7 @@ def main() -> int:
                                FAMILY_FULL + "_int8": families["models"][FAMILY_FULL]["int8_request"]["launches"]
                                .get(name, 0)},
             launches_zoo={label: r["request"]["launches"].get(name, 0) for label, r in zoo["requests"].items()},
+            launches_pretrain={run: pretrain[run]["launches"].get(name, 0) for run in ("align", "finetune", "resume")},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -4235,7 +4850,8 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
-                       packed_check=packed, families_path=families, zoo_path=zoo, train_path=train),
+                       packed_check=packed, families_path=families, zoo_path=zoo, train_path=train,
+                       pretrain_path=pretrain),
                   f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,3 +1,4 @@
+from merv_tpu_torch.conf.datasets import DatasetConfig, DatasetRegistry, VideoLLaVA_Config
 from merv_tpu_torch.conf.models import (
     DINOv2_Single_Encoder,
     LanguageBind_Single_Encoder,
@@ -11,6 +12,8 @@ from merv_tpu_torch.conf.models import (
 )
 
 __all__ = [
+    "DatasetConfig",
+    "DatasetRegistry",
     "DINOv2_Single_Encoder",
     "LanguageBind_Single_Encoder",
     "LLaVa_v15_Reproduction_13B",
@@ -19,5 +22,6 @@ __all__ = [
     "ModelConfig",
     "ModelRegistry",
     "SigLIP_Single_Encoder",
+    "VideoLLaVA_Config",
     "ViViT_Single_Encoder",
 ]

@@ -1,6 +1,7 @@
 // fused_vit_attn_block: a ViT layer's attention half,
 //   out = x + gamma * (o_proj(attention(q, k, v)) + bo),  q/k/v = LN1(x) W + b,
-// for x [B, S, D] bf16 with D = 64 * heads. Weights in Linear's (out, in)
+// for x [B, S, D] bf16 with D = 64 * heads, or D = 72 * heads with D % 64 == 0
+// (SigLIP so400m: 1152 = 16 x 72). Weights in Linear's (out, in)
 // layout, bf16 [D, D]; the LN affine, the four biases and gamma in one fp32
 // [7, D] block (ns, nb, bq, bk, bv, bo, gamma).
 //
@@ -54,6 +55,23 @@
 //  (d) gemm_kernel<OPROJ>: o W_o^T in fp32, + bo, then x + gamma * y in fp32
 //      and one rounding to bf16.
 // Every product is wgmma; nothing here is a library call.
+//
+// Head dim 72 (HD = 72, a second instance of (b)'s q/k/v epilogue and of (c)'s
+// key-tiled stage; the D = 64 instances compile as before, every step for 72
+// behind `if constexpr`). The GEMMs need no new shape: K = 1152 is 18 k slices
+// of 64, and N = 1152 a weight is 4.5 tiles of 256, the last tile's rows past
+// the weight zero-filled by TMA and its columns past D not stored. The q/k/v
+// epilogue writes head c / 72, dim c % 72 into [3, B, H, S, 72] (72 % 8 == 0:
+// a 16-byte store never crosses a head); no padding, since the attention
+// stage's TMA boxes read past column 72 as 0. The key-tiled stage keeps Q's,
+// K's and V's first 64 columns in the 128-byte-swizzled tiles above and takes
+// columns 64..79 as a 32-byte-wide slab each (hopper.cuh's make_tail_map: box
+// {16, rows}, 32-byte swizzle, loaded at column 64; 72..79 lie past the tensor
+// and read as 0), as small_attn_hopper.cuh does for K1 / B3: QK^T takes a fifth
+// k step (m64n128k16 on the 32-byte slabs), P V an m64n16 product beside the
+// m64n64 (columns 72..79 come out 0 and are not stored), and the output goes at
+// column 72 h. The whole-head stage (kFused) is built for 64 only: at 72 the
+// key-tiled stage takes every S.
 #include <algorithm>
 
 #include "small_attn_hopper.cuh"
@@ -61,7 +79,6 @@
 namespace fused_block {
 namespace {
 
-constexpr int kD = 64;  // head dim
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 
 // ---------------------------------------------------------------------------
@@ -152,14 +169,15 @@ struct GemmSmem {
 struct GemmArgs {
   int M, K, n_per, n_weights;  // A [M, K]; n_weights weights of [n_per, K]
   const float* bias;           // fp32, n_weights * n_per (QKV: bq | bk | bv; OPROJ: bo)
-  bf16* qkv;                   // QKV: [3, B, H, S, 64]
+  bf16* qkv;                   // QKV: [3, B, H, S, HD]
   int S, H;
   const bf16* x;               // OPROJ: residual [M, n_per], gamma [n_per], out [M, n_per]
   const float* gamma;
   bf16* out;
 };
 
-template <bool kQKV>
+// HD: the head dim the QKV epilogue writes (the OPROJ instance takes 64 and does not read it)
+template <bool kQKV, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap w0,
                 const __grid_constant__ CUtensorMap w1, const __grid_constant__ CUtensorMap w2, const GemmArgs p) {
@@ -265,10 +283,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                         __fadd_rn(y1.x, b1.x), __fadd_rn(y1.y, b1.y), __fadd_rn(y1.z, b1.z), __fadd_rn(y1.w, b1.w)};
           uint4 o;
           if constexpr (kQKV) {
-            const int b = m / p.S, s = m - b * p.S, hh = col / kD, j = col - hh * kD;
+            const int b = m / p.S, s = m - b * p.S, hh = col / HD, j = col - hh * HD;
             o = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
             *reinterpret_cast<uint4*>(p.qkv + static_cast<size_t>(which) * p.M * p.n_per +
-                                      (static_cast<size_t>(b * p.H + hh) * p.S + s) * kD + j) = o;
+                                      (static_cast<size_t>(b * p.H + hh) * p.S + s) * HD + j) = o;
           } else {
             const size_t at = static_cast<size_t>(m) * p.n_per + col;
             const uint4 x4 = *reinterpret_cast<const uint4*>(p.x + at);
@@ -299,10 +317,25 @@ constexpr int kKeys = 128;  // keys per tile
 constexpr int kKvStages = 3;
 constexpr int kWholeHeadMinS = 2 * kKeys;  // the whole-head stage takes kWholeHeadMinS < S <= small_attn::kMaxT
 
+template <int HD>
 struct TiledSmem {
   bf16 q[kRows * 64];
   bf16 k[kKvStages][kKeys * 64];
   bf16 v[kKvStages][kKeys * 64];
+  uint64_t q_full, k_full[kKvStages], v_full[kKvStages], empty[kKvStages];
+};
+
+// Head dim 72: columns 64..79 of Q, K and V in 32-byte rows (make_tail_map's
+// boxes; 72..79 read as 0), after the 64-column tiles. Every array starts on a
+// 1024-byte boundary.
+template <>
+struct TiledSmem<72> {
+  bf16 q[kRows * 64];
+  bf16 k[kKvStages][kKeys * 64];
+  bf16 v[kKvStages][kKeys * 64];
+  bf16 q32[kRows * 16];
+  bf16 k32[kKvStages][kKeys * 16];
+  bf16 v32[kKvStages][kKeys * 16];
   uint64_t q_full, k_full[kKvStages], v_full[kKvStages], empty[kKvStages];
 };
 
@@ -318,12 +351,20 @@ __device__ __forceinline__ void mask_tile(float (&sc)[64], int kbase, int S, int
   }
 }
 
+// HD: the head dim, 64 or 72. qmap32 / kmap32 / vmap32 map columns 64..79 at
+// 72 (unused copies at 64).
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_tiled_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int H, int S,
-                      float scale_log2) {
+                      const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qmap32,
+                      const __grid_constant__ CUtensorMap kmap32, const __grid_constant__ CUtensorMap vmap32,
+                      bf16* __restrict__ o, int H, int S, float scale_log2) {
+  static_assert(HD == 64 || HD == 72, "fused_vit_block: head dim 64 or 72");
+  constexpr bool kWide = HD > 64;
+  constexpr uint32_t kQBytes = kRows * 128 + (kWide ? kRows * 32 : 0);     // TMA bytes of Q
+  constexpr uint32_t kTileBytes = kKeys * 128 + (kWide ? kKeys * 32 : 0);  // of a K or a V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  TiledSmem& sm = *reinterpret_cast<TiledSmem*>(align_1024(smem_raw));
+  TiledSmem<HD>& sm = *reinterpret_cast<TiledSmem<HD>*>(align_1024(smem_raw));
   const int bh = blockIdx.x, row0 = blockIdx.y * kRows;
   const int n_tiles = (S + kKeys - 1) / kKeys;
 
@@ -344,17 +385,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---------------- producer: Q once, then K tiles (pass 1), then K and V tiles (pass 2) ----------------
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, kRows * 128);
+      mbar_arrive_expect_tx(&sm.q_full, kQBytes);
       tma_load_3d(sm.q, &qmap, &sm.q_full, 0, row0, bh);
+      if constexpr (kWide) tma_load_3d(sm.q32, &qmap32, &sm.q_full, 64, row0, bh);
       RingPos pos;
       for (int j = 0; j < 2 * n_tiles; ++j, pos.next(kKvStages)) {
         const int second = j >= n_tiles, kbase = (j - second * n_tiles) * kKeys;
         mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
-        mbar_arrive_expect_tx(&sm.k_full[pos.stage], kKeys * 128);
+        mbar_arrive_expect_tx(&sm.k_full[pos.stage], kTileBytes);
         tma_load_3d(sm.k[pos.stage], &kmap, &sm.k_full[pos.stage], 0, kbase, bh);
+        if constexpr (kWide) tma_load_3d(sm.k32[pos.stage], &kmap32, &sm.k_full[pos.stage], 64, kbase, bh);
         if (second) {
-          mbar_arrive_expect_tx(&sm.v_full[pos.stage], kKeys * 128);
+          mbar_arrive_expect_tx(&sm.v_full[pos.stage], kTileBytes);
           tma_load_3d(sm.v[pos.stage], &vmap, &sm.v_full[pos.stage], 0, kbase, bh);
+          if constexpr (kWide) tma_load_3d(sm.v32[pos.stage], &vmap32, &sm.v_full[pos.stage], 64, kbase, bh);
         }
       }
     }
@@ -381,8 +425,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
     pin(sc);
 #pragma unroll
-    for (int ks = 0; ks < kD / 16; ++ks)
+    for (int ks = 0; ks < 4; ++ks)
       wgmma_ss_n128(sc, kmajor_desc(qw, 0, ks * 16), kmajor_desc(sm.k[stage], 0, ks * 16), ks > 0);
+    if constexpr (kWide)  // the fifth k step: head dims 64..79, Q's (this warpgroup's rows, 2 KB in) and K's slabs
+      wgmma_ss_n128(sc, sw32_desc(reinterpret_cast<const unsigned char*>(sm.q32) + cw * 64 * 32, 16, 256),
+                    sw32_desc(sm.k32[stage], 16, 256), 1);
     wgmma_commit();
     wgmma_wait<0>();
     pin(sc);
@@ -426,6 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // pass 2: (p / l) rounded to bf16, then PV. A stage's V barrier completes
   // only on its pass-2 uses: its phase is kept apart (bit s of v_phases).
   float acc[32];
+  float acc32[8];  // HD = 72: columns 64..79 (72..79 are 0)
   uint32_t v_phases = 0;
   for (int j = 0; j < n_tiles; ++j, pos.next(kKvStages)) {
     mbar_wait(&sm.k_full[pos.stage], pos.phase);
@@ -445,13 +493,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     v_phases ^= 1u << pos.stage;
     wgmma_fence();
     pin(acc);
+    if constexpr (kWide) pin(acc32);
     pin(pf);
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
       wgmma_rs_n64_tb(acc, pf[kk], mnmajor_desc(sm.v[pos.stage], kk * 16, kKeys * 128), j > 0 || kk > 0);
+      if constexpr (kWide)  // V's 32-byte slab, MN-major: keys 16 kk .. 16 kk + 15 at 512 kk bytes
+        wgmma_rs_n16_tb(acc32, pf[kk],
+                        sw32_desc(reinterpret_cast<const unsigned char*>(sm.v32[pos.stage]) + kk * 512, kKeys * 32,
+                                  256),
+                        j > 0 || kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
+    if constexpr (kWide) pin(acc32);
     pin(pf);
     if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);
   }
@@ -459,10 +515,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // opening arrival on barrier 4, which no turn of warpgroup 0 consumed.
   if (cw == 0) named_barrier_sync(4, 256);
 
-  // o_h rounded to bf16 at [b, row, 64 h]
-  const int b = bh / H, h = bh - b * H, D = H * kD;
+  // o_h rounded to bf16 at [b, row, HD h]
+  const int b = bh / H, h = bh - b * H, D = H * HD;
   const int ra = row0 + cw * 64 + warp * 16 + g, rb = ra + 8;
-  bf16* oh = o + static_cast<size_t>(b) * S * D + h * kD;
+  bf16* oh = o + static_cast<size_t>(b) * S * D + h * HD;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int col = n * 8 + 2 * t;
@@ -473,6 +529,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * D + col) =
           __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
   }
+  if constexpr (kWide) {  // columns 64..71 (acc32[4..7], columns 72..79, are 0)
+    const int col = 64 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(ra) * D + col) =
+          __floats2bfloat162_rn(acc32[0], acc32[1]);
+    if (rb < S)
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<size_t>(rb) * D + col) =
+          __floats2bfloat162_rn(acc32[2], acc32[3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -480,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 
 // a: [M, K]; w[i]: [n_per, K], all bf16 row-major
-template <bool kQKV>
+template <bool kQKV, int HD>
 cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, const GemmArgs& p, int sms,
                         cudaStream_t st) {
   CUtensorMap amap, wmap[3];
@@ -489,39 +554,23 @@ cudaError_t gemm(const bf16* a, const bf16* const* w, int n_weights, const GemmA
     e = make_tile_map(&wmap[i], w[std::min(i, n_weights - 1)], 1, p.n_per, p.K, kTileN);
   if (e != cudaSuccess) return e;
   const int tiles = (p.M + kTileM - 1) / kTileM * ((p.n_per + kTileN - 1) / kTileN) * n_weights;
-  gemm_kernel<kQKV><<<std::min(tiles, sms), kThreads, sizeof(GemmSmem) + 1024, st>>>(amap, wmap[0], wmap[1], wmap[2],
-                                                                                      p);
+  gemm_kernel<kQKV, HD><<<std::min(tiles, sms), kThreads, sizeof(GemmSmem) + 1024, st>>>(amap, wmap[0], wmap[1],
+                                                                                         wmap[2], p);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace fused_block
-
-// x, out: [B, S, D] bf16; vecs: fp32 [7, D] (ns, nb, bq, bk, bv, bo, gamma);
-// wq, wk, wv, wo: bf16 [D, D] (out, in). Scratch from the caller: stats fp32
-// [2, B*S], qkv bf16 [3, B, H, S, 64], attn bf16 [B*S, D] (LN1's output, then
-// the attention output). All 16-byte aligned. key_tiled < 0 picks the
-// attention stage by S; 1 takes the key-tiled stage at any S, 0 the
-// whole-head stage (S <= 512). One call.
-MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const void* wq, const void* wk,
-                                          const void* wv, const void* wo, void* stats, void* qkv, void* attn,
-                                          void* out, int B, int S, int D, int H, int key_tiled, float eps,
-                                          float scale, void* stream) {
-  using namespace fused_block;
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * kD || D > kMaxD || key_tiled > 1 ||
-      (key_tiled == 0 && S > small_attn::kMaxT))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int done[64] = {0};  // a local of a function that is not inline: one per library
-  int sms = 0;
-  cudaError_t e = device_setup(done, &sms, gemm_kernel<true>, gemm_kernel<false>, attn_tiled_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
+// The four launches at head dim HD (64 or 72; at 72 the key-tiled stage takes every S).
+template <int HD>
+int run(const void* x, const void* vecs, const void* wq, const void* wk, const void* wv, const void* wo, void* stats,
+        void* qkv, void* attn, void* out, int B, int S, int D, int H, int key_tiled, float eps, float scale, int sms,
+        cudaStream_t st) {
   const int M = B * S;
   const float* v = static_cast<const float*>(vecs);
   float* mu = static_cast<float*>(stats);
   bf16* qkv_b = static_cast<bf16*>(qkv);
   bf16* attn_b = static_cast<bf16*>(attn);
   const size_t plane = static_cast<size_t>(M) * D;
+  cudaError_t e;
 
   ln_kernel<<<(M + 7) / 8, 256, 0, st>>>(static_cast<const bf16*>(x), v, v + D, mu, mu + M, attn_b, M, D, eps);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
@@ -536,21 +585,28 @@ MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const
   a.S = S;
   a.H = H;
   const bf16* wqkv[3] = {static_cast<const bf16*>(wq), static_cast<const bf16*>(wk), static_cast<const bf16*>(wv)};
-  if ((e = gemm<true>(attn_b, wqkv, 3, a, sms, st)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = gemm<true, HD>(attn_b, wqkv, 3, a, sms, st)) != cudaSuccess) return static_cast<int>(e);
 
-  const bool whole_head = key_tiled < 0 ? S > kWholeHeadMinS && S <= small_attn::kMaxT : key_tiled == 0;
+  const bool whole_head = HD == 64 && (key_tiled < 0 ? S > kWholeHeadMinS && S <= small_attn::kMaxT : key_tiled == 0);
   if (whole_head) {
     const int rc = small_attn::launch<false, true>(qkv_b, qkv_b + plane, nullptr, qkv_b + 2 * plane, attn_b, B, H, H,
                                                    S, scale, st);
     if (rc != 0) return rc;
   } else {
     CUtensorMap qmap, kmap, vmap;
-    e = make_tile_map(&qmap, qkv_b, B * H, S, kD, kRows);
-    if (e == cudaSuccess) e = make_tile_map(&kmap, qkv_b + plane, B * H, S, kD, kKeys);
-    if (e == cudaSuccess) e = make_tile_map(&vmap, qkv_b + 2 * plane, B * H, S, kD, kKeys);
+    e = make_tile_map(&qmap, qkv_b, B * H, S, HD, kRows);
+    if (e == cudaSuccess) e = make_tile_map(&kmap, qkv_b + plane, B * H, S, HD, kKeys);
+    if (e == cudaSuccess) e = make_tile_map(&vmap, qkv_b + 2 * plane, B * H, S, HD, kKeys);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attn_tiled_kernel<<<dim3(B * H, (S + kRows - 1) / kRows), kThreads, sizeof(TiledSmem) + 1024, st>>>(
-        qmap, kmap, vmap, attn_b, H, S, scale * kLog2e);
+    CUtensorMap qmap32 = qmap, kmap32 = kmap, vmap32 = vmap;  // HD = 64: unused copies
+    if constexpr (HD > 64) {
+      e = make_tail_map(&qmap32, qkv_b, B * H, S, HD, kRows);
+      if (e == cudaSuccess) e = make_tail_map(&kmap32, qkv_b + plane, B * H, S, HD, kKeys);
+      if (e == cudaSuccess) e = make_tail_map(&vmap32, qkv_b + 2 * plane, B * H, S, HD, kKeys);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    attn_tiled_kernel<HD><<<dim3(B * H, (S + kRows - 1) / kRows), kThreads, sizeof(TiledSmem<HD>) + 1024, st>>>(
+        qmap, kmap, vmap, qmap32, kmap32, vmap32, attn_b, H, S, scale * kLog2e);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
 
@@ -564,5 +620,35 @@ MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const
   o.gamma = v + 6 * D;
   o.out = static_cast<bf16*>(out);
   const bf16* wout[1] = {static_cast<const bf16*>(wo)};
-  return static_cast<int>(gemm<false>(attn_b, wout, 1, o, sms, st));
+  return static_cast<int>(gemm<false, 64>(attn_b, wout, 1, o, sms, st));
+}
+
+}  // namespace
+}  // namespace fused_block
+
+// x, out: [B, S, D] bf16; vecs: fp32 [7, D] (ns, nb, bq, bk, bv, bo, gamma);
+// wq, wk, wv, wo: bf16 [D, D] (out, in). Head dim D / H: 64, or 72 with
+// D % 64 == 0 (the GEMMs' k slices). Scratch from the caller: stats fp32
+// [2, B*S], qkv bf16 [3, B, H, S, D / H], attn bf16 [B*S, D] (LN1's output,
+// then the attention output). All 16-byte aligned. key_tiled < 0 picks the
+// attention stage by S (head dim 72: the key-tiled stage at every S); 1 takes
+// the key-tiled stage at any S, 0 the whole-head stage (head dim 64, S <= 512).
+// scale: the softmax scale (the caller's 1 / sqrt(head dim)). One call.
+MERV_EXPORT int fused_vit_attn_block_bf16(const void* x, const void* vecs, const void* wq, const void* wk,
+                                          const void* wv, const void* wo, void* stats, void* qkv, void* attn,
+                                          void* out, int B, int S, int D, int H, int key_tiled, float eps,
+                                          float scale, void* stream) {
+  using namespace fused_block;
+  const int hd = H > 0 && D % H == 0 ? D / H : 0;
+  if (B <= 0 || S <= 0 || H <= 0 || D > kMaxD || key_tiled > 1 || !(hd == 64 || (hd == 72 && D % 64 == 0)) ||
+      (key_tiled == 0 && (hd != 64 || S > small_attn::kMaxT)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int done[64] = {0};  // a local of a function that is not inline: one per library
+  int sms = 0;
+  cudaError_t e = device_setup(done, &sms, gemm_kernel<true, 64>, gemm_kernel<false, 64>, attn_tiled_kernel<64>,
+                               gemm_kernel<true, 72>, attn_tiled_kernel<72>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return hd == 64 ? run<64>(x, vecs, wq, wk, wv, wo, stats, qkv, attn, out, B, S, D, H, key_tiled, eps, scale, sms, st)
+                  : run<72>(x, vecs, wq, wk, wv, wo, stats, qkv, attn, out, B, S, D, H, key_tiled, eps, scale, sms, st);
 }

@@ -5,9 +5,10 @@
 tensor (one C entry point, four kernels on the caller's stream: LN1 (its
 statistics and its bf16 output), the q/k/v GEMM, attention per (image,
 head), the o-proj GEMM with the bias, LayerScale and fp32-residual
-epilogue; the GEMMs and the attention on wgmma fed by TMA) and takes
-:func:`fused_vit_attn_block_plain` for a CPU tensor. ``merv_tpu`` runs it
-under ``MERV_TPU_FUSED_VIT_BLOCK=1`` (``ViTLayer.forward``).
+epilogue; the GEMMs and the attention on wgmma fed by TMA; head dim 64, or
+72 for SigLIP so400m) and takes :func:`fused_vit_attn_block_plain` for a CPU
+tensor. ``merv_tpu`` runs it under ``MERV_TPU_FUSED_VIT_BLOCK=1``
+(``ViTLayer.forward``).
 
 Two plain functions, kept apart because they round at different places:
 
@@ -149,43 +150,70 @@ def fused_vit_attn_block(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv, wo, b
                                        eps)[0]
 
 
+# The head dims the CUDA kernel is built for: 64 (every merv-base tower) and 72
+# (SigLIP so400m, 1152 = 16 x 72; its GEMMs take D in k slices of 64, so D % 64 == 0).
+HEAD_DIMS = (64, 72)
+
+
+def launch_plan(B: int, S: int, D: int, heads: int, key_tiled: bool | None = None) -> dict:
+    """What one launch of ``csrc/fused_vit_block.cu`` is given for x [B, S, D]:
+    the head dim, the softmax scale from it, the q/k/v scratch's shape
+    ``[3, B, heads, S, head_dim]`` and the C entry's ``key_tiled`` (-1: the
+    kernel picks the stage by S). Raises ``ValueError`` on what the kernel does
+    not take."""
+    hd = D // heads if heads > 0 and D % heads == 0 else 0
+    if hd not in HEAD_DIMS or D > 2048 or D % 64:
+        raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dims {HEAD_DIMS} with D <= 2048 and "
+                         f"D % 64 == 0, got D={D} heads={heads} (head dim {D / max(heads, 1):g}; B6 at other head "
+                         f"dims: ROADMAP.md section B)")
+    if key_tiled is False and hd != 64:
+        raise ValueError(f"fused_vit_attn_block: the whole-head stage is built for head dim 64, got {hd}: at {hd} "
+                         f"the key-tiled stage takes every S (the whole-head stage at 72: ROADMAP.md section B)")
+    if key_tiled is False and S > 512:
+        raise ValueError(f"fused_vit_attn_block: the whole-head stage takes S <= 512, got S={S}")
+    return dict(head_dim=hd, scale=hd ** -0.5, qkv_shape=(3, B, heads, S, hd),
+                key_tiled=-1 if key_tiled is None else int(key_tiled))
+
+
+def launch_counter(head_dim: int) -> str:
+    """The launch counter of B6 at a head dim: each head dim is counted apart."""
+    return "fused_vit_attn_block" if head_dim == 64 else f"fused_vit_attn_block_d{head_dim}"
+
+
 def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv, wo, bo, gamma, heads: int,
                                 eps: float, key_tiled: bool | None = None):
     """One launch of ``csrc/fused_vit_block.cu`` on CUDA tensors: the output
     and the kernel's intermediates, ``{"mu", "rstd"}`` (LN1's statistics,
-    [B, S, 1] fp32), ``{"q", "k", "v"}`` ([B, H, S, 64]) and ``"o"`` (the
+    [B, S, 1] fp32), ``{"q", "k", "v"}`` ([B, H, S, head dim]) and ``"o"`` (the
     attention output, [B, S, D]), so that each stage can be held on its own.
 
-    x and the four weights bf16 and contiguous, D == 64 * heads <= 2048, any S.
-    The attention stage goes by S: 256 < S <= 512 stages whole heads, other
+    x and the four weights bf16 and contiguous; head dim 64, or 72 with
+    D % 64 == 0 (:func:`launch_plan`); D <= 2048, any S. At head dim 64 the
+    attention stage goes by S: 256 < S <= 512 stages whole heads, other
     lengths go through the key-tiled stage (on an H100 each is the faster on
-    its side of 256). ``key_tiled=True`` forces the key-tiled stage at any S,
-    ``False`` the whole-head stage (S <= 512), so that both can be held and
-    timed at one shape. The wrapper casts nothing in [D, D]: the weights
-    must already be bf16 (the towers store them so). The seven [D] vectors
-    are cast to fp32 and stacked once per call, into the one [7, D] block the
-    kernel reads. Scratch (LN statistics, q/k/v, and one [B * S, D] buffer
-    that holds LN1's output until the attention output overwrites it) is
-    allocated here per call."""
+    its side of 256); at 72 the key-tiled stage takes every S.
+    ``key_tiled=True`` forces the key-tiled stage at any S, ``False`` the
+    whole-head stage (head dim 64, S <= 512), so that both can be held and
+    timed at one shape. The softmax scale is 1 / sqrt(head dim). The wrapper
+    casts nothing in [D, D]: the weights must already be bf16 (the towers store
+    them so). The seven [D] vectors are cast to fp32 and stacked once per
+    call, into the one [7, D] block the kernel reads. Scratch (LN statistics,
+    q/k/v, and one [B * S, D] buffer that holds LN1's output until the
+    attention output overwrites it) is allocated here per call. Each launch
+    adds one to the counter of its head dim (:func:`launch_counter`)."""
     vecs = (norm_scale, norm_bias, bq, bk, bv, bo, gamma)
     _check_args(x, vecs, (wq, wk, wv, wo), heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_vit_attn_block: the kernel needs a CUDA tensor, got {x.device}")
     _check_cuda("fused_vit_attn_block", x, wq, wk, wv, wo)
     B, S, D = x.shape
-    if D != 64 * heads or D > 2048:
-        # SigLIP so400m (head dim 72) reaches this route under MERV_TPU_FUSED_VIT_BLOCK=1 in merv_tpu: its
-        # port waits in ROADMAP.md section B ("B6 at D = 72")
-        raise ValueError(f"fused_vit_attn_block: the CUDA kernel takes head dim 64 and D <= 2048, got D={D} "
-                         f"heads={heads} (head dim {D // max(heads, 1)}; B6 at other head dims: ROADMAP B)")
-    if key_tiled is False and S > 512:
-        raise ValueError(f"fused_vit_attn_block: the whole-head stage takes S <= 512, got S={S}")
+    plan = launch_plan(B, S, D, heads, key_tiled)
     if any(t.device != x.device for t in vecs):
         raise ValueError("fused_vit_attn_block: vectors on another device")
     vec = torch.stack(vecs).to(torch.float32)  # one stack, one cast
     M = B * S
     stats = torch.empty((2, M), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((3, B, heads, S, 64), dtype=x.dtype, device=x.device)
+    qkv = torch.empty(plan["qkv_shape"], dtype=x.dtype, device=x.device)
     attn = torch.empty((M, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     lib = _build.bind("fused_vit_block", *_SIGNATURE)
@@ -193,11 +221,11 @@ def fused_vit_attn_block_stages(x, norm_scale, norm_bias, wq, bq, wk, bk, wv, bv
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_vit_attn_block_bf16(
             x.data_ptr(), vec.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-            stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, D, heads, -1 if key_tiled is None else int(key_tiled),
-            float(eps), 64 ** -0.5, stream,
+            stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, D, heads, plan["key_tiled"],
+            float(eps), plan["scale"], stream,
         )
     _build.check(lib, rc, "fused_vit_attn_block")
-    _LAUNCHES["fused_vit_attn_block"] += 1
+    _LAUNCHES[launch_counter(plan["head_dim"])] += 1
     stats = stats.view(2, B, S, 1)
     return out, dict(mu=stats[0], rstd=stats[1], q=qkv[0], k=qkv[1], v=qkv[2], o=attn.view(B, S, D))
 

@@ -6,16 +6,18 @@ device: the geometry (resize / shortest-edge resize + center crop /
 letterbox) runs as one ``torch.nn.functional.interpolate`` with antialiasing,
 the counterpart of ``jax.image.resize`` (also antialiased when it shrinks),
 then scale and normalize. So the video goes to the card once, as uint8.
-:meth:`VideoTransform.device_finish` is the training path's second half: a
-batch of uint8 frames already at the tower's geometry is scaled, normalised
-and transposed on the card.
+The training path splits that in two, as ``merv_tpu`` does:
+:meth:`VideoTransform.host_geometry` resizes uint8 frames on the host (cv2,
+in the dataloader's workers) and :meth:`VideoTransform.device_finish` scales,
+normalises and transposes a batch of them on the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +50,11 @@ class VideoTransform:
         mode = {"bicubic": "bicubic", "bilinear": "bilinear"}[self.interpolation]
         return F.interpolate(x, size=size, mode=mode, align_corners=False, antialias=True)
 
+    def _shortest_edge_size(self, H: int, W: int) -> Tuple[int, int]:
+        """resize-crop: the size whose shorter edge is ``shortest_edge`` (default S)."""
+        se = self.shortest_edge or self.target_size
+        return (se, max(1, int(round(W * se / H)))) if H < W else (max(1, int(round(H * se / W))), se)
+
     def geometry(self, x: torch.Tensor) -> torch.Tensor:
         """[T, C, H, W] float in [0, 1] -> [T, C, S, S] (resize / crop / letterbox)."""
         T, C, H, W = x.shape
@@ -55,11 +62,7 @@ class VideoTransform:
         if self.resize_strategy == "resize-naive":
             return self._resize(x, (S, S))
         if self.resize_strategy == "resize-crop":
-            se = self.shortest_edge or S
-            if H < W:
-                nh, nw = se, max(1, int(round(W * se / H)))
-            else:
-                nh, nw = max(1, int(round(H * se / W))), se
+            nh, nw = self._shortest_edge_size(H, W)
             x = self._resize(x, (nh, nw))
             top, left = (nh - S) // 2, (nw - S) // 2
             return x[:, :, top : top + S, left : left + S]
@@ -71,6 +74,40 @@ class VideoTransform:
             canvas[:, :, pad_h : pad_h + H, pad_w : pad_w + W] = x
             return self._resize(canvas, (S, S))
         raise ValueError(f"Unknown resize strategy {self.resize_strategy!r}")
+
+    def host_geometry(self, video: Any) -> np.ndarray:
+        """uint8 [T, H, W, C] numpy -> uint8 [T, S, S, C] numpy (resize / crop /
+        letterbox by cv2, ``merv_tpu``'s host half of the transform, bit for bit;
+        ``merv_tpu``'s optional horizontal flip, off by default, is not ported)."""
+        import cv2
+
+        video = np.asarray(video)
+        assert video.ndim == 4, video.shape
+        T, H, W, C = video.shape
+        S = self.target_size
+        interp = {"bicubic": cv2.INTER_CUBIC, "bilinear": cv2.INTER_LINEAR}[self.interpolation]
+
+        def resize_all(frames, size_hw):
+            return np.stack([cv2.resize(f, (size_hw[1], size_hw[0]), interpolation=interp) for f in frames])
+
+        if self.resize_strategy == "resize-naive":
+            out = resize_all(video, (S, S))
+        elif self.resize_strategy == "resize-crop":
+            nh, nw = self._shortest_edge_size(H, W)
+            out = resize_all(video, (nh, nw))
+            top, left = (nh - S) // 2, (nw - S) // 2
+            out = out[:, top : top + S, left : left + S]
+        elif self.resize_strategy == "letterbox":
+            m = max(H, W)
+            pad_h, pad_w = (m - H) // 2, (m - W) // 2
+            fill = np.asarray([int(round(v * 255)) for v in self.mean], video.dtype)
+            canvas = np.empty((T, m, m, C), video.dtype)
+            canvas[...] = fill
+            canvas[:, pad_h : pad_h + H, pad_w : pad_w + W] = video
+            out = resize_all(canvas, (S, S))
+        else:
+            raise ValueError(f"Unknown resize strategy {self.resize_strategy!r}")
+        return np.ascontiguousarray(out)
 
     def __call__(self, video: torch.Tensor) -> torch.Tensor:
         x = torch.as_tensor(video).float().div(255.0).permute(0, 3, 1, 2)  # [T, C, H, W]

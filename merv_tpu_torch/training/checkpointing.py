@@ -6,7 +6,17 @@ loss, module keys) and a ``latest-checkpoint`` symlink, written last so it
 never points at a torn directory. The port's format inside the directory is
 its own: one ``torch.save`` file, ``checkpoint.pt``, holding ``model`` (the
 state dicts of the trainable top-level modules, by module key) and
-``optimizer`` (the optimizer's state dict). Saves are blocking.
+``optimizer`` (the optimizer's state dict).
+
+Saves block by default. ``save_checkpoint(..., blocking=False)`` (the
+strategy's periodic saves, as in ``merv_tpu``) copies the tensors to host
+memory, hands the write to a background thread and returns: at most one
+write is in flight, and every save first waits for it. ``meta.json`` and the
+``latest-checkpoint`` pointer are written only once the write is done
+(:func:`wait_for_checkpoints`, or the next save), so the pointer never moves
+backward and a directory torn by a crash (no ``meta.json``) is never picked by
+:func:`latest_checkpoint`. Each async save's times are kept in
+:data:`ASYNC_SAVES`.
 
 :func:`load_checkpoint` also reads ``merv_tpu``'s Orbax checkpoints, without
 JAX: ``_METADATA`` lists each leaf's key path, and each array is opened with
@@ -20,6 +30,8 @@ from __future__ import annotations
 import json
 import re
 import shutil
+import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -35,6 +47,57 @@ _CKPT_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=([0-9.]+)")
 CKPT_FILE = "checkpoint.pt"
 
 
+# The async save in flight: (directory, meta, writer thread, its error or
+# None, its record in ASYNC_SAVES), finalized by wait_for_checkpoints.
+_pending: Optional[Tuple[Path, Dict[str, Any], threading.Thread, List[BaseException], Dict[str, Any]]] = None
+# One record per async save: the directory, ``copy_s`` (the host copy, which
+# the caller waits for), ``write_s`` (the background write) and ``waited_s``
+# (how long the next save or wait_for_checkpoints waited on it: 0 when the
+# write was done by then, i.e. it overlapped the steps in between entirely).
+ASYNC_SAVES: List[Dict[str, Any]] = []
+
+
+def _host_copy(tree: Any) -> Any:
+    """Every tensor of a nested dict / list / tuple copied to host memory (a
+    copy even for a CPU tensor, which training may update in place while the
+    write runs)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _finalize(target: Path, meta: Dict[str, Any]) -> None:
+    with open(target / "meta.json", "w") as f:
+        json.dump(meta, f)
+    latest = target.parent / "latest-checkpoint"
+    if latest.is_symlink() or latest.exists():
+        latest.unlink() if latest.is_symlink() else shutil.rmtree(latest)
+    latest.symlink_to(target.name)
+    overwatch.info(f"Saved checkpoint {target}")
+
+
+def wait_for_checkpoints() -> None:
+    """Wait for the async save in flight, if any, then write its meta.json and
+    point ``latest-checkpoint`` at it; raise if its write failed (the
+    directory is then left without meta.json). Call before reading a
+    checkpoint just saved async, and at the end of training."""
+    global _pending
+    if _pending is None:
+        return
+    target, meta, thread, errors, record = _pending
+    _pending = None
+    t = time.perf_counter()
+    thread.join()
+    record["waited_s"] = time.perf_counter() - t
+    if errors:
+        raise RuntimeError(f"the async write of checkpoint {target} failed") from errors[0]
+    _finalize(target, meta)
+
+
 def save_checkpoint(
     run_dir: Path,
     step: int,
@@ -43,27 +106,50 @@ def save_checkpoint(
     model: nn.Module,
     trainable_keys: List[str],
     optimizer: Optional[Any] = None,
+    blocking: bool = True,
 ) -> Path:
-    """Write ``checkpoints/step-...-loss=.../`` and point ``latest-checkpoint`` at it."""
+    """Write ``checkpoints/step-...-loss=.../`` and point ``latest-checkpoint`` at it.
+
+    ``blocking=False`` copies the state to host memory and writes on a
+    background thread; meta.json and the pointer follow in
+    :func:`wait_for_checkpoints` or the next save."""
+    global _pending
     ckpt_root = Path(run_dir) / "checkpoints"
     ckpt_root.mkdir(parents=True, exist_ok=True)
     target = ckpt_root / f"step-{step:06d}-epoch-{epoch:02d}-loss={loss:.4f}"
     modules = {k: m for k, m in model.named_children() if k in trainable_keys}
-    tree: Dict[str, Any] = {"model": {k: {n: t.detach().cpu() for n, t in m.state_dict().items()}
-                                      for k, m in modules.items()}}
-    if optimizer is not None:
-        tree["optimizer"] = optimizer.state_dict()
+    meta = {"step": step, "epoch": epoch, "loss": loss, "module_keys": sorted(modules)}
+    # the save in flight first, in both modes: a blocking save racing it would
+    # let its later finalize move the pointer backward
+    wait_for_checkpoints()
     if target.exists():
         shutil.rmtree(target)
     target.mkdir()
-    torch.save(tree, target / CKPT_FILE)
-    with open(target / "meta.json", "w") as f:
-        json.dump({"step": step, "epoch": epoch, "loss": loss, "module_keys": sorted(modules)}, f)
-    latest = ckpt_root / "latest-checkpoint"
-    if latest.is_symlink() or latest.exists():
-        latest.unlink() if latest.is_symlink() else shutil.rmtree(latest)
-    latest.symlink_to(target.name)
-    overwatch.info(f"Saved checkpoint {target}")
+    t = time.perf_counter()
+    tree: Dict[str, Any] = {"model": {k: _host_copy(m.state_dict()) for k, m in modules.items()}}
+    if optimizer is not None:
+        tree["optimizer"] = _host_copy(optimizer.state_dict())
+    if blocking:
+        torch.save(tree, target / CKPT_FILE)
+        _finalize(target, meta)
+        return target
+
+    record: Dict[str, Any] = {"checkpoint": target.name, "copy_s": time.perf_counter() - t}
+    errors: List[BaseException] = []
+
+    def write() -> None:
+        start = time.perf_counter()
+        try:
+            torch.save(tree, target / CKPT_FILE)
+        except BaseException as e:  # reported by wait_for_checkpoints, on the caller's thread
+            errors.append(e)
+        record["write_s"] = time.perf_counter() - start
+
+    thread = threading.Thread(target=write, name=f"checkpoint-{step}", daemon=True)
+    thread.start()
+    _pending = (target, meta, thread, errors, record)
+    ASYNC_SAVES.append(record)
+    overwatch.info(f"Async checkpoint {target} dispatched", ctx_level=1)
     return target
 
 
@@ -80,7 +166,8 @@ def parse_checkpoint_name(path: Path) -> Tuple[int, int]:
 
 
 def latest_checkpoint(run_dir: Path) -> Optional[Path]:
-    """The ``latest-checkpoint`` target, else the last directory with a meta.json."""
+    """The ``latest-checkpoint`` target, else the last directory with a
+    meta.json (a directory without one is a write that did not finish)."""
     latest = Path(run_dir) / "checkpoints" / "latest-checkpoint"
     if latest.exists():
         return latest.resolve()

@@ -6,9 +6,11 @@ What ``merv_tpu`` does, kept: the batch divisibility check and
 dtype; the sampler by stage (:class:`SplitModalitySampler` for finetune, a
 seeded epoch permutation otherwise); epochs inflated to 100 under
 ``max_steps``; the resume fast-forward over consumed batches; checkpoints
-every ``save_checkpoint_after`` steps and at each epoch's end (recording the
-next epoch); the step's loss read one step late, so the host does not wait
-on the step it has just queued.
+every ``save_checkpoint_after`` steps, written in the background while
+training goes on (``blocking=False``), and at each epoch's end, blocking
+(recording the next epoch); every write done before :meth:`run_training`
+returns; the step's loss read one step late, so the host does not wait on the
+step it has just queued.
 
 What differs: the step is :func:`make_train_step`'s eager loop, not a jitted
 program; the world is one device (the model's), so the sharding strategies
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from merv_tpu_torch.overwatch import initialize_overwatch
-from merv_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint
+from merv_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint, wait_for_checkpoints
 from merv_tpu_torch.training.metrics import Metrics
 from merv_tpu_torch.training.optimizers import build_optimizer, build_schedule
 from merv_tpu_torch.training.train_step import make_loss_fn, make_train_step
@@ -122,9 +124,10 @@ class TrainingStrategy:
     def _trainable_keys(self) -> List[str]:
         return self.vidlm.trainable_module_keys or ["projectors", "feature_fusion"]
 
-    def save_checkpoint(self, run_dir: Path, global_step: int, epoch: int, train_loss: Optional[float] = None) -> None:
+    def save_checkpoint(self, run_dir: Path, global_step: int, epoch: int, train_loss: Optional[float] = None,
+                        blocking: bool = True) -> None:
         save_checkpoint(run_dir, global_step, epoch, train_loss if train_loss is not None else 0.0,
-                        self.vidlm, self._trainable_keys(), optimizer=self.tx)
+                        self.vidlm, self._trainable_keys(), optimizer=self.tx, blocking=blocking)
 
     def load_checkpoint(self, checkpoint_path: Path) -> None:
         restored = load_checkpoint(checkpoint_path, map_location=self.vidlm.device)
@@ -220,14 +223,16 @@ class TrainingStrategy:
 
                 if run_dir is not None and global_step % self.save_checkpoint_after == 0:
                     drain_pending()
-                    self.save_checkpoint(run_dir, global_step, epoch, loss)
+                    # async: the write runs beside the next steps; the host copy is all this waits for
+                    self.save_checkpoint(run_dir, global_step, epoch, loss, blocking=False)
 
                 if self.max_steps is not None and global_step >= self.max_steps:
                     done = True
                     break
             drain_pending()
-            if run_dir is not None:  # records the next epoch, so a resume does not replay this one
-                self.save_checkpoint(run_dir, global_step, epoch + 1, loss)
+            if run_dir is not None:  # records the next epoch, so a resume does not replay this one (blocking:
+                self.save_checkpoint(run_dir, global_step, epoch + 1, loss)  # the run may end right after)
             if done:
                 break
         drain_pending()
+        wait_for_checkpoints()

@@ -341,16 +341,6 @@ def test_small_kernels_raise_on_other_head_dims(cuda):
                             "small_attention": "small_attention_bf16"}[name])(*args, *dims, 1.0, 0) != 0
 
 
-@pytest.mark.cuda
-def test_fused_vit_block_refuses_head_dim_72(cuda):
-    """SigLIP so400m's head dim under MERV_TPU_FUSED_VIT_BLOCK=1: B6 takes 64 only and says where its port waits."""
-    x = torch.zeros((1, 16, 1152), dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros((1152, 1152), dtype=torch.bfloat16, device=cuda)
-    vec = torch.zeros(1152, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 16, 1e-6)
-
-
 # B5's edges: the towers' 16 heads of 8 frames, rows of 32 and of 12 keys (more than one chunk of 8
 # keys a row), R % heads != 0 (rows of 9 and of 8 keys), one head (every row sees all 512), one key a
 # row, and more windows than the persistent grid has blocks (2 a SM)
@@ -427,6 +417,72 @@ def test_fused_vit_block_matches_plain(cuda, tower, B, S):
         for key_tiled in (False, True):
             held = hold_fused(args, *TF.fused_vit_attn_block_stages(*args, key_tiled=key_tiled))
             assert held["ok"], f"key_tiled={key_tiled}: a stage outside its limit: {held['stages']}"
+
+
+# B6 at SigLIP so400m's head dim 72 (hidden 1152, 16 heads; the key-tiled stage at every S): one token, one
+# 128-row query tile and one 128-key tile (128/129), so400m's 256 tokens at its 16 frames, a ragged 229, and
+# 257 / 513, the lengths that cross the stage boundaries at head dim 64
+B6_D72_EDGES = [(3, 1), (2, 128), (2, 129), (16, 256), (2, 229), (2, 257), (1, 513)]
+
+
+def _so400m_case(dev, B, S):
+    from merv_tpu_torch.models.backbones.video.vit import SIGLIP_SO400M_224
+
+    layer = fused_layer(dev, SIGLIP_SO400M_224, 72 + S)
+    x = _bf16(np.random.default_rng(72 + S), (B, S, SIGLIP_SO400M_224.hidden_size), dev)
+    return SIGLIP_SO400M_224, fused_args(layer, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", B6_D72_EDGES)
+def test_fused_vit_block_head_dim_72_matches_plain(cuda, B, S):
+    """B6 at head dim 72 held end to end and stage by stage; the launch counts under its own counter; the
+    planted faults (the q bias dropped, the scores unscaled, the softmax scale of head dim 64) caught."""
+    cfg, args = _so400m_case(cuda, B, S)
+    A.reset_launch_counts()
+    out = TF.fused_vit_attn_block(*args)
+    counts = A.launch_counts()
+    assert counts["fused_vit_attn_block_d72"] == 1 and counts["fused_vit_attn_block"] == 0
+    _assert_close(out, TF.fused_vit_attn_block_plain(*args), fused_block_mags(*args))
+    out, stages = TF.fused_vit_attn_block_stages(*args)
+    assert stages["q"].shape == (B, 16, S, 72)
+    held = hold_fused(args, out, stages)
+    assert held["ok"], f"a stage outside its limit: {held['stages']}"
+    assert torch.equal(out, TF.fused_vit_attn_block_stages(*args, key_tiled=True)[0])  # the stage S picks at 72
+    faults = planted_tower_faults()
+    for fault in ("b6_q_bias_dropped",) + (("b6_scores_unscaled", "b6_scale_of_head_dim_64") if S > 1 else ()):
+        with patched(faults[fault]):
+            assert not hold_fused(args, out, stages)["ok"], fault
+
+
+@pytest.mark.cuda
+def test_fused_vit_block_head_dim_72_is_deterministic(cuda):
+    _, args = _so400m_case(cuda, 2, 257)
+    one, stages = TF.fused_vit_attn_block_stages(*args)
+    two, again = TF.fused_vit_attn_block_stages(*args)
+    assert torch.equal(one, two) and all(torch.equal(stages[k], again[k]) for k in stages)
+
+
+@pytest.mark.cuda
+def test_fused_vit_block_refuses_head_dim_80(cuda):
+    """Head dims other than 64 and 72 raise, naming where their port would wait; the C entry refuses them too."""
+    x = torch.zeros((1, 16, 1280), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((1280, 1280), dtype=torch.bfloat16, device=cuda)
+    vec = torch.zeros(1280, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TF.fused_vit_attn_block(x, vec, vec, w, vec, w, vec, w, vec, w, vec, vec, 16, 1e-6)
+    lib = _build.bind("fused_vit_block", *TF._SIGNATURE)
+    scratch = torch.zeros(1 << 20, dtype=torch.bfloat16, device=cuda)
+    ptr = scratch.data_ptr()
+    assert lib.fused_vit_attn_block_bf16(*[ptr] * 10, 1, 16, 1280, 16, -1, 1e-6, 80 ** -0.5, 0) != 0
+
+
+@pytest.mark.cuda
+def test_fused_vit_block_whole_head_stage_refused_at_head_dim_72(cuda):
+    """The whole-head stage is built for head dim 64: asking for it at 72 raises, naming ROADMAP.md."""
+    _, args = _so400m_case(cuda, 1, 257)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TF.fused_vit_attn_block_stages(*args, key_tiled=False)
 
 
 @pytest.mark.cuda

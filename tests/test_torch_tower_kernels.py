@@ -259,6 +259,43 @@ def test_fused_block_grad_matches_jax():
         _close(leaf.grad, ref.T if ref.ndim == 2 and i > 0 else ref, tol=FUSED_GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [37, 19])
+def test_fused_block_head_dim_72_matches_pallas(S, dtype):
+    """Head dim 72, SigLIP so400m's (B 2, D 144, H 2): the plain version the
+    card's head-dim-72 instance is held against, against merv_tpu's kernel,
+    which takes any head dim."""
+    x = _rand(50, 2, S, 144)
+    p = _fused_params(144, 51)
+    jargs = [_jx(a) if a.ndim == 1 else _jx(a, dtype) for a in p]
+    ref = FVB.fused_vit_attn_block(_jx(x, dtype), *jargs, 2, 1e-6)
+    out = TF.fused_vit_attn_block(_th(x, dtype), *_port_args(p, dtype), 2, 1e-6)
+    assert out.dtype == _th(x, dtype).dtype and out.shape == x.shape
+    _close(out, ref, dtype)
+
+
+def test_launch_plan_takes_the_head_dims_it_is_built_for():
+    """What the wrapper hands the C entry point: the softmax scale and the
+    q/k/v scratch from the real head dim (a scale of 64 ** -0.5 at head dim
+    72 would be silently wrong), the stage, and each head dim's counter;
+    other head dims, and the whole-head stage at 72, raise naming ROADMAP.md."""
+    d64 = TF.launch_plan(16, 261, 1024, 16)
+    assert d64 == dict(head_dim=64, scale=0.125, qkv_shape=(3, 16, 16, 261, 64), key_tiled=-1)
+    d72 = TF.launch_plan(16, 256, 1152, 16)
+    assert d72 == dict(head_dim=72, scale=72 ** -0.5, qkv_shape=(3, 16, 16, 256, 72), key_tiled=-1)
+    assert TF.launch_plan(2, 513, 1152, 16, key_tiled=True)["key_tiled"] == 1
+    assert TF.launch_plan(2, 300, 1024, 16, key_tiled=False)["key_tiled"] == 0
+    assert (TF.launch_counter(64), TF.launch_counter(72)) == ("fused_vit_attn_block", "fused_vit_attn_block_d72")
+    assert set(TA.launch_counts()) >= {"fused_vit_attn_block", "fused_vit_attn_block_d72"}
+    for D, heads in ((1280, 16), (2048, 16), (144, 2), (1152, 12)):  # head dims 80, 128; 72 with D % 64 != 0; 96
+        with pytest.raises(ValueError, match="ROADMAP"):
+            TF.launch_plan(1, 16, D, heads)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TF.launch_plan(1, 257, 1152, 16, key_tiled=False)
+    with pytest.raises(ValueError, match="S <= 512"):
+        TF.launch_plan(1, 513, 1024, 16, key_tiled=False)
+
+
 def _plain_stages(args):
     """The plain version's intermediates in the layout of
     ``fused_vit_attn_block_stages`` (the kernel's on the card)."""
@@ -284,6 +321,22 @@ def test_fused_stage_hold_catches_each_planted_fault(fault):
     assert hold_fused(args, out, stages)["ok"]
     with patched(planted_tower_faults()[fault]):
         assert not hold_fused(args, out, stages)["ok"]
+
+
+@pytest.mark.parametrize("fault", [None, "b6_q_bias_dropped", "b6_scale_of_head_dim_64"])
+def test_fused_stage_hold_by_rows(fault):
+    """chip_smoke.hold_fused_by_rows, the stage hold on the pretrain path's
+    large batches in slices of rows: at head dim 72, one row a slice, the
+    plain stages pass and each planted fault fails, as the whole hold says."""
+    from chip_smoke import hold_fused, hold_fused_by_rows, patched, planted_tower_faults
+
+    x = _th(_rand(37, 3, 19, 144), "bfloat16")
+    args = (x, *_port_args(_fused_params(144, 38), "bfloat16"), 2, 1e-6)
+    out, stages = _plain_stages(args)
+    with patched(*([planted_tower_faults()[fault]] if fault else [])):
+        whole, sliced = hold_fused(args, out, stages), hold_fused_by_rows(args, out, stages, rows=1)
+    assert sliced["slices"] == 3 and sliced["ok"] == whole["ok"] == (fault is None)
+    assert sliced["worst_share_of_limit"] == pytest.approx(whole["worst_share_of_limit"], rel=1e-6)
 
 
 def test_fused_block_wrapper_checks_shapes():
@@ -358,6 +411,26 @@ def test_fused_layer_matches_jax(hidden, monkeypatch):
     with torch.no_grad():
         out = port.layers[0](_th(x), 1)
     assert seen == [((2, 37, hidden), True)]  # the fused branch ran, on contiguous tensors
+    _close(out, ref)
+
+
+def test_fused_layer_at_so400m_width_matches_jax(monkeypatch):
+    """One ViT layer at SigLIP so400m's width (hidden 1152, 16 heads of 72)
+    under MERV_TPU_FUSED_VIT_BLOCK=1 against merv_tpu's layer, which sends it
+    through its Pallas kernel: the port's fused branch runs (the head-dim-72
+    instance on the card)."""
+    monkeypatch.setenv("MERV_TPU_FUSED_VIT_BLOCK", "1")
+    over = dict(hidden_size=1152, num_heads=16, intermediate_size=256, num_layers=1, act="gelu_tanh",
+                num_cls_tokens=0, pos_embed_includes_prefix=False)
+    jvit, params, port = _pair(52, **over)
+    x = _rand(53, 2, 19, 1152)
+    ref = jvit._layer(_layer0(params), jnp.asarray(x), 1)
+    seen = []
+    fn = TF.FusedVitAttnBlock.apply
+    monkeypatch.setattr(TF.FusedVitAttnBlock, "apply", lambda *a: seen.append((a[0].shape, a[12])) or fn(*a))
+    with torch.no_grad():
+        out = port.layers[0](_th(x), 1)
+    assert seen == [((2, 19, 1152), 16)]
     _close(out, ref)
 
 
