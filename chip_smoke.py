@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
                            --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
-                           --families-only | --zoo-only | --pretrain-only]
+                           --families-only | --zoo-only | --pretrain-only | --bench-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -17,7 +17,8 @@ phase 4e or 4f alone after the build and print their numbers the same way;
 packed-layout check and phase 4g alone and writes them to
 ``chiprun_out/families.json``; ``--zoo-only`` runs K1's and B3's head-dim-72
 cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``; ``--pretrain-only`` runs B6's head-dim-72 cases and
-phase 5b alone and writes them to ``chiprun_out/pretrain.json``.
+phase 5b alone and writes them to ``chiprun_out/pretrain.json``;
+``--bench-only`` runs phase 6 alone and writes it to ``chiprun_out/bench.json``.
 ``--small-only`` covers K1's and B3's head-dim-72 cases too.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
@@ -244,13 +245,34 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    head dim 64 at so400m's layers outside it. The finetune
    starts from the align projectors and the resume trains step 2 alone. Step
    and micro-step times, the async saves' copy, write and wait.
-6. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
+6. the bench and tooling modules (``bench_path``): each of
+   ``merv_tpu_torch/bench/`` once on the card at full width, in a process of
+   its own (``BENCH_PARALLEL`` at once: this phase checks them, it does not
+   measure them), depth and counts cut through the benches' own ``BENCH_*``
+   names (the LLM at ``BENCH_LLM_LAYERS`` = 2): ``decode`` bf16 and with
+   ``BENCH_INT8=1 BENCH_INT8_KV=1``, ``train``, ``serving`` (its ``group``,
+   ``engine`` and ``spec`` processes), ``breakdown``, ``tower_attn`` over its
+   five implementations, ``tower_ops`` for DINOv2, ``loader`` with a 2 s
+   window, ``vidlm_prefix``'s ``engine_shared`` mode on merv-full's
+   random-init run directory (``cli/make_randinit_run.py``'s, written first),
+   ``cli/export_towers.py`` on full-width LanguageBind and Hiera checkpoints
+   made from the seed (each file's tensors must be its checkpoint's) and
+   ``cli/preprocess.py`` on a local llava-v1.5-instruct layout (nothing to
+   fetch; OCR-VQA's seeded PNG and GIF images converted). Each process must
+   exit 0 and print a result line with the merv_tpu script's keys, every rate
+   and time finite and > 0 and the card named, and launches as its shapes
+   give them (``bench_expected``: K1 46 and K2 12 + L a multimodal prefill,
+   K5 L a decode forward, K4 4 L + 1 a forward with int8 weights, K3 L a train
+   step; ``small_attention``, ``fused_vit_attn_block`` or none per tower call
+   under ``tower_attn``'s ``xla``, ``fused_block`` and ``xla_kt``).
+7. output: ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``
    from the training path for K1-K3, from the switched request of 4b for
    B3, B5 and B6 and from 4f's request for K4 and K5, ``launches_serving`` from the default serving path,
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
    4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
    ``launches_families`` from each of 4g's requests, ``launches_zoo`` from
-   each of 4h's, ``launches_pretrain`` from each of 5b's runs; B6's head-dim-72
+   each of 4h's, ``launches_pretrain`` from each of 5b's runs, ``launches_bench`` from each of phase
+   6's processes (per serving phase and tower_attn implementation); B6's head-dim-72
    instance as ``fused_vit_attn_block_d72``, its launches from 5b's align run), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
@@ -274,8 +296,17 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+# the timers and the bound (from the H100's data-sheet rates) live in the package's benchkit
+from merv_tpu_torch.benchkit import (
+    bound,
+    capture_stream,
+    device_ms,
+    graph_ms,
+    kernel_device_ms,
+    nvidia_smi_line,
+    time_ms,
+)
+from merv_tpu_torch.cli.make_randinit_run import MERV_FULL_MODEL
 # A kernel's output is held element by element against its plain version:
 # |out - ref| <= KERNEL_REL_TOL * (|ref| + mag) + KERNEL_ABS_TOL, where mag is
 # the plain version's output on |v|, i.e. sum(p |v|) / l. Kernel and plain
@@ -415,142 +446,6 @@ def patched(*replacements):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-# ---------------------------------------------------------------------------
-# timing and bounds
-# ---------------------------------------------------------------------------
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-@functools.lru_cache(maxsize=None)
-def capture_stream():
-    """The one stream every graph timing warms up and captures on: cuBLAS keeps
-    a workspace for each stream it has run on, so a new stream per timing would
-    raise the memory the later phases report."""
-    import torch
-
-    return torch.cuda.Stream()
-
-
-def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    """Device time of one call of ``fn`` that host launch cost cannot hide:
-    ``calls`` back-to-back calls captured in one CUDA graph, the graph
-    replayed ``replays`` times between two CUDA events, the elapsed time
-    divided by ``calls * replays``. Kernels launched through ``ctypes`` run on
-    PyTorch's current stream, which is the capturing stream inside
-    ``torch.cuda.graph``. The capture is relaxed (a host-side call such as
-    ``cudaFuncSetAttribute`` during it is allowed); if the calls still cannot
-    be captured, this raises: there is no substitute timing."""
-    import torch
-
-    side = capture_stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the default stream, as torch's graph capture asks
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
-            for _ in range(calls):
-                fn()
-    except RuntimeError as e:  # torch's capture errors and the wrappers' CUDA errors
-        raise RuntimeError(f"graph_ms: {calls} calls could not be captured in a CUDA graph: {e}") from e
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (calls * replays)
-    del graph
-    # and the capture stream's cuBLAS workspace: later phases measure peak memory
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-    return ms
-
-
-def device_ms(fn):
-    """Device time of one call of ``fn``: the self time of every CUDA kernel,
-    copy and set in a ``torch.profiler`` window over 5 calls, divided by 5;
-    the median over those of 3 windows that hold any. The
-    records of kernels launched through ``ctypes`` are not reliable: a window
-    read a quarter of its neighbours, another 1.16 times the CUDA-event time,
-    some none at all; SDPA's stay within 9 % of each other. Host gaps between
-    launches do not count, so it reads what a host-bound CUDA-event time
-    hides. None if no window holds device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    readings = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            readings.append(total_us / 1e3 / 5)
-    return sorted(readings)[len(readings) // 2] if readings else None
-
-
-def kernel_device_ms(fn, calls: int = 10) -> dict:
-    """Device ms per call of ``fn`` by kernel name (``torch.profiler`` over
-    ``calls`` calls, after a warm-up): where a call's time goes among its
-    launches. As ``device_ms`` says, records of ctypes-launched kernels can
-    be unreliable; the sum is logged beside the graph-replay time to show
-    whether a window held them all."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")[:60]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls / 1e3
-    return out
-
-
-def bound(bytes_moved: float, flops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1743,30 +1638,17 @@ def build_merv_base(dev, seed: int, projector_dtype=None):
     """merv-base on random weights from a seeded generator on the card: towers
     and LLM stored in bf16; projectors and fusion in ``projector_dtype``
     (bf16 to serve, fp32 to train them)."""
+    import dataclasses
+
     import torch
 
+    from merv_tpu_torch.benchkit import build_merv
     from merv_tpu_torch.conf import MERV_Base
     from merv_tpu_torch.device import make_generator
-    from merv_tpu_torch.models.materialize import (
-        get_llm_backbone_and_tokenizer,
-        get_video_backbone_and_transform,
-        get_vidlm,
-    )
 
     cfg = MERV_Base()
-    g = make_generator(dev, seed)
-    vbs, _ = get_video_backbone_and_transform(
-        cfg.video_backbone_ids, cfg.image_resize_strategy, cfg.num_frames,
-        device=dev, param_dtype=torch.bfloat16, generator=g,
-    )
-    llm, _ = get_llm_backbone_and_tokenizer(
-        cfg.llm_backbone_id, cfg.llm_max_length, inference_mode=True, device=dev, generator=g
-    )
-    vidlm = get_vidlm(
-        cfg.model_id, cfg.arch_specifier, cfg.feature_fusion, vbs, llm,
-        projector_token_length=cfg.projector_token_length, visual_feature_length=cfg.visual_feature_length,
-        param_dtype=projector_dtype or torch.bfloat16, device=dev, generator=g,
-    )
+    vidlm = build_merv(dataclasses.asdict(cfg), device=dev, generator=make_generator(dev, seed),
+                       projector_dtype=projector_dtype or torch.bfloat16)
     return cfg, vidlm.eval()
 
 
@@ -2298,20 +2180,6 @@ def switched_requests(vidlm, video, prompt, max_new_tokens: int, compare) -> dic
 # phase 4c: a run directory loaded by load_vid, a video file served
 # ---------------------------------------------------------------------------
 
-# merv-full's model dict as scripts/make_randinit_run.py:38-52 writes it
-MERV_FULL_MODEL = {
-    "model_id": "merv-full",
-    "arch_specifier": "3davg+linear",
-    "feature_fusion": "cross_attention_avg_lq",
-    "video_backbone_ids": ["languagebind-video-noclass", "dinov2-video-all-tokens",
-                           "vivit-google-b-all-no-cls-16frames", "siglip-vit-b16-224px-all-no-cls"],
-    "llm_backbone_id": "llama2-7b-pure",
-    "image_resize_strategy": "resize-naive",
-    "llm_max_length": 2048,
-    "num_frames": [16, 16, 32, 16],
-    "projector_token_length": 64,
-    "visual_feature_length": 1024,
-}
 DEMO_VIDEO = os.path.join("assets", "video_demo.mp4")
 SYNTHETIC_FRAMES = (32, 128, 128, 3)  # what load_video returns for the demo at max(num_frames)
 # the loaded request's launches: K1 23 DINOv2 + 23 LanguageBind layers; K2 12 ViViT + 32 prefill layers
@@ -2349,43 +2217,13 @@ def demo_video(seed: int):
 
 
 def write_run_dir(run_dir: str, dev, seed: int, model: dict = None) -> dict:
-    """config.json with ``model`` (merv-full's model dict unless given), and
-    the align-stage layout the released checkpoints use: projectors and fusion
-    only, fp32, random from a seeded generator, written by the port's
-    ``save_checkpoint``. The model is built on the meta device (no memory) and
-    only the trainables on the card. Returns the saved state dicts."""
-    model = MERV_FULL_MODEL if model is None else model
-    import torch
+    """``cli/make_randinit_run.py``'s run directory (``model``: merv-full's
+    model dict unless given): config.json and fp32 projectors and fusion from
+    a generator seeded with ``seed`` on the card, through the port's
+    ``save_checkpoint``. Returns the saved state dicts."""
+    from merv_tpu_torch.cli import make_randinit_run
 
-    from merv_tpu_torch.conf import MERV_Base
-    from merv_tpu_torch.device import make_generator
-    from merv_tpu_torch.models.materialize import (
-        get_llm_backbone_and_tokenizer,
-        get_video_backbone_and_transform,
-        get_vidlm,
-    )
-    from merv_tpu_torch.nn.core import init_weights
-    from merv_tpu_torch.training.checkpointing import save_checkpoint
-
-    shutil.rmtree(run_dir, ignore_errors=True)
-    os.makedirs(run_dir)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump({"model": model}, f)
-    cfg, meta = MERV_Base(**model), torch.device("meta")
-    vbs, _ = get_video_backbone_and_transform(cfg.video_backbone_ids, cfg.image_resize_strategy, cfg.num_frames,
-                                              device=meta)
-    llm, _ = get_llm_backbone_and_tokenizer(cfg.llm_backbone_id, cfg.llm_max_length, inference_mode=True, device=meta)
-    vidlm = get_vidlm(cfg.model_id, cfg.arch_specifier, cfg.feature_fusion, vbs, llm,
-                      projector_token_length=cfg.projector_token_length,
-                      visual_feature_length=cfg.visual_feature_length, device=meta)
-    g = make_generator(dev, seed)
-    saved = {}
-    for key in ("projectors", "feature_fusion"):
-        module = getattr(vidlm, key).to_empty(device=dev)
-        init_weights(module, g)
-        saved[key] = {n: t.detach().cpu().clone() for n, t in module.state_dict().items()}
-    save_checkpoint(run_dir, 1, 0, 0.0, vidlm, ["projectors", "feature_fusion"])
-    return saved
+    return make_randinit_run.write_run_dir(run_dir, dev, seed, MERV_FULL_MODEL if model is None else model)
 
 
 def loaded_path(dev, seed: int, max_new_tokens: int, run_dir: str) -> dict:
@@ -4546,6 +4384,378 @@ def pretrain_path(dev, seed: int) -> dict:
     return out
 
 # ---------------------------------------------------------------------------
+# phase 6: the bench and tooling modules
+# ---------------------------------------------------------------------------
+
+BENCH_ROOT = os.path.join("runs", "chip_smoke_bench")  # export_towers' and preprocess' inputs and outputs
+BENCH_LLM_LAYERS = 2  # the benches' LLM depth here (their defaults are 8 to 32): width is what they hold
+BENCH_PARALLEL = 4  # bench processes at once: a smoke check of each, not their measurement (PERF.md's readings
+# come from runs at the benches' defaults, one at a time)
+TOWER_IMPLS = ("small", "xla_kt", "xla", "fused_block", "default")
+BENCH_FIRST = ("tower_attn", "serving", "vidlm_prefix_engine_shared", "loader")  # started first: the longest
+TOWER_IMPL_KERNEL = {"small": "small_attention_kt", "xla_kt": None, "xla": "small_attention",
+                     "fused_block": "fused_vit_attn_block", "default": "small_attention_kt"}
+# K1 a call of the merv set's DINOv2 or LanguageBind tower (23 layers each: the penultimate-layer tap), K2 of ViViT
+TOWER_LAYER_CALLS = 23
+VIVIT_LAYERS = 12
+BENCH_ENV = {"BENCH_LLM_LAYERS": str(BENCH_LLM_LAYERS), "BENCH_TOWERS": "merv"}
+# label -> (the module's arguments, its environment on top of BENCH_ENV)
+BENCH_RUNS = {
+    "decode_bf16": (["merv_tpu_torch.bench.decode"], {"BENCH_DECODE_STEPS": "8"}),
+    "decode_int8": (["merv_tpu_torch.bench.decode"], {"BENCH_DECODE_STEPS": "8", "BENCH_INT8": "1",
+                                                      "BENCH_INT8_KV": "1"}),
+    "train": (["merv_tpu_torch.bench.train"], {}),
+    "serving": (["merv_tpu_torch.bench.serving"], {"BENCH_REQUESTS": "4"}),
+    "breakdown": (["merv_tpu_torch.bench.breakdown", "--layers", str(BENCH_LLM_LAYERS), "--batch", "1"], {}),
+    "tower_attn": (["merv_tpu_torch.bench.tower_attn", "--batch", "1", "--impls", ",".join(TOWER_IMPLS)], {}),
+    "tower_ops": (["merv_tpu_torch.bench.tower_ops", "--tower", "dinov2", "--batch", "1"], {}),
+    "loader": (["merv_tpu_torch.bench.loader", "--seconds", "2"], {}),
+}
+# the merv_tpu script's keys each result line must hold (scripts/bench_*.py, at the lines cited)
+BENCH_KEYS = {
+    "decode": {"metric", "decode_tokens_per_sec", "ttft_p50_sec", "unit"},  # bench_decode.py:109-117
+    "train": {"metric", "examples_per_sec", "step_sec", "loss"},  # bench_train.py:105-110
+    "serving": {"metric", "layers", "slots", "requests", "total_new_tokens", "group_tok_s", "engine_tok_s",
+                "engine_vs_group", "engine_util", "spec_tok_s", "spec_tokens_per_step", "spec_step_overhead", "int8",
+                "int8_kv", "platform"},  # bench_serving.py:470-488
+    "breakdown": {"towers_ms", "projectors_fusion_ms", "llm_prefill_ms", "sum_ms"},  # bench_breakdown.py:85-106
+    "tower_attn": {"batch", "rows"},  # bench_tower_attn.py:128
+    "tower_ops": {"tower", "batch", "components_ms"},  # bench_tower_ops.py:179-180
+    "loader": {"metric", "value", "unit", "workers_to_saturate_device"},  # bench_loader.py:96-101
+    "vidlm_prefix": {"serving_wall_s", "questions_per_sec", "proc_s"},  # bench_vidlm_prefix.py:86-101
+}
+# every rate and time in a line, by the bench's own keys
+BENCH_POSITIVE = {
+    "decode": ("decode_tokens_per_sec", "ttft_p50_sec"), "train": ("examples_per_sec", "step_sec"),
+    "serving": ("group_tok_s", "engine_tok_s", "engine_vs_group", "spec_tok_s", "spec_tokens_per_step",
+                "spec_step_overhead"),
+    "breakdown": ("projectors_fusion_ms", "llm_prefill_ms", "sum_ms"), "loader": ("value", "prefill_videos_per_sec"),
+    "vidlm_prefix": ("serving_wall_s", "questions_per_sec"),
+}
+
+
+def llm_launches(prefill_lengths, decode_forwards: int, layers: int) -> dict:
+    """K2 / K5 launches of LLM work with a cache: a prefill program of T
+    tokens runs K5 a layer when T <= 16, else K2; every decode or verify
+    forward runs K5 a layer."""
+    return {"flash_attention_forward": layers * sum(t > 16 for t in prefill_lengths),
+            "decode_attention": layers * (decode_forwards + sum(t <= 16 for t in prefill_lengths))}
+
+
+def bench_expected(kind: str, out: dict, layers: int = BENCH_LLM_LAYERS) -> dict:
+    """The launches a bench's run must show, worked out from its shapes and
+    the work its result line reports; the kernels not named, none."""
+    L, K1, K2 = layers, 2 * TOWER_LAYER_CALLS, VIVIT_LAYERS
+    if kind == "decode":
+        n, fwd = out["prefills"], out["decode_steps"] + out["captured_steps"]
+        want = {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n, "decode_attention": L * fwd}
+        if out["int8"]:  # 4 packed Linears a layer and the lm_head a step; the prefill's lm_head on its 1 row
+            want["int8_linear"] = (4 * L + 1) * fwd + n
+        return want
+    if kind == "train":  # the LLM's attention forward twice a step under remat, its backward once
+        n = out["steps"]
+        return {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + 2 * L) * n,
+                "flash_attention_backward": L * n}
+    if kind == "serving_phase":
+        return llm_launches(out["work"]["prefill_lengths"], out["work"]["decode_forwards"], L)
+    if kind == "breakdown":  # each tower's timed calls and encode_videos' one; the LLM prefill's calls
+        per_tower = out["calls"]["towers"] // len(out["towers_ms"]) + 1
+        return {"small_attention_kt": K1 * per_tower,
+                "flash_attention_forward": K2 * per_tower + L * out["calls"]["llm_prefill"]}
+    if kind == "tower_attn_row":
+        name = TOWER_IMPL_KERNEL[out["impl"]]
+        return {name: TOWER_LAYER_CALLS * out["calls"]} if name else {}
+    if kind == "tower_ops":  # the tower's 23 layers a forward; the attention chain's one a layer of the config
+        calls = out["calls"]
+        chain = next(n for n in calls if n.startswith("attention chain"))
+        return {"small_attention_kt": TOWER_LAYER_CALLS * (calls["full tower"] + calls["full tower, fp32 input"])
+                + out["layers"] * calls[chain]}
+    if kind == "loader":
+        n = out["prefills"]
+        return {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n}
+    raise ValueError(kind)
+
+
+def check_launches(label: str, launches: dict, want: dict) -> dict:
+    import merv_tpu_torch.ops.attention as A
+
+    full = {name: want.get(name, 0) for name in A.launch_counts()}
+    if launches != full:
+        raise RuntimeError(f"[bench] {label}: launches {launches}, its shapes give {full}")
+    return full
+
+
+def check_line(label: str, kind: str, out: dict, kind_name: str) -> None:
+    """The merv_tpu script's keys, every rate and time finite and > 0, the card named."""
+    missing = BENCH_KEYS[kind] - set(out)
+    if missing:
+        raise RuntimeError(f"[bench] {label}: result line lacks {sorted(missing)} of the merv_tpu script's keys")
+    values = [out[k] for k in BENCH_POSITIVE.get(kind, ())]
+    if kind == "breakdown":
+        values += list(out["towers_ms"].values())
+    if kind == "tower_attn":
+        values += [r[k] for r in out["rows"] for k in ("languagebind_ms", "dinov2_ms")]
+    if kind == "tower_ops":
+        values += list(out["components_ms"].values())
+    bad = [v for v in values if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)]
+    if bad:
+        raise RuntimeError(f"[bench] {label}: a rate or time is not finite and > 0: {bad} in {out}")
+    if kind != "vidlm_prefix" and out.get("device") != kind_name:
+        raise RuntimeError(f"[bench] {label}: ran on {out.get('device')!r}, not on the card {kind_name!r}")
+
+
+def languagebind_checkpoint(cfg, seed: int) -> dict:
+    """A LanguageBind_Video_merge-shaped checkpoint at ``cfg``'s widths from a
+    seeded generator: the ``vision_model.*`` tensors under the HF CLIP names,
+    with a text tower's tensor and ``logit_scale`` beside them, as the released
+    dual-tower file has them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    D, inner, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+    n_pos = (cfg.image_size // p) ** 2 + 1
+    shapes = {"embeddings.class_embedding": (D,), "embeddings.patch_embedding.weight": (D, 3, p, p),
+              "embeddings.position_embedding.weight": (n_pos, D)}
+    for n in ("pre_layrnorm", "post_layernorm"):
+        shapes.update({f"{n}.weight": (D,), f"{n}.bias": (D,)})
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layers.{i}"
+        for n in ("layer_norm1", "layer_norm2", "temporal_layer_norm1"):
+            shapes.update({f"{pre}.{n}.weight": (D,), f"{pre}.{n}.bias": (D,)})
+        for a in ("self_attn", "temporal_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                shapes.update({f"{pre}.{a}.{proj}.weight": (D, D), f"{pre}.{a}.{proj}.bias": (D,)})
+        shapes.update({f"{pre}.mlp.fc1.weight": (inner, D), f"{pre}.mlp.fc1.bias": (inner,),
+                       f"{pre}.mlp.fc2.weight": (D, inner), f"{pre}.mlp.fc2.bias": (D,),
+                       f"{pre}.temporal_embedding": (1, cfg.temporal_frames, D)})
+    state = {f"vision_model.{k}": torch.randn(s, generator=g) * 0.02 for k, s in shapes.items()}
+    state["vision_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
+    state.update({"text_model.embeddings.token_embedding.weight": torch.zeros(7, 4), "logit_scale": torch.ones(())})
+    return state
+
+
+def hiera_checkpoint(cfg, seed: int) -> dict:
+    """An original-repository Hiera state dict at ``cfg``'s widths from a
+    seeded generator, with its classifier head, nested under ``model_state``
+    as the released ``.pth`` files are."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t, h, w = cfg.tokens_shape
+    shapes = {"patch_embed.proj.weight": (cfg.embed_dim, 3, *cfg.patch_kernel), "patch_embed.proj.bias": (cfg.embed_dim,),
+              "pos_embed_spatial": (1, h * w, cfg.embed_dim), "pos_embed_temporal": (1, t, cfg.embed_dim),
+              "head.projection.weight": (400, cfg.final_dim), "head.projection.bias": (400,)}
+    for i, lp in enumerate(cfg.layer_plan()):
+        d_in, d_out = lp["dim_in"], lp["dim_out"]
+        hidden = int(d_out * cfg.mlp_ratio)
+        parts = {"norm1": (d_in,), "attn.qkv": (3 * d_out, d_in), "attn.proj": (d_out, d_out), "norm2": (d_out,),
+                 "mlp.fc1": (hidden, d_out), "mlp.fc2": (d_out, hidden)}
+        if d_in != d_out:
+            parts["proj"] = (d_out, d_in)
+        for n, shape in parts.items():
+            shapes[f"blocks.{i}.{n}.weight"] = shape
+            shapes[f"blocks.{i}.{n}.bias"] = (shape[0],)
+    return {"model_state": {k: torch.randn(s, generator=g) * 0.02 for k, s in shapes.items()}}
+
+
+EXPORTED_TOWERS = ("languagebind-video-noclass", "hiera-base-plus-video")
+
+
+def export_inputs(root: str, seed: int) -> tuple:
+    """The two local checkpoints ``cli/export_towers.py`` reads, at the towers'
+    full widths from the seed -> (its arguments, {tower id: the tensors its file must hold})."""
+    import torch
+
+    from merv_tpu_torch.benchkit import META
+    from merv_tpu_torch.models.materialize import get_video_backbone_and_transform
+
+    (lb, hiera), _ = get_video_backbone_and_transform(list(EXPORTED_TOWERS), "resize-naive", [16, 16], device=META)
+    lb_state, hiera_state = languagebind_checkpoint(lb.vit_config, seed), hiera_checkpoint(hiera.hiera_config, seed + 1)
+    os.makedirs(root, exist_ok=True)
+    lb_path, hiera_path = os.path.join(root, "languagebind_video_merge.pt"), os.path.join(root, "hiera.pth")
+    torch.save(lb_state, lb_path)
+    torch.save(hiera_state, hiera_path)
+    want = {EXPORTED_TOWERS[0]: {k: v for k, v in lb_state.items()
+                                 if k.startswith("vision_model.") and not k.endswith("position_ids")},
+            EXPORTED_TOWERS[1]: {k: v for k, v in hiera_state["model_state"].items() if not k.startswith("head.")}}
+    args = ["merv_tpu_torch.cli.export_towers", "--out", os.path.join(root, "towers"), "--towers", *EXPORTED_TOWERS,
+            "--source", f"languagebind={lb_path}", "--source", f"hiera={hiera_path}"]
+    return args, want
+
+
+def check_export(root: str, want: dict) -> dict:
+    import torch
+
+    from merv_tpu_torch.util.safetensors_io import load_file
+
+    out = {}
+    for ident, tensors in want.items():
+        got = load_file(os.path.join(root, "towers", f"{ident}.safetensors"))
+        if sorted(got) != sorted(tensors) or not all(got[k].dtype == torch.float32 and torch.equal(got[k], tensors[k])
+                                                     for k in tensors):
+            raise RuntimeError(f"[bench] export_towers: {ident}.safetensors does not hold its checkpoint's tensors")
+        out[ident] = len(got)
+    return out
+
+
+PREPROCESS_IMAGES = 6
+
+
+def preprocess_inputs(root: str, seed: int) -> list:
+    """llava-v1.5-instruct laid out under ``root`` with every component in place
+    (nothing to fetch) and OCR-VQA's images as seeded PNG and GIF files ->
+    ``cli/preprocess.py``'s arguments."""
+    import numpy as np
+    from PIL import Image
+
+    from merv_tpu_torch.preprocessing.download import DATASET_REGISTRY
+
+    base = os.path.join(root, "download", "llava-v1.5-instruct")
+    for comp in DATASET_REGISTRY["llava-v1.5-instruct"]:
+        target = os.path.join(base, comp["name"])
+        if comp.get("extract"):
+            os.makedirs(target, exist_ok=True)
+        else:
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            with open(target, "w") as f:
+                f.write("[]")
+    rng = np.random.default_rng(seed)
+    for i in range(PREPROCESS_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)).save(
+            os.path.join(base, "ocr_vqa", "images", f"{i}{('.png', '.gif')[i % 2]}"))
+    return ["merv_tpu_torch.cli.preprocess", "--dataset_id", "llava-v1.5-instruct", "--root_dir", root]
+
+
+def check_preprocess(root: str) -> int:
+    from PIL import Image
+
+    images = os.path.join(root, "download", "llava-v1.5-instruct", "ocr_vqa", "images")
+    jpgs = sorted(f for f in os.listdir(images) if f.endswith(".jpg"))
+    if len(jpgs) != PREPROCESS_IMAGES:
+        raise RuntimeError(f"[bench] preprocess: {len(jpgs)} JPGs written for {PREPROCESS_IMAGES} images")
+    for name in jpgs:
+        if Image.open(os.path.join(images, name)).size != (64, 48):
+            raise RuntimeError(f"[bench] preprocess: {name} is not its source's size")
+    return len(jpgs)
+
+
+def run_tool_process(args: list, env: dict) -> tuple:
+    """``python -m <args>`` (a tool that prints no result line) -> (None, None,
+    seconds, the end of its stderr); raises if it fails."""
+    from merv_tpu_torch import benchkit
+
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], env=benchkit.child_env(env), capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[bench] {args[0]} failed (rc={proc.returncode}): {proc.stderr[-3000:]}")
+    return None, None, time.perf_counter() - t, proc.stderr[-1500:]
+
+
+def run_bench_process(args: list, env: dict) -> tuple:
+    """``python -m <args>`` with the repository on its path -> (its result
+    line, its launches line, seconds, the end of its stderr); raises if it
+    fails or prints no result."""
+    from merv_tpu_torch import benchkit
+
+    t = time.perf_counter()
+    out, launches, proc = benchkit.run_child(args, env=env, timeout=900)
+    return out, launches, time.perf_counter() - t, proc.stderr[-1500:]
+
+
+def bench_path(dev, seed: int) -> dict:
+    """Phase 6: each bench module and tool once on the card at full width
+    (depth and counts cut through the benches' own ``BENCH_*`` names), each in
+    a process of its own, ``BENCH_PARALLEL`` at once. Checks each result line
+    (the merv_tpu script's keys, rates and times finite and > 0, the card
+    named) and each process's launches against its shapes."""
+    import concurrent.futures
+
+    import torch
+
+    from merv_tpu_torch.bench import vidlm_prefix
+
+    kind_name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    shutil.rmtree(BENCH_ROOT, ignore_errors=True)
+    os.makedirs(BENCH_ROOT)
+    randinit = vidlm_prefix.ROOT / "runs" / vidlm_prefix.RUN
+    write_run_dir(randinit, dev, seed)
+    export_args, export_want = export_inputs(os.path.join(BENCH_ROOT, "export"), seed)
+    preprocess_args = preprocess_inputs(os.path.join(BENCH_ROOT, "preprocess"), seed)
+    base_env = dict(os.environ, **BENCH_ENV)
+    for name in SWITCHES:
+        base_env.pop(name, None)
+
+    def prefix_mode():
+        t = time.perf_counter()
+        max_new, slots = int(os.environ.get("BENCH_VP_MAX_NEW", "32")), int(os.environ.get("BENCH_VP_SLOTS", "4"))
+        out = vidlm_prefix.run_mode("engine_shared", max_new, slots)
+        return out, out["launches"], time.perf_counter() - t, ""
+
+    jobs = {label: (lambda a=args, e=env: run_bench_process(a, dict(base_env, **e))) for label, (args, env) in
+            BENCH_RUNS.items()}
+    jobs["vidlm_prefix_engine_shared"] = prefix_mode
+    jobs["export_towers"] = lambda: run_tool_process(export_args, base_env)
+    jobs["preprocess"] = lambda: run_tool_process(preprocess_args, base_env)
+    torch.cuda.empty_cache()  # this process's cached blocks, for the benches' processes
+    results = {}
+    with concurrent.futures.ThreadPoolExecutor(BENCH_PARALLEL) as pool:
+        # the longest first (tower_attn's six processes, serving's four, vidlm_prefix's load_vid): the
+        # phase's wall is then about the longest job's
+        order = sorted(jobs, key=lambda label: BENCH_FIRST.index(label) if label in BENCH_FIRST else len(BENCH_FIRST))
+        futures = {pool.submit(jobs[label]): label for label in order}
+        for fut in concurrent.futures.as_completed(futures):
+            label = futures[fut]
+            out, launches, secs, err = fut.result()  # a failed process raises here and fails the phase
+            results[label] = dict(line=out, launches=launches, process_s=secs)
+            log(f"[bench] {label}: {secs:.1f} s; {json.dumps(out)[:1500] if out else err[-300:]}")
+
+    checked = {}
+    for label, r in results.items():
+        out, launches = r["line"], r["launches"]
+        if label in ("export_towers", "preprocess"):
+            continue
+        kind = label.split("_")[0] if label.startswith(("decode", "vidlm")) else label
+        kind = "vidlm_prefix" if kind == "vidlm" else kind
+        check_line(label, kind, out, kind_name)
+        if kind == "serving":
+            for ph, part in out["phases"].items():
+                checked[f"serving_{ph}"] = check_launches(f"serving/{ph}", part["launches"],
+                                                          bench_expected("serving_phase", part))
+        elif kind == "tower_attn":
+            for row in out["rows"]:
+                checked[f"tower_attn_{row['impl']}"] = check_launches(f"tower_attn/{row['impl']}", row["launches"],
+                                                                      bench_expected("tower_attn_row", row))
+        elif kind == "vidlm_prefix":
+            k = launches
+            if not (k["small_attention_kt"] > 0 and k["small_attention_kt"] % (2 * TOWER_LAYER_CALLS) == 0
+                    and all(k[n] > 0 for n in ("flash_attention_forward", "int8_linear", "decode_attention"))
+                    and all(k[n] == 0 for n in ("flash_attention_backward", "small_attention",
+                                                "packed_temporal_attention", "fused_vit_attn_block",
+                                                "fused_vit_attn_block_d72"))):
+                raise RuntimeError(f"[bench] {label}: launches {k}: K1 a whole number of prefills, K2 / K4 / K5 "
+                                   "launched, nothing else")
+            checked[label] = k
+        else:
+            checked[label] = check_launches(label, launches, bench_expected(kind, out))
+    exported = check_export(os.path.join(BENCH_ROOT, "export"), export_want)
+    converted = check_preprocess(os.path.join(BENCH_ROOT, "preprocess"))
+    shutil.rmtree(BENCH_ROOT, ignore_errors=True)
+    shutil.rmtree(randinit, ignore_errors=True)
+    shutil.rmtree(vidlm_prefix.ROOT / "eval_result" / vidlm_prefix.RUN, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"[bench] phase 6: {wall:.1f} s; every line held its keys and its launches; exported {exported}, "
+        f"preprocess converted {converted} images")
+    return dict(results=results, launches=checked, exported=exported, converted=converted, wall_s=wall)
+
+
+def bench_launches(bench: dict, name: str) -> dict:
+    """A kernel's launches in each of phase 6's runs (per serving phase and tower_attn impl)."""
+    return {label: k.get(name, 0) for label, k in bench["launches"].items()}
+
+
+# ---------------------------------------------------------------------------
 
 # every kernel library: K2, K3, K1, B3, B6, B5, K4 and K5
 COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention", "fused_vit_block",
@@ -4678,6 +4888,9 @@ def main() -> int:
     ap.add_argument("--pretrain-only", action="store_true",
                     help="build, then run only B6's head-dim-72 cases and phase 5b (the pretrain entry point) and "
                          "print their numbers (no result line)")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="build, then run only phase 6 (the bench and tooling modules) and print their lines (no result "
+                         "line)")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -4787,6 +5000,15 @@ def main() -> int:
             "b6_held_at_path_shapes",
             "wall_s", "process_s")} for run in ("align", "finetune", "resume")}}, default=str))
         return 0
+    if args.bench_only:
+        with switches({}):
+            bench = bench_path(dev, args.seed)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "bench.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, bench_path=bench), f, indent=1, default=str)
+        log(json.dumps({"bench": {label: dict(r["line"] or {}, process_s=r["process_s"]) for label, r in
+                                  bench["results"].items()}, "wall_s": bench["wall_s"]}, default=str))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -4809,6 +5031,7 @@ def main() -> int:
         zoo = zoo_path(dev, args.seed, args.max_new_tokens)
         train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
         pretrain = pretrain_path(dev, args.seed)
+        bench = bench_path(dev, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -4840,6 +5063,7 @@ def main() -> int:
                                .get(name, 0)},
             launches_zoo={label: r["request"]["launches"].get(name, 0) for label, r in zoo["requests"].items()},
             launches_pretrain={run: pretrain[run]["launches"].get(name, 0) for run in ("align", "finetune", "resume")},
+            launches_bench=bench_launches(bench, name),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -4851,7 +5075,7 @@ def main() -> int:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
                        packed_check=packed, families_path=families, zoo_path=zoo, train_path=train,
-                       pretrain_path=pretrain),
+                       pretrain_path=pretrain, bench_path=bench),
                   f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -21,7 +21,8 @@ The chunked jsonl protocol of :mod:`merv_tpu_torch.cli.eval_mcq`, plus:
   is logged and skipped; ``--batch_size`` is ignored;
 - ``--serving_passes N`` serves the workload N times in-process and reports
   the last pass (the first holds the graph captures), writing results once;
-  it prints one JSON line with ``serving_wall_s`` and ``questions_per_sec``.
+  it prints one JSON line with ``serving_wall_s`` and ``questions_per_sec``
+  (and the kernels' launch counts over the process, ``launches``).
 Scoring happens downstream (``scripts/eval_gpt_batch.py``, an LLM judge).
 
 ``--quantize_llm`` serves the LLM with weight-only int8 Linears and
@@ -42,6 +43,7 @@ from pathlib import Path
 from typing import Optional, Union
 
 import merv_tpu_torch.conf.registry as draccus
+import merv_tpu_torch.ops.attention as A
 from merv_tpu_torch.cli.eval_mcq import _clip, _resolve_video, get_chunk, load_model, refuse_unported
 from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.models.vidlms.merv import _load_media
@@ -244,7 +246,7 @@ def evaluate(cfg: EvalConfig) -> None:
         print(json.dumps({
             "serving_wall_s": round(wall, 2), "questions": len(questions),
             "questions_per_sec": round(len(questions) / wall, 4) if wall else 0.0,
-            "passes": passes, "cold_wall_s": round(pass_walls[0], 2),
+            "passes": passes, "cold_wall_s": round(pass_walls[0], 2), "launches": A.launch_counts(),
         }), flush=True)
     os.rename(temp_output_path, done_output_path)
     _merge_chunks(result_dir, tag, all_questions_id, merged_path)
@@ -412,6 +414,7 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
         "admit_s": round(s.admit_s - prev[0], 2), "decode_s": round(s.decode_s - prev[1], 2),
         "register_s": round(register_s[-1], 2),
         "ttft_p50_ms": round(1e3 * ttft[len(ttft) // 2], 1) if ttft else None,
+        "launches": A.launch_counts(),
     }), flush=True)
 
 

@@ -24,7 +24,8 @@ antialiased, as timm's ``resample_abs_pos_embed``). Every value is rounded to
 ``merv_tpu``'s ``load_state_dict`` does).
 
 :func:`load_pretrained_tower` reads ``$MERV_TPU_TOWER_DIR/{identifier}.safetensors``
-(``scripts/export_towers.py`` writes such files) and, for Hiera, a ``.pth`` in
+(``python -m merv_tpu_torch.cli.export_towers`` writes such files from
+local checkpoints: :func:`extract_languagebind_state`, :func:`extract_hiera_state`) and, for Hiera, a ``.pth`` in
 the torch-hub checkpoint cache under ``$TORCH_HOME`` when that is set
 (``merv_tpu`` also looks under ``~/.cache/torch``). ``merv_tpu``'s timm and
 HF-cache routes and Hiera's download are not ported: without a file it raises.
@@ -244,7 +245,7 @@ def load_pretrained_tower(backbone: Any) -> None:
         backbone.import_state_dict(extract_hiera_state(None, online=os.environ.get("MERV_TPU_ONLINE", "0") == "1"))
         return
     raise FileNotFoundError(
-        f"No pretrained source for {ident}: run scripts/export_towers.py to produce "
+        f"No pretrained source for {ident}: run merv_tpu_torch.cli.export_towers (scripts/export_towers.py's counterpart) to produce "
         f"$MERV_TPU_TOWER_DIR/{ident}.safetensors (the port reads no timm or HF cache)"
     )
 
@@ -260,6 +261,50 @@ def load_torch_ckpt_file(path: Any) -> Dict[str, Any]:
     if not isinstance(obj, dict):
         raise ValueError(f"unrecognized checkpoint structure in {path}")
     return obj
+
+
+def load_snapshot_dir(path: Any) -> Dict[str, Any]:
+    """Every ``*.safetensors`` (else ``pytorch_model*.bin``, else ``*.pth``) of
+    a local HF snapshot directory, merged into one state dict."""
+    from merv_tpu_torch.util.safetensors_io import load_file
+
+    path = Path(path)
+    state: Dict[str, Any] = {}
+    st_files = sorted(path.glob("*.safetensors"))
+    for f in st_files:
+        state.update(load_file(f))
+    if st_files:
+        return state
+    bin_files = sorted(path.glob("pytorch_model*.bin")) or sorted(path.glob("*.pth"))
+    if not bin_files:
+        raise FileNotFoundError(f"no weight files found under {path}")
+    for f in bin_files:
+        state.update(load_torch_ckpt_file(f))
+    return state
+
+
+def extract_languagebind_state(source: Any, online: bool) -> Dict[str, torch.Tensor]:
+    """A LanguageBind_Video_merge snapshot directory or checkpoint file ->
+    its ``vision_model.*`` tensors (the reference keeps the dual-tower CLIP's
+    ``vision_model``), ``position_ids`` dropped, floats in fp32. ``merv_tpu``'s
+    HF-cache lookup and hub download (``online``) are not ported (ROADMAP, out
+    of reach: no network, no HF cache): without ``source`` it raises."""
+    if not source:
+        if online:
+            raise NotImplementedError("downloading LanguageBind's checkpoint is not ported (ROADMAP, out of reach: "
+                                      "no network); pass a local snapshot directory or checkpoint")
+        raise FileNotFoundError("the port reads no HF cache (ROADMAP, out of reach): pass a local LanguageBind "
+                                "snapshot directory or checkpoint")
+    p = Path(source)
+    raw = load_snapshot_dir(p) if p.is_dir() else load_torch_ckpt_file(p)
+    state = {}
+    for k, v in raw.items():
+        if k.startswith("vision_model.") and not k.endswith("position_ids"):
+            t = as_tensor(v)
+            state[k] = t.float() if t.is_floating_point() else t
+    if not any(".temporal_attn." in k for k in state):
+        raise ValueError("not a LanguageBind *video* checkpoint (no temporal_attn)")
+    return state
 
 
 def extract_hiera_state(source: Any, online: bool) -> Dict[str, torch.Tensor]:

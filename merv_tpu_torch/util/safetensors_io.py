@@ -1,4 +1,5 @@
-"""A reader of ``.safetensors`` files, so the port needs no ``safetensors`` package.
+"""A reader and a writer of ``.safetensors`` files, so the port needs no
+``safetensors`` package.
 
 The format: an 8-byte little-endian header length, a JSON header mapping each
 name to its dtype, shape and byte range, then the raw little-endian data.
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -39,3 +40,34 @@ def load_file(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
         out[name] = t.reshape(info["shape"])
     del data
     return out
+
+
+_TORCH_NAMES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+                torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
+                torch.bool: "BOOL"}
+
+
+def save_file(tensors: Mapping[str, torch.Tensor], path: Union[str, Path]) -> None:
+    """Write ``tensors`` (names in sorted order, contiguous little-endian
+    bytes, 8-byte aligned header) as :func:`load_file` and the
+    ``safetensors`` package read them."""
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        raw = _le_bytes(t)
+        header[name] = {"dtype": _TORCH_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(head)).astype("<u8").tobytes())
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _le_bytes(t: torch.Tensor) -> bytes:
+    arr = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    return arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()

@@ -35,6 +35,10 @@ import merv_tpu_torch.cli.eval_mcq, merv_tpu_torch.cli.eval_openended, merv_tpu_
 import merv_tpu_torch.util.prefetch, merv_tpu_torch.util.flops_utils
 import merv_tpu_torch.serving, merv_tpu_torch.serving.engine, merv_tpu_torch.cli.serve
 import merv_tpu_torch.nn.quantization, merv_tpu_torch.ops.int8_linear, merv_tpu_torch.ops.decode_attention
+import merv_tpu_torch.benchkit, merv_tpu_torch.bench.decode, merv_tpu_torch.bench.train, merv_tpu_torch.bench.serving
+import merv_tpu_torch.bench.breakdown, merv_tpu_torch.bench.tower_attn, merv_tpu_torch.bench.tower_ops
+import merv_tpu_torch.bench.loader, merv_tpu_torch.bench.vidlm_prefix, merv_tpu_torch.cli.make_randinit_run
+import merv_tpu_torch.cli.export_towers, merv_tpu_torch.cli.preprocess
 from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch import available_models, load_vid
@@ -120,6 +124,20 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(args=["--model_path", str(tmp_path), "--requests", str(tmp_path / "r.jsonl")])
+    from merv_tpu_torch import benchkit
+    from merv_tpu_torch.bench import breakdown, decode, loader, serving, tower_attn, tower_ops, train, vidlm_prefix
+    from merv_tpu_torch.cli import export_towers, make_randinit_run
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchkit.build_model(2)
+    for mod in (decode, train, serving, breakdown, tower_attn, tower_ops, loader, vidlm_prefix):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_randinit_run.write_run_dir(tmp_path / "run")
+    assert not (tmp_path / "run").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_towers.main(["--out", str(tmp_path / "towers")])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
