@@ -207,6 +207,28 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    launches, its output against the default route's), and, on its tower
    features, every resampler and fusion at full width
    (``zoo_projector_sweep``: finite, of the expected shape, its ms).
+4i. sequence-parallel serving (``sp_path``, also ``--sp-only``): (a) K5 with
+   its LSE on every shard of a 2,048-row Llama-2-7B cache split 2 and 4 ways
+   (bf16 and int8, decode and the verify's 5 rows, shards wholly after the
+   queries), at (c)'s shapes (3 rows over 553-row shards, 4 slots over
+   1,025-row shards at per-slot offsets) and at GQA 32 -> 8, each held
+   against its plain version and the shards merged by LSE against unsharded
+   K5, and K5 with and without its LSE at 1,120 rows by graph replay in
+   turns; then the two ranks of (c) start while (b) the ring
+   over 2 and 4 in-process ranks, natural and zigzag, forward and backward at
+   ``[1, 32, 8192, 128]`` and GQA 32 -> 8, is held against K2 / K3 on the
+   whole sequence with the launches its blocks predict; (c)
+   ``eval_openended`` on merv-full's run directory at sp = 1 in this process
+   and at ``--mesh_seq 2`` as two ranks on the card over gloo
+   (``torch.distributed.run`` of this script with ``--sp-worker``), group
+   path and ``--use_engine``: each rank's launches must show the sharded
+   route (K5 with LSE, no unsharded K5), its decode cache about half of
+   sp = 1's bytes, its first K5 call with its LSE (kept with its inputs)
+   held against the plain version after the counts are read, the first-token
+   logits within LOGITS_REL_TOL of sp = 1's and, on the group path, each
+   decode step's logits too, up to the first token that differs (random
+   weights leave near ties, and pick ids past the byte tokenizer's range,
+   whose text is mostly empty: tokens are compared, not text).
 5. training path: merv-base's align stage at full width and depth (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
@@ -252,7 +274,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    names (the LLM at ``BENCH_LLM_LAYERS`` = 2): ``decode`` bf16 and with
    ``BENCH_INT8=1 BENCH_INT8_KV=1``, ``train``, ``serving`` (its ``group``,
    ``engine`` and ``spec`` processes), ``breakdown``, ``tower_attn`` over its
-   five implementations, ``tower_ops`` for DINOv2, ``loader`` with a 2 s
+   five implementations (in two processes), ``tower_ops`` for DINOv2, ``loader`` with a 2 s
    window, ``vidlm_prefix``'s ``engine_shared`` mode on merv-full's
    random-init run directory (``cli/make_randinit_run.py``'s, written first),
    ``cli/export_towers.py`` on full-width LanguageBind and Hiera checkpoints
@@ -283,9 +305,11 @@ Imports nothing of JAX or of ``merv_tpu``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import hashlib
+import io
 import json
 import logging
 import math
@@ -354,7 +378,8 @@ TRAIN_STEPS = 3
 TRAIN_LOSS_CHUNK = 256
 TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32,
                                  "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
-                                 "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0}
+                                 "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0,
+                                 "decode_attention_lse": 0}
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 0.1
 
@@ -1408,7 +1433,7 @@ def kernel_launches(fn, strict: bool = True) -> dict:
     return r
 
 
-def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng: bool = False):
+def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None):
     """K4 and K5 against their plain versions at the paths' shapes, each with
     CUDA-event and graph-replay times of the kernel and of its library
     yardstick (K4: the bf16 model's ``F.linear`` on the same shape, the call
@@ -1422,7 +1447,6 @@ def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng:
     call); a planted fault in each (K4: the
     scales shifted by one column; K5: the causal offset off by one) must fail
     the same hold."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -1433,7 +1457,6 @@ def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng:
 
     cases = []
     record = functools.partial(record_case, cases)
-    rng = np.random.default_rng(seed + 17)
 
     def caught(kernel, name, fault, out, ref, mag):
         h = hold(out, ref, mag)
@@ -1443,20 +1466,18 @@ def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng:
             raise RuntimeError(f"planted fault {fault} was not caught on {kernel}/{name}")
         return h["worst_share_of_limit"]
 
-    # device_rng: weights from a seeded generator on the card (the families' lm_heads hold up to 545 M values,
-    # too many to draw on the host in time), each (N, K)'s weights and cold copies kept across its row counts
-    gen = torch.Generator(device=dev).manual_seed(seed + 17) if device_rng else None
+    # inputs from a seeded generator on the card (the lm_heads hold up to 545 M values a copy, too many to draw on
+    # the host in time), each (N, K)'s weights and cold copies kept across its row counts
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
 
     def rand(shape):
-        if gen is None:
-            return _randn(rng, shape, dev)
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
     weights = {}
     shapes = k4_shapes if k4_shapes is not None else \
         [(f"{w}_m{m}", m, n, k) for w, n, k in INT8_WEIGHTS for m in INT8_ROWS] + [INT8_RAGGED]
     for name, M, N, K in shapes:
-        if gen is None or (N, K) not in weights:
+        if (N, K) not in weights:
             weights.clear()
             w = rand((N, K)) * 0.02
             weights[(N, K)] = (w, *quantize_kernel(w),
@@ -1496,8 +1517,8 @@ def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng:
     weights.clear()
 
     for name, B, H, Hk, Tq, Tk, D, int8, lengths, offs in (DECODE_CASES if k5_cases is None else k5_cases):
-        q = _randn(rng, (B, H, Tq, D), dev)
-        kf, vf = (_randn(rng, (B, Hk, Tk, D), dev) for _ in range(2))
+        q = rand((B, H, Tq, D))
+        kf, vf = (rand((B, Hk, Tk, D)) for _ in range(2))
         length = torch.tensor(lengths, device=dev)
         kv_pos = torch.arange(Tk, device=dev)[None]
         # the decoder's key mask: the rows written (and the new ones), never a per-slot cache's scratch row
@@ -1546,7 +1567,7 @@ def int8_kernel_cases(dev, seed: int, k4_shapes=None, k5_cases=None, device_rng:
                                                          strict=hasattr(K5, "decode_plan"))
 
         def one_copy():
-            kc, vc = _randn(rng, (B, Hk, Tk, D), dev), _randn(rng, (B, Hk, Tk, D), dev)
+            kc, vc = rand((B, Hk, Tk, D)), rand((B, Hk, Tk, D))
             if not int8:
                 return (kc, vc), (kc, vc)
             (k8c, ksc), (v8c, vsc) = _quantize_kv(kc), _quantize_kv(vc)
@@ -2520,6 +2541,674 @@ def eval_path(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: sequence-parallel serving
+# ---------------------------------------------------------------------------
+
+SP_RUN = "chip_smoke_sp"  # runs/<SP_RUN> (merv-full's run directory), eval_result/sp_* (the drivers' files)
+# (a) K5 with its LSE on the shards of a cache: (name, shards, batch, heads, kv heads, query rows, int8, positions a
+# shard, scratch row, each batch row's first query position, a pad hole (batch row, first key, end) or None). A shard
+# with a scratch row has one more buffer row, never valid (the sharded decoder's layout, CacheShards); the decode
+# (one query row) runs uncausal under the key mask, as the decoder sends it, the verify causal at the offsets. At 700
+# over 4 shards of 512, shards 2 and 3 lie wholly after the queries: every row there has no valid key (0 and -inf).
+SP_K5_CASES = (
+    ("n2_decode_bf16", 2, 1, 32, 32, 1, False, 1024, False, (1500,), None),
+    ("n2_verify5_int8", 2, 1, 32, 32, 5, True, 1024, False, (1500,), None),
+    ("n4_decode_int8", 4, 1, 32, 32, 1, True, 512, False, (700,), None),
+    ("n4_verify5_bf16", 4, 1, 32, 32, 5, False, 512, False, (700,), None),
+    # 4i(c)'s group path on a rank: 3 rows over shards of 552 positions + the scratch row, ragged, one padded
+    ("n2_b3_553_decode_bf16", 2, 3, 32, 32, 1, False, 552, True, (1087, 1040, 700), (1, 60, 100)),
+    # the engine's 4 slots over shards of 1,024 + 1 at per-slot offsets (a [B] tensor), the verify's 5 rows: slot
+    # 0 has no key on shard 1, slot 2's queries straddle the shards' edge
+    ("n2_b4_1025_verify5_int8", 2, 4, 32, 32, 5, True, 1024, True, (100, 1010, 1022, 1700), None),
+    # GQA 32 -> 8 (Llama-3.1-8B): a kv head's 4 x 5 = 20 query rows split over two 16-row units
+    ("n2_gqa8_verify5_bf16", 2, 1, 32, 8, 5, False, 1024, False, (1500,), None),
+)
+SP_K5_TIMED_ROWS = (1120, 1100)  # today's unsharded decode shape: cache rows, valid rows
+# (b) the ring at memory_proof's --seq-len 8192: (label, heads, kv heads) over SP_RING_RANKS in-process ranks
+SP_RING_SEQ = 8192
+SP_RING_SHAPES = (("llama2_7b", 32, 32), ("llama31_8b_gqa", 32, 8))
+SP_RING_RANKS = (2, 4)
+# (c) eval_openended --mesh_seq 2 as two ranks on the one card over gloo, against the same run at sp = 1. 16 new
+# tokens: the group path's cache (a 64-multiple prompt bucket + 16) tiles 2; the engine rounds its rows up itself.
+SP_RANKS = 2
+SP_EVAL_DATASET = "dummy_openended"
+SP_EVAL_MAX_NEW = 16
+SP_EVAL_RUNS = (("group", ["--batch_size", "3"]), ("engine", ["--use_engine", "true"]))
+SP_WORKER_TIMEOUT_S = 600
+
+
+def lse_check(lse, ref) -> dict:
+    """K5's LSE against its plain version's: -inf on exactly the same rows
+    (no valid key in the shard), the finite rows within LSE_REL_TOL."""
+    import torch
+
+    lse, ref = lse.float(), ref.float()
+    empty = torch.isneginf(ref)
+    same = bool(torch.equal(torch.isneginf(lse), empty))
+    err = (lse[~empty] - ref[~empty]).abs()
+    share = (err / (LSE_REL_TOL * (1 + ref[~empty].abs()))).max().item() if err.numel() else 0.0
+    return dict(worst_share_of_limit=share, empty_rows=int(empty.sum()), same_empty_rows=same,
+                ok=same and share <= 1.0)
+
+
+def sp_k5_inputs(case, rng, dev) -> dict:
+    """One SP_K5_CASES entry's inputs: q, the cache buffer in the sharded
+    layout (each shard's positions, then its scratch row where the case has
+    one), each shard's (k, v, k_scale, v_scale) and call arguments, and the
+    same positions as one unsharded cache with its arguments."""
+    import torch
+
+    from merv_tpu_torch.models.backbones.llm.transformer import _quantize_kv
+
+    name, n, B, H, Hk, Tq, int8, P, scratch, firsts, hole = case
+    W = P + int(scratch)
+    q = _randn(rng, (B, H, Tq, 128), dev)
+    kf, vf = (_randn(rng, (B, Hk, n * W, 128), dev) for _ in range(2))
+    if int8:
+        (k8, ks), (v8, vs) = _quantize_kv(kf), _quantize_kv(vf)
+        bufs = (k8, v8, ks, vs)
+    else:
+        bufs = (kf, vf, None, None)
+    first = torch.tensor(firsts, device=dev)
+    mask = torch.arange(n * P, device=dev)[None] < first[:, None] + Tq
+    if hole is not None:
+        mask[hole[0], hole[1]:hole[2]] = False
+    causal = Tq > 1
+    off = (first if B > 1 else firsts[0]) if causal else None
+    shards = [tuple(None if t is None else t[:, :, r * W:(r + 1) * W].contiguous() for t in bufs) for r in range(n)]
+    masks = [torch.cat([mask[:, r * P:(r + 1) * P], mask.new_zeros((B, W - P))], 1).contiguous() for r in range(n)]
+    kws = [dict(kv_mask=masks[r], causal=causal, q_offset=None if off is None else off - r * P) for r in range(n)]
+    whole = tuple(None if t is None else torch.cat([t[:, :, r * W:r * W + P] for r in range(n)], 2).contiguous()
+                  for t in bufs)
+    return dict(name=name, n=n, rows=P, q=q, shards=shards, masks=masks, kws=kws, whole=whole,
+                kw_whole=dict(kv_mask=mask, causal=causal, q_offset=off), causal=causal, off=off)
+
+
+def k5_lse_hold(q, k, v, k_scale, v_scale, kw, o, lse) -> dict:
+    """K5's output and LSE (``o``, ``lse``) against its plain version on the
+    same inputs: the output by ``hold`` (magnitudes from |V|), the LSE by
+    ``lse_check``, and every output finite."""
+    import torch
+
+    import merv_tpu_torch.ops.decode_attention as K5
+
+    ro, rl = K5.decode_attention_plain(q, k, v, k_scale, v_scale, return_lse=True, **kw)
+    if k_scale is not None:
+        k, v = K5.dequantize_kv(k, k_scale, q.dtype), K5.dequantize_kv(v, v_scale, q.dtype)
+    mag = K5.decode_attention_plain(q, k, v.abs(), return_lse=True, **kw)[0]
+    out, lh = hold(o, ro, mag), lse_check(lse, rl)
+    finite = bool(torch.isfinite(o.float()).all())
+    return dict(out=out, lse=lh, finite=finite, ok=out["ok"] and lh["ok"] and finite)
+
+
+def sp_k5_cases(dev, seed: int) -> list:
+    """Phase 4i(a): every shard's K5 call with its LSE held against the plain
+    version (``k5_lse_hold``); the shards merged (``cache_shard_attention``
+    over in-process ranks) held against unsharded K5 on the same positions;
+    then K5 with and without the LSE output at today's unsharded decode shape
+    (graph replay, warm and L2-cold, in turns)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import merv_tpu_torch.ops.decode_attention as K5
+    import merv_tpu_torch.ops.ring_attention as R
+    from merv_tpu_torch.models.backbones.llm.transformer import _quantize_kv
+
+    rng = np.random.default_rng(seed + 41)
+    cases, shard_checks = [], []
+    for case in SP_K5_CASES:
+        x = sp_k5_inputs(case, rng, dev)
+        name, n, P, q = x["name"], x["n"], x["rows"], x["q"]
+        for r, (sh, kw) in enumerate(zip(x["shards"], x["kws"])):
+            o, lse = K5.decode_attention(q, *sh, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            h = k5_lse_hold(q, *sh, kw, o, lse)
+            shard_checks.append(dict(case=name, shard=r, first_key=r * P, shape=list(sh[0].shape), out=h["out"],
+                                     lse=h["lse"]))
+            log(f"[sp] K5+LSE {name} shard {r} (positions {r * P}-{(r + 1) * P - 1}, buffer {list(sh[0].shape)}): "
+                f"out worst/limit {h['out']['worst_share_of_limit']:.3f}, lse worst/limit "
+                f"{h['lse']['worst_share_of_limit']:.3f}, empty rows {h['lse']['empty_rows']} "
+                f"(same: {h['lse']['same_empty_rows']})")
+            if not h["ok"]:
+                raise RuntimeError(f"K5 with LSE, {name} shard {r}: outside its limits against the plain version")
+        merged = R.cache_shard_attention(q, x["shards"], x["masks"], R.VirtualRanks(n), P, causal=x["causal"],
+                                         q_offset=x["off"])
+        whole, kw_whole = tuple(t for t in x["whole"] if t is not None), x["kw_whole"]
+        ref = K5.decode_attention(q, *whole, **kw_whole)
+        kd, vd = whole[:2] if len(whole) == 2 else (K5.dequantize_kv(whole[0], whole[2], q.dtype),
+                                                    K5.dequantize_kv(whole[1], whole[3], q.dtype))
+        mag = K5.decode_attention_plain(q, kd, vd.abs(), **kw_whole)
+        torch.cuda.synchronize()
+        h = hold(merged, ref, mag)
+        shard_checks.append(dict(case=name, merged_against_unsharded_k5=h))
+        log(f"[sp] K5+LSE {name}: {n} shards merged by LSE against unsharded K5 on the same positions: worst/limit "
+            f"{h['worst_share_of_limit']:.3f}, max err {h['max_abs_err']:.3e}")
+        if not h["ok"]:
+            raise RuntimeError(f"K5 with LSE, {name}: the merged shards differ from unsharded K5")
+        del x, merged, ref, mag
+
+    rows, valid = SP_K5_TIMED_ROWS
+    for int8 in (False, True):
+        q = _randn(rng, (1, 32, 1, 128), dev)
+
+        def make():
+            kc, vc = _randn(rng, (1, 32, rows, 128), dev), _randn(rng, (1, 32, rows, 128), dev)
+            if not int8:
+                return (kc, vc), (kc, vc)
+            (k8, ks), (v8, vs) = _quantize_kv(kc), _quantize_kv(vc)
+            return (k8, v8, ks, vs), (K5.dequantize_kv(k8, ks, torch.bfloat16), K5.dequantize_kv(v8, vs, torch.bfloat16))
+
+        cache, (kd, vd) = make()
+        kw = dict(kv_mask=(torch.arange(rows, device=dev) < valid)[None].contiguous())
+        o, lse = K5.decode_attention(q, *cache, return_lse=True, **kw)
+        ro, rl = K5.decode_attention_plain(q, *cache, return_lse=True, **kw)
+        mag = K5.decode_attention_plain(q, kd, vd.abs(), return_lse=True, **kw)[0]
+        row_bytes = 2 * 128 * (1 if int8 else 2) + (8 if int8 else 0)
+        bytes_moved = valid * 32 * row_bytes + 2 * 2 * q.numel() + rows + 4 * 32
+        copies = [cache] + [make()[0] for _ in range(cold_copies(bytes_moved) - 1)]
+        plain = lambda c, lse_out: functools.partial(K5.decode_attention, q, *c, return_lse=lse_out, **kw)  # noqa: E731
+        extra = dict(cold_copies=len(copies), lse=lse_check(lse, rl))
+        for turn, lse_out in enumerate((False, True, True, False)):  # the two variants in turns
+            key = "lse" if lse_out else "no_lse"
+            extra.setdefault(f"{key}_graph_ms", []).append(graph_ms(plain(cache, lse_out)))
+            extra.setdefault(f"{key}_cold_graph_ms", []).append(graph_ms(rotating([plain(c, lse_out) for c in copies])))
+        extra["graph_ms"], extra["cold_graph_ms"] = min(extra["lse_graph_ms"]), min(extra["lse_cold_graph_ms"])
+        kr, vr = kd, vd
+
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=kw["kv_mask"][:, None, None])
+
+        name = f"b1_{'int8' if int8 else 'bf16'}_{rows}"
+        record_case(cases, "decode_attention_lse", name, [1, 32, 32, 1, rows, 128, "int8" if int8 else "bf16"], o, ro,
+                    mag, lambda: K5.decode_attention(q, *cache, return_lse=True, **kw),
+                    lambda: K5.decode_attention_plain(q, *cache, return_lse=True, **kw), library,
+                    bytes_moved=bytes_moved, flops=4.0 * valid * 32 * 128, extra=extra)
+        log(f"[sp] K5 at {rows} rows ({'int8' if int8 else 'bf16'}), graph ms without / with the LSE output, in turns: "
+            f"warm {extra['no_lse_graph_ms']} / {extra['lse_graph_ms']}, L2-cold {extra['no_lse_cold_graph_ms']} / "
+            f"{extra['lse_cold_graph_ms']}")
+        del copies, cache
+    return cases, shard_checks
+
+
+def chunked_backward_mags(q, k, v, o, lse, do, rows: int = 1024):
+    """``backward_mags`` for a causal call (Tq == Tk), a block of query rows
+    at a time: the scores of 8,192 tokens at once would take ~9 GB a tensor."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+
+    B, H, S, D = q.shape
+    Hk = k.shape[1]
+    kr, vr = (t.float() for t in A._repeat_kv(k, v, H))
+    scale = D ** -0.5
+    mq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    mk = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    mv = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    ki = torch.arange(S, device=q.device)[None, :]
+    for r0 in range(0, S, rows):
+        sl = slice(r0, r0 + rows)
+        qs, dos, os_ = q[:, :, sl].float(), do[:, :, sl].float(), o[:, :, sl].float()
+        s = torch.matmul(qs, kr.transpose(-1, -2)) * scale
+        vis = ki <= torch.arange(r0, r0 + qs.shape[2], device=q.device)[:, None]
+        p = torch.where(vis, torch.exp(s - lse[:, :, sl].float()[..., None]), torch.zeros_like(s))
+        del s
+        ds = (p * (torch.matmul(dos, vr.transpose(-1, -2)) - (dos * os_).sum(-1, keepdim=True))).abs()
+        mq[:, :, sl] = torch.matmul(ds, kr.abs()) * scale
+        mk += torch.matmul(ds.transpose(-1, -2), qs.abs()) * scale
+        mv += torch.matmul(p.transpose(-1, -2), dos.abs())
+        del p, ds
+    if Hk != H:
+        mk, mv = (m.view(B, Hk, H // Hk, S, D).sum(2) for m in (mk, mv))
+    return mq, mk, mv
+
+
+def sp_ring_cases(dev, seed: int) -> list:
+    """Phase 4i(b): the ring forward and backward over 2 and 4 in-process
+    ranks, natural and zigzag, causal, at Llama-2-7B's and Llama-3.1-8B's
+    (GQA 32 -> 8) widths over 8,192 tokens: the output and dq, dk, dv held
+    (``hold``) against K2 and K3 on the whole sequence, and the K2 / K3
+    launches against the block decomposition (``ring_block_count``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.ring_attention as R
+    from merv_tpu_torch.parallel import VirtualMesh
+
+    rng = np.random.default_rng(seed + 43)
+    rows = []
+    S = SP_RING_SEQ
+    for label, H, Hk in SP_RING_SHAPES:
+        q = _randn(rng, (1, H, S, 128), dev)
+        k, v = (_randn(rng, (1, Hk, S, 128), dev) for _ in range(2))
+        do = _randn(rng, (1, H, S, 128), dev)
+        o_ref, lse_ref = A.flash_attention_forward(q, k, v, causal=True, return_lse=True)
+        grads_ref = A.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=True)
+        o_mag = A.flash_attention_forward(q, k, v.abs(), causal=True)
+        g_mags = chunked_backward_mags(q, k, v, o_ref, lse_ref, do)
+        whole_ms = time_ms(lambda: A.flash_attention_forward(q, k, v, causal=True), 5)
+        for n in SP_RING_RANKS:
+            for zigzag in (False, True):
+                perm = torch.as_tensor(R.zigzag_perm(S, n), device=dev) if zigzag else None
+                inv = torch.argsort(perm) if zigzag else None
+                lay = (lambda t: t[:, :, perm].contiguous()) if zigzag else (lambda t: t)  # noqa: E731
+                unlay = (lambda t: t[:, :, inv]) if zigzag else (lambda t: t)  # noqa: E731
+                leaves = tuple(lay(t).detach().requires_grad_() for t in (q, k, v))
+                mesh = VirtualMesh(n)
+                before = A.launch_counts()
+                out = R.ring_attention(*leaves, mesh, causal=True, zigzag=zigzag)
+                torch.cuda.synchronize()
+                fwd = A.launches_since(before).get("flash_attention_forward", 0)
+                before = A.launch_counts()
+                out.backward(lay(do))
+                torch.cuda.synchronize()
+                bwd = A.launches_since(before).get("flash_attention_backward", 0)
+                held = {"out": hold(unlay(out.detach()), o_ref, o_mag)}
+                for gname, leaf, ref, mag in zip(("dq", "dk", "dv"), leaves, grads_ref, g_mags):
+                    held[gname] = hold(unlay(leaf.grad), ref, mag)
+                predicted = R.ring_block_count(n, True, zigzag)
+                with torch.no_grad():
+                    xs = tuple(x.detach() for x in leaves)
+                    ring_ms = time_ms(lambda: R.ring_attention(*xs, mesh, causal=True, zigzag=zigzag), 3)
+                row = dict(shape=label, heads=[H, Hk], seq=S, ranks=n, zigzag=zigzag, k2_launches=fwd,
+                           k3_launches=bwd, predicted=predicted,
+                           held={key: {kk: h[kk] for kk in ("worst_share_of_limit", "max_abs_err", "mean_share", "ok")}
+                                 for key, h in held.items()},
+                           ring_forward_ms_all_ranks=ring_ms, whole_k2_ms=whole_ms)
+                rows.append(row)
+                log(f"[sp] ring {label} [1, {H}->{Hk}, {S}, 128] over {n} in-process ranks "
+                    f"{'zigzag' if zigzag else 'natural'}: K2 {fwd} / K3 {bwd} launches (blocks {predicted}); "
+                    f"worst/limit out {held['out']['worst_share_of_limit']:.3f} dq {held['dq']['worst_share_of_limit']:.3f}"
+                    f" dk {held['dk']['worst_share_of_limit']:.3f} dv {held['dv']['worst_share_of_limit']:.3f}; "
+                    f"forward of all ranks in turn {ring_ms:.3f} ms, K2 on the whole sequence {whole_ms:.3f} ms")
+                if fwd != predicted or bwd != predicted:
+                    raise RuntimeError(f"ring {label} n={n} zigzag={zigzag}: K2 {fwd} / K3 {bwd} launches, "
+                                       f"predicted {predicted}")
+                if not all(h["ok"] for h in held.values()):
+                    raise RuntimeError(f"ring {label} n={n} zigzag={zigzag}: outside the limits against K2 / K3 "
+                                       f"on the whole sequence: {row['held']}")
+                del leaves, out
+        del q, k, v, do, o_ref, lse_ref, grads_ref, o_mag, g_mags
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+class SpRecorder:
+    """Wraps, for one eval run, what phase 4i(c) reads: the first prefill's
+    logits, every KV cache made (rows, sharded or not, bytes), the decode
+    runners' and the engine chunks' modes (graph or eager), the generated
+    tokens (the group path's, and the engine's by request), the first decode's
+    logits step by step, the inputs and outputs of the run's first K5 call
+    with its LSE, and a model load kept for the process's later runs."""
+
+    def __init__(self):
+        self.model = None
+        self.reset()
+
+    def reset(self):
+        self.logits, self.caches, self.modes, self.tokens = None, [], set(), []
+        self.engine_tokens, self.step_logits, self.loads, self.k5_first = {}, [], 0, None
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+
+        import merv_tpu_torch.cli.eval_mcq as port_mcq
+        import merv_tpu_torch.models.generation as G
+        import merv_tpu_torch.models.vidlms.merv as M
+        import merv_tpu_torch.ops.decode_attention as K5
+        import merv_tpu_torch.serving.engine as E
+        from merv_tpu_torch.models.backbones.llm.transformer import KVCache
+
+        rec = self
+        create, load, prefill, runner, run = KVCache.create.__func__, port_mcq.load_vid, G.prefill, G.decode_runner, \
+            E._Chunk.run
+        generate, engine_run, k5 = M._generate, E.ContinuousBatchingEngine.run, K5.decode_attention
+        step, replay, load_state = G.DecodeRunner.step, G.DecodeRunner.replay, G.DecodeRunner.load
+
+        def capturing(t):
+            return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+        def created(cls, *a, **kw):
+            c = create(cls, *a, **kw)
+            rec.caches.append(dict(rows=c.k.shape[3], positions=c.max_len, sharded=c.sp is not None,
+                                   bytes=sum(t.numel() * t.element_size()
+                                             for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)))
+            return c
+
+        def loaded(*a, **kw):
+            if rec.model is None:
+                rec.model = load(*a, **kw)
+            return rec.model
+
+        def prefilled(*a, **kw):
+            out = prefill(*a, **kw)
+            if rec.logits is None:
+                rec.logits = out[0].float().cpu()
+            return out
+
+        def made_runner(*a, **kw):
+            r, made = runner(*a, **kw)
+            rec.modes.add(f"decode:{r.mode}")
+            return r, made
+
+        def chunk_run(chunk, engine):
+            rec.modes.add(f"engine:{'graph' if chunk.graph is not None else 'eager'}")
+            return run(chunk, engine)
+
+        def generated(*a, **kw):
+            out = generate(*a, **kw)
+            rec.tokens.extend(out.tolist())
+            return out
+
+        def engine_ran(engine, *a, **kw):
+            out = engine_run(engine, *a, **kw)
+            rec.engine_tokens.update({rid: r.token_ids.tolist() for rid, r in out.items()})
+            return out
+
+        def state_loaded(r, *a, **kw):  # the first decode's steps are kept (a warm-up step precedes every load)
+            load_state(r, *a, **kw)
+            rec.loads += 1
+
+        def stepped(r, decoder):
+            out = step(r, decoder)
+            if rec.loads == 1 and not capturing(out):
+                rec.step_logits.append(out.clone())
+            return out
+
+        def replayed(r):
+            out = replay(r)
+            if rec.loads == 1:
+                rec.step_logits.append(out.clone())
+            return out
+
+        def k5_called(q, k, v, k_scale=None, v_scale=None, **kw):
+            out = k5(q, k, v, k_scale, v_scale, **kw)
+            if kw.get("return_lse") and rec.k5_first is None and not capturing(q):
+                keep = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+                rec.k5_first = dict(args=tuple(keep(t) for t in (q, k, v, k_scale, v_scale)),
+                                    kw={key: keep(val) for key, val in kw.items() if key != "return_lse"},
+                                    out=tuple(keep(t) for t in out))
+            return out
+
+        with patched((KVCache, "create", classmethod(created)), (port_mcq, "load_vid", loaded), (G, "prefill", prefilled),
+                     (E, "prefill", prefilled), (G, "decode_runner", made_runner), (E._Chunk, "run", chunk_run),
+                     (M, "_generate", generated), (E.ContinuousBatchingEngine, "run", engine_ran),
+                     (G.DecodeRunner, "load", state_loaded), (G.DecodeRunner, "step", stepped),
+                     (G.DecodeRunner, "replay", replayed), (K5, "decode_attention", k5_called)):
+            yield
+
+    def path_hold(self):
+        """The run's first K5 call with its LSE held against the plain version
+        on its own inputs (``k5_lse_hold``), after the run: None if there was none."""
+        if self.k5_first is None:
+            return None
+        c = self.k5_first
+        q, k = c["args"][:2]
+        off = c["kw"].get("q_offset")
+        h = k5_lse_hold(*c["args"], c["kw"], *c["out"])
+        return dict(q=list(q.shape), cache=list(k.shape), dtype=str(k.dtype).replace("torch.", ""),
+                    causal=bool(c["kw"].get("causal")), q_offset=None if off is None else
+                    off.tolist() if hasattr(off, "tolist") else off, ok=h["ok"], finite=h["finite"],
+                    out={key: h["out"][key] for key in ("worst_share_of_limit", "mean_share", "max_abs_err")},
+                    lse={key: h["lse"][key] for key in ("worst_share_of_limit", "empty_rows", "same_empty_rows")})
+
+
+def sp_eval_run(label: str, extra: list, root: str, rec: SpRecorder) -> dict:
+    """One ``eval_openended`` run on runs/<SP_RUN> through ``evaluate(args=...)``
+    (on this rank), instrumented by ``rec``: wall, launches, collectives,
+    peak memory, caches, modes, tokens, the first decode's logits step by
+    step; after the counts are read, the run's first K5 call with its LSE
+    held against the plain version."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.ring_attention as R
+    from merv_tpu_torch.cli import eval_openended
+    from merv_tpu_torch.parallel.mesh import world
+
+    if world()[0] == 0 and "WORLD_SIZE" not in os.environ:  # the ranks' roots are cleared before they start
+        shutil.rmtree(os.path.join(root, SP_RUN), ignore_errors=True)
+    argv = ["--model_path", SP_RUN, "--eval_dataset", SP_EVAL_DATASET, "--max_new_tokens", str(SP_EVAL_MAX_NEW),
+            "--allow_random_weights", "true", "--skip_flops", "true", "--eval_result_root", root] + extra
+    rec.reset()
+    A.reset_launch_counts()
+    R.reset_collective_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with rec.active(), contextlib.redirect_stdout(io.StringIO()):
+        eval_openended.evaluate(args=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: n for k, n in A.launch_counts().items() if n}
+    collectives = dict(R.COLLECTIVES)
+    big = max(rec.caches, key=lambda c: c["bytes"])
+    steps = torch.stack(rec.step_logits).cpu() if rec.step_logits else None
+    return dict(label=label, argv=argv, wall_s=wall, launches=launches, collectives=collectives,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, decode_cache=big, caches=rec.caches,
+                modes=sorted(rec.modes), tokens=rec.tokens, engine_tokens=rec.engine_tokens,
+                k5_lse_path_hold=rec.path_hold(), logits=rec.logits, step_logits=steps)
+
+
+def sp_worker(out_dir: str) -> int:
+    """One rank of phase 4i(c), started by ``torch.distributed.run`` (``--sp-worker``):
+    both eval runs at --mesh_seq 2 over gloo on the one card, results to ``out_dir``."""
+    import torch
+
+    from merv_tpu_torch.parallel.mesh import world
+
+    rank = world()[0]
+    rec = SpRecorder()
+    out = {}
+    for label, extra in SP_EVAL_RUNS:
+        r = sp_eval_run(label, extra + ["--mesh_seq", str(SP_RANKS), "--dist_backend", "gloo"],
+                        os.path.join("eval_result", f"sp_{label}"), rec)
+        logits = dict(first=r.pop("logits"), steps=r.pop("step_logits"))
+        if rank == 0:
+            torch.save(logits, os.path.join(out_dir, f"logits_{label}.pt"))
+        out[label] = r
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def sp_start_ranks(dev, seed: int):
+    """Phase 4i(c), first half: write merv-full's run directory (as 4d does)
+    and start the two ranks (``python -m torch.distributed.run
+    --nproc_per_node 2 chip_smoke.py --sp-worker``: both runs at --mesh_seq 2
+    over gloo on the one card), their output to ``chiprun_out/sp/ranks.log``.
+    Returns (process, its log file, start time)."""
+    import socket
+
+    write_run_dir(os.path.join("runs", SP_RUN), dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    out_dir = os.path.join("chiprun_out", "sp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    for label, _ in SP_EVAL_RUNS:
+        shutil.rmtree(os.path.join("eval_result", f"sp_{label}"), ignore_errors=True)
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(SP_RANKS), "--master_addr",
+           "localhost", "--master_port", str(port), os.path.abspath(__file__), "--sp-worker", out_dir]
+    logf = open(os.path.join(out_dir, "ranks.log"), "w")
+    return subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, text=True), logf, time.perf_counter()
+
+
+def first_divergence(a, b):
+    """The first index at which two token lists differ (None if they agree over the shorter)."""
+    return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def stepwise_logits(tok, ref_tok, first, ref_first, steps, ref_steps) -> dict:
+    """Two greedy decodes of the same batch, ``tok`` against ``ref_tok``
+    [rows][tokens] (token 0 from the prefill's logits ``first`` [rows, V],
+    token t >= 1 from ``steps[t - 1]`` [rows, V]), row by row: the first
+    token that differs; the relative L2 of the logits at every step up to and
+    including that one (their inputs are still equal), over the entries
+    finite in both (the EOS ban's -inf must sit on the same entries); and at
+    that step the reference's margin between its token and the other's
+    against how far the logits of those two tokens moved."""
+    import torch
+
+    rows, worst, agree, total = [], 0.0, 0, 0
+    for i, (ta, tb) in enumerate(zip(tok, ref_tok)):
+        d = first_divergence(ta, tb)
+        n = min(len(ta), len(tb))
+        agree, total = agree + sum(x == y for x, y in zip(ta, tb)), total + n
+        last = min(n - 1 if d is None else d, len(steps), len(ref_steps))
+        pick = lambda f, st, t: (f[i] if t == 0 else st[t - 1][i]).float()  # noqa: E731
+        rels, same_inf = [], True
+        for t in range(last + 1):
+            la, lb = pick(first, steps, t), pick(ref_first, ref_steps, t)
+            fin = torch.isfinite(la) & torch.isfinite(lb)
+            same_inf &= bool(torch.equal(torch.isfinite(la), torch.isfinite(lb)))
+            rels.append(rel_l2(la[fin], lb[fin]))
+        row = dict(first_divergent_token=d, steps_compared=len(rels), logits_rel_l2_max=max(rels),
+                   same_non_finite=same_inf)
+        if d is not None and d <= last:
+            la, lb = pick(first, steps, d), pick(ref_first, ref_steps, d)
+            row.update(ref_margin=(lb[tb[d]] - lb[ta[d]]).item(),
+                       logits_moved=(la - lb)[[ta[d], tb[d]]].abs().max().item())
+        worst = max(worst, row["logits_rel_l2_max"])
+        rows.append(row)
+    return dict(rows=rows, logits_rel_l2_max=worst, ok=worst <= LOGITS_REL_TOL and all(r["same_non_finite"] for r in rows),
+                greedy_token_agreement=agree / total if total else None)
+
+
+def sp_entry_path(dev, seed: int, ranks_started) -> dict:
+    """Phase 4i(c), second half: ``eval_openended`` at sp = 1 here (group
+    path, then ``--use_engine``; one load for both) while the ranks run, then
+    the ranks' results. Fails unless each rank's counts show the sharded route
+    (K5 with its LSE, no unsharded K5 launch, a sharded decode cache of about
+    half the sp = 1 bytes), each rank's first K5 call with its LSE holds
+    against the plain version on its own inputs, the first-token logits agree
+    with sp = 1's and, on the group path, every decode step's logits agree
+    with sp = 1's up to the first token that differs."""
+    import gc
+
+    import torch
+
+    proc, logf, t_ranks = ranks_started
+    out_dir = os.path.join("chiprun_out", "sp")
+    t0 = time.perf_counter()
+    try:
+        rec = SpRecorder()
+        sp1 = {label: sp_eval_run(label, extra, os.path.join("eval_result", f"sp1_{label}"), rec)
+               for label, extra in SP_EVAL_RUNS}
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc = proc.wait(timeout=SP_WORKER_TIMEOUT_S)
+        ranks_wall = time.perf_counter() - t_ranks
+        logf.close()
+        if rc != 0:
+            tail = open(os.path.join(out_dir, "ranks.log")).read()[-3000:]
+            raise RuntimeError(f"sp ranks failed (rc {rc}): {tail}")
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(SP_RANKS)]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+        shutil.rmtree(os.path.join("runs", SP_RUN), ignore_errors=True)
+        for label, _ in SP_EVAL_RUNS:
+            for prefix in ("sp1", "sp"):
+                shutil.rmtree(os.path.join("eval_result", f"{prefix}_{label}"), ignore_errors=True)
+    result = dict(ranks_process_wall_s=ranks_wall, runs={})
+    for label, _ in SP_EVAL_RUNS:
+        base = sp1[label]
+        got = torch.load(os.path.join(out_dir, f"logits_{label}.pt"))
+        rel = rel_l2(got["first"], base["logits"])
+        per_rank = []
+        for r, rk in enumerate(ranks):
+            x = rk[label]
+            ratio = x["decode_cache"]["bytes"] / base["decode_cache"]["bytes"]
+            per_rank.append(dict(rank=r, wall_s=x["wall_s"], peak_memory_gib=x["peak_memory_gib"],
+                                 decode_cache=x["decode_cache"], cache_bytes_ratio=ratio, launches=x["launches"],
+                                 collectives=x["collectives"], modes=x["modes"],
+                                 k5_lse_path_hold=x["k5_lse_path_hold"]))
+            log(f"[sp] {label} rank {r}: wall {x['wall_s']:.2f} s, peak {x['peak_memory_gib']:.2f} GiB, decode cache "
+                f"{x['decode_cache']} ({ratio:.4f} of sp = 1's {base['decode_cache']['bytes']} bytes), launches "
+                f"{x['launches']}, collectives {x['collectives']}, modes {x['modes']}; the first K5 call with its LSE "
+                f"held against the plain version on its inputs: {x['k5_lse_path_hold']}")
+            if not x["decode_cache"]["sharded"] or x["launches"].get("decode_attention", 0) \
+                    or not x["launches"].get("decode_attention_lse", 0) or not 0.45 <= ratio <= 0.51:
+                raise RuntimeError(f"sp {label} rank {r}: the counts do not show the sharded route: {per_rank[-1]}")
+            if not (x["k5_lse_path_hold"] or {}).get("ok"):
+                raise RuntimeError(f"sp {label} rank {r}: the path's K5 call with its LSE is outside its limits "
+                                   f"against the plain version: {x['k5_lse_path_hold']}")
+        run = dict(sp1=dict(wall_s=base["wall_s"], peak_memory_gib=base["peak_memory_gib"],
+                            decode_cache=base["decode_cache"], launches=base["launches"], modes=base["modes"]),
+                   ranks=per_rank, first_token_logits_rel_l2=rel)
+        if base["tokens"]:  # the group path: its decode's logits step by step
+            run["stepwise"] = stepwise_logits(ranks[0][label]["tokens"], base["tokens"], got["first"], base["logits"],
+                                              got["steps"], base["step_logits"])
+            agreement = run["stepwise"]["greedy_token_agreement"]
+        else:  # the engine: its tokens by request
+            pairs = [(ranks[0][label]["engine_tokens"].get(rid), t) for rid, t in base["engine_tokens"].items()]
+            same = [a == b for x, y in pairs if x is not None for a, b in zip(x, y)]
+            agreement = sum(same) / len(same) if same else None
+            run["first_divergent_token"] = {rid: first_divergence(ranks[0][label]["engine_tokens"].get(rid, []), t)
+                                            for rid, t in base["engine_tokens"].items()}
+        run["greedy_token_agreement"] = agreement
+        result["runs"][label] = run
+        log(f"[sp] {label}: sp = 2 against sp = 1: first-token logits rel L2 {rel:.3e} (tol {LOGITS_REL_TOL}), "
+            f"greedy-token agreement {agreement}; " + (
+                "by row: " + "; ".join(
+                    f"first differing token {'none' if r['first_divergent_token'] is None else r['first_divergent_token']}"
+                    f", logits rel L2 <= {r['logits_rel_l2_max']:.3e} over the {r['steps_compared']} steps up to it"
+                    + (f", at the first differing token sp = 1's margin {r['ref_margin']:.4f} against a move of "
+                       f"{r['logits_moved']:.4f}" if "ref_margin" in r else "")
+                    for r in run["stepwise"]["rows"]) if "stepwise" in run else
+                f"first differing token by request {run['first_divergent_token']}")
+            + f"; sp = 1 wall {base['wall_s']:.2f} s, modes {base['modes']} (both read beside the ranks' run)")
+        if not rel <= LOGITS_REL_TOL:
+            raise RuntimeError(f"sp {label}: first-token logits differ from sp = 1's by {rel}")
+        if "stepwise" in run and not run["stepwise"]["ok"]:
+            raise RuntimeError(f"sp {label}: decode logits differ from sp = 1's before the tokens do: {run['stepwise']}")
+    result["wall_s"] = time.perf_counter() - t0
+    return result
+
+
+def sp_path(dev, seed: int) -> dict:
+    """Phase 4i: (a) K5 with its LSE on cache shards, on the card alone (its
+    timings); then the ranks of (c) start, and (b) the ring on 8,192 tokens and
+    (c)'s sp = 1 reference run beside them (their times are read under the
+    ranks' load); last the ranks' results."""
+    import gc
+
+    import torch
+
+    t = time.perf_counter()
+    k5_cases, shard_checks = sp_k5_cases(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = sp_start_ranks(dev, seed)
+    try:
+        ring = sp_ring_cases(dev, seed)
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    # the ring's own launches (its blocks, forward and backward), not the whole-sequence comparisons beside them
+    ring_launches = {"flash_attention_forward": sum(r["k2_launches"] for r in ring),
+                     "flash_attention_backward": sum(r["k3_launches"] for r in ring)}
+    entry = sp_entry_path(dev, seed, started)
+    wall = time.perf_counter() - t
+    log(f"[sp] phase 4i: {wall:.1f} s")
+    return dict(wall_s=wall, k5_cases=k5_cases, shard_checks=shard_checks, ring=ring, ring_launches=ring_launches,
+                entry=entry)
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: the serving engine (continuous batching, prefix caching, batched speculation)
 # ---------------------------------------------------------------------------
 
@@ -2740,7 +3429,7 @@ def engine_path(dev, seed: int) -> dict:
     process check the chunk graphs (``chunk_checks``) and the engine's greedy
     tokens (b) against ``MERV.generate`` and (c) its speculative form against
     the plain engine; then run the serve command three times in fresh
-    processes (SERVE_RUNS). The run directory, the request file and the result files are
+    processes at once (SERVE_RUNS). The run directory, the request file and the result files are
     deleted at the end; copies go to ``chiprun_out/serve/``."""
     import gc
 
@@ -2811,7 +3500,10 @@ def engine_path(dev, seed: int) -> dict:
         del vidlm
         gc.collect()
         torch.cuda.empty_cache()
-        runs = [serve_run(label, extra, requests, request_path) for label, extra in SERVE_RUNS]
+        # the three serve processes at once (~21 GiB each on the card), as phase 6 runs its benches: the whole script
+        # stays within its time with phase 4i added; their walls and rates are read under each other's load
+        with concurrent.futures.ThreadPoolExecutor(len(SERVE_RUNS)) as pool:
+            runs = list(pool.map(lambda run: serve_run(run[0], run[1], requests, request_path), SERVE_RUNS))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         for path in [request_path] + [os.path.join("runs", f"{SERVE_RUN}_{label}.jsonl") for label, _ in SERVE_RUNS]:
@@ -3001,7 +3693,7 @@ def family_kernel_cases(dev, seed: int):
     version and timed beside its library call and its bound as the main
     paths' cases are."""
     return (kernel_cases(dev, seed + 5, k1=False, flash_cases=FAMILY_FLASH_CASES)
-            + int8_kernel_cases(dev, seed + 5, k4_shapes=FAMILY_K4_SHAPES, k5_cases=FAMILY_K5_CASES, device_rng=True))
+            + int8_kernel_cases(dev, seed + 5, k4_shapes=FAMILY_K4_SHAPES, k5_cases=FAMILY_K5_CASES))
 
 
 def family_summary(families: dict) -> dict:
@@ -4389,10 +5081,13 @@ def pretrain_path(dev, seed: int) -> dict:
 
 BENCH_ROOT = os.path.join("runs", "chip_smoke_bench")  # export_towers' and preprocess' inputs and outputs
 BENCH_LLM_LAYERS = 2  # the benches' LLM depth here (their defaults are 8 to 32): width is what they hold
-BENCH_PARALLEL = 4  # bench processes at once: a smoke check of each, not their measurement (PERF.md's readings
+BENCH_PARALLEL = 5  # bench processes at once: a smoke check of each, not their measurement (PERF.md's readings
 # come from runs at the benches' defaults, one at a time)
-TOWER_IMPLS = ("small", "xla_kt", "xla", "fused_block", "default")
-BENCH_FIRST = ("tower_attn", "serving", "vidlm_prefix_engine_shared", "loader")  # started first: the longest
+# tower_attn's five routes (one child process each) in two processes that run at once: the kernels' routes (K1, B3,
+# B6) and the two that add none (`xla_kt`) or run K1 through the model (`default`)
+TOWER_IMPLS = ("small", "xla", "fused_block")
+TOWER_IMPLS_MORE = ("xla_kt", "default")
+BENCH_FIRST = ("tower_attn", "serving", "tower_attn_more", "vidlm_prefix_engine_shared", "loader")  # the longest first
 TOWER_IMPL_KERNEL = {"small": "small_attention_kt", "xla_kt": None, "xla": "small_attention",
                      "fused_block": "fused_vit_attn_block", "default": "small_attention_kt"}
 # K1 a call of the merv set's DINOv2 or LanguageBind tower (23 layers each: the penultimate-layer tap), K2 of ViViT
@@ -4408,6 +5103,7 @@ BENCH_RUNS = {
     "serving": (["merv_tpu_torch.bench.serving"], {"BENCH_REQUESTS": "4"}),
     "breakdown": (["merv_tpu_torch.bench.breakdown", "--layers", str(BENCH_LLM_LAYERS), "--batch", "1"], {}),
     "tower_attn": (["merv_tpu_torch.bench.tower_attn", "--batch", "1", "--impls", ",".join(TOWER_IMPLS)], {}),
+    "tower_attn_more": (["merv_tpu_torch.bench.tower_attn", "--batch", "1", "--impls", ",".join(TOWER_IMPLS_MORE)], {}),
     "tower_ops": (["merv_tpu_torch.bench.tower_ops", "--tower", "dinov2", "--batch", "1"], {}),
     "loader": (["merv_tpu_torch.bench.loader", "--seconds", "2"], {}),
 }
@@ -4701,7 +5397,7 @@ def bench_path(dev, seed: int) -> dict:
     torch.cuda.empty_cache()  # this process's cached blocks, for the benches' processes
     results = {}
     with concurrent.futures.ThreadPoolExecutor(BENCH_PARALLEL) as pool:
-        # the longest first (tower_attn's six processes, serving's four, vidlm_prefix's load_vid): the
+        # the longest first (tower_attn's child processes, serving's four, vidlm_prefix's load_vid): the
         # phase's wall is then about the longest job's
         order = sorted(jobs, key=lambda label: BENCH_FIRST.index(label) if label in BENCH_FIRST else len(BENCH_FIRST))
         futures = {pool.submit(jobs[label]): label for label in order}
@@ -4717,7 +5413,7 @@ def bench_path(dev, seed: int) -> dict:
         if label in ("export_towers", "preprocess"):
             continue
         kind = label.split("_")[0] if label.startswith(("decode", "vidlm")) else label
-        kind = "vidlm_prefix" if kind == "vidlm" else kind
+        kind = {"vidlm": "vidlm_prefix", "tower_attn_more": "tower_attn"}.get(kind, kind)
         check_line(label, kind, out, kind_name)
         if kind == "serving":
             for ph, part in out["phases"].items():
@@ -4855,6 +5551,10 @@ KERNELS = {
     "decode_attention": dict(source="merv_tpu_torch/csrc/decode_attention.cu",
                              replaces="merv_tpu/models/backbones/llm/transformer.py:402", main_case="b1_int8",
                              int8=True),
+    # K5 with its LSE output: one call a cache shard of the sequence-parallel cache (merv_tpu's sharded body,
+    # ops/ring_attention.py:462-483); its launches come from phase 4i's two-rank eval run
+    "decode_attention_lse": dict(source="merv_tpu_torch/csrc/decode_attention.cu",
+                                 replaces="merv_tpu/ops/ring_attention.py:470", main_case="b1_bf16_1120", sp=True),
 }
 SERVING_KERNELS = ("small_attention_kt", "flash_attention_forward")
 
@@ -4891,6 +5591,11 @@ def main() -> int:
     ap.add_argument("--bench-only", action="store_true",
                     help="build, then run only phase 6 (the bench and tooling modules) and print their lines (no result "
                          "line)")
+    ap.add_argument("--sp-only", action="store_true",
+                    help="build, then run only phase 4i (sequence-parallel serving: K5 with its LSE on cache shards, the "
+                         "ring on 8,192 tokens, eval_openended --mesh_seq 2 as two ranks) and print its numbers (no "
+                         "result line)")
+    ap.add_argument("--sp-worker", metavar="OUT_DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -4901,6 +5606,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
         return 2
+    if args.sp_worker is not None:  # one rank of phase 4i(c), started by torch.distributed.run
+        return sp_worker(args.sp_worker)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -5009,6 +5716,19 @@ def main() -> int:
         log(json.dumps({"bench": {label: dict(r["line"] or {}, process_s=r["process_s"]) for label, r in
                                   bench["results"].items()}, "wall_s": bench["wall_s"]}, default=str))
         return 0
+    if args.sp_only:
+        with switches({}):
+            sp = sp_path(dev, args.seed)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "sp.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, sp_path=sp), f, indent=1, default=str)
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "cold_graph_ms", "no_lse_graph_ms", "lse_graph_ms",
+                "no_lse_cold_graph_ms", "lse_cold_graph_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "worst_share_of_limit")
+        log(json.dumps({"sp_k5_cases": [{k: c.get(k) for k in keys} for c in sp["k5_cases"]]}))
+        log(json.dumps({"sp_ring": sp["ring"]}, default=str))
+        log(json.dumps({"sp_entry": sp["entry"]}, default=str))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -5016,22 +5736,34 @@ def main() -> int:
         log(json.dumps({"tower_cases": [{k: c.get(k) for k in keys} for c in cases]}))
         return 0
 
+    ends = {"build": build_s}  # each phase's end, in seconds since the build began
+
+    def timed(name, fn, *a):
+        out = fn(*a)
+        ends[name] = time.perf_counter() - t
+        log(f"[time] {name} ended at {ends[name]:.1f} s")
+        return out
+
     with switches({}):  # every phase sets the switches it runs under
-        cases = (kernel_cases(dev, args.seed) + backward_cases(dev, args.seed) + tower_kernel_cases(dev, args.seed)
-                 + fused_d72_cases(dev, args.seed) + head_dim_72_cases(dev, args.seed) + int8_kernel_cases(dev, args.seed)
-                 + family_kernel_cases(dev, args.seed))
-        main = main_path(dev, args.seed, args.max_new_tokens)
-        loaded = loaded_path(dev, args.seed, args.max_new_tokens, os.path.join("runs", "chip_smoke_quickstart"))
-        evals = eval_path(dev, args.seed)
-        engine = engine_path(dev, args.seed)
-        int8 = int8_path(dev, args.seed, args.max_new_tokens, main["decode_graph"]["greedy"]["graph"]["ms_per_step"],
-                         loaded["request"]["tokens"])
-        packed = packed_check(dev, args.seed, args.max_new_tokens)
-        families = families_path(dev, args.seed, args.max_new_tokens)
-        zoo = zoo_path(dev, args.seed, args.max_new_tokens)
-        train = train_path(dev, args.seed, os.path.join("runs", "chip_smoke_align"))
-        pretrain = pretrain_path(dev, args.seed)
-        bench = bench_path(dev, args.seed)
+        cases = []
+        for fn in (kernel_cases, backward_cases, tower_kernel_cases, fused_d72_cases, head_dim_72_cases,
+                   int8_kernel_cases, family_kernel_cases):
+            cases += timed(fn.__name__, fn, dev, args.seed)
+        main = timed("main_path", main_path, dev, args.seed, args.max_new_tokens)
+        loaded = timed("loaded_path", loaded_path, dev, args.seed, args.max_new_tokens,
+                       os.path.join("runs", "chip_smoke_quickstart"))
+        evals = timed("eval_path", eval_path, dev, args.seed)
+        engine = timed("engine_path", engine_path, dev, args.seed)
+        sp = timed("sp_path", sp_path, dev, args.seed)
+        cases += sp["k5_cases"]
+        int8 = timed("int8_path", int8_path, dev, args.seed, args.max_new_tokens,
+                     main["decode_graph"]["greedy"]["graph"]["ms_per_step"], loaded["request"]["tokens"])
+        packed = timed("packed_check", packed_check, dev, args.seed, args.max_new_tokens)
+        families = timed("families_path", families_path, dev, args.seed, args.max_new_tokens)
+        zoo = timed("zoo_path", zoo_path, dev, args.seed, args.max_new_tokens)
+        train = timed("train_path", train_path, dev, args.seed, os.path.join("runs", "chip_smoke_align"))
+        pretrain = timed("pretrain_path", pretrain_path, dev, args.seed)
+        bench = timed("bench_path", bench_path, dev, args.seed)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -5043,6 +5775,8 @@ def main() -> int:
             launches = int8["request"]["launches"][name]
         elif meta.get("pretrain"):  # B6 at head dim 72: phase 5b's align run
             launches = pretrain["align"]["launches"][name]
+        elif meta.get("sp"):  # K5 with its LSE: rank 0 of phase 4i's sequence-parallel eval run
+            launches = sp["entry"]["runs"]["group"]["ranks"][0]["launches"].get(name, 0)
         else:
             launches = train["launches"][name]
         if launches <= 0:
@@ -5064,6 +5798,9 @@ def main() -> int:
             launches_zoo={label: r["request"]["launches"].get(name, 0) for label, r in zoo["requests"].items()},
             launches_pretrain={run: pretrain[run]["launches"].get(name, 0) for run in ("align", "finetune", "resume")},
             launches_bench=bench_launches(bench, name),
+            launches_sp={**{f"{label}_rank{r['rank']}": r["launches"].get(name, 0)
+                            for label, run in sp["entry"]["runs"].items() for r in run["ranks"]},
+                         "ring_blocks_in_process": sp["ring_launches"].get(name, 0)},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,
@@ -5072,10 +5809,10 @@ def main() -> int:
         ))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, compiled=compiled, kernels=kernels,
+        json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, phase_end_s=ends, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
                        packed_check=packed, families_path=families, zoo_path=zoo, train_path=train,
-                       pretrain_path=pretrain, bench_path=bench),
+                       pretrain_path=pretrain, bench_path=bench, sp_path=sp),
                   f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

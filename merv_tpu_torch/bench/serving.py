@@ -63,7 +63,9 @@ PHASES = ("group", "engine", "spec")
 def _workload(n_requests: int, max_len: int, vocab: int, seed: int = 0):
     """Mixed prompt lengths and answer budgets (deterministic). Token ids are
     taken modulo ``vocab``: only the tiny model's 256 ids are fewer than the
-    1,000 drawn (JAX clips an out-of-range gather where torch raises)."""
+    1,000 drawn. This is a deliberate deviation: ``merv_tpu``'s ``Embed``
+    (``jnp.take``) fills NaN for an out-of-range id, and torch's raises; it
+    is a no-op at Llama-2's vocabulary."""
     from merv_tpu_torch.serving.engine import Request
 
     rng = np.random.RandomState(seed)

@@ -18,8 +18,17 @@ skipped, as ``merv_tpu``'s driver does.
 
 ``--quantize_llm`` serves the LLM with weight-only int8 Linears and
 ``--int8_kv`` keeps the KV cache in int8, as in ``merv_tpu``. The model runs
-on the card unless ``--device cpu`` is given. Not ported: ``--mesh_seq > 1``
-(ROADMAP A12), which raises ``NotImplementedError``.
+on the card unless ``--device cpu`` is given.
+
+``--mesh_seq N`` serves with the KV cache sharded on its rows over N ranks
+(the decoder's sequence-parallel paths): launch one process a rank,
+
+    python -m torch.distributed.run --nproc_per_node N -m merv_tpu_torch.cli.eval_mcq --mesh_seq N ...
+
+Every rank loads the model and runs every question; only rank 0 writes the
+prediction files. ``--dist_backend`` names the process-group backend (NCCL
+on the card by default, gloo on the CPU); N ranks on fewer cards must name
+gloo. As in ``merv_tpu``, ``--share_video_prefix`` is ignored under a mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import merv_tpu_torch.conf.registry as draccus
 from merv_tpu_torch.models.load_vid import load_vid
 from merv_tpu_torch.models.vidlms.merv import _load_media
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel.mesh import world
 from merv_tpu_torch.util.prefetch import prefetch_map
 
 overwatch = initialize_overwatch(__name__)
@@ -72,7 +82,8 @@ class EvalConfig:
     allow_random_weights: bool = False              # random-init fallback (speed tests ONLY)
     quantize_llm: bool = False                      # weight-only int8 LLM serving
     int8_kv: bool = False                           # int8 KV cache (half the cache bytes decode reads)
-    mesh_seq: int = 1                               # sequence-sharded KV cache: not ported (ROADMAP A12)
+    mesh_seq: int = 1                               # sequence-sharded KV cache over N ranks (one process a rank)
+    dist_backend: Optional[str] = None              # process-group backend: nccl (card default) | gloo
     filename_question: str = "test_q"
     filename_answer: str = "test_a"
     eval_data_root: Path = Path("eval_data")
@@ -81,10 +92,30 @@ class EvalConfig:
     # fmt: on
 
 
-def refuse_unported(cfg) -> None:
-    """Raise for the flags whose paths the port does not have yet."""
-    if cfg.mesh_seq > 1:
-        raise NotImplementedError("--mesh_seq: the sequence-sharded KV cache is not ported yet (ROADMAP A12)")
+def serving_mesh(cfg):
+    """``--mesh_seq N > 1``: ``merv_tpu``'s serving mesh (data 1, fsdp the
+    rest, sp N) over the ``torchrun`` world, on ``cfg.device``'s device type
+    with ``--dist_backend``; else None."""
+    if cfg.mesh_seq <= 1:
+        return None
+    from merv_tpu_torch.device import resolve_device
+    from merv_tpu_torch.parallel import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(data=1, fsdp=-1, tensor=1, seq=cfg.mesh_seq),
+                      device_type=resolve_device(cfg.device).type, backend=cfg.dist_backend)
+
+
+def output_file(path: Path):
+    """The shard file rank 0 writes; the other ranks of a mesh write nothing."""
+    return open(path, "w") if world()[0] == 0 else open(os.devnull, "w")
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits here (nothing without one)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def prepare_mcqa_question(sample, gt_answer, cfg):
@@ -123,18 +154,23 @@ def _clip(question):
     )
 
 
-def load_model(cfg):
+def load_model(cfg, mesh=None):
     """The run directory ``runs/<model_path>`` if it exists, else ``model_path``
-    itself, loaded on ``cfg.device`` -> (vidlm, model_cfg)."""
+    itself, loaded on ``cfg.device`` -> (vidlm, model_cfg); on a serving
+    ``mesh`` the decoder takes its sequence-parallel paths."""
     local_run = Path("runs") / str(cfg.model_path)
     src = str(local_run) if local_run.exists() else str(cfg.model_path)
-    return load_vid(src, get_model_cfg=True, allow_random_weights=cfg.allow_random_weights,
-                    quantize_llm=cfg.quantize_llm, device=cfg.device)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
+    vidlm, model_cfg = load_vid(src, get_model_cfg=True, allow_random_weights=cfg.allow_random_weights,
+                                quantize_llm=cfg.quantize_llm, device=cfg.device, **on_mesh)
+    if mesh is not None:
+        vidlm.llm_backbone.sequence_parallel = True
+    return vidlm, model_cfg
 
 
 @draccus.wrap()
 def evaluate(cfg: EvalConfig) -> None:
-    refuse_unported(cfg)
+    mesh = serving_mesh(cfg)
     result_dir = Path(cfg.eval_result_root) / str(cfg.model_path)
     result_dir.mkdir(parents=True, exist_ok=True)
 
@@ -150,7 +186,7 @@ def evaluate(cfg: EvalConfig) -> None:
     answers_dict = {item["question_id"]: item for item in answers}
 
     # random weights only when asked for: garbage accuracies that look like results are worse than a crash
-    vidlm, model_cfg = load_model(cfg)
+    vidlm, model_cfg = load_model(cfg, mesh)
 
     tag = f"{cfg.eval_dataset}_{cfg.strategy}_pred_{cfg.num_chunks}"
     temp_output_path = result_dir / f"{tag}_{cfg.chunk_idx}.jsonl"
@@ -193,16 +229,17 @@ def evaluate(cfg: EvalConfig) -> None:
         if cfg.strategy == "likelihood":
             return vidlm.score_options(
                 [video], [prompt_text], [letters], num_frames=model_cfg.num_frames, clip_args=[_clip(question)],
+                mesh=mesh,
             )[0]
         return vidlm.generate(
             video, prompt_text, do_sample=cfg.do_sample, temperature=cfg.temperature,
             max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length,
-            num_frames=model_cfg.num_frames, kv_cache_dtype=kv_cache_dtype, **_clip(question),
+            num_frames=model_cfg.num_frames, kv_cache_dtype=kv_cache_dtype, mesh=mesh, **_clip(question),
         )
 
-    share = cfg.share_video_prefix and cfg.strategy != "likelihood"
+    share = cfg.share_video_prefix and cfg.strategy != "likelihood" and mesh is None
     if cfg.share_video_prefix and not share:
-        overwatch.info("share_video_prefix ignored (likelihood strategy)")
+        overwatch.info("share_video_prefix ignored (likelihood strategy / sp serving mesh)")
     if share:
         # stable-order questions by (video, clip) so batches are single-video and the towers + [BOS | visual]
         # prefix KV amortize over every question on the video; jsonl rows are keyed by question_id, so the
@@ -226,7 +263,8 @@ def evaluate(cfg: EvalConfig) -> None:
     decoded_iter = prefetch_map(groups, _decode_group) if overlap else ((g, None) for g in groups)
 
     prefix_state = {"key": None, "cache": None}  # cross-group video-prefix reuse
-    with open(temp_output_path, "w") as f:
+    barrier(mesh)  # every rank has read the resumable state before rank 0 writes
+    with output_file(temp_output_path) as f:
         for group, decoded in decoded_iter:
             prepped = [_prep(q) for q in group]
             preds = [None] * len(group)
@@ -247,7 +285,7 @@ def evaluate(cfg: EvalConfig) -> None:
                     # one batched forward, the answer read from letter-token logits
                     sub_preds = vidlm.score_options(
                         sub, [prepped[i][0] for i in good], [prepped[i][4] for i in good],
-                        num_frames=model_cfg.num_frames, pad_to_batch=cfg.batch_size,
+                        num_frames=model_cfg.num_frames, pad_to_batch=cfg.batch_size, mesh=mesh,
                     )
                     for i, p in zip(good, sub_preds):
                         preds[i] = p
@@ -272,6 +310,7 @@ def evaluate(cfg: EvalConfig) -> None:
                         sub, [prepped[i][0] for i in good], num_frames=model_cfg.num_frames,
                         max_new_tokens=cfg.max_new_tokens, do_sample=cfg.do_sample, temperature=cfg.temperature,
                         min_length=cfg.min_length, pad_to_batch=cfg.batch_size, kv_cache_dtype=kv_cache_dtype,
+                        mesh=mesh,
                     )
                     for i, p in zip(good, sub_preds):
                         preds[i] = p
@@ -292,6 +331,8 @@ def evaluate(cfg: EvalConfig) -> None:
                     overwatch.error(f"Failed on {question.get('question_id')}: {type(e).__name__}: {e}")
             # flush per group: a killed shard loses at most one group
             f.flush()
+    if world()[0] != 0:
+        return
     os.rename(temp_output_path, done_output_path)
 
     # the last finisher merges the shards and scores

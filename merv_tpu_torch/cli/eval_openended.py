@@ -28,8 +28,17 @@ Scoring happens downstream (``scripts/eval_gpt_batch.py``, an LLM judge).
 ``--quantize_llm`` serves the LLM with weight-only int8 Linears and
 ``--int8_kv`` keeps the KV cache in int8 (the batch, batch-1, speculative and
 engine paths alike), as in ``merv_tpu``. The model runs on the card unless
-``--device cpu`` is given. Not ported: ``--mesh_seq > 1`` (ROADMAP A12),
-which raises ``NotImplementedError``.
+``--device cpu`` is given.
+
+``--mesh_seq N`` serves with the KV cache sharded on its rows over N ranks,
+through the group path and through ``--use_engine`` alike:
+
+    python -m torch.distributed.run --nproc_per_node N -m merv_tpu_torch.cli.eval_openended --mesh_seq N ...
+
+Every rank loads the model and serves every question; only rank 0 writes
+the prediction files and prints the serving line. ``--dist_backend`` names
+the process-group backend (NCCL on the card by default, gloo on the CPU); N
+ranks on fewer cards must name gloo.
 """
 
 from __future__ import annotations
@@ -44,10 +53,11 @@ from typing import Optional, Union
 
 import merv_tpu_torch.conf.registry as draccus
 import merv_tpu_torch.ops.attention as A
-from merv_tpu_torch.cli.eval_mcq import _clip, _resolve_video, get_chunk, load_model, refuse_unported
+from merv_tpu_torch.cli.eval_mcq import _clip, _resolve_video, barrier, get_chunk, load_model, output_file, serving_mesh
 from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.models.vidlms.merv import _load_media
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel.mesh import world
 from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch.util.flops_utils import get_statistics
 from merv_tpu_torch.util.prefetch import prefetch_map
@@ -77,7 +87,8 @@ class EvalConfig:
     allow_random_weights: bool = False              # random-init fallback (speed tests ONLY)
     quantize_llm: bool = False                      # weight-only int8 LLM serving
     int8_kv: bool = False                           # int8 KV cache (half the cache bytes decode reads)
-    mesh_seq: int = 1                               # sequence-sharded KV cache: not ported (ROADMAP A12)
+    mesh_seq: int = 1                               # sequence-sharded KV cache over N ranks (one process a rank)
+    dist_backend: Optional[str] = None              # process-group backend: nccl (card default) | gloo
     speculative: int = 0                            # prompt-lookup speculative decoding: draft length gamma
     #                                               # (batch_size 1 only; greedy output is unchanged)
     speculative_autodisable: bool = True            # (engine only) two-way monitor: plain decode below break-even,
@@ -101,7 +112,8 @@ def evaluate(cfg: EvalConfig) -> None:
             "--speculative requires --batch_size 1: per-row acceptance counts desync a shared batch cache (serve "
             "batched speculation through the continuous-batching engine, --use_engine or cli/serve.py)"
         )
-    refuse_unported(cfg)
+    mesh = serving_mesh(cfg)
+    rank0 = world()[0] == 0
     result_dir = Path(cfg.eval_result_root) / str(cfg.model_path)
     result_dir.mkdir(parents=True, exist_ok=True)
 
@@ -115,11 +127,11 @@ def evaluate(cfg: EvalConfig) -> None:
     answers = json.load(open(benchmark_dir / f"{cfg.filename_answer}.json"))
     answers_dict = {item["question_id"]: item for item in answers}
 
-    vidlm, model_cfg = load_model(cfg)
+    vidlm, model_cfg = load_model(cfg, mesh)
 
     # FLOPs and parameters, once per model
     flops_path = result_dir / "flops.json"
-    if not flops_path.exists() and not cfg.skip_flops:
+    if rank0 and not flops_path.exists() and not cfg.skip_flops:
         overwatch.info("Getting model statistics: FLOPs + Params")
         gflops, n_params = get_statistics(vidlm, num_frames=model_cfg.num_frames)
         overwatch.info(f"Model GFLOPs: {gflops}, Params: {n_params}")
@@ -162,7 +174,7 @@ def evaluate(cfg: EvalConfig) -> None:
         return vidlm.generate(
             video_name, prompt_text, do_sample=cfg.do_sample, temperature=cfg.temperature,
             max_new_tokens=cfg.max_new_tokens, min_length=cfg.min_length, num_frames=model_cfg.num_frames,
-            speculative_gamma=cfg.speculative, kv_cache_dtype="int8" if cfg.int8_kv else None, **clip,
+            speculative_gamma=cfg.speculative, kv_cache_dtype="int8" if cfg.int8_kv else None, mesh=mesh, **clip,
         )
 
     def _decode_group(group):
@@ -177,11 +189,13 @@ def evaluate(cfg: EvalConfig) -> None:
                 arrays.append(e)
         return arrays
 
+    barrier(mesh)  # every rank has read the resumable state before rank 0 writes
     if cfg.use_engine:
         _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, _prep, done_lines,
-                     temp_output_path)
-        os.rename(temp_output_path, done_output_path)
-        _merge_chunks(result_dir, tag, all_questions_id, merged_path)
+                     temp_output_path, mesh)
+        if rank0:
+            os.rename(temp_output_path, done_output_path)
+            _merge_chunks(result_dir, tag, all_questions_id, merged_path)
         return
 
     groups = [questions[s : s + cfg.batch_size] for s in range(0, len(questions), cfg.batch_size)]
@@ -190,7 +204,7 @@ def evaluate(cfg: EvalConfig) -> None:
     # serving; results are written once, on the last pass
     passes = max(cfg.serving_passes, 1)
     pass_walls = []
-    with open(temp_output_path, "w") as f:
+    with output_file(temp_output_path) as f:
         for line in done_lines:  # re-emit carried-over results
             f.write(line if line.endswith("\n") else line + "\n")
         for p in range(passes):
@@ -217,7 +231,7 @@ def evaluate(cfg: EvalConfig) -> None:
                                 num_frames=model_cfg.num_frames, max_new_tokens=cfg.max_new_tokens,
                                 do_sample=cfg.do_sample, temperature=cfg.temperature,
                                 min_length=cfg.min_length, pad_to_batch=cfg.batch_size,
-                                kv_cache_dtype="int8" if cfg.int8_kv else None,
+                                kv_cache_dtype="int8" if cfg.int8_kv else None, mesh=mesh,
                             )
                             for i, p_ in zip(good, sub_preds):
                                 preds[i] = p_
@@ -238,6 +252,8 @@ def evaluate(cfg: EvalConfig) -> None:
                 f.flush()
             pass_walls.append(time.perf_counter() - serve_t0)
     wall = pass_walls[-1]
+    if not rank0:
+        return
     if questions:
         overwatch.info(
             f"Serving wall: {wall:.2f}s for {len(questions)} questions = {len(questions) / wall:.3f} questions/sec"
@@ -271,7 +287,7 @@ def _merge_chunks(result_dir, tag, all_questions_id, merged_path) -> None:
 
 
 def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, _prep, done_lines,
-                 temp_output_path) -> None:
+                 temp_output_path, mesh=None) -> None:
     """Continuous-batching engine serving for open-ended evaluation.
 
     In place of the group loop, a fixed pool of decode slots stays live
@@ -298,7 +314,7 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
     passes = max(cfg.serving_passes, 1)
     write_results = [passes == 1]
     register_s = [0.0]
-    with open(temp_output_path, "w") as f:
+    with output_file(temp_output_path) as f:
         for line in done_lines:  # re-emit carried-over results
             f.write(line if line.endswith("\n") else line + "\n")
 
@@ -322,7 +338,7 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
         engine = ContinuousBatchingEngine.for_vidlm(
             vidlm, slots=cfg.engine_slots, max_len=vidlm.llm_backbone.llm_max_length, steps_per_sync=8,
             config=gcfg, length_bucket=64, speculative_gamma=cfg.speculative,
-            speculative_autodisable=cfg.speculative_autodisable, result_callback=on_result,
+            speculative_autodisable=cfg.speculative_autodisable, result_callback=on_result, mesh=mesh,
         )
 
         # group questions by (video, clip): identical prefixes share the towers
@@ -397,6 +413,8 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
     ttft = sorted(s.ttft_s[prev[5]:])
     wall = pass_walls[-1]
     served = len(questions) - errors
+    if world()[0] != 0:
+        return
     overwatch.info(
         f"Engine served chunk: slot utilization {s.slot_utilization:.1%}, {prefills} prefills ({prefix_admissions} "
         f"suffix-only), {s.decode_chunks} chunks" + (f", {errors} failed" if errors else "")

@@ -64,7 +64,7 @@ class PretrainConfig:
     seed: int = 7
     device: Optional[str] = None                        # the card unless "cpu"
 
-    # merv_tpu's sequence and pipeline parallelism: not ported (ROADMAP A12); 1 = off
+    # merv_tpu's sequence and pipeline parallel training: not ported (ROADMAP A12); 1 = off
     mesh_seq: int = 1
     mesh_pipe: int = 1
     pp_microbatches: int = 0
@@ -107,7 +107,8 @@ def refuse_unported(cfg: PretrainConfig) -> None:
     """Raise for the options whose paths the port does not have yet."""
     if cfg.mesh_seq > 1 or cfg.mesh_pipe > 1:
         raise NotImplementedError("--mesh_seq / --mesh_pipe: sequence and pipeline parallel training are not "
-                                  "ported yet (ROADMAP A12)")
+                                  "ported yet: the FSDP / DDP strategies, pretrain --mesh_seq and "
+                                  "parallel/pipeline.py (ROADMAP A12)")
 
 
 @draccus.wrap()

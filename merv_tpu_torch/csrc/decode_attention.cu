@@ -7,6 +7,7 @@
 //   causal: query t of row b sees key j iff j <= t + offset (offset a host int,
 //         or offs[b] read on the device)
 //   o     bf16 [B, H, Tq, D]
+//   lse   fp32 [B, H, Tq] or none: each row's log-sum-exp of its scaled scores
 // The function is merv_tpu's T = 1 / verify attention over its cache
 // (merv_tpu/models/backbones/llm/transformer.py:396-405 dequantizes, then
 // ops/attention.py::attention_reference): an int8 key or value is dequantized
@@ -15,6 +16,10 @@
 // the reference's uniform softmax gives, the mean of V over the whole buffer
 // (weights bf16(1/Tk)). p is rounded to bf16 before P.V; the division by the
 // row sum comes after, as in the flash kernels.
+// With an lse output (the sequence-sharded cache: one call a shard, merged
+// by LSE across ranks) a row with no valid key writes 0 and LSE -inf, so that
+// a shard holding none of a row's keys weighs nothing in the merge, as
+// merv_tpu's sharded body (ops/ring_attention.py:462-483) has it.
 //
 // Replaces no Pallas kernel: merv_tpu leaves this attention to XLA, which
 // fuses the dequantization into its read of the cache. The port's plain form
@@ -82,6 +87,7 @@ struct Args {
   const unsigned char* mask;
   const long long* offs;
   bf16* o;
+  float* lse;  // null: no LSE, and the mean of V on a row with no valid key
   int B, H, Hk, Tq, Tk, causal, offset, cluster;
   float scale_log2;
 };
@@ -406,7 +412,10 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const __grid
       m = fmaxf(m, mq[q]);
     }
     float2 out;
-    if (m == neg_inf()) {  // no valid key: the mean of V over the whole buffer
+    float row_lse = neg_inf();
+    if (m == neg_inf() && a.lse != nullptr) {  // no valid key in this shard: 0, weight 0
+      out = make_float2(0.f, 0.f);
+    } else if (m == neg_inf()) {  // no valid key: the mean of V over the whole buffer
       float s0 = 0.f, s1 = 0.f;
       for (int j = 0; j < a.Tk; ++j) {
         s0 += cached<kInt8>(a.v, a.vs, srow0 + j, D, col);
@@ -431,7 +440,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const __grid
         l += wt * lq[q], o0 += wt * oq[q].x, o1 += wt * oq[q].y;
       }
       out = make_float2(o0 / l, o1 / l);
+      row_lse = m * kLn2 + logf(l);  // m is in the log2 domain (scores times scale * log2 e)
     }
+    if (a.lse != nullptr && col == 0) a.lse[q_row0 + r] = row_lse;
     *reinterpret_cast<__nv_bfloat162*>(a.o + (q_row0 + r) * D + col) = __floats2bfloat162_rn(out.x, out.y);
   }
   cluster_sync();  // no block leaves while another still reads its partial
@@ -472,10 +483,11 @@ cudaError_t setup() {
 }  // namespace
 
 // q, k, v, o: device pointers as above; k_scale / v_scale: fp32 scales (int8 != 0) or null; mask: bool [B, Tk]
-// or null; offs: int64 [B] causal offsets or null (then `offset`); cluster: the blocks that split a unit's keys
-// (1..8).
+// or null; offs: int64 [B] causal offsets or null (then `offset`); lse: fp32 [B, H, Tq] or null (see Args);
+// cluster: the blocks that split a unit's keys (1..8).
 MERV_EXPORT int decode_attention_bf16(const void* q, const void* k, const void* v, const void* k_scale,
-                                      const void* v_scale, const void* mask, const void* offs, void* o, int B, int H,
+                                      const void* v_scale, const void* mask, const void* offs, void* o, void* lse,
+                                      int B, int H,
                                       int Hk, int Tq, int Tk, int D, int int8, int causal, int offset, int cluster,
                                       float scale, void* stream) {
   if (B < 1 || Hk < 1 || H % Hk || Tq < 1 || Tq > kRowsMax || Tk < 1 || (D != 64 && D != 128) || cluster < 1 ||
@@ -484,8 +496,8 @@ MERV_EXPORT int decode_attention_bf16(const void* q, const void* k, const void* 
   cudaError_t e = setup();
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{static_cast<const bf16*>(q), v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-               static_cast<const unsigned char*>(mask), static_cast<const long long*>(offs), static_cast<bf16*>(o), B,
-               H, Hk, Tq, Tk, causal, offset, cluster, scale * kLog2e};
+               static_cast<const unsigned char*>(mask), static_cast<const long long*>(offs), static_cast<bf16*>(o),
+               static_cast<float*>(lse), B, H, Hk, Tq, Tk, causal, offset, cluster, scale * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
     e = int8 ? launch<128, true>(a, k, v, s) : launch<128, false>(a, k, v, s);

@@ -110,6 +110,15 @@ class LLMBackbone(nn.Module):
         return cfg
 
     @property
+    def sequence_parallel(self) -> bool:
+        """The decoder's ``sequence_parallel`` (taken only under an sp mesh; ``merv_tpu``'s attribute of the same name)."""
+        return self.decoder.cfg.sequence_parallel
+
+    @sequence_parallel.setter
+    def sequence_parallel(self, on: bool) -> None:
+        self.decoder.cfg = dataclasses.replace(self.decoder.cfg, sequence_parallel=bool(on))
+
+    @property
     def embed_dim(self) -> int:
         return self.decoder_config.hidden_size
 

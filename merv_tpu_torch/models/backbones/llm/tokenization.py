@@ -133,6 +133,26 @@ class ByteTokenizer:
         return 0
 
 
+def _online() -> bool:
+    return os.environ.get("MERV_TPU_ONLINE", "0") == "1" and os.environ.get("HF_HUB_OFFLINE", "0") != "1"
+
+
+def _findable(hf_hub_path: str) -> bool:
+    """Whether ``AutoTokenizer`` could find ``hf_hub_path`` here: a local
+    directory, a snapshot in a Hugging Face cache (``HF_HUB_CACHE``,
+    ``HUGGINGFACE_HUB_CACHE``, ``TRANSFORMERS_CACHE``, ``HF_HOME/hub``, else
+    ``$XDG_CACHE_HOME`` or ``~/.cache``), or the network where it is allowed.
+    Where it could not, ``transformers`` is not imported: its import (and
+    ``torch._dynamo``'s through it) was most of a fresh process's ``load_vid``."""
+    if os.path.isdir(hf_hub_path) or _online():
+        return True
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache"), "huggingface")
+    caches = [os.environ.get(k) for k in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE", "TRANSFORMERS_CACHE")]
+    folder = "models--" + hf_hub_path.replace("/", "--")
+    return any(c and os.path.isdir(os.path.join(c, folder)) for c in caches + [os.path.join(home, "hub")])
+
+
 def load_tokenizer(
     hf_hub_path: str,
     model_max_length: int = 2048,
@@ -143,6 +163,8 @@ def load_tokenizer(
     ``transformers`` not being installed among them, takes the
     ``ByteTokenizer`` branch. Padding is on the right either way."""
     try:
+        if not _findable(hf_hub_path):
+            raise FileNotFoundError(f"no local files for {hf_hub_path}")
         from transformers import AutoTokenizer
 
         kwargs = dict(model_max_length=model_max_length, padding_side="right")
@@ -150,7 +172,7 @@ def load_tokenizer(
             tok = AutoTokenizer.from_pretrained(hf_hub_path, local_files_only=True, **kwargs)
         except Exception:
             # the network is opt-in, so an offline run falls through at once instead of retrying
-            if os.environ.get("MERV_TPU_ONLINE", "0") != "1" or os.environ.get("HF_HUB_OFFLINE", "0") == "1":
+            if not _online():
                 raise
             tok = AutoTokenizer.from_pretrained(hf_hub_path, **kwargs)
         if tok.padding_side != "right":

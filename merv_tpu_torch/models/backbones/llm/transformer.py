@@ -35,15 +35,34 @@ with the bias where the family has one) and gate/up one ``mlp.gate_up_proj``
 (``[2 intermediate, hidden]``), whose output the layer splits by ``q_dim`` /
 ``kv_dim`` / ``intermediate_size`` as ``merv_tpu``'s ``_layer`` does. It is
 applied in place to a serving decoder (``load_vid``'s default); training keeps
-the unpacked layers. Ring and pipeline paths wait for a later slice (ROADMAP
-A12).
+the unpacked layers.
+
+Sequence parallelism (``merv_tpu``'s ``DecoderConfig.sequence_parallel``,
+taken only where the activation-mesh scope,
+:func:`merv_tpu_torch.parallel.activation_mesh`, holds an ``sp`` axis above 1):
+- the no-cache forward permutes its tokens once into the zigzag layout
+  (``sp_zigzag``, where the sequence tiles ``2 sp``), keeps this process's
+  rows, runs every layer's attention as the ring
+  (:func:`merv_tpu_torch.ops.ring_attention.ring_attention`) and gathers the
+  rows back before the final norm; a sequence that does not tile ``sp`` runs
+  unsharded, as in ``merv_tpu``;
+- a cache made with ``KVCache.create(..., mesh=...)`` whose length tiles
+  ``sp`` is sharded on its rows (:class:`CacheShards`): each rank holds its
+  ``max_len / sp`` rows (keys, values and int8 scales alike) and a scratch
+  row; a token at global position p is written by the rank that owns p, at
+  ``p - rank * rows``, and every other rank writes it to its scratch row,
+  which no key mask admits; attention is
+  :func:`merv_tpu_torch.ops.ring_attention.cache_shard_attention` (each
+  rank's rows with its LSE, merged by all-reduces).
+A tensor-parallel or pipeline axis raises: both wait for the training half of
+the mesh work (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +73,11 @@ from merv_tpu_torch.nn.core import Embed, Linear, RMSNorm
 from merv_tpu_torch.nn.quantization import INV_127
 from merv_tpu_torch.ops import decode_attention as K5
 from merv_tpu_torch.ops.attention import attention
+from merv_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size
+from merv_tpu_torch.parallel.sharding import constrain_batch_dim, get_activation_mesh
+
+# the global position of a shard's scratch row: past every key mask's bound
+_SCRATCH_POS = 2 ** 62
 
 
 @dataclass(frozen=True)
@@ -73,6 +97,10 @@ class DecoderConfig:
     initializer_range: float = 0.02
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # sequence parallelism: taken only under an activation mesh with sp > 1 (see the module's text)
+    sequence_parallel: bool = False
+    # the load-balanced causal ring (zigzag token layout), where the sequence tiles 2 sp
+    sp_zigzag: bool = True
 
     @property
     def q_dim(self) -> int:
@@ -81,6 +109,77 @@ class DecoderConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class CacheShards:
+    """The layout of a cache sharded on its rows over the ``sp`` axis: each
+    rank holds ``rows`` consecutive global positions (rank r from
+    ``r * rows``) followed by one scratch row; the buffer holds this
+    process's ranks (``ex.ranks``) one after another."""
+
+    ex: Any  # the sp exchange (ops/ring_attention.py)
+    rows: int
+
+    @property
+    def capacity(self) -> int:
+        """Global positions the cache holds."""
+        return self.ex.n * self.rows
+
+    @property
+    def buffer_rows(self) -> int:
+        return len(self.ex.ranks) * (self.rows + 1)
+
+    def slices(self) -> List[slice]:
+        """Each local rank's buffer rows, its scratch row included."""
+        w = self.rows + 1
+        return [slice(i * w, (i + 1) * w) for i in range(len(self.ex.ranks))]
+
+    def positions(self, device) -> torch.Tensor:
+        """[buffer_rows] the global position of each buffer row (a scratch row: past every bound)."""
+        pos = [torch.cat([torch.arange(self.rows, device=device) + r * self.rows,
+                          torch.full((1,), _SCRATCH_POS, device=device)]) for r in self.ex.ranks]
+        return torch.cat(pos)
+
+    def targets(self, pos: torch.Tensor) -> List[torch.Tensor]:
+        """For each local rank, the buffer row global positions ``pos`` land in: the
+        rank's own row where it owns the position, else its scratch row."""
+        out = []
+        for i, r in enumerate(self.ex.ranks):
+            local = pos - r * self.rows
+            own = (local >= 0) & (local < self.rows)
+            out.append(i * (self.rows + 1) + torch.where(own, local, torch.full_like(local, self.rows)))
+        return out
+
+    def copy_rows(self, dst: torch.Tensor, src: torch.Tensor, n: int, dim: int) -> None:
+        """Copy global rows [0, n) of a whole (replicated) buffer ``src`` into
+        this process's shards of ``dst``, both indexed on ``dim``."""
+        for i, r in enumerate(self.ex.ranks):
+            lo, hi = r * self.rows, min((r + 1) * self.rows, n)
+            if hi > lo:
+                base = i * (self.rows + 1)
+                dst.narrow(dim, base, hi - lo).copy_(src.narrow(dim, lo, hi - lo))
+
+
+def cache_shards(cfg: "DecoderConfig", max_len: int, mesh) -> Optional[CacheShards]:
+    """The row sharding of a ``max_len``-position cache on ``mesh``: None
+    unless ``cfg.sequence_parallel``, an ``sp`` axis above 1 and a length that
+    tiles it (``merv_tpu``'s ``_sp_serve_mesh``: otherwise the cache stays whole)."""
+    from merv_tpu_torch.ops.ring_attention import sp_exchange
+
+    n = axis_size(mesh, SEQ_AXIS)
+    if not cfg.sequence_parallel or n <= 1 or max_len % n != 0:
+        return None
+    _refuse_unported_axes(mesh)
+    return CacheShards(sp_exchange(mesh), max_len // n)
+
+
+def _refuse_unported_axes(mesh) -> None:
+    if axis_size(mesh, TENSOR_AXIS) > 1:
+        raise NotImplementedError("a tensor axis above 1: tensor parallelism and the packed layout are not ported yet "
+                                  "(ROADMAP A12 step 4)")
+    if axis_size(mesh, PIPE_AXIS) > 1:
+        raise NotImplementedError("a pipeline axis above 1: parallel/pipeline.py is not ported yet (ROADMAP A12)")
 
 
 @dataclass
@@ -100,33 +199,47 @@ class KVCache:
     position) over D, with fp32 scales ``k_scale`` / ``v_scale``
     ``[L, B, H_kv, max_len, 1]`` created as ones (:func:`_quantize_kv`): decode
     reads the whole cache every step, so halving its bytes trims the per-token
-    time; the scales add 4 bytes a row."""
+    time; the scales add 4 bytes a row.
 
-    k: torch.Tensor  # [L, B, H_kv, max_len, D]
+    ``sp`` (:class:`CacheShards`): a cache sharded on its rows over the
+    ``sp`` axis; its buffers hold this process's shards, each with its own
+    scratch row, and ``max_len`` global positions."""
+
+    k: torch.Tensor  # [L, B, H_kv, max_len, D] (sharded: [L, B, H_kv, sp.buffer_rows, D])
     v: torch.Tensor  # [L, B, H_kv, max_len, D]
     length: Union[int, torch.Tensor]
     k_scale: Optional[torch.Tensor] = None  # [L, B, H_kv, max_len, 1] fp32 (int8 mode)
     v_scale: Optional[torch.Tensor] = None
+    sp: Optional[CacheShards] = None
 
     @classmethod
     def create(
-        cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device
+        cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device, mesh=None
     ) -> "KVCache":
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        """Zeros (int8 scales: ones) for ``max_len`` positions; on ``mesh``,
+        sharded on its rows where :func:`cache_shards` says so."""
+        sp = None if mesh is None else cache_shards(cfg, max_len, mesh)
+        rows = max_len if sp is None else sp.buffer_rows
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, rows, cfg.head_dim)
         k, v = (torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
         if dtype != torch.int8:
-            return cls(k, v, 0)
+            return cls(k, v, 0, sp=sp)
         ks, vs = (torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device) for _ in range(2))
-        return cls(k, v, 0, ks, vs)
+        return cls(k, v, 0, ks, vs, sp)
+
+    @property
+    def max_len(self) -> int:
+        """Positions the cache holds (its buffer rows, or the sharded cache's global length)."""
+        return self.k.shape[3] if self.sp is None else self.sp.capacity
 
     def at(self, length: Union[int, torch.Tensor]) -> "KVCache":
         """The same buffers (and scales) with write pointer ``length``."""
-        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale)
+        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale, self.sp)
 
     def layer(self, li: int) -> Tuple[Optional[torch.Tensor], ...]:
-        """Layer ``li``'s (K, V, K scales, V scales, write pointer); the scales are None unless int8."""
+        """Layer ``li``'s (K, V, K scales, V scales, write pointer, shards); the scales are None unless int8."""
         scales = (None, None) if self.k_scale is None else (self.k_scale[li], self.v_scale[li])
-        return (self.k[li], self.v[li], *scales, self.length)
+        return (self.k[li], self.v[li], *scales, self.length, self.sp)
 
 
 def cache_dtype(kv_cache_dtype: Optional[str], compute_dtype: torch.dtype) -> torch.dtype:
@@ -218,7 +331,9 @@ class DecoderLayer(nn.Module):
         kv_mask: Optional[torch.Tensor],
         cache: Optional[Tuple[Optional[torch.Tensor], ...]],
         attn_impl: str,
+        ring: Optional[Tuple[Any, bool]] = None,
     ) -> torch.Tensor:
+        """``ring``: (mesh, zigzag) when the no-cache forward runs sequence-parallel."""
         c = self.cfg
         B, T, _ = h.shape
         q, k, v = self.attn.qkv(self.input_norm(h))
@@ -227,14 +342,30 @@ class DecoderLayer(nn.Module):
         v = v.view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
         q = _rope(cos_sin, q).contiguous()
         k = _rope(cos_sin, k)
-        if cache is None:
+        if cache is None and ring is not None:
+            from merv_tpu_torch.ops.ring_attention import ring_attention
+
+            out = ring_attention(q, k.contiguous(), v.contiguous(), ring[0], causal=True, zigzag=ring[1],
+                                 impl=attn_impl)
+        elif cache is None:
             out = attention(q, k.contiguous(), v.contiguous(), causal=True, impl=attn_impl)
         else:
             # this layer's [B, H_kv, max_len, D] buffers, and [B, H_kv, max_len, 1] scales in int8 mode
-            ck, cv, cks, cvs, start = cache
+            ck, cv, cks, cvs, start, sp = cache
             if cks is not None:  # quantize on write
                 (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
-            if isinstance(start, torch.Tensor) and start.dim() == 1:
+            if sp is not None:
+                # sharded rows: each local rank writes the positions it owns, the rest to its scratch row
+                per_slot = isinstance(start, torch.Tensor) and start.dim() == 1
+                pos = (start[:, None] if per_slot else start) + torch.arange(T, device=h.device)
+                pos = pos.expand(B, T) if pos.dim() == 2 else pos[None].expand(B, T)
+                slot = torch.arange(B, device=h.device)[:, None].expand(B, T)
+                targets = sp.targets(pos)
+
+                def put(buf, val):
+                    for rows in targets:
+                        buf[slot, :, rows] = val.transpose(1, 2).to(buf.dtype)
+            elif isinstance(start, torch.Tensor) and start.dim() == 1:
                 # per-slot pointers: row b writes at start[b] + t; at or past the scratch row (the last) it
                 # writes there, so an out-of-range write is dropped (the scales follow the same rows)
                 rows = (start[:, None] + torch.arange(T, device=h.device)).clamp(max=ck.shape[2] - 1)
@@ -254,7 +385,13 @@ class DecoderLayer(nn.Module):
                 put(cvs, vs)
             # T = 1: kv_mask already bounds the keys at kv_pos <= start, so the causal mask adds nothing
             causal, q_offset = (False, None) if T == 1 else (True, start)
-            if T <= K5.DECODE_MAX_ROWS:
+            if sp is not None:
+                from merv_tpu_torch.ops.ring_attention import cache_shard_attention
+
+                shards = [tuple(None if t is None else t[:, :, sl] for t in (ck, cv, cks, cvs)) for sl in sp.slices()]
+                out = cache_shard_attention(q, shards, [kv_mask[:, sl] for sl in sp.slices()], sp.ex, sp.rows,
+                                            causal=causal, q_offset=q_offset, impl=attn_impl)
+            elif T <= K5.DECODE_MAX_ROWS:
                 fn = K5.decode_attention if attn_impl == "auto" else K5.decode_attention_plain
                 out = fn(q, ck, cv, cks, cvs, kv_mask=kv_mask, causal=causal, q_offset=q_offset)
             else:
@@ -315,19 +452,27 @@ class LlamaDecoder(nn.Module):
             )
         if inputs_embeds is None:
             inputs_embeds = self.embed_input_ids(input_ids)
-        h = inputs_embeds.to(c.compute_dtype)
+        h = constrain_batch_dim(inputs_embeds.to(c.compute_dtype))  # merv_tpu's batch-axis pin (a no-op here)
         B, T, _ = h.shape
         dev = h.device
+        mesh = get_activation_mesh()
+        if mesh is not None and c.sequence_parallel:
+            _refuse_unported_axes(mesh)
 
+        ring = None
         if kv_cache is not None:
             start = kv_cache.length
-            max_len = kv_cache.k.shape[3]
-            kv_pos = torch.arange(max_len, device=dev)[None]
+            sp = kv_cache.sp
+            max_len = kv_cache.max_len
+            # each buffer row's global position (a sharded cache's scratch rows lie past every bound)
+            kv_pos = (torch.arange(max_len, device=dev) if sp is None else sp.positions(dev))[None]
             if isinstance(start, torch.Tensor) and start.dim() == 1:
                 if start.shape[0] != B:
                     raise ValueError(f"{start.shape[0]} per-slot write pointers for a batch of {B}")
                 start_col = start[:, None]
-                kv_mask = (kv_pos < start_col + T) & (kv_pos < max_len - 1)  # the last row is scratch
+                kv_mask = kv_pos < start_col + T
+                if sp is None:
+                    kv_mask = kv_mask & (kv_pos < max_len - 1)  # the last row is scratch
             else:
                 if isinstance(start, torch.Tensor):
                     if T != 1:
@@ -335,13 +480,15 @@ class LlamaDecoder(nn.Module):
                 elif start + T > max_len:
                     raise ValueError(f"KV cache overflow: {start} + {T} > {max_len}")
                 start_col = start
-                kv_mask = (kv_pos < start_col + T).expand(B, max_len)
+                kv_mask = (kv_pos < start_col + T).expand(B, kv_pos.shape[1])
             if positions is None:
                 positions = (start_col + torch.arange(T, device=dev)[None]).expand(B, T)
             if attention_mask is not None:
                 am = attention_mask.bool()
                 if am.shape[1] != max_len:
                     am = torch.cat([am, torch.ones((B, max_len - am.shape[1]), dtype=torch.bool, device=dev)], dim=1)
+                if sp is not None:  # the mask of each buffer row's global position
+                    am = am[:, kv_pos[0].clamp(max=max_len - 1)]
                 kv_mask = kv_mask & am
             kv_mask = kv_mask.contiguous()  # one copy for every layer's attention
         else:
@@ -358,15 +505,31 @@ class LlamaDecoder(nn.Module):
                         "([1]*n + [0]*pad per row); other masks would silently attend masked keys"
                     )
             kv_mask = None
+            ex = self._sp_exchange(mesh, T)
+            if ex is not None:
+                # the zigzag layout once for the whole stack, then this process's rows; positions travel with
+                # the tokens, so right padding keeps its pad keys after every valid query
+                zigzag = c.sp_zigzag and T % (2 * ex.n) == 0
+                if zigzag:
+                    from merv_tpu_torch.ops.ring_attention import zigzag_perm
+
+                    zperm = torch.as_tensor(zigzag_perm(T, ex.n), device=dev)
+                    h, positions = h[:, zperm], positions.expand(B, T)[:, zperm]
+                h, positions = ex.local(h, 1), ex.local(positions.expand(B, T), 1)
+                ring = (mesh, zigzag)
 
         cos_sin = _rope_tables(c, positions, h.dtype)
         remat = remat and torch.is_grad_enabled()
         for li, layer in enumerate(self.layers):
             cache = None if kv_cache is None else kv_cache.layer(li)
             if remat:
-                h = checkpoint(layer, h, cos_sin, kv_mask, cache, attn_impl, use_reentrant=False)
+                h = checkpoint(layer, h, cos_sin, kv_mask, cache, attn_impl, ring, use_reentrant=False)
             else:
-                h = layer(h, cos_sin, kv_mask, cache, attn_impl)
+                h = layer(h, cos_sin, kv_mask, cache, attn_impl, ring)
+        if ring is not None:
+            h = ex.gather(h, 1)
+            if ring[1]:
+                h = h[:, torch.argsort(zperm)]
         new_cache = None if kv_cache is None else kv_cache.at(kv_cache.length + T)
 
         h = self.final_norm(h)
@@ -375,6 +538,17 @@ class LlamaDecoder(nn.Module):
         if logits_indices is not None:
             h = h[torch.arange(B, device=dev), logits_indices.long()][:, None]
         return self.lm_head_apply(h), new_cache
+
+    def _sp_exchange(self, mesh, seq_len: int):
+        """The sp exchange when the no-cache forward runs the ring (``merv_tpu``'s
+        ``_sp_mesh``): ``sequence_parallel`` on, an sp axis above 1 and a
+        sequence that tiles it; else None (plain attention)."""
+        from merv_tpu_torch.ops.ring_attention import sp_exchange
+
+        n = axis_size(mesh, SEQ_AXIS)
+        if not self.cfg.sequence_parallel or n <= 1 or seq_len % n != 0:
+            return None
+        return sp_exchange(mesh)
 
     def lm_head_apply(self, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:

@@ -25,6 +25,14 @@ is what a step-by-step check, or ``merv_tpu``'s scan over every step, gives.
 Sampling draws from the caller's ``torch.Generator`` (the runner's own
 generator takes its state before and hands it back after, and is registered
 with the graph).
+
+Under an activation mesh with an ``sp`` axis above 1 (the caller's
+:func:`~merv_tpu_torch.parallel.activation_mesh` scope) a runner's cache is
+sharded on its rows (``KVCache.create(..., mesh=...)``) and each step merges
+the ranks' partials by all-reduces. A step whose exchange a CUDA graph cannot
+capture (gloo's collectives) runs eagerly: :attr:`DecodeRunner.mode` names
+which. Small caches (a prefix, the engine's admission prefills) stay whole
+on every rank and are copied into the shards (``CacheShards.copy_rows``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 import merv_tpu_torch.ops.attention as A
 from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder, cache_dtype
+from merv_tpu_torch.parallel.sharding import get_activation_mesh
 
 # steps run between two reads of ``done`` (the early exit's host sync)
 DECODE_SYNC_EVERY = 16
@@ -159,7 +168,7 @@ def prefill(
     dev = inputs_embeds.device
     if cache is None:
         cache = KVCache.create(decoder.cfg, B, cache_len, cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype), dev)
-    elif tuple(cache.k.shape[1:4:2]) != (B, cache_len):
+    elif (cache.k.shape[1], cache.max_len) != (B, cache_len):
         raise ValueError(f"prefill: cache of {tuple(cache.k.shape)} for batch {B} and {cache_len} positions")
     if attention_mask is not None:
         am = attention_mask.long()
@@ -198,10 +207,11 @@ class DecodeRunner:
     """
 
     def __init__(self, decoder: LlamaDecoder, batch: int, max_len: int, config: GenerationConfig,
-                 device: torch.device) -> None:
+                 device: torch.device, mesh=None) -> None:
         c = decoder.cfg
         self.config = config
-        self.cache = KVCache.create(c, batch, max_len, cache_dtype(config.kv_cache_dtype, c.compute_dtype), device)
+        self.cache = KVCache.create(c, batch, max_len, cache_dtype(config.kv_cache_dtype, c.compute_dtype), device,
+                                    mesh=mesh)
         self.token = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.zeros(batch, dtype=torch.long, device=device)
         self.length = torch.zeros((), dtype=torch.long, device=device)
@@ -214,6 +224,18 @@ class DecodeRunner:
         self.graph_logits: Optional[torch.Tensor] = None  # the captured step's logits, rewritten by each replay
         self.launches_per_step: Dict[str, int] = {}  # kernel launches one replay makes
         self.capture_s = 0.0
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold the step: a sharded cache's merge must
+        be capturable (NCCL's collectives, or the in-process exchange)."""
+        sp = self.cache.sp
+        return self.token.device.type == "cuda" and (sp is None or sp.ex.capturable)
+
+    @property
+    def mode(self) -> str:
+        """How the step runs: "graph" (captured and replayed) or "eager"."""
+        return "graph" if self.graph is not None else "eager"
 
     def step(self, decoder: LlamaDecoder) -> torch.Tensor:
         """One T=1 decode step on the runner's tensors, all of it on the device:
@@ -314,18 +336,21 @@ class DecodeRunner:
 def decode_runner(decoder: LlamaDecoder, batch: int, max_len: int, config: GenerationConfig,
                   device: torch.device) -> Tuple[DecodeRunner, bool]:
     """The decoder's runner for (batch, cache length, config, device), made
-    (and, on a CUDA device, captured) on first use: (runner, made now). At
-    most ``MAX_DECODE_RUNNERS`` stay alive per decoder."""
+    (and, on a CUDA device, captured where :attr:`DecodeRunner.capturable`)
+    on first use: (runner, made now). At most ``MAX_DECODE_RUNNERS`` stay
+    alive per decoder. The activation mesh in scope shards the runner's cache
+    (see the module's text)."""
     runners = decoder.__dict__.setdefault("_decode_runners", OrderedDict())
-    key = (batch, max_len, config, str(device))
+    mesh = get_activation_mesh()
+    key = (batch, max_len, config, str(device), mesh)
     runner = runners.get(key)
     if runner is not None:
         runners.move_to_end(key)
         return runner, False
     while len(runners) >= MAX_DECODE_RUNNERS:
         runners.popitem(last=False)[1].release()
-    runner = DecodeRunner(decoder, batch, max_len, config, device)
-    if device.type == "cuda":
+    runner = DecodeRunner(decoder, batch, max_len, config, device, mesh)
+    if runner.capturable:
         runner.capture(decoder)
     runners[key] = runner
     return runner, True
@@ -454,6 +479,15 @@ def _tile_pad_cache(cache: KVCache, n: int, extra_rows: int, out: Optional[KVCac
     ``create`` uses). Shapes [L, B, H_kv, max_len, D]; returns ``length == P``."""
     L, _, H, P, D = cache.k.shape
     shape = (L, n, H, P + extra_rows, D)
+    if out is not None and out.sp is not None:  # a sharded runner cache: each rank copies the rows it owns
+        if (out.k.shape[1], out.max_len) != (n, P + extra_rows) or out.k.dtype != cache.k.dtype:
+            raise ValueError(f"_tile_pad_cache: target cache {tuple(out.k.shape)} {out.k.dtype}, need {shape} "
+                             f"{cache.k.dtype}")
+        for dst, src in zip((out.k, out.v, out.k_scale, out.v_scale), (cache.k, cache.v, cache.k_scale,
+                                                                       cache.v_scale)):
+            if dst is not None:
+                out.sp.copy_rows(dst, src.expand(L, n, *src.shape[2:]), P, 3)
+        return out.at(P)
     if out is None:
         c = cache.k
         out = KVCache(torch.zeros(shape, dtype=c.dtype, device=c.device),

@@ -79,6 +79,7 @@ def load_vid(
     allow_random_weights: bool = False,
     pack_llm: bool = True,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
 ):
     """Load a trained MERV from a local run directory -> ``vidlm`` [, ``model_cfg``].
 
@@ -110,7 +111,20 @@ def load_vid(
     stored dtype's bit for bit, and a decode step reads each weight once
     instead of casting a copy of it. ``device``: the card unless ``"cpu"`` is
     asked for.
+
+    ``mesh``: the serving mesh (``merv_tpu``'s argument of the same name).
+    Every rank loads the whole model, so the weights are replicated; the
+    memory a long context needs is the KV cache, which shards on its rows
+    when the caller serves under an ``sp`` axis above 1 (and sets
+    ``vidlm.llm_backbone.sequence_parallel``). A ``tensor`` axis above 1
+    raises: ``merv_tpu``'s Megatron splits wait for the packed layout's
+    tensor parallelism (ROADMAP A12 step 4).
     """
+    from merv_tpu_torch.parallel.mesh import TENSOR_AXIS, axis_size
+
+    if axis_size(mesh, TENSOR_AXIS) > 1:
+        raise NotImplementedError("load_vid on a mesh with a tensor axis above 1: tensor parallelism with the packed "
+                                  "layout is not ported yet (ROADMAP A12 step 4)")
     dev = resolve_device(device)
     if not os.path.isdir(model_id_or_path):
         if model_id_or_path in GLOBAL_REGISTRY:

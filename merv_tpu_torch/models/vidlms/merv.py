@@ -403,6 +403,7 @@ class MERV(VidLM):
         timings: Optional[Dict[str, float]] = None,
         speculative_gamma: int = 0,
         speculative_ngram: int = 2,
+        mesh: Optional[Any] = None,
     ) -> torch.Tensor:
         """Batched multimodal generation -> new token ids [B, max_new_tokens].
         Inputs must lie on the model's device.
@@ -411,7 +412,20 @@ class MERV(VidLM):
         (:func:`~merv_tpu_torch.models.generation.generate_speculative`, B=1
         only): drafts from the text prompt's n-grams, ``gamma + 1`` tokens
         verified a forward; greedy output is token-identical to the plain
-        path."""
+        path.
+
+        ``mesh``: the serving mesh, scoped over the call
+        (:func:`_mesh_scope`): with the decoder's ``sequence_parallel`` and an
+        ``sp`` axis above 1 the decode cache shards on its rows (every rank
+        runs the same call and gets the same tokens)."""
+        with _mesh_scope(mesh):
+            return self._generate_ids(input_ids, attention_mask, video_values, is_multimodal, max_new_tokens,
+                                      do_sample, temperature, top_p, top_k, min_length, generator, kv_cache_dtype,
+                                      attn_impl, timings, speculative_gamma, speculative_ngram)
+
+    def _generate_ids(self, input_ids, attention_mask, video_values, is_multimodal, max_new_tokens, do_sample,
+                      temperature, top_p, top_k, min_length, generator, kv_cache_dtype, attn_impl, timings,
+                      speculative_gamma, speculative_ngram) -> torch.Tensor:
         dev = self.device
         for t in (input_ids, attention_mask, *video_values):
             if t.device != dev:
@@ -519,11 +533,12 @@ class MERV(VidLM):
         timings: Optional[Dict[str, float]] = None,
         speculative_gamma: int = 0,
         speculative_ngram: int = 2,
+        mesh: Optional[Any] = None,
     ) -> str:
         """Single-example API: ``video`` is a path (decoded within
         ``[clip_start_sec, clip_end_sec]`` or up to ``end_frame``), a uint8
-        [T, H, W, C] array, or None (text only). ``speculative_gamma > 0``:
-        see :meth:`generate_ids`."""
+        [T, H, W, C] array, or None (text only). ``speculative_gamma > 0``
+        and ``mesh``: see :meth:`generate_ids`."""
         t0 = time.perf_counter()
         input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
             [video], [prompt_text], num_frames,
@@ -536,7 +551,7 @@ class MERV(VidLM):
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
             generator=generator, kv_cache_dtype=kv_cache_dtype, attn_impl=attn_impl, timings=timings,
-            speculative_gamma=speculative_gamma, speculative_ngram=speculative_ngram,
+            speculative_gamma=speculative_gamma, speculative_ngram=speculative_ngram, mesh=mesh,
         )
         return self._texts(tokens, 1)[0]
 
@@ -584,9 +599,7 @@ class MERV(VidLM):
         the batch to a fixed size (see :meth:`_prepare_batch_inputs`), which
         bounds the decode shapes, and so the captured graphs, of a run.
         ``speculative_gamma > 0`` takes a batch of one (see
-        :meth:`generate_ids`). ``mesh`` (a serving mesh) is not ported
-        (ROADMAP A12)."""
-        _no_mesh(mesh)
+        :meth:`generate_ids`), as does ``mesh``."""
         input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
             videos, prompt_texts, num_frames, clip_args, pad_to_batch=pad_to_batch
         )
@@ -594,7 +607,7 @@ class MERV(VidLM):
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,
             generator=generator, kv_cache_dtype=kv_cache_dtype, speculative_gamma=speculative_gamma,
-            speculative_ngram=speculative_ngram,
+            speculative_ngram=speculative_ngram, mesh=mesh,
         )
         return self._texts(tokens, len(videos))
 
@@ -651,11 +664,14 @@ class MERV(VidLM):
         min_length: int = 1,
         generator: Optional[torch.Generator] = None,
         kv_cache_dtype: Optional[str] = None,
+        mesh: Optional[Any] = None,
     ) -> torch.Tensor:
         """Batched generation against a shared video-prefix cache (a
         :class:`VideoPrefix` or its bare cache): token-identical to
         :meth:`generate_ids` on the full spliced sequences, each question
-        paying only its suffix prefill and decode."""
+        paying only its suffix prefill and decode. Under an sp ``mesh`` the
+        prefix stays whole on every rank and is copied into the sharded
+        decode cache."""
         if isinstance(prefix_cache, VideoPrefix):
             if prefix_cache.kv_cache_dtype != kv_cache_dtype:
                 raise ValueError(
@@ -665,10 +681,11 @@ class MERV(VidLM):
             prefix_cache = prefix_cache.cache
         cfg = self._generation_config(max_new_tokens, do_sample, temperature, top_p, top_k, min_length,
                                       kv_cache_dtype)
-        return generate_with_prefix(
-            self.llm_backbone.decoder, prefix_cache, suffix_ids=suffix_ids, suffix_mask=suffix_mask, config=cfg,
-            generator=generator,
-        )
+        with _mesh_scope(mesh):
+            return generate_with_prefix(
+                self.llm_backbone.decoder, prefix_cache, suffix_ids=suffix_ids, suffix_mask=suffix_mask, config=cfg,
+                generator=generator,
+            )
 
     def generate_batch_shared(
         self,
@@ -687,13 +704,15 @@ class MERV(VidLM):
         length_bucket: int = 64,
         kv_cache_dtype: Optional[str] = None,
         prefix_cache: Any = None,
+        mesh: Optional[Any] = None,
     ) -> List[str]:
         """One video, many questions: towers and the video-prefix prefill run
         once, each question pays its suffix prefill and decode. Same bucketing
         as :meth:`generate_batch`. ``prefix_cache`` (from
         :meth:`build_video_prefix`) reuses a prefix across calls. Raises
         ``ValueError`` where the prompts disagree on BOS, where the prefix was
-        built with other BOS ids, or where a prompt is empty after its BOS."""
+        built with other BOS ids, or where a prompt is empty after its BOS.
+        ``mesh``: see :meth:`generate_ids_shared`."""
         n_real = len(prompt_texts)
         nbos = self.llm_backbone.bos_token_length
         tok = self.llm_backbone.tokenizer
@@ -740,7 +759,7 @@ class MERV(VidLM):
         tokens = self.generate_ids_shared(
             prefix_cache, torch.as_tensor(suffix_ids, device=dev), torch.as_tensor(suffix_mask, device=dev),
             max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k,
-            min_length=min_length, generator=generator, kv_cache_dtype=kv_cache_dtype,
+            min_length=min_length, generator=generator, kv_cache_dtype=kv_cache_dtype, mesh=mesh,
         )
         return self._texts(tokens, n_real)
 
@@ -758,14 +777,15 @@ class MERV(VidLM):
         """Likelihood MCQ readout: one batched no-cache forward, next-token
         logits at each row's last prompt position, the option whose single
         token (:attr:`string2idx`) scores highest; ids past the LM head (tiny
-        test vocabularies) score -inf. No decode at all."""
-        _no_mesh(mesh)
+        test vocabularies) score -inf. No decode at all. Under an sp ``mesh``
+        the forward runs the ring (see :meth:`generate_ids`)."""
         input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
             videos, prompt_texts, num_frames, clip_args, pad_to_batch=pad_to_batch
         )
-        embeds, mask = self.build_inputs_embeds(input_ids, attention_mask, vids, is_mm)
-        last = mask.long().sum(dim=1) - 1
-        logits, _ = self.llm_backbone.decoder(inputs_embeds=embeds, attention_mask=mask, logits_indices=last)
+        with _mesh_scope(mesh):
+            embeds, mask = self.build_inputs_embeds(input_ids, attention_mask, vids, is_mm)
+            last = mask.long().sum(dim=1) - 1
+            logits, _ = self.llm_backbone.decoder(inputs_embeds=embeds, attention_mask=mask, logits_indices=last)
         rows = logits[:, 0].float().cpu().numpy()  # [B, V] next-token logits
         picks = []
         V = rows.shape[1]
@@ -777,8 +797,25 @@ class MERV(VidLM):
 
 
 def _no_mesh(mesh: Optional[Any]) -> None:
-    if mesh is not None:
-        raise NotImplementedError("serving over a device mesh (the sequence-sharded cache) is not ported (ROADMAP A12)")
+    """Refuse the mesh axes the port does not serve on yet: tensor and pipeline."""
+    from merv_tpu_torch.parallel.mesh import PIPE_AXIS, TENSOR_AXIS, axis_size
+
+    if axis_size(mesh, TENSOR_AXIS) > 1 or axis_size(mesh, PIPE_AXIS) > 1:
+        raise NotImplementedError("serving over a tensor or pipeline mesh axis is not ported yet: tensor parallelism "
+                                  "with the packed layout and parallel/pipeline.py (ROADMAP A12)")
+
+
+def _mesh_scope(mesh: Optional[Any]):
+    """``merv_tpu``'s ``activation_mesh(mesh)`` around a serving call (a
+    no-op without a mesh); refuses tensor and pipeline axes (:func:`_no_mesh`)."""
+    import contextlib
+
+    from merv_tpu_torch.parallel.sharding import activation_mesh
+
+    if mesh is None:
+        return contextlib.nullcontext()
+    _no_mesh(mesh)
+    return activation_mesh(mesh)
 
 
 def _block_nll(decoder: Any, h_blk: torch.Tensor, l_blk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

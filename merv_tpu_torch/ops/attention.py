@@ -55,10 +55,10 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # kernel launches per wrapper, counted where each launches its kernel (the
 # wrappers of fused_vit_attn_block, int8_linear and decode_attention live in
 # ops/fused_vit_block.py, ops/int8_linear.py and ops/decode_attention.py;
-# fused_vit_attn_block counts head dims 64 and 72 apart)
+# fused_vit_attn_block counts head dims 64 and 72 apart, decode_attention its launches with an LSE output apart)
 _LAUNCHES = {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
              "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
-             "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0}
+             "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0, "decode_attention_lse": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -327,14 +327,17 @@ def packed_temporal_attention(
 # ---------------------------------------------------------------------------
 
 
-def _visible(B: int, Tq: int, Tk: int, causal: bool, kv_mask, offset: int, device) -> torch.Tensor:
-    """[B or 1, 1, Tq, Tk] bool: the (query, key) pairs the flash function lets through."""
+def _visible(B: int, Tq: int, Tk: int, causal: bool, kv_mask, offset, device) -> torch.Tensor:
+    """[B or 1, 1, Tq, Tk] bool: the (query, key) pairs the flash function lets
+    through. ``offset``: query 0's key position, an int or a 0-d or [B] tensor."""
     valid = torch.ones((1, 1, Tq, Tk), dtype=torch.bool, device=device)
     if kv_mask is not None:
         valid = valid & kv_mask[:, None, None, :].bool()
     if causal:
         qi = torch.arange(Tq, device=device)[:, None]
         ki = torch.arange(Tk, device=device)[None, :]
+        if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+            offset = offset.to(device)[:, None, None, None]
         valid = valid & (ki <= qi + offset)
     return valid
 
@@ -356,20 +359,21 @@ def flash_attention_forward_plain(
     causal: bool,
     kv_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
-    q_offset: Optional[int] = None,
+    q_offset: Optional[Union[int, torch.Tensor]] = None,
     return_lse: bool = False,
 ):
     """The flash kernel's function in plain torch: fp32 scores, right-aligned
     causal mask, exact zeros for masked keys, 0 for a row with no valid key,
     p cast to the value dtype for PV, division by the fp32 row sum after PV.
     ``return_lse`` also returns the fp32 log-sum-exp ``m + log l`` [B, H, Tq]
-    of the scaled scores (+inf for a row with no valid key)."""
+    of the scaled scores (+inf for a row with no valid key). ``q_offset`` may
+    also be a 0-d or [B] tensor (K5's plain version with its LSE)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     k, v = _repeat_kv(k, v, H)
     scale = D ** -0.5 if scale is None else scale
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    offset = Tk - Tq if q_offset is None else int(q_offset)
+    offset = Tk - Tq if q_offset is None else q_offset if isinstance(q_offset, torch.Tensor) else int(q_offset)
     s = s.masked_fill(~_visible(B, Tq, Tk, causal, kv_mask, offset, q.device), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)

@@ -12,7 +12,10 @@ layer, ``[B, H_kv, max_len, D]``, bf16 or int8 with fp32 per-position scales
   :func:`~merv_tpu_torch.ops.attention.attention_reference` with the key mask,
   a causal offset that is ``None``, a host int, a 0-d or a ``[B]`` tensor, GQA
   by repeat. A row with no valid key gets the reference's mean of V over the
-  whole buffer.
+  whole buffer. With ``return_lse`` it also returns each row's fp32
+  log-sum-exp [B, H, Tq], and a row with no valid key gives 0 with LSE -inf
+  (the sequence-sharded cache's rule: a shard holding none of a row's keys
+  weighs nothing when the shards merge, ``ops/ring_attention.py``).
 - :func:`decode_attention` (``csrc/decode_attention.cu``) computes the same
   function on the card from the cache as it lies, for at most
   ``DECODE_MAX_ROWS`` query rows. It replaces no Pallas kernel: ``merv_tpu``
@@ -30,7 +33,7 @@ from typing import Optional, Union
 import torch
 
 from merv_tpu_torch.ops import _build
-from merv_tpu_torch.ops.attention import _LAUNCHES, _sm_count, attention_reference
+from merv_tpu_torch.ops.attention import _LAUNCHES, _sm_count, attention_reference, flash_attention_forward_plain
 
 DECODE_MAX_ROWS = 16  # query rows per call the kernel takes (and the decoder sends it)
 DECODE_TILE = 16  # keys per tile in the kernel
@@ -57,14 +60,24 @@ def decode_attention_plain(
     causal: bool = False,
     q_offset: Optional[Union[int, torch.Tensor]] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q [B, H, Tq, D]; k/v [B, Hk, Tk, D] (int8 with ``k_scale`` / ``v_scale``
-    [B, Hk, Tk, 1], or any float dtype); kv_mask [B, Tk] bool -> [B, H, Tq, D]."""
+    [B, Hk, Tk, 1], or any float dtype); kv_mask [B, Tk] bool -> [B, H, Tq, D].
+
+    ``return_lse``: (output, fp32 LSE [B, H, Tq]), the flash kernel's plain
+    function (:func:`~merv_tpu_torch.ops.attention.flash_attention_forward_plain`)
+    on the dequantized cache, with -inf where it gives +inf: a row with no
+    valid key gives 0 and -inf."""
     if k_scale is not None:
         k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
     else:
         k, v = k.to(q.dtype), v.to(q.dtype)
-    return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale, q_offset=q_offset)
+    if not return_lse:
+        return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale, q_offset=q_offset)
+    o, lse = flash_attention_forward_plain(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale, q_offset=q_offset,
+                                           return_lse=True)
+    return o, lse.masked_fill(torch.isposinf(lse), float("-inf"))
 
 
 def decode_plan(B: int, Hk: int, rows: int, Tk: int, sms: int, blocks_per_sm: int, max_clusters=None) -> int:
@@ -121,8 +134,11 @@ def decode_attention(
     causal: bool = False,
     q_offset: Optional[Union[int, torch.Tensor]] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """:func:`decode_attention_plain`'s function for ``Tq <= DECODE_MAX_ROWS``.
+    return_lse: bool = False,
+):
+    """:func:`decode_attention_plain`'s function for ``Tq <= DECODE_MAX_ROWS``
+    (with ``return_lse``: the output and the fp32 LSE, and 0 / -inf for a row
+    with no valid key; its launches count under ``decode_attention_lse``).
 
     CUDA: ``csrc/decode_attention.cu`` (bf16 q; bf16 cache, or int8 with fp32
     scales; D in {64, 128}; H a multiple of Hk; contiguous 16-byte-aligned
@@ -149,7 +165,7 @@ def decode_attention(
         raise ValueError(f"decode_attention: kv_mask {tuple(kv_mask.shape)} != {(B, Tk)}")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, k_scale, v_scale, kv_mask=kv_mask, causal=causal, q_offset=q_offset,
-                                      scale=scale)
+                                      scale=scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if not 0 < Tq <= DECODE_MAX_ROWS or D not in (64, 128) or H % Hk:
@@ -180,15 +196,17 @@ def decode_attention(
     sms, residency = _sm_count(index), _residency(index, D, int8)
     cluster = decode_plan(B, Hk, H // Hk * Tq, Tk, sms, residency[0] // sms, residency)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.bind("decode_attention", "decode_attention_bf16",
-                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr() if int8 else None,
-            v_scale.data_ptr() if int8 else None, mask_ptr, offs_ptr, out.data_ptr(), B, H, Hk, Tq, Tk, D, int(int8),
-            int(causal), offset, cluster, float(scale), stream,
+            v_scale.data_ptr() if int8 else None, mask_ptr, offs_ptr, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, Hk, Tq, Tk, D, int(int8), int(causal), offset, cluster,
+            float(scale), stream,
         )
     _build.check(lib, rc, "decode_attention")
-    _LAUNCHES["decode_attention"] += 1
-    return out
+    _LAUNCHES["decode_attention_lse" if return_lse else "decode_attention"] += 1
+    return (out, lse) if return_lse else out

@@ -38,8 +38,17 @@ on the slot cache as it lies and, with int8 weights, K4 (``int8_linear``); a
 replay calls no wrapper, so :meth:`_Chunk.run` adds the launches the capture
 recorded to the kernels' counts.
 
-Not ported: the mesh modes (tensor- and sequence-parallel serving, ROADMAP
-A12), which raise ``NotImplementedError``.
+Sequence-parallel serving (``mesh`` with an ``sp`` axis above 1 and the
+decoder's ``sequence_parallel``, ``merv_tpu``'s sp mode): every rank runs the
+same engine on the same requests. The slot cache's rows are rounded up to a
+multiple of sp and sharded on the rows (``CacheShards``: each rank its share
+and a scratch row); per-slot pointers, tokens and the draft history are
+replicated; an admission prefill stays whole on every rank and each rank
+copies the rows it owns into the slot. Each step merges the ranks' attention
+partials by all-reduces, so the chunk is captured only where the exchange can
+be (NCCL; gloo's collectives run eagerly). Only rank 0 returns results and
+calls ``result_callback``. A tensor or pipeline axis raises: both wait for
+the rest of ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ import numpy as np
 import torch
 
 import merv_tpu_torch.ops.attention as A
-from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder, cache_dtype
+from merv_tpu_torch.models.backbones.llm.transformer import CacheShards, KVCache, LlamaDecoder, cache_dtype
 from merv_tpu_torch.models.generation import (
     GenerationConfig,
     VideoPrefix,
@@ -70,6 +79,7 @@ from merv_tpu_torch.models.generation import (
     prefill_with_prefix,
 )
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size, world
 
 overwatch = initialize_overwatch(__name__)
 
@@ -262,9 +272,15 @@ class _DecodeState:
     hist_len: Optional[torch.Tensor] = None  # [slots] long
     k_scale: Optional[torch.Tensor] = None  # [L, slots, H_kv, rows, 1] fp32 (int8 cache)
     v_scale: Optional[torch.Tensor] = None
+    sp: Optional[CacheShards] = None  # the row sharding of a sequence-parallel engine's cache
 
     def cache(self, length: torch.Tensor) -> KVCache:
-        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale)
+        return KVCache(self.k, self.v, length, self.k_scale, self.v_scale, self.sp)
+
+    @property
+    def capacity(self) -> int:
+        """Positions a slot holds: the rows but the scratch row, or the sharded cache's global length."""
+        return self.k.shape[3] - 1 if self.sp is None else self.sp.capacity
 
     def snapshot(self) -> Dict[str, torch.Tensor]:
         """Copies of everything but the cache (a chunk writes cache rows only
@@ -289,10 +305,14 @@ def _insert_into_slot(st: _DecodeState, small: Tuple[torch.Tensor, ...], row: in
     Stale rows past ``n_valid`` from an earlier occupant stay but are dead: the
     key masks never read past ``length[b]``, and decode overwrites them in
     order."""
-    n = min(small[0].shape[3], st.k.shape[3] - 1)  # rows past the real ones hold padding only
+    n = min(small[0].shape[3], st.capacity)  # rows past the real ones hold padding only
     for dst, src in zip((st.k, st.v, st.k_scale, st.v_scale), small):
-        if dst is not None:
+        if dst is None:
+            continue
+        if st.sp is None:
             dst[:, slot, :, :n].copy_(src[:, row, :, :n])
+        else:  # each rank copies the rows it owns
+            st.sp.copy_rows(dst[:, slot], src[:, row], n, 2)
     st.length[slot : slot + 1].copy_(n_valid[row : row + 1])
     st.last_tok[slot : slot + 1].copy_(first[row : row + 1])
 
@@ -330,7 +350,7 @@ def _decode_chunk_spec(decoder: LlamaDecoder, st: _DecodeState, cfg: GenerationC
     dev = st.length.device
     B = st.length.shape[0]
     steps_v = torch.arange(gamma + 1, device=dev)
-    max_rows = st.k.shape[3] - 1  # the real rows: the last is scratch
+    max_rows = st.capacity  # the real rows: the scratch rows hold no position
     hc = st.hist.shape[1]
     for i in range(num_steps):
         draft = _ngram_propose(st.hist, st.hist_len, gamma, ngram, cfg.pad_token_id)  # [B, gamma]
@@ -516,8 +536,9 @@ class ContinuousBatchingEngine:
     ``rng`` is a ``torch.Generator`` on the decoder's device (default: one
     seeded 0); it draws the prefills' first tokens and seeds each chunk's own
     generator. ``config.kv_cache_dtype == "int8"`` keeps the slot cache in
-    int8 with per-position scales. ``mesh`` (serving over a device mesh,
-    ROADMAP A12) raises ``NotImplementedError``.
+    int8 with per-position scales. ``mesh``: sequence-parallel serving (see
+    the module's text); a tensor or pipeline axis raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -545,9 +566,10 @@ class ContinuousBatchingEngine:
     ) -> None:
         if config.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {config.kv_cache_dtype!r}")
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh (tensor- or sequence-parallel) is not ported "
-                                      "yet (ROADMAP A12)")
+        if axis_size(mesh, TENSOR_AXIS) > 1 or axis_size(mesh, PIPE_AXIS) > 1:
+            raise NotImplementedError("serving over a tensor or pipeline mesh axis is not ported yet: tensor "
+                                      "parallelism with the packed layout and parallel/pipeline.py (ROADMAP A12)")
+        self.mesh = mesh
         self.decoder = decoder
         self.device = next(decoder.parameters()).device
         self.num_slots = slots
@@ -645,12 +667,15 @@ class ContinuousBatchingEngine:
         spare_gamma = max(speculative_gamma, 8) if speculative_gamma else 0
         rows = max_len + (spare_gamma + 1 if spare_gamma else 0) + 1
         c = decoder.cfg
+        sp = axis_size(mesh, SEQ_AXIS) if c.sequence_parallel else 1
+        if sp > 1:  # rows sharded over sp: rounded up to tile it, each rank's share with a scratch row of its own
+            rows = -(-(rows - 1) // sp) * sp
         self._cache_dtype = cache_dtype(config.kv_cache_dtype, c.compute_dtype)
-        cache = KVCache.create(c, slots, rows, self._cache_dtype, self.device)
+        cache = KVCache.create(c, slots, rows, self._cache_dtype, self.device, mesh=mesh)
         overwatch.info(f"engine KV cache: {slots} slots x {rows} rows = {_cache_gib(cache):.2f} GiB "
                        f"({_dtype_name(self._cache_dtype)})")
         state = dict(
-            k=cache.k, v=cache.v, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            k=cache.k, v=cache.v, k_scale=cache.k_scale, v_scale=cache.v_scale, sp=cache.sp,
             length=torch.zeros(slots, dtype=torch.long, device=self.device),
             last_tok=torch.full((slots,), config.pad_token_id, dtype=torch.long, device=self.device),
             done=torch.ones(slots, dtype=torch.bool, device=self.device),
@@ -667,6 +692,8 @@ class ContinuousBatchingEngine:
         # fires the moment a request finishes (errors too): frontends persist
         # results as they come, so a crash loses at most the in-flight slots
         self._result_callback = result_callback
+        # every rank of a sequence-parallel engine serves the same requests; rank 0 returns them
+        self._returns_results = cache.sp is None or world()[0] == 0
         self.stats = EngineStats()
 
     # ------------------------------------------------------------------ api
@@ -743,7 +770,7 @@ class ContinuousBatchingEngine:
             t2 = time.perf_counter()
             self.stats.decode_s += t1 - t0
             self.stats.admit_s += t2 - t1
-        return dict(self._results)
+        return dict(self._results) if self._returns_results else {}
 
     # ------------------------------------------------------------ internals
     def _chunk(self, gamma: int) -> _Chunk:
@@ -757,7 +784,7 @@ class ContinuousBatchingEngine:
             self._chunks.popitem(last=False)[1].release()
         seed = int(torch.randint(0, 2**62, (1,), generator=self._rng, device=self._rng.device))
         chunk = _Chunk(self, gamma, seed)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (self._state.sp is None or self._state.sp.ex.capturable):
             chunk.capture(self)
             self.stats.capture_s += chunk.capture_s
         self._chunks[gamma] = chunk
@@ -918,7 +945,7 @@ class ContinuousBatchingEngine:
             error=f"{type(exc).__name__}: {exc}",
         )
         self._results[req.request_id] = res
-        if self._result_callback is not None:
+        if self._result_callback is not None and self._returns_results:
             self._result_callback(res)
 
     @torch.inference_mode()
@@ -1315,7 +1342,7 @@ class ContinuousBatchingEngine:
         out[: len(emitted)] = emitted[: req.max_new_tokens]
         res = RequestResult(req.request_id, out, reason)
         self._results[req.request_id] = res
-        if self._result_callback is not None:
+        if self._result_callback is not None and self._returns_results:
             self._result_callback(res)
 
     # ------------------------------------------------------------- frontends

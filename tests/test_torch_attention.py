@@ -156,7 +156,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     np.testing.assert_allclose(out.numpy(), TA.attention_reference(q[:, :, :1], k, v).numpy(), atol=FP32_TOL, rtol=0)
     assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
                                   "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
-                                  "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0}
+                                  "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0,
+                                  "decode_attention_lse": 0}
 
 
 # ---------------------------------------------------------------------------

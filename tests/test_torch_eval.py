@@ -161,10 +161,17 @@ def test_eval_mcq_on_a_run_directory_matches_script(run_dir, monkeypatch, tmp_pa
     assert len(want) == 6 and _preds(pdir / "dummy_mcq_naive_pred_merge.jsonl") == want
 
 
-@pytest.mark.parametrize("module, flag, item", [(port_mcq, "mesh_seq", "A12"), (port_oe, "mesh_seq", "A12")])
-def test_unported_flags_raise(module, flag, item, tmp_path):
+@pytest.mark.parametrize("module, axis, item", [(port_mcq, "tensor", "ROADMAP A12 step 4"),
+                                                (port_oe, "tensor", "ROADMAP A12 step 4")])
+def test_unported_flags_raise(module, axis, item, tmp_path):
+    """--mesh_seq serves now (tests/test_torch_sp_serving.py); what is left of
+    A12 still raises: a serving mesh with a tensor axis, refused by the
+    drivers' loader before any weight is read."""
+    from merv_tpu_torch.parallel import VirtualMesh
+
+    cfg = module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        module.evaluate(cfg=module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu", **{flag: 2}))
+        module.load_model(cfg, VirtualMesh(1, **{axis: 2}))
 
 
 @pytest.fixture(scope="module")

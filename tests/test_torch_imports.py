@@ -39,6 +39,12 @@ import merv_tpu_torch.benchkit, merv_tpu_torch.bench.decode, merv_tpu_torch.benc
 import merv_tpu_torch.bench.breakdown, merv_tpu_torch.bench.tower_attn, merv_tpu_torch.bench.tower_ops
 import merv_tpu_torch.bench.loader, merv_tpu_torch.bench.vidlm_prefix, merv_tpu_torch.cli.make_randinit_run
 import merv_tpu_torch.cli.export_towers, merv_tpu_torch.cli.preprocess
+import merv_tpu_torch.parallel, merv_tpu_torch.parallel.mesh, merv_tpu_torch.parallel.sharding
+import merv_tpu_torch.ops.ring_attention
+from merv_tpu_torch.parallel import VirtualMesh, activation_mesh
+q = torch.randn(1, 2, 16, 8)
+out = merv_tpu_torch.ops.ring_attention.ring_attention(q, q, q, VirtualMesh(2), causal=True, zigzag=True)
+assert out.shape == q.shape
 from merv_tpu_torch.models.generation import GenerationConfig
 from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
 from merv_tpu_torch import available_models, load_vid
@@ -70,6 +76,10 @@ engine = ContinuousBatchingEngine.for_vidlm(model, slots=2, max_len=128, length_
                                             config=GenerationConfig(max_new_tokens=3, kv_cache_dtype="int8"))
 served = engine.run([Request("c", prompt_text="In: hi\nOut:", video=video, max_new_tokens=3)])
 assert served["c"].finish_reason != "error"
+model.llm_backbone.sequence_parallel = True
+with activation_mesh(VirtualMesh(2)):
+    text = model.generate(video, "In: hi\nOut:", max_new_tokens=4, mesh=VirtualMesh(2))
+assert isinstance(text, str)
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in ("jax", "merv_tpu")]
 assert not loaded, loaded
 print("OK")

@@ -298,10 +298,10 @@ def _decode_raw(q, cache, kw, cluster):
     mask = kw["kv_mask"].contiguous()
     out = torch.empty_like(q)
     lib = _build.bind("decode_attention", "decode_attention_bf16",
-                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     offset = (Tk - Tq if kw["q_offset"] is None else int(kw["q_offset"])) if kw["causal"] else 0
     rc = lib.decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), cache[2].data_ptr() if int8 else None,
-                                   cache[3].data_ptr() if int8 else None, mask.data_ptr(), None, out.data_ptr(), B, H,
+                                   cache[3].data_ptr() if int8 else None, mask.data_ptr(), None, out.data_ptr(), None, B, H,
                                    Hk, Tq, Tk, D, int(int8), int(kw["causal"]), offset, cluster, float(D ** -0.5),
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "decode_attention")

@@ -25,6 +25,7 @@ import merv_tpu_torch.ops.fused_vit_block as TF
 from merv_tpu_torch.ops import _build
 from chip_smoke import (
     LSE_PLANTED_OFFSET,
+    SP_K5_CASES,
     backward_mags,
     fused_args,
     fused_block_mags,
@@ -33,8 +34,10 @@ from chip_smoke import (
     hold_from_plain_forward,
     hold_fused,
     hold_lse,
+    k5_lse_hold,
     patched,
     planted_tower_faults,
+    sp_k5_inputs,
 )
 
 
@@ -552,3 +555,64 @@ def test_a_second_copy_of_a_library_sets_itself_up(cuda, name, tmp_path, monkeyp
     lib.merv_cuda_error_string.restype = ctypes.c_char_p
     monkeypatch.setitem(_build._LIBS, name, lib)
     assert torch.equal(call(), first)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: K5 with its LSE on cache shards, the ring on K2 / K3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SP_K5_CASES, ids=[c[0] for c in SP_K5_CASES])
+def test_decode_attention_lse_on_cache_shards(cuda, case):
+    """Each shard's K5 call with its LSE against the plain version (0 and
+    -inf on a row with no valid key in the shard), at phase 4i(a)'s shapes
+    (``chip_smoke.SP_K5_CASES``: the decode and the verify, bf16 and int8, 3
+    rows over 553-row shards, 4 slots at per-slot offsets, GQA), and the
+    shards merged by LSE against unsharded K5 on the same positions."""
+    import merv_tpu_torch.ops.decode_attention as K5
+    import merv_tpu_torch.ops.ring_attention as R
+
+    x = sp_k5_inputs(case, np.random.default_rng(len(case[0])), cuda)
+    q = x["q"]
+    for sh, kw in zip(x["shards"], x["kws"]):
+        o, lse = K5.decode_attention(q, *sh, return_lse=True, **kw)
+        h = k5_lse_hold(q, *sh, kw, o, lse)
+        assert h["ok"], f"outside the limits: {h}"
+        empty = torch.isneginf(lse)
+        assert not bool(empty.any()) or float(o.float()[empty].abs().max()) == 0.0
+    merged = R.cache_shard_attention(q, x["shards"], x["masks"], R.VirtualRanks(x["n"]), x["rows"],
+                                     causal=x["causal"], q_offset=x["off"])
+    whole = [t for t in x["whole"] if t is not None]
+    ref = K5.decode_attention(q, *whole, **x["kw_whole"])
+    kd, vd = whole[:2] if len(whole) == 2 else (K5.dequantize_kv(whole[0], whole[2], q.dtype),
+                                                K5.dequantize_kv(whole[1], whole[3], q.dtype))
+    _assert_close(merged, ref, K5.decode_attention_plain(q, kd, vd.abs(), **x["kw_whole"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, zigzag, Hk", [(2, False, 4), (4, False, 4), (2, True, 2), (4, True, 4)])
+def test_ring_matches_whole_sequence_kernels(cuda, n, zigzag, Hk):
+    """The ring over n in-process ranks (K2 a block, K3 a block in the
+    backward) against K2 and K3 on the whole sequence, with the launches the
+    block decomposition predicts."""
+    import merv_tpu_torch.ops.ring_attention as R
+    from merv_tpu_torch.parallel import VirtualMesh
+
+    rng = np.random.default_rng(n + 7 * zigzag)
+    S, H = 1024, 4
+    q, do = _bf16(rng, (1, H, S, 128), cuda), _bf16(rng, (1, H, S, 128), cuda)
+    k, v = _bf16(rng, (1, Hk, S, 128), cuda), _bf16(rng, (1, Hk, S, 128), cuda)
+    o_ref, lse_ref = A.flash_attention_forward(q, k, v, causal=True, return_lse=True)
+    grads = A.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=True)
+    perm = torch.as_tensor(R.zigzag_perm(S, n), device=cuda) if zigzag else torch.arange(S, device=cuda)
+    inv = torch.argsort(perm)
+    leaves = tuple(t[:, :, perm].contiguous().requires_grad_() for t in (q, k, v))
+    A.reset_launch_counts()
+    out = R.ring_attention(*leaves, VirtualMesh(n), causal=True, zigzag=zigzag)
+    out.backward(do[:, :, perm].contiguous())
+    counts = A.launch_counts()
+    want = R.ring_block_count(n, True, zigzag)
+    assert (counts["flash_attention_forward"], counts["flash_attention_backward"]) == (want, want)
+    _assert_close(out.detach()[:, :, inv], o_ref, A.flash_attention_forward(q, k, v.abs(), causal=True))
+    for leaf, ref, mag in zip(leaves, grads, backward_mags(q, k, v, lse_ref, do, causal=True)):
+        _assert_close(leaf.grad[:, :, inv], ref, mag)

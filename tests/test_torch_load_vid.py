@@ -135,6 +135,36 @@ def test_tokenizer_without_transformers_is_the_byte_tokenizer(monkeypatch):
     assert isinstance(load_tokenizer("meta-llama/Llama-2-7b-hf"), ByteTokenizer)
 
 
+@pytest.mark.parametrize("where", ["HF_HUB_CACHE", "HF_HOME", "XDG_CACHE_HOME", "absent"])
+def test_tokenizer_is_tried_only_where_its_files_could_be(tmp_path, monkeypatch, where):
+    """``transformers`` is imported and ``AutoTokenizer`` tried only where the
+    tokenizer's files could be found: a snapshot directory in one of the
+    Hugging Face caches; with none, the byte tokenizer at once."""
+    import types
+
+    from merv_tpu_torch.models.backbones.llm import tokenization as T
+
+    for name in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE", "TRANSFORMERS_CACHE", "HF_HOME", "MERV_TPU_ONLINE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    hub = {"HF_HUB_CACHE": tmp_path / "c", "HF_HOME": tmp_path / "h" / "hub",
+           "XDG_CACHE_HOME": tmp_path / "xdg" / "huggingface" / "hub"}.get(where)
+    if hub is not None:
+        (hub / "models--org--tok").mkdir(parents=True)
+        if where != "XDG_CACHE_HOME":
+            monkeypatch.setenv(where, str(hub if where == "HF_HUB_CACHE" else hub.parent))
+    tried = []
+
+    def from_pretrained(*a, **k):
+        tried.append(a[0])
+        raise OSError("no tokenizer files")
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        AutoTokenizer=types.SimpleNamespace(from_pretrained=from_pretrained)))
+    assert isinstance(T.load_tokenizer("org/tok"), ByteTokenizer)
+    assert tried == ([] if where == "absent" else ["org/tok"])
+
+
 # ---------------------------------------------------------------------------
 # tower weights: torch-named state dicts in the three namings
 # ---------------------------------------------------------------------------

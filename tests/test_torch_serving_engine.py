@@ -418,9 +418,14 @@ def test_chunk_graphs_are_bounded(decoders, monkeypatch):
 
 
 def test_refusals(decoders):
+    """The sp mode serves (tests/test_torch_sp_serving.py); a tensor or
+    pipeline axis still raises, naming what is left of ROADMAP A12."""
+    from merv_tpu_torch.parallel import VirtualMesh
+
     _, _, dec = decoders
-    with pytest.raises(NotImplementedError, match="A12"):
-        ContinuousBatchingEngine(dec, mesh=object())
+    for mesh in (VirtualMesh(2, tensor=2), VirtualMesh(1, pipe=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            ContinuousBatchingEngine(dec, mesh=mesh)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         ContinuousBatchingEngine(dec, config=GenerationConfig(kv_cache_dtype="fp8"))
 
