@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
                            --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
-                           --families-only | --zoo-only | --pretrain-only | --bench-only]
+                           --families-only | --zoo-only | --pretrain-only | --train-parallel-only | --bench-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -18,7 +18,9 @@ packed-layout check and phase 4g alone and writes them to
 ``chiprun_out/families.json``; ``--zoo-only`` runs K1's and B3's head-dim-72
 cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``; ``--pretrain-only`` runs B6's head-dim-72 cases and
 phase 5b alone and writes them to ``chiprun_out/pretrain.json``;
-``--bench-only`` runs phase 6 alone and writes it to ``chiprun_out/bench.json``.
+``--train-parallel-only`` runs phase 5c alone and writes it to
+``chiprun_out/train_parallel.json``; ``--bench-only`` runs phase 6 alone and
+writes it to ``chiprun_out/bench.json``.
 ``--small-only`` covers K1's and B3's head-dim-72 cases too.
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
@@ -229,7 +231,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    decode step's logits too, up to the first token that differs (random
    weights leave near ties, and pick ids past the byte tokenizer's range,
    whose text is mostly empty: tokens are compared, not text).
-5. training path: merv-base's align stage at full width and depth (fp32
+5. training path: merv-base's align stage at full width, Llama-2-7B cut to
+   ``TRAIN_LLM_LAYERS`` = 16 of its 32 layers to keep the script within its
+   time limit (phase 5b trains the align stage at full depth) (fp32
    projectors and fusion trained, bf16 towers and LLM frozen) through
    ``get_train_strategy`` -> ``run_setup`` -> ``run_training``: 3 steps of
    global batch 32 (per-device batch 16, accumulation 2), remat on, the loss
@@ -267,6 +271,46 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    head dim 64 at so400m's layers outside it. The finetune
    starts from the align projectors and the resume trains step 2 alone. Step
    and micro-step times, the async saves' copy, write and wait.
+5c. multi-rank training (``train_parallel_path``, also ``--train-parallel-only``):
+   ``python -m torch.distributed.run --nproc_per_node 2`` of this script with
+   ``--train-parallel-worker``, two ranks on the card over gloo (NCCL refuses
+   two ranks on one card), each run on a fresh merv-base (the registry's
+   factories on random weights from one seed, as ``cli/pretrain.py`` builds
+   it) with Llama-2-7B at full width, its depth cut so that the two ranks and
+   this process's world-1 reference share the card (``TP_FINETUNE_LAYERS``,
+   ``TP_ALIGN_LAYERS``), on one global batch of ``TP_GLOBAL_BATCH`` whose rows
+   hold unequal label counts; while they run, this process computes the same
+   runs at world 1, and ``cli/memory_proof.py`` traces merv-full's finetune
+   at 7B over 8 fake ranks on the host. (a) which collectives gloo takes on
+   CUDA tensors; (b) ``fsdp-full-shard`` finetune over fsdp = 2, 2 steps of
+   one micro-batch: step 1's loss and grad norm against world 1's within
+   ``TP_LOSS_REL_TOL`` / ``TP_NORM_REL_TOL`` and planted faults (each rank's
+   own token mean averaged, one rank's shards' norm) outside them, the same
+   start digest of the trainables on every rank, each rank's parameters and
+   AdamW moments 0.48-0.52 of world 1's bytes, launches as ``tp_predicted``
+   gives them, step 2's loss and norm against world 1's step 2 within
+   ``TP_STEP2_REL_TOL``, and the step-1 checkpoint the ranks wrote held
+   against world 1's state after its step 1 (the trainables within
+   ``TP_PARAM_REL_TOL``, both AdamW moments by one-device index within
+   ``TP_GRAD_REL_TOL``, the step counts; a gather in the other rank order and
+   misnumbered moments outside) and resumed by a world-1 strategy, every
+   trainable bit-equal to the file; (c) align at ``--mesh_seq 2`` (the zigzag
+   ring in every layer) through ``cli/pretrain.py``'s ``pretrain()`` on each
+   rank (its mesh, model, sampler by batch coordinate, loader, training loop
+   and rank 0's async sharded saves; ``TP_CLI_ARGS``: 2 steps on a dataset
+   written under ``TP_ROOT``): the same start digest as world 1's, launches as
+   the ring's blocks give them, each rank's first ring K2 (with its LSE) and
+   K3 call of the counted window held against the plain versions after the
+   counts are read, the projectors' and fusion's gradients on one micro-batch
+   of the global batch, taken inside the run before its loop, against world
+   1's within ``TP_GRAD_REL_TOL`` (a gather backward that sums the ranks'
+   gradients outside it), the same finite losses on both ranks, steps 1 and 2
+   logged once and the async step-1 checkpoint and the latest written; (d)
+   finetune at ``--mesh_pipe 2``, 2 steps: each rank holding one of the two
+   layers (half of world 1's layer bytes), launches of its layer once a
+   pipeline micro-batch, step 1's and step 2's loss and norm against world
+   1's; (e) the memory proof's per-rank peak by category and whether it fits
+   the card. The phase prints its seconds and deletes ``TP_ROOT``.
 6. the bench and tooling modules (``bench_path``): each of
    ``merv_tpu_torch/bench/`` once on the card at full width, in a process of
    its own (``BENCH_PARALLEL`` at once: this phase checks them, it does not
@@ -293,7 +337,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    ``launches_loaded`` from 4c's request, ``launches_eval`` from each of
    4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
    ``launches_families`` from each of 4g's requests, ``launches_zoo`` from
-   each of 4h's, ``launches_pretrain`` from each of 5b's runs, ``launches_bench`` from each of phase
+   each of 4h's, ``launches_pretrain`` from each of 5b's runs, ``launches_train_parallel`` from each rank
+   of each of 5c's runs, ``launches_bench`` from each of phase
    6's processes (per serving phase and tower_attn implementation); B6's head-dim-72
    instance as ``fused_vit_attn_block_d72``, its launches from 5b's align run), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -368,15 +413,19 @@ SUFFIX_LENGTHS = (64, 57, 49, 41, 36, 30, 23, 12)
 STATS_REL_TOL = 1e-5
 # training path (merv-base align stage): the recipe's global batch 32 over 3
 # steps (the first at lr 0, untimed), the streamed loss's token block, the
+# LLM's depth (16 of Llama-2-7B's 32 layers: the cut that keeps the script
+# within its time limit; phase 5b trains the align stage at full depth), the
 # kernel launches one micro-step makes (K1: 23 DINOv2 + 23 LanguageBind
-# layers; K2: 12 ViViT layers + 32 LLM layers twice, the forward and its
-# recompute under remat; the backward: 32 LLM layers), and the limits of the
+# layers; K2: 12 ViViT layers + the LLM's layers twice, the forward and its
+# recompute under remat; the backward: the LLM's layers), and the limits of the
 # kernels-vs-plain comparison on one micro-batch (relative difference of the
 # loss, relative L2 difference of the projectors' and the fusion's gradients)
 TRAIN_GLOBAL_BATCH = 32
 TRAIN_STEPS = 3
 TRAIN_LOSS_CHUNK = 256
-TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 76, "flash_attention_backward": 32,
+TRAIN_LLM_LAYERS = 16
+TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forward": 12 + 2 * TRAIN_LLM_LAYERS,
+                                 "flash_attention_backward": TRAIN_LLM_LAYERS,
                                  "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
                                  "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0,
                                  "decode_attention_lse": 0}
@@ -1655,21 +1704,27 @@ def decode_step_probe(dev, seed: int, cache_rows: int = 1120, prompt: int = 1080
 # ---------------------------------------------------------------------------
 
 
-def build_merv_base(dev, seed: int, projector_dtype=None):
+def build_merv_base(dev, seed: int, projector_dtype=None, llm_layers=None):
     """merv-base on random weights from a seeded generator on the card: towers
     and LLM stored in bf16; projectors and fusion in ``projector_dtype``
-    (bf16 to serve, fp32 to train them)."""
+    (bf16 to serve, fp32 to train them); the LLM cut to ``llm_layers`` where
+    given (full width)."""
     import dataclasses
 
     import torch
 
+    import merv_tpu_torch.models.backbones.llm.base_llm as base_llm
     from merv_tpu_torch.benchkit import build_merv
     from merv_tpu_torch.conf import MERV_Base
     from merv_tpu_torch.device import make_generator
 
     cfg = MERV_Base()
-    vidlm = build_merv(dataclasses.asdict(cfg), device=dev, generator=make_generator(dev, seed),
-                       projector_dtype=projector_dtype or torch.bfloat16)
+    spec = base_llm.LLM_SPECS[cfg.llm_backbone_id]
+    if llm_layers is not None:
+        spec = dataclasses.replace(spec, decoder_config=dataclasses.replace(spec.decoder_config, num_layers=llm_layers))
+    with patched((base_llm, "LLM_SPECS", dict(base_llm.LLM_SPECS, **{cfg.llm_backbone_id: spec}))):
+        vidlm = build_merv(dataclasses.asdict(cfg), device=dev, generator=make_generator(dev, seed),
+                           projector_dtype=projector_dtype or torch.bfloat16)
     return cfg, vidlm.eval()
 
 
@@ -3213,6 +3268,10 @@ def sp_path(dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVE_RUN = "chip_smoke_serve"  # runs/<SERVE_RUN> (the run directory); its request and result files beside it
+# a serve process's share of the card: its peak allocation reads 22.65 GiB, but with the caching allocator's default
+# segments it reserved 32.8 GiB at its peak (NVIDIA H100 80GB HBM3; PERF.md section 6), so three at once (this
+# process holding 0.06 GiB) ran out of the card's 79.2; on expandable segments it reserves little beyond that
+SERVE_PROCESS_GIB = 25.5
 SERVE_MAX_NEW_TOKENS = 64
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 2048  # merv-full's llm_max_length, as eval_openended --use_engine sizes its engine
@@ -3289,9 +3348,10 @@ def serve_request_file(path: str, vidlm) -> list:
 
 
 def run_serve_process(argv: list) -> tuple:
-    """``python -m merv_tpu_torch.cli.serve`` in a fresh process -> (exit code, stdout, stderr)."""
+    """``python -m merv_tpu_torch.cli.serve`` in a fresh process -> (exit code, stdout, stderr), its caching
+    allocator on expandable segments (SERVE_PROCESS_GIB)."""
     proc = subprocess.run([sys.executable, "-m", "merv_tpu_torch.cli.serve"] + argv, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=600, env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
     return proc.returncode, proc.stdout, proc.stderr
 
 
@@ -3500,9 +3560,16 @@ def engine_path(dev, seed: int) -> dict:
         del vidlm
         gc.collect()
         torch.cuda.empty_cache()
-        # the three serve processes at once (~21 GiB each on the card), as phase 6 runs its benches: the whole script
-        # stays within its time with phase 4i added; their walls and rates are read under each other's load
-        with concurrent.futures.ThreadPoolExecutor(len(SERVE_RUNS)) as pool:
+        # the serve processes at once, as phase 6 runs its benches, as many as the card's free memory holds at
+        # SERVE_PROCESS_GIB each; their walls and rates are read under each other's load
+        free, total = torch.cuda.mem_get_info()
+        free_gib = free / 2**30
+        at_once = max(1, min(len(SERVE_RUNS), int(free_gib // SERVE_PROCESS_GIB)))
+        card_memory = dict(free_gib=free_gib, total_gib=total / 2**30,
+                           this_allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                           this_reserved_gib=torch.cuda.memory_reserved() / 2**30)
+        log(f"[engine] before the serve processes: {card_memory}: {at_once} serve processes at once")
+        with concurrent.futures.ThreadPoolExecutor(at_once) as pool:
             runs = list(pool.map(lambda run: serve_run(run[0], run[1], requests, request_path), SERVE_RUNS))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
@@ -3511,7 +3578,9 @@ def engine_path(dev, seed: int) -> dict:
                 os.remove(path)
     wall = time.perf_counter() - t0
     log(f"[engine] phase 4e: {wall:.1f} s")
-    return dict(wall_s=wall, chunks=chunks, checks=checks, peak_memory_gib=peak_gib, runs=runs)
+    log(f"[engine] serve processes' peaks, allocated / reserved GiB: "
+        f"{ {r['label']: (r['summary']['peak_memory_gib'], r['summary']['peak_reserved_gib']) for r in runs} }")
+    return dict(wall_s=wall, chunks=chunks, checks=checks, peak_memory_gib=peak_gib, runs=runs, card_memory=card_memory)
 
 
 # ---------------------------------------------------------------------------
@@ -4449,8 +4518,8 @@ def profile_micro_step(vidlm, transforms, batch) -> dict:
 
 def train_path(dev, seed: int, run_dir: str):
     """merv-base's align stage through get_train_strategy -> run_setup ->
-    run_training at full width and depth, then the checks of the module
-    docstring's phase 5."""
+    run_training at full width, the LLM at TRAIN_LLM_LAYERS, then the checks
+    of the module docstring's phase 5."""
     import gc
     import shutil
 
@@ -4465,7 +4534,7 @@ def train_path(dev, seed: int, run_dir: str):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, vidlm = build_merv_base(dev, seed, projector_dtype=torch.float32)
+    cfg, vidlm = build_merv_base(dev, seed, projector_dtype=torch.float32, llm_layers=TRAIN_LLM_LAYERS)
     per_device_batch, global_batch, max_steps = cfg.align_per_device_batch_size, TRAIN_GLOBAL_BATCH, TRAIN_STEPS
     vidlm.train()
     vidlm.freeze_backbones("align")
@@ -4601,8 +4670,8 @@ def train_path(dev, seed: int, run_dir: str):
     rel_loss = abs(loss - ref_loss) / abs(ref_loss)
     rel_grads = {k: ((grads[k] - ref_grads[k]).norm() / ref_grads[k].norm()).item() for k in grads}
     held = held_micro_step()
-    log(f"[train] kernels vs plain, one micro-batch of 1 at full depth: loss {loss:.6f} vs {ref_loss:.6f} "
-        f"(relative {rel_loss:.3e}, tol {TRAIN_LOSS_REL_TOL}); gradient relative L2 {rel_grads} "
+    log(f"[train] kernels vs plain, one micro-batch of 1 at {TRAIN_LLM_LAYERS} LLM layers: loss {loss:.6f} vs "
+        f"{ref_loss:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_REL_TOL}); gradient relative L2 {rel_grads} "
         f"(tol {TRAIN_GRAD_REL_TOL}); {held['calls']} backward-kernel calls held: {show(held)}")
     if not rel_loss <= TRAIN_LOSS_REL_TOL or not all(r <= TRAIN_GRAD_REL_TOL for r in rel_grads.values()):
         raise RuntimeError("the kernel path's loss or gradients differ from the plain path's beyond their limits")
@@ -4956,6 +5025,21 @@ def pretrain_final_checks(records: list) -> None:
                            f"route's, limit {PRETRAIN_TOWER_REL_L2} (B6 within it, the planted fault outside): {tower}")
 
 
+def dataset_video_patches(seed: int) -> tuple:
+    """(the backend that opens the demo video or "synthetic", what each backend
+    gave, the patches under which the datasets read its copies): where no
+    decoder opens it, seeded frames of its decoded shape."""
+    _, frames_from, decoders = demo_video(seed)
+    if frames_from != "synthetic":
+        return frames_from, decoders, []
+    import numpy as np
+
+    import merv_tpu_torch.preprocessing.datasets.datasets as DS
+
+    frames = np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
+    return frames_from, decoders, [(DS, "load_video", lambda path, num_frames=8, **kw: frames[:num_frames])]
+
+
 def pretrain_path(dev, seed: int) -> dict:
     """Phase 5b: ``cli/pretrain.py``'s ``pretrain()`` in process under
     MERV_TPU_FUSED_VIT_BLOCK=1 on a dataset written to ``PRETRAIN_ROOT``:
@@ -4986,16 +5070,8 @@ def pretrain_path(dev, seed: int) -> dict:
         os.environ.pop(name, None)
     out = dict(dataset=write_pretrain_dataset(PRETRAIN_ROOT, seed, n_align=64, n_finetune=32),
                disk_free_gib=shutil.disk_usage(PRETRAIN_ROOT).free / 2**30)
-    _, frames_from, decoders = demo_video(seed)
+    frames_from, decoders, synthetic = dataset_video_patches(seed)
     out["frames_from"] = frames_from
-    synthetic = []
-    if frames_from == "synthetic":  # no decoder opens the file here: seeded frames of the decoded shape
-        import numpy as np
-
-        import merv_tpu_torch.preprocessing.datasets.datasets as DS
-
-        frames = np.random.default_rng(seed + 3).integers(0, 256, size=SYNTHETIC_FRAMES, dtype=np.uint8)
-        synthetic.append((DS, "load_video", lambda path, num_frames=8, **kw: frames[:num_frames]))
     log(f"[pretrain] dataset {out['dataset']} at {PRETRAIN_ROOT}; frames from {frames_from} ({decoders}); "
         f"{out['disk_free_gib']:.1f} GiB free on its disk")
     records, held_shapes = [], set()
@@ -5074,6 +5150,861 @@ def pretrain_path(dev, seed: int) -> dict:
         f"{records[2]['same_bits_as_straight_run']}")
     pretrain_final_checks(records)
     return out
+
+# ---------------------------------------------------------------------------
+# phase 5c: multi-rank training (two ranks on the card over gloo), against world 1 in this process
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_ROOT = os.path.join("runs", "chip_smoke_train_parallel")
+# Llama-2-7B at full width (hidden 4,096, 32 heads), its depth cut because two ranks and this process's world-1
+# reference share the one card: 2 layers for the finetune runs (the pipeline puts one on each stage), 4 for align
+TP_FINETUNE_LAYERS = 2
+TP_ALIGN_LAYERS = 4
+# the global batch: one micro-batch in the finetune runs (world 1 and a pp rank 8 rows, an fsdp rank 4: FSDP2 gathers
+# and reduce-scatters once a step), two in the align runs (world 1 and an sp rank 4 rows a micro-step)
+TP_GLOBAL_BATCH = 8
+TP_TEXT_TOKENS = 256  # + merv-base's 1,024 visual tokens = 1,280, a multiple of 2 sp = 4 (the zigzag ring)
+TP_PADS = (0, 37, 5, 120, 0, 64, 11, 200)  # each row's right padding: the data ranks hold unequal label counts
+# step 1 on two ranks against the same global batch and init at world 1 (this process), relative: the loss and the
+# global norm before the clip; the projectors' and fusion's gradients on one micro-batch under sp = 2, relative L2.
+# Each limit sits between what the runs read and what a planted fault reads on the same step (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md, section 6). The loss: fsdp 8.5e-8, pp 0 (the same kernels on the same rows; only fp32 sums reorder),
+# each data rank's own token mean averaged 5.3e-5 to 7.8e-5 (at random init every token's loss is near ln 32,000, so
+# that fault moves the loss little). The norm: fsdp 2.3e-6 to 4.0e-6, pp 3.4e-6 to 5.4e-6, one rank's shards alone
+# 0.29. The gradients: the
+# projectors 1.3e-2, the fusion 5.1e-3 (bf16 ring blocks merged in fp32, against whole-sequence K2), a gather
+# backward that sums the ranks' gradients 1.0
+TP_LOSS_REL_TOL = 5e-6
+TP_NORM_REL_TOL = 1e-4
+TP_GRAD_REL_TOL = 5e-2
+# step 2 against world 1's step 2, relative: after one AdamW step, whose update lr * m / sqrt(v) is about lr a weight
+# whatever the gradient's size, the runs part where a gradient near 0 takes the other sign: fsdp read 6.6e-7 (loss)
+# and 3.7e-5 (norm), pp 2.8e-5 and 5.3e-6, where a lost step-1 update moves the loss by 1e-1
+TP_STEP2_REL_TOL = 1e-3
+# (b)'s step-1 checkpoint, written by the two ranks, against world 1's state after its step 1 (relative L2 over all
+# tensors of a kind): the trainables part only where an update's sign flips (a whole step is lr 2e-5 against weights
+# of std 2e-2, 1e-3 of them), read 6.8e-7; the AdamW moments (0.1 g and 1e-3 g^2) part as the gradients do, within
+# TP_GRAD_REL_TOL, read 2.3e-3 and 4.3e-3; a gather that puts the ranks' shards in the other order, or moments under
+# other indices, read 1.17 to 1.42
+TP_PARAM_REL_TOL = 1e-3
+# (c) runs cli/pretrain.py: merv-base's align stage on TP_ROOT's dataset, its text cut to TP_TEXT_TOKENS (the
+# collator pads every row to it), 2 steps at per-device batch 4, a checkpoint every step (async, from rank 0)
+TP_CLI_ARGS = ["--model.type", "merv-base", "--model.llm_max_length", str(TP_TEXT_TOKENS),
+               "--model.align_max_steps", "2", "--model.align_global_batch_size", str(TP_GLOBAL_BATCH),
+               "--model.align_per_device_batch_size", "4", "--dataset.dataset_root_dir", TP_ROOT,
+               "--dataset.align_stage_components", "[align.json,media]", "--stage", "align",
+               "--run_root_dir", os.path.join(TP_ROOT, "runs"), "--save_checkpoint_after", "1",
+               "--trackers", "[jsonl]"]
+
+
+def tp_model(dev, seed: int, stage: str, layers: int, **parallel):
+    """merv-base from the registry's factories on random weights from ``seed``
+    (as ``cli/pretrain.py`` builds it, so every rank starts from the same
+    bits), Llama-2-7B cut to ``layers``, frozen for ``stage``."""
+    import dataclasses
+
+    import merv_tpu_torch.models.backbones.llm.base_llm as base_llm
+    from merv_tpu_torch.conf import MERV_Base
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.models import materialize as MZ
+
+    cfg = MERV_Base()
+    g = make_generator(dev, seed)
+    towers, transforms = MZ.get_video_backbone_and_transform(cfg.video_backbone_ids, cfg.image_resize_strategy,
+                                                             cfg.num_frames, device=dev, generator=g)
+    spec = base_llm.LLM_SPECS[cfg.llm_backbone_id]
+    spec = dataclasses.replace(spec, decoder_config=dataclasses.replace(spec.decoder_config, num_layers=layers))
+    with patched((base_llm, "LLM_SPECS", dict(base_llm.LLM_SPECS, **{cfg.llm_backbone_id: spec}))):
+        llm, _ = MZ.get_llm_backbone_and_tokenizer(cfg.llm_backbone_id, llm_max_length=cfg.llm_max_length,
+                                                   device=dev, generator=g, **parallel)
+    vidlm = MZ.get_vidlm(cfg.model_id, cfg.arch_specifier, cfg.feature_fusion, towers, llm,
+                         projector_token_length=cfg.projector_token_length,
+                         visual_feature_length=cfg.visual_feature_length, device=dev, generator=g)
+    vidlm.freeze_backbones(stage)
+    return cfg, vidlm, transforms
+
+
+def tp_batch(dev, vidlm, transforms, seed: int) -> dict:
+    """The global batch, the same on every process: uint8 frames at each
+    tower's host geometry, TP_TEXT_TOKENS text tokens (ids below 32,000, the
+    tokenizer's) right-padded by TP_PADS."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 11)
+    B, T = TP_GLOBAL_BATCH, TP_TEXT_TOKENS
+    ids = rng.integers(3, min(32000, vidlm.llm_backbone.decoder.cfg.vocab_size), size=(B, T))
+    ids[:, 0] = 1
+    mask = np.ones((B, T), np.int64)
+    for b, pad in enumerate(TP_PADS):
+        if pad:
+            ids[b, T - pad:], mask[b, T - pad:] = 0, 0
+    labels = np.where(mask == 1, ids, -100)
+    labels[:, 0] = -100
+    videos = [torch.from_numpy(rng.integers(0, 256, size=(B, vb.num_frames, tf.target_size, tf.target_size, 3),
+                                            dtype=np.uint8)).to(dev) for vb, tf in zip(vidlm.video_backbones, transforms)]
+    return dict(input_ids=torch.from_numpy(ids).to(dev), attention_mask=torch.from_numpy(mask).to(dev),
+                labels=torch.from_numpy(labels).to(dev), is_multimodal=torch.ones(B, dtype=torch.bool, device=dev),
+                video_values=videos)
+
+
+def tp_rows(batch: dict, accum: int, coord: int, ranks: int) -> dict:
+    """A rank's part of the global batch: the rows of each of the ``accum``
+    micro-batches at its batch coordinate (``merv_tpu``'s [accum, micro]
+    layout, the micro-batch split over the batch ranks)."""
+    import torch
+
+    micro = TP_GLOBAL_BATCH // accum
+    per = micro // ranks
+    rows = torch.cat([torch.arange(i * micro + coord * per, i * micro + (coord + 1) * per) for i in range(accum)])
+
+    def cut(x):
+        return [cut(e) for e in x] if isinstance(x, list) else x[rows.to(x.device)]
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def tp_strategy(name: str, vidlm, cfg, stage: str, per_device: int, mesh, transforms, run_dir: str):
+    from merv_tpu_torch.training import get_train_strategy
+
+    p = "align" if stage == "align" else "finetune"
+    strategy = get_train_strategy(
+        name, vidlm, stage=stage, max_steps=2, global_batch_size=TP_GLOBAL_BATCH, per_device_batch_size=per_device,
+        learning_rate=getattr(cfg, f"{p}_learning_rate"), weight_decay=getattr(cfg, f"{p}_weight_decay"),
+        max_grad_norm=getattr(cfg, f"{p}_max_grad_norm"), lr_scheduler_type="constant",
+        enable_gradient_checkpointing=True, loss_chunk_size=TRAIN_LOSS_CHUNK, mesh=mesh)
+    strategy.run_setup(run_dir, n_train_examples=TP_GLOBAL_BATCH, video_transforms=transforms)
+    return strategy
+
+
+def tp_local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def tp_bytes(vidlm, tx) -> dict:
+    """The bytes this rank keeps: its parameters (its shards), their AdamW
+    moments, and its decoder layers' parameters."""
+    params = sum(tp_local(p).numel() * p.element_size() for p in vidlm.parameters())
+    moments = sum(tp_local(v).numel() * v.element_size() for st in tx.adamw.state.values() for v in st.values()
+                  if v.dim())
+    layers = sum(tp_local(p).numel() * p.element_size() for n, p in vidlm.named_parameters()
+                 if n.startswith("llm_backbone.decoder.layers."))
+    return dict(params=params, optimizer=moments, params_and_optimizer=params + moments, llm_layers=layers)
+
+
+def tp_hash(vidlm, names) -> str:
+    """A digest of the named parameters' whole values (gathered where sharded: collective)."""
+    from merv_tpu_torch.parallel.sharding import full_tensor
+
+    h = hashlib.sha256()
+    params = dict(vidlm.named_parameters())
+    for n in names:
+        t = full_tensor(params[n].detach()).float().cpu().contiguous()
+        h.update(n.encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tp_steps(strategy, batch, steps: int, record: dict) -> list:
+    """``steps`` train steps of the strategy on this rank's batch: each step's
+    loss and grad norm. ``record`` gets what the planted faults' readings are
+    computed from, with no launch of their own: each step's norm of this
+    rank's shards alone (``local_norms``), and each micro-step's label tokens
+    on this rank and on the whole micro-batch and this rank's loss share
+    (``micro_steps``)."""
+    import torch
+
+    import merv_tpu_torch.models.vidlms.merv as M
+
+    tx, norm, count = strategy.tx, strategy.tx.global_norm, M.global_token_count
+    record.setdefault("local_norms", [])
+    micro = record.setdefault("micro_steps", [])
+
+    def recorded_norm():
+        grads = [tp_local(p.grad) for p in tx.params if p.grad is not None]
+        record["local_norms"].append(torch.sqrt(sum(g.float().square().sum() for g in grads)).item())
+        return norm()
+
+    def counted(c):
+        whole = count(c)
+        micro.append(dict(tokens=int(c), whole=int(whole)))
+        return whole
+
+    def loss_seen(module, args, out):
+        if out.get("loss") is not None and micro and "share" not in micro[-1]:
+            micro[-1]["share"] = float(out["loss"].detach())
+
+    hook = strategy.vidlm.register_forward_hook(loss_seen)
+    out = []
+    try:
+        with patched((tx, "global_norm", recorded_norm), (M, "global_token_count", counted)):
+            for _ in range(steps):
+                m = strategy.step_fn(batch)
+                out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+    finally:
+        hook.remove()
+    return out
+
+
+def tp_rank_mean_loss(ranks: list, step: int, accum: int) -> float:
+    """The planted fault of the loss over data ranks: each rank's own token
+    mean averaged over the ranks, in place of the mean over the whole
+    micro-batch, from the ranks' recorded micro-steps of ``step`` (0-based)."""
+    per = []
+    for i in range(step * accum, (step + 1) * accum):
+        ms = [r["record"]["micro_steps"][i] for r in ranks]
+        per.append(sum(m["share"] * m["whole"] / m["tokens"] for m in ms) / len(ms))
+    return sum(per) / len(per)
+
+
+def gloo_probe(dev) -> dict:
+    """Which collectives gloo takes on CUDA tensors on this card, each on a
+    group of its own, with DDP's bucketed all-reduce. Not send / receive:
+    gloo's send of a CUDA tensor aborts the process (an uncaught
+    ``gloo::IoException`` in its I/O thread, on the H100 with torch 2.11); the port stages
+    those through the host (the ring's shift, the pipeline's hand-off)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4, 8), float(rank + 1), device=dev)
+
+    def ddp(group):
+        m = torch.nn.Linear(16, 4, device=dev)
+        torch.nn.parallel.DistributedDataParallel(m, process_group=group)(torch.randn(3, 16, device=dev)).sum().backward()
+
+    cases = {
+        "all_reduce": lambda g: dist.all_reduce(x.clone(), group=g),
+        "broadcast": lambda g: dist.broadcast(x.clone(), src=n - 1, group=g),
+        "all_gather": lambda g: dist.all_gather([torch.empty_like(x) for _ in range(n)], x, group=g),
+        "all_gather_into_tensor": lambda g: dist.all_gather_into_tensor(torch.empty(n * 4, 8, device=dev), x, group=g),
+        "reduce_scatter_tensor": lambda g: dist.reduce_scatter_tensor(torch.empty(4 // n, 8, device=dev), x, group=g),
+        "ddp_buckets": ddp,
+    }
+    out = {"send_recv": "not probed (aborts the process); staged through the host"}
+    for name, fn in cases.items():
+        group = dist.new_group(backend="gloo")
+        try:
+            fn(group)
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as e:  # noqa: BLE001 -- what gloo refuses is the reading
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+class RingRecorder:
+    """Keeps this rank's first ring K2 call (with its LSE) and last K3 call of
+    the counted window, inputs and outputs, for ``hold`` after the counts are
+    read (as ``SpRecorder`` does for K5). The last K3 call is the first
+    layer's: the backward's first calls are the last layer's, whose early
+    rows (BOS and the visual tokens, ignored by the loss) get a zero gradient."""
+
+    def __init__(self):
+        self.k2 = self.k3 = None
+
+    @contextlib.contextmanager
+    def active(self):
+        import merv_tpu_torch.ops.attention as A
+
+        fwd, bwd = A.flash_attention_forward, A.flash_attention_backward
+        keep = lambda t: t.detach().clone() if hasattr(t, "detach") else t  # noqa: E731
+
+        def k2(q, k, v, **kw):
+            out = fwd(q, k, v, **kw)
+            if kw.get("return_lse") and q.shape[-1] == 128 and self.k2 is None:
+                self.k2 = dict(args=tuple(keep(t) for t in (q, k, v)), kw=dict(kw), out=tuple(keep(t) for t in out))
+            return out
+
+        def k3(q, k, v, o, lse, do, **kw):
+            out = bwd(q, k, v, o, lse, do, **kw)
+            self.k3 = dict(args=tuple(keep(t) for t in (q, k, v, o, lse, do)), kw=dict(kw),
+                           out=tuple(keep(t) for t in out))
+            return out
+
+        with patched((A, "flash_attention_forward", k2), (A, "flash_attention_backward", k3)):
+            yield
+
+    def holds(self) -> dict:
+        import merv_tpu_torch.ops.attention as A
+
+        out = {}
+        if self.k2 is not None:
+            q, k, v = self.k2["args"]
+            kw = {key: val for key, val in self.k2["kw"].items() if key != "return_lse"}
+            o_ref, lse_ref = A.flash_attention_forward_plain(q, k, v, return_lse=True, **kw)
+            mag = A.flash_attention_forward_plain(q, k, v.abs(), **kw)
+            h, hl = hold(self.k2["out"][0], o_ref, mag), hold_lse(self.k2["out"][1], lse_ref)
+            out["k2"] = dict(q=list(q.shape), k=list(k.shape), causal=kw.get("causal"), ok=h["ok"] and hl["ok"],
+                             worst_share_of_limit=h["worst_share_of_limit"], mean_share=h["mean_share"],
+                             lse_worst_share_of_limit=hl["worst_share_of_limit"])
+        if self.k3 is not None:
+            q, k, v, o, lse, do = self.k3["args"]
+            h = hold_backward(q, k, v, o, lse, do, self.k3["out"], **self.k3["kw"])
+            out["k3"] = dict(q=list(q.shape), k=list(k.shape), causal=self.k3["kw"].get("causal"), ok=h["ok"],
+                             worst_share_of_limit=h["worst_share_of_limit"], worst_mean_share=h["worst_mean_share"])
+        self.k2 = self.k3 = None
+        return out
+
+
+def tp_grads(strategy, batch, rows: int, transforms) -> dict:
+    """The trainables' gradients (whole, on the host) of one micro-batch (the
+    first ``rows`` rows of ``batch``) at the current weights, through the
+    strategy's own loss function and, on a mesh, its loss scale and sums."""
+    import torch
+
+    from merv_tpu_torch.parallel.sharding import activation_mesh, full_tensor
+    from merv_tpu_torch.training.train_step import make_loss_fn, micro_batch
+
+    sh = strategy.sharding
+    module = strategy.vidlm if sh is None else sh.module
+    loss_fn = make_loss_fn(module, remat=True, video_transforms=transforms, loss_chunk_size=TRAIN_LOSS_CHUNK)
+    strategy.tx.zero_grad()
+    mb = micro_batch(batch, 0, batch["labels"].shape[0] // rows)
+    with (contextlib.nullcontext() if sh is None else activation_mesh(sh.mesh)):
+        loss = loss_fn(mb)
+        (loss * (1.0 if sh is None else sh.backward_scale)).backward()
+    if sh is not None:
+        sh.sync_grads(strategy.tx.params)
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad) for n, p in strategy.tx.named_params.items()}
+    out = {n: full_tensor(g.detach()).float().cpu() for n, g in grads.items()}
+    strategy.tx.zero_grad()
+    return out
+
+
+def tp_counts_reset():
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.ring_attention as R
+    import merv_tpu_torch.parallel.pipeline as PP
+
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    R.reset_collective_counts()
+    PP.reset_collective_counts()
+
+
+def tp_counts() -> dict:
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.ring_attention as R
+    import merv_tpu_torch.parallel.pipeline as PP
+
+    torch.cuda.synchronize()
+    return dict(launches={k: n for k, n in A.launch_counts().items() if n},
+                collectives={**{k: n for k, n in R.COLLECTIVES.items() if n},
+                             **{k: n for k, n in PP.COLLECTIVES.items() if n}})
+
+
+def train_parallel_worker(out_dir: str, device_type: str = "cuda") -> int:
+    """One rank of phase 5c, started by ``torch.distributed.run`` (``--train-parallel-worker``):
+    (a) the gloo probe, (b) fsdp-full-shard finetune, (c) align at sp = 2
+    through ``cli/pretrain.py``, (d) finetune at pp = 2, each on a fresh
+    model; results to ``out_dir``."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch.parallel import MeshConfig, build_mesh
+    from merv_tpu_torch.parallel.mesh import batch_rank, batch_size, world
+
+    rank = world()[0]
+    dev = torch.device(device_type)
+    res = {"rank": rank}
+    # the process group starts here
+    mesh = build_mesh(MeshConfig(data=1, fsdp=-1, tensor=1), device_type=device_type, backend="gloo")
+    res["gloo_probe"] = gloo_probe(dev)
+    log(f"[train-parallel rank {rank}] (a) probe done: {res['gloo_probe']}")
+
+    def run(label, stage, layers, strategy_name, mesh, per_device, steps, **parallel):
+        t = time.perf_counter()
+        cfg, vidlm, transforms = tp_model(dev, TP_SEED, stage, layers, **parallel)
+        run_dir = os.path.join(TP_ROOT, label)
+        strategy = tp_strategy(strategy_name, vidlm, cfg, stage, per_device, mesh, transforms, run_dir)
+        trainable = [n for n, t_ in vidlm.trainable_mask().items() if t_]
+        batch = tp_rows(tp_batch(dev, vidlm, transforms, TP_SEED), strategy.grad_accumulation_steps,
+                        batch_rank(mesh), batch_size(mesh))
+        r = dict(label=label, layers=layers, world_size=strategy.world_size,
+                 accum=strategy.grad_accumulation_steps, per_device=per_device, start_hash=tp_hash(vidlm, trainable),
+                 counted_micro_steps=strategy.grad_accumulation_steps * steps, build_s=time.perf_counter() - t)
+        return cfg, vidlm, strategy, batch, r, transforms
+
+    # (b) fsdp-full-shard finetune, fsdp = 2
+    cfg, vidlm, strategy, batch, r, _ = run("fsdp", "finetune", TP_FINETUNE_LAYERS, "fsdp-full-shard", mesh, 4, 1)
+    log(f"[train-parallel rank {rank}] (b) built and sharded in {r['build_s']:.1f} s")
+    r["record"] = {}
+    tp_counts_reset()
+    t = time.perf_counter()
+    r["steps"] = tp_steps(strategy, batch, 1, r["record"])
+    r.update(tp_counts(), wall_s=time.perf_counter() - t)  # step 1 counted; the checkpoint's gathers are not
+    t = time.perf_counter()
+    strategy.save_checkpoint(os.path.join(TP_ROOT, "fsdp"), 1, 0, r["steps"][0]["loss"])
+    r["checkpoint_s"] = time.perf_counter() - t
+    if rank == 0:  # the file is whole: the main process holds it and resumes it while (c) and (d) run
+        open(os.path.join(out_dir, TP_SAVED_MARK), "w").close()
+    r["steps"] += tp_steps(strategy, batch, 1, r["record"])
+    r.update(bytes=tp_bytes(vidlm, strategy.tx), peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    res["fsdp"] = r
+    log(f"[train-parallel rank {rank}] (b) done: {r['steps']}")
+    del cfg, vidlm, strategy, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) align at --mesh_seq 2 through cli/pretrain.py: the ring in every decoder layer
+    res["sp"] = r = tp_cli_run(dev, "sp", ["--mesh_seq", str(TP_RANKS), "--dist_backend", "gloo"])
+    log(f"[train-parallel rank {rank}] (c) done: {r['steps']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) finetune at --mesh_pipe 2: one decoder layer a stage
+    pp_mesh = build_mesh(MeshConfig(data=1, fsdp=-1, tensor=1, pipe=TP_RANKS), device_type=device_type,
+                         backend="gloo")
+    cfg, vidlm, strategy, batch, r, _ = run("pp", "finetune", TP_FINETUNE_LAYERS, "fsdp-full-shard", pp_mesh, 8, 2,
+                                            pipeline_parallel=True)
+    tp_counts_reset()
+    t = time.perf_counter()
+    r["steps"] = tp_steps(strategy, batch, 2, {})
+    r.update(tp_counts(), wall_s=time.perf_counter() - t, bytes=tp_bytes(vidlm, strategy.tx),
+             held_layers=[i for i, layer in enumerate(vidlm.llm_backbone.decoder.layers)
+                          if type(layer).__name__ != "ForeignLayer"],
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    res["pp"] = r
+    log(f"[train-parallel rank {rank}] (d) done: {r['steps']}")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+TP_SEED = 7  # cli/pretrain.py's default seed
+TP_SAVED_MARK = "fsdp_saved"  # rank 0 writes it in the output directory once (b)'s step-1 checkpoint is whole
+
+
+def tp_cli_run(dev, label: str, extra: list) -> dict:
+    """``cli/pretrain.py``'s ``pretrain()`` on this rank with TP_CLI_ARGS +
+    ``extra``, Llama-2-7B cut to TP_ALIGN_LAYERS. Inside its ``run_training``,
+    before the loop: the trainables' digest and, on the rows of ``tp_batch``
+    at this rank's batch coordinate, one micro-batch's gradients (rank 0
+    saves them beside the runs); then the loop with the counters set to 0
+    just before and read just after, its first ring K2 and last K3 call
+    kept, held after the counts are read."""
+    import dataclasses
+
+    import torch
+
+    import merv_tpu_torch.models.backbones.llm.base_llm as base_llm
+    import merv_tpu_torch.training.strategies.base_strategy as BS
+    from merv_tpu_torch.cli.pretrain import pretrain
+    from merv_tpu_torch.conf import MERV_Base
+    from merv_tpu_torch.parallel.mesh import batch_rank, batch_size, world
+
+    r = dict(label=label, layers=TP_ALIGN_LAYERS,
+             argv=TP_CLI_ARGS + ["--run_id", label, "--seed", str(TP_SEED)] + extra)
+    run_training, rec = BS.TrainingStrategy.run_training, RingRecorder()
+
+    def traced_run_training(self, dataset, collator, metrics, **kw):
+        vidlm = self.vidlm
+        transforms = [vb.get_video_transform() for vb in vidlm.video_backbones]
+        r.update(world_size=self.world_size, accum=self.grad_accumulation_steps, per_device=self.per_device_batch_size,
+                 start_hash=tp_hash(vidlm, [n for n, t_ in vidlm.trainable_mask().items() if t_]))
+        rows = tp_rows(tp_batch(dev, vidlm, transforms, TP_SEED), self.grad_accumulation_steps, batch_rank(self.mesh),
+                       batch_size(self.mesh))
+        grads = tp_grads(self, rows, self.per_device_batch_size, transforms)
+        if world()[0] == 0:  # beside the runs, not in chiprun_out/ (kept small: it is copied back from the card)
+            torch.save(grads, os.path.join(TP_ROOT, f"{label}_grads.pt"))
+        del grads, rows
+        timings = []
+        tp_counts_reset()
+        t = time.perf_counter()
+        with rec.active():
+            run_training(self, dataset, collator, metrics, step_timings=timings, **kw)
+        r.update(tp_counts(), wall_s=time.perf_counter() - t,
+                 counted_micro_steps=self.grad_accumulation_steps * len(timings),
+                 steps=[dict(loss=x["loss"], grad_norm=x["grad_norm"]) for x in timings],
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        r["ring_holds"] = rec.holds()  # past the counted window
+
+    llm_id = MERV_Base().llm_backbone_id
+    spec = base_llm.LLM_SPECS[llm_id]
+    spec = dataclasses.replace(spec, decoder_config=dataclasses.replace(spec.decoder_config,
+                                                                        num_layers=TP_ALIGN_LAYERS))
+    t = time.perf_counter()
+    with patched((base_llm, "LLM_SPECS", dict(base_llm.LLM_SPECS, **{llm_id: spec})),
+                 (BS.TrainingStrategy, "run_training", traced_run_training), *dataset_video_patches(TP_SEED)[2]):
+        strategy = pretrain(args=r["argv"])
+    r["process_s"] = time.perf_counter() - t
+    del strategy
+    return r
+
+
+def tp_start(seed: int):
+    """Write (c)'s dataset under TP_ROOT, then start the two ranks
+    (``torch.distributed.run --nproc_per_node 2 chip_smoke.py
+    --train-parallel-worker``) and the memory proof (on the host, the card
+    hidden from it); their output under ``chiprun_out/train_parallel/``."""
+    import socket
+
+    out_dir = os.path.join("chiprun_out", "train_parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    os.makedirs(out_dir)
+    os.makedirs(TP_ROOT)
+    write_pretrain_dataset(TP_ROOT, seed, n_align=2 * TP_GLOBAL_BATCH, n_finetune=0)  # (c)'s: two steps' examples
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(TP_RANKS), "--master_addr",
+           "localhost", "--master_port", str(port), os.path.abspath(__file__), "--train-parallel-worker", out_dir]
+    logf = open(os.path.join(out_dir, "ranks.log"), "w")
+    ranks = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, text=True,
+                             env=dict(os.environ, PYTHONFAULTHANDLER="1"))  # a crash's Python stack to the log
+    proof_cmd = [sys.executable, "-m", "merv_tpu_torch.cli.memory_proof", "--stage", "finetune", "--model", "merv-full",
+                 "--devices", "8", "--json-out", os.path.abspath(os.path.join(out_dir, "memory_proof.json"))]
+    prooff = open(os.path.join(out_dir, "memory_proof.log"), "w")
+    proof = subprocess.Popen(proof_cmd, stdout=prooff, stderr=subprocess.STDOUT, text=True,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return dict(ranks=ranks, ranks_log=logf, proof=proof, proof_log=prooff, out_dir=out_dir, start=time.perf_counter())
+
+
+def tp_state(tx) -> dict:
+    """A one-device optimizer's state on the host, as its checkpoint holds it:
+    the trainables by name, the AdamW moments by index, the step count."""
+    sd = tx.state_dict()
+    return dict(params={n: p.detach().float().cpu() for n, p in tx.named_params.items()}, count=sd["count"],
+                moments={int(i): {k: v.detach().cpu().clone() for k, v in st.items()}
+                         for i, st in sd["adamw"]["state"].items()})
+
+
+def tp_world1(dev) -> dict:
+    """The references at world 1 in this process: the finetune's two steps
+    (step 1's loss and norm, the state after step 1, the kept bytes, the start
+    digest) and the align model's digest and gradients on the first
+    micro-batch."""
+    import gc
+
+    import torch
+
+    out = {}
+    cfg, vidlm, transforms = tp_model(dev, TP_SEED, "finetune", TP_FINETUNE_LAYERS)
+    strategy = tp_strategy("fsdp-full-shard", vidlm, cfg, "finetune", 8, None, transforms,
+                           os.path.join(TP_ROOT, "world1"))
+    batch = tp_batch(dev, vidlm, transforms, TP_SEED)
+    out["start_hash"] = tp_hash(vidlm, [n for n in strategy.tx.named_params])
+    steps = tp_steps(strategy, batch, 1, {})
+    out["step1_state"] = tp_state(strategy.tx)
+    steps += tp_steps(strategy, batch, 1, {})
+    out["finetune"] = dict(steps=steps, bytes=tp_bytes(vidlm, strategy.tx))
+    del vidlm, strategy
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, vidlm, transforms = tp_model(dev, TP_SEED, "align", TP_ALIGN_LAYERS)
+    strategy = tp_strategy("fsdp-shard-grad-op", vidlm, cfg, "align", 4, None, transforms,
+                           os.path.join(TP_ROOT, "world1_align"))
+    out["align_start_hash"] = tp_hash(vidlm, [n for n in strategy.tx.named_params])
+    out["align_grads"] = tp_grads(strategy, tp_batch(dev, vidlm, transforms, TP_SEED), 4, transforms)
+    del vidlm, strategy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_rel(got: list, want: list) -> float:
+    """Relative L2 of ``got`` against ``want`` over all the tensors together."""
+    num = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(got, want))
+    return math.sqrt(num / sum(float(b.float().square().sum()) for b in want))
+
+
+def halves_swapped(t):
+    """``t`` as a gather that puts two ranks' dim-0 shards in the other order would give it."""
+    import torch
+
+    n = -(-t.shape[0] // 2) if t.dim() else 0
+    return torch.cat([t[n:], t[:n]]) if t.dim() and t.shape[0] > 1 else t
+
+
+def tp_file_checks(saved: dict, want: dict) -> dict:
+    """(b)'s checkpoint file against world 1's state after step 1 (``tp_state``):
+    the trainables and each AdamW moment, relative L2 over all tensors of a
+    kind, the step counts; and the same readings for two planted faults of
+    a sharded save: each tensor's dim-0 halves swapped (a gather in the other
+    rank order), and each moment taken from the next index of its shape (the
+    moments misnumbered)."""
+    params = {f"{key}.{rest}": t for key, sd in saved["model"].items() for rest, t in sd.items()}
+    names = sorted(want["params"])
+    if sorted(params) != names:
+        return dict(ok=False, names=dict(file_only=sorted(set(params) - set(names)),
+                                          world1_only=sorted(set(names) - set(params))))
+    opt = saved["optimizer"]
+    moments = {int(i): st for i, st in opt["adamw"]["state"].items()}
+    out = dict(count=opt["count"], steps=sorted({int(st["step"]) for st in moments.values()}),
+               indices_equal=sorted(moments) == sorted(want["moments"]),
+               shapes_equal=all(moments[i][k].shape == want["moments"][i][k].shape for i in want["moments"]
+                                if i in moments for k in ("exp_avg", "exp_avg_sq")))
+    out["params_rel"] = state_rel([params[n] for n in names], [want["params"][n] for n in names])
+    out["planted_halves_swapped"] = state_rel([halves_swapped(params[n]) for n in names],
+                                              [want["params"][n] for n in names])
+    if out["indices_equal"] and out["shapes_equal"]:
+        idx = sorted(want["moments"])
+        by_shape = {}
+        for i in idx:
+            by_shape.setdefault(tuple(want["moments"][i]["exp_avg"].shape), []).append(i)
+        nxt = {i: g[(g.index(i) + 1) % len(g)] for g in by_shape.values() for i in g}
+        for k in ("exp_avg", "exp_avg_sq"):
+            want_k = [want["moments"][i][k] for i in idx]
+            out[f"{k}_rel"] = state_rel([moments[i][k] for i in idx], want_k)
+            out[f"planted_{k}_misnumbered"] = state_rel([moments[nxt[i]][k] for i in idx], want_k)
+            out[f"planted_{k}_halves_swapped"] = state_rel([halves_swapped(moments[i][k]) for i in idx], want_k)
+    out["ok"] = bool(
+        out["count"] == want["count"] == 1 and out["steps"] == [1] and out["indices_equal"] and out["shapes_equal"]
+        and out["params_rel"] <= TP_PARAM_REL_TOL < out["planted_halves_swapped"]
+        and all(out[f"{k}_rel"] <= TP_GRAD_REL_TOL < min(out[f"planted_{k}_misnumbered"],
+                                                         out[f"planted_{k}_halves_swapped"])
+                for k in ("exp_avg", "exp_avg_sq")))
+    return out
+
+
+def tp_resume_check(dev, want: dict) -> dict:
+    """(b)'s step-1 checkpoint, written by the two ranks: held against world
+    1's state after its step 1 (``tp_file_checks``), and loaded by a world-1
+    strategy: every trainable equal to the file's tensor in every bit."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch.training import get_train_strategy
+    from merv_tpu_torch.training.checkpointing import latest_checkpoint, load_checkpoint
+
+    ckpt = latest_checkpoint(os.path.join(TP_ROOT, "fsdp"))
+    saved = load_checkpoint(ckpt)
+    file_checks = tp_file_checks(saved, want)
+    cfg, vidlm, transforms = tp_model(dev, TP_SEED, "finetune", TP_FINETUNE_LAYERS)
+    strategy = get_train_strategy("fsdp-full-shard", vidlm, stage="finetune", max_steps=2,
+                                  global_batch_size=TP_GLOBAL_BATCH, per_device_batch_size=8,
+                                  learning_rate=cfg.finetune_learning_rate, weight_decay=cfg.finetune_weight_decay,
+                                  max_grad_norm=cfg.finetune_max_grad_norm, lr_scheduler_type="constant")
+    strategy.run_setup(os.path.join(TP_ROOT, "resumed"), n_train_examples=TP_GLOBAL_BATCH,
+                       video_transforms=transforms, resume_from_checkpoint=ckpt)
+    params = dict(vidlm.named_parameters())
+    differ = [f"{key}.{rest}" for key, sd in saved["model"].items() for rest, t in sd.items()
+              if not torch.equal(params[f"{key}.{rest}"].detach().cpu(), t)]
+    moments = sum(1 for st in strategy.tx.adamw.state.values() for v in st.values() if v.dim())
+    out = dict(checkpoint=os.path.basename(ckpt), tensors=sum(len(sd) for sd in saved["model"].values()),
+               differ=differ, resume_step=strategy._resume_step, count=strategy.tx.count, moments=moments,
+               file_gib=os.path.getsize(os.path.join(ckpt, "checkpoint.pt")) / 2**30, against_world1=file_checks)
+    del vidlm, strategy, saved, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_predicted(label: str, r: dict) -> dict:
+    """A rank's launches as the configs give them: the towers' 46 K1 and 12 K2
+    (ViViT) a micro-step; a decoder layer's K2 twice (the forward and its
+    recompute under remat) and K3 once, on the layers the rank runs: all of
+    them (fsdp), each layer's ring blocks on this rank (sp: the zigzag ring's
+    n(n+2) blocks over n ranks, n + 2 a rank), its stage's layers once a
+    pipeline micro-batch (pp)."""
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch.ops.ring_attention import ring_block_count
+
+    micro = r["counted_micro_steps"]
+    if label == "sp":
+        blocks = ring_block_count(TP_RANKS, True, True) // TP_RANKS
+        per_layer = (2 * blocks, blocks)
+        layers = TP_ALIGN_LAYERS
+    elif label == "pp":
+        from merv_tpu_torch.parallel.pipeline import resolve_microbatches
+
+        m = resolve_microbatches(r["per_device"], TP_RANKS)
+        per_layer, layers = (2 * m, m), TP_FINETUNE_LAYERS // TP_RANKS
+    else:
+        per_layer, layers = (2, 1), TP_FINETUNE_LAYERS
+    per = {"small_attention_kt": 46, "flash_attention_forward": 12 + per_layer[0] * layers,
+           "flash_attention_backward": per_layer[1] * layers}
+    return {k: per[k] * micro for k in per if per[k]} | {k: 0 for k in A.launch_counts() if k not in per}
+
+
+def tp_step2(ranks: list, w1: dict) -> dict:
+    """Step 2's loss and norm on every rank against world 1's step 2 (relative)."""
+    rel = {k: max(abs(r["steps"][1][k] - w1["steps"][1][k]) / abs(w1["steps"][1][k]) for r in ranks)
+           for k in ("loss", "grad_norm")}
+    return dict(rel, ok=all(v <= TP_STEP2_REL_TOL for v in rel.values()))
+
+
+def tp_cli_outputs(label: str) -> dict:
+    """What (c)'s ``cli/pretrain.py`` run left in its run directory: the steps
+    of its metrics file (rank 0 alone writes it), whether its step-1
+    checkpoint (written async) and ``latest-checkpoint`` have their meta.json."""
+    from merv_tpu_torch.training.checkpointing import latest_checkpoint
+
+    run_dir = os.path.join(TP_ROOT, "runs", label)
+    ckpts = os.path.join(run_dir, "checkpoints")
+    step1 = [d for d in sorted(os.listdir(ckpts)) if d.startswith("step-000001-")]
+    latest = latest_checkpoint(run_dir)
+    return dict(logged_steps=[json.loads(x)["Align/Step"] for x in open(os.path.join(run_dir, f"{label}.jsonl"))],
+                checkpoints=sorted(os.listdir(ckpts)),
+                async_checkpoint=bool(step1) and os.path.exists(os.path.join(ckpts, step1[0], "meta.json")),
+                latest_ok=latest is not None and os.path.exists(os.path.join(latest, "meta.json")))
+
+
+def train_parallel_path(dev, seed: int) -> dict:
+    """Phase 5c (see the module's text): the ranks and the memory proof
+    start, this process runs the world-1 references meanwhile, then every
+    check."""
+    import torch
+
+    t0 = time.perf_counter()
+    started = tp_start(seed)
+    log(f"[train-parallel] two ranks on the card over gloo and the memory proof (merv-full finetune at 7B, 8 fake "
+        f"ranks, on the host) started; cut: Llama-2-7B at full width, {TP_FINETUNE_LAYERS} layers (finetune) / "
+        f"{TP_ALIGN_LAYERS} (align), global batch {TP_GLOBAL_BATCH}: two ranks and this process's world-1 "
+        f"reference share the one card (full finetune at 7B needs ~108 GB; the memory proof answers for 8 cards)")
+    ref = tp_world1(dev)
+    t_ref = time.perf_counter() - t0
+    out_dir = started["out_dir"]
+    mark, deadline = os.path.join(out_dir, TP_SAVED_MARK), started["start"] + 900
+    while not os.path.exists(mark) and started["ranks"].poll() is None and time.perf_counter() < deadline:
+        time.sleep(1)
+    resume = tp_resume_check(dev, ref.pop("step1_state")) if os.path.exists(mark) else None
+    t_resume = time.perf_counter() - t0
+    rc = started["ranks"].wait(timeout=max(1.0, deadline - time.perf_counter()))
+    started["ranks_log"].close()
+    t_ranks = time.perf_counter() - started["start"]
+    proof_rc = started["proof"].wait(timeout=600)
+    started["proof_log"].close()
+    t_proof = time.perf_counter() - started["start"]
+    if rc != 0 or resume is None:
+        tail = open(os.path.join(out_dir, "ranks.log")).read()[-3000:]
+        raise RuntimeError(f"the train-parallel ranks exited {rc} (step-1 checkpoint written: {resume is not None}):"
+                           f"\n{tail}")
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(TP_RANKS)]
+    proof = json.load(open(os.path.join(out_dir, "memory_proof.json"))) if os.path.exists(
+        os.path.join(out_dir, "memory_proof.json")) else None
+    failures = []
+
+    # (a) the probe
+    probe = ranks[0]["gloo_probe"]
+    log(f"[train-parallel] (a) gloo on CUDA tensors: {probe}")
+
+    # (b) fsdp-full-shard finetune against world 1
+    w1 = ref["finetune"]
+    b = [r["fsdp"] for r in ranks]
+    rel = lambda a, c: abs(a - c) / abs(c)  # noqa: E731
+    loss_rel = max(rel(r["steps"][0]["loss"], w1["steps"][0]["loss"]) for r in b)
+    norm_rel = max(rel(r["steps"][0]["grad_norm"], w1["steps"][0]["grad_norm"]) for r in b)
+    # planted faults on the same step: each data rank's own token mean averaged (trap a), one rank's shards' norm (d)
+    planted_loss = rel(tp_rank_mean_loss(b, 0, b[0]["accum"]), w1["steps"][0]["loss"])
+    planted_norm = max(rel(r["record"]["local_norms"][0], w1["steps"][0]["grad_norm"]) for r in b)
+    share = [r["bytes"]["params_and_optimizer"] / w1["bytes"]["params_and_optimizer"] for r in b]
+    hashes = [r["start_hash"] for r in b] + [ref["start_hash"]]
+    for r in b:
+        want = tp_predicted("fsdp", r)
+        if r["launches"] != {k: v for k, v in want.items() if v}:
+            failures.append(f"(b) rank launches {r['launches']}, predicted {want}")
+    if len(set(hashes)) != 1:
+        failures.append(f"(b) the ranks did not start from world 1's trainables: {hashes}")
+    if not (loss_rel <= TP_LOSS_REL_TOL < planted_loss and norm_rel <= TP_NORM_REL_TOL < planted_norm):
+        failures.append(f"(b) step 1 against world 1: loss {loss_rel:.3e} (limit {TP_LOSS_REL_TOL}, planted "
+                        f"{planted_loss:.3e}), norm {norm_rel:.3e} (limit {TP_NORM_REL_TOL}, planted {planted_norm:.3e})")
+    if not all(0.48 <= s <= 0.52 for s in share):
+        failures.append(f"(b) a rank's params + AdamW bytes {share} of world 1's, not 0.48-0.52")
+    if resume["differ"] or resume["resume_step"] != 1 or resume["count"] != 1 or not resume["against_world1"]["ok"]:
+        failures.append(f"(b) the step-1 checkpoint against world 1's state (trainables limit {TP_PARAM_REL_TOL}, "
+                        f"moments {TP_GRAD_REL_TOL}) and resumed at world 1: {resume}")
+    step2 = tp_step2(b, w1)
+    if not step2["ok"]:
+        failures.append(f"(b) step 2 against world 1's: {step2} (limit {TP_STEP2_REL_TOL})")
+    log(f"[train-parallel] (b) fsdp-full-shard, 2 ranks: step-1 loss {[r['steps'][0]['loss'] for r in b]} against "
+        f"world 1's {w1['steps'][0]['loss']:.6f} (relative {loss_rel:.3e}, limit {TP_LOSS_REL_TOL}; each rank's own "
+        f"token mean averaged: {planted_loss:.3e}); grad norm {[r['steps'][0]['grad_norm'] for r in b]} against "
+        f"{w1['steps'][0]['grad_norm']:.6f} ({norm_rel:.3e}, limit {TP_NORM_REL_TOL}; one rank's shards alone: "
+        f"{planted_norm:.3e}); step 2 against world 1's {step2} (limit {TP_STEP2_REL_TOL}); "
+        f"params + AdamW bytes a rank {share} of world 1's; start digests {hashes}; launches "
+        f"{[r['launches'] for r in b]}; collectives none counted (FSDP2's own); steps {b[0]['wall_s']:.1f} s; "
+        f"peak {[round(r['peak_memory_gib'], 2) for r in b]} GiB; resume at world 1: {resume}")
+
+    # (c) align at sp = 2 through cli/pretrain.py
+    c = [r["sp"] for r in ranks]
+    sp_grads = torch.load(os.path.join(TP_ROOT, "sp_grads.pt"))
+    rels = {}
+    for key in ("projectors", "feature_fusion"):
+        a = torch.cat([sp_grads[n].flatten() for n in sp_grads if n.startswith(key + ".")])
+        w = torch.cat([ref["align_grads"][n].flatten() for n in ref["align_grads"] if n.startswith(key + ".")])
+        rels[key] = dict(rel_l2=rel_l2(a, w), planted_sum=rel_l2(2 * a, w))
+    for r in c:
+        want = tp_predicted("sp", r)
+        if r["launches"] != {k: v for k, v in want.items() if v}:
+            failures.append(f"(c) rank launches {r['launches']}, predicted {want}")
+        if not all(h["ok"] for h in r["ring_holds"].values()) or len(r["ring_holds"]) != 2:
+            failures.append(f"(c) a rank's first ring K2 / K3 call against the plain versions: {r['ring_holds']}")
+    if not all(v["rel_l2"] <= TP_GRAD_REL_TOL < v["planted_sum"] for v in rels.values()):
+        failures.append(f"(c) one micro-batch's gradients against world 1's: {rels} (limit {TP_GRAD_REL_TOL})")
+    cli = tp_cli_outputs("sp")
+    sp_hashes = [r["start_hash"] for r in c] + [ref["align_start_hash"]]
+    losses = [[st["loss"] for st in r["steps"]] for r in c]
+    if len(set(sp_hashes)) != 1:
+        failures.append(f"(c) the CLI's ranks did not start from world 1's align trainables: {sp_hashes}")
+    if len(losses[0]) != 2 or not all(math.isfinite(x) for x in losses[0]) or \
+            max(abs(x - y) / abs(y) for x, y in zip(losses[1], losses[0])) > TP_LOSS_REL_TOL:
+        failures.append(f"(c) the ranks' losses {losses}: two finite steps, the same on every sp rank")
+    if cli["logged_steps"] != [1, 2] or not cli["async_checkpoint"] or not cli["latest_ok"]:
+        failures.append(f"(c) the CLI's outputs (rank 0 logs steps 1 and 2 once, its async step-1 checkpoint and "
+                        f"the latest with meta.json): {cli}")
+    log(f"[train-parallel] (c) align at --mesh_seq 2 through cli/pretrain.py ({c[0]['process_s']:.1f} s a rank; "
+        f"{' '.join(c[0]['argv'])}): gradients on one micro-batch against world 1's {rels} (limit "
+        f"{TP_GRAD_REL_TOL}); launches {[r['launches'] for r in c]} (predicted {tp_predicted('sp', c[0])}); "
+        f"collectives {[r['collectives'] for r in c]}; first ring K2 / K3 calls held {[r['ring_holds'] for r in c]}; "
+        f"loop {c[0]['wall_s']:.1f} s, losses {losses}; start digests {sp_hashes}; outputs {cli}")
+
+    # (d) finetune at pp = 2
+    d = [r["pp"] for r in ranks]
+    pp_loss = max(rel(r["steps"][0]["loss"], w1["steps"][0]["loss"]) for r in d)
+    pp_norm = max(rel(r["steps"][0]["grad_norm"], w1["steps"][0]["grad_norm"]) for r in d)
+    layer_share = [r["bytes"]["llm_layers"] / w1["bytes"]["llm_layers"] for r in d]
+    for r in d:
+        want = tp_predicted("pp", r)
+        if r["launches"] != {k: v for k, v in want.items() if v}:
+            failures.append(f"(d) rank launches {r['launches']}, predicted {want}")
+    if [r["held_layers"] for r in d] != [[i] for i in range(TP_RANKS)] or layer_share != [0.5] * TP_RANKS:
+        failures.append(f"(d) layers held {[r['held_layers'] for r in d]}, layer bytes {layer_share} of world 1's")
+    if not pp_loss <= TP_LOSS_REL_TOL or not pp_norm <= TP_NORM_REL_TOL:
+        failures.append(f"(d) step 1 against world 1: loss {pp_loss:.3e}, norm {pp_norm:.3e}")
+    pp_step2 = tp_step2(d, w1)
+    if not pp_step2["ok"]:
+        failures.append(f"(d) step 2 against world 1's: {pp_step2} (limit {TP_STEP2_REL_TOL})")
+    log(f"[train-parallel] (d) finetune at --mesh_pipe 2: step-1 loss {[r['steps'][0]['loss'] for r in d]} "
+        f"(relative {pp_loss:.3e}), norm {[r['steps'][0]['grad_norm'] for r in d]} ({pp_norm:.3e}); step 2 "
+        f"{pp_step2}; layers held "
+        f"{[r['held_layers'] for r in d]}, layer bytes {layer_share} of world 1's; launches "
+        f"{[r['launches'] for r in d]} (predicted {tp_predicted('pp', d[0])}); collectives "
+        f"{[r['collectives'] for r in d]}; steps {d[0]['wall_s']:.1f} s")
+
+    # (e) the memory proof
+    if proof_rc not in (0, 1) or proof is None:
+        failures.append(f"(e) the memory proof exited {proof_rc}")
+    else:
+        ft = proof["stages"]["finetune"]["ranks"][0]
+        log(f"[train-parallel] (e) memory proof, merv-full finetune at 7B, fsdp-full-shard over 8 ranks (fake): "
+            f"peak {ft['peak_gib']:.2f} GiB a rank {ft['peak_split_gib']}; kept {ft['kept_gib']}; fits the "
+            f"{proof['card']}'s {proof['budget_gib']:.2f} GiB: {proof['fits']} (traced in {ft['trace_s']:.1f} s)")
+    wall = time.perf_counter() - t0
+    log(f"[train-parallel] phase 5c: {wall:.1f} s (world-1 references {t_ref:.1f} s, then the resume check, ended at "
+        f"{t_resume:.1f} s; ranks {t_ranks:.1f} s; the memory proof's process {t_proof:.1f} s)")
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    if failures:
+        raise RuntimeError("phase 5c: " + "; ".join(failures))
+    return dict(gloo_probe=probe, ranks=ranks, world1={k: v for k, v in ref.items() if k != "align_grads"},
+                resume=resume, sp_grad_rel=rels, sp_cli=cli, step2=dict(fsdp=step2, pp=pp_step2),
+                memory_proof=proof, loss_rel=loss_rel, norm_rel=norm_rel,
+                planted=dict(rank_mean_loss=planted_loss, one_rank_norm=planted_norm), pp_loss_rel=pp_loss,
+                pp_norm_rel=pp_norm, bytes_share=share, pp_layer_share=layer_share, wall_s=wall,
+                launches={f"{label}_rank{i}": ranks[i][label]["launches"] for label in ("fsdp", "sp", "pp")
+                          for i in range(TP_RANKS)})
+
 
 # ---------------------------------------------------------------------------
 # phase 6: the bench and tooling modules
@@ -5596,6 +6527,11 @@ def main() -> int:
                          "ring on 8,192 tokens, eval_openended --mesh_seq 2 as two ranks) and print its numbers (no "
                          "result line)")
     ap.add_argument("--sp-worker", metavar="OUT_DIR", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--train-parallel-only", action="store_true",
+                    help="build, then run only phase 5c (multi-rank training: the gloo probe, fsdp-full-shard, "
+                         "--mesh_seq 2 and --mesh_pipe 2 as two ranks on the card, the memory proof) and print its "
+                         "numbers (no result line)")
+    ap.add_argument("--train-parallel-worker", metavar="OUT_DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -5608,6 +6544,8 @@ def main() -> int:
         return 2
     if args.sp_worker is not None:  # one rank of phase 4i(c), started by torch.distributed.run
         return sp_worker(args.sp_worker)
+    if args.train_parallel_worker is not None:  # one rank of phase 5c, started by torch.distributed.run
+        return train_parallel_worker(args.train_parallel_worker)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -5729,6 +6667,16 @@ def main() -> int:
         log(json.dumps({"sp_ring": sp["ring"]}, default=str))
         log(json.dumps({"sp_entry": sp["entry"]}, default=str))
         return 0
+    if args.train_parallel_only:
+        with switches({}):
+            tp = train_parallel_path(dev, args.seed)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "train_parallel.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, train_parallel_path=tp), f, indent=1, default=str)
+        log(json.dumps({"train_parallel": {k: tp[k] for k in (
+            "gloo_probe", "loss_rel", "norm_rel", "planted", "pp_loss_rel", "pp_norm_rel", "bytes_share",
+            "pp_layer_share", "sp_grad_rel", "resume", "launches", "wall_s")}}, default=str))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -5763,6 +6711,7 @@ def main() -> int:
         zoo = timed("zoo_path", zoo_path, dev, args.seed, args.max_new_tokens)
         train = timed("train_path", train_path, dev, args.seed, os.path.join("runs", "chip_smoke_align"))
         pretrain = timed("pretrain_path", pretrain_path, dev, args.seed)
+        train_parallel = timed("train_parallel_path", train_parallel_path, dev, args.seed)
         bench = timed("bench_path", bench_path, dev, args.seed)
 
     kernels = []
@@ -5797,6 +6746,7 @@ def main() -> int:
                                .get(name, 0)},
             launches_zoo={label: r["request"]["launches"].get(name, 0) for label, r in zoo["requests"].items()},
             launches_pretrain={run: pretrain[run]["launches"].get(name, 0) for run in ("align", "finetune", "resume")},
+            launches_train_parallel={run: counts.get(name, 0) for run, counts in train_parallel["launches"].items()},
             launches_bench=bench_launches(bench, name),
             launches_sp={**{f"{label}_rank{r['rank']}": r["launches"].get(name, 0)
                             for label, run in sp["entry"]["runs"].items() for r in run["ranks"]},
@@ -5812,7 +6762,7 @@ def main() -> int:
         json.dump(dict(device=kind, nvidia_smi=smi, build_s=build_s, phase_end_s=ends, compiled=compiled, kernels=kernels,
                        main_path=main, loaded_path=loaded, eval_path=evals, engine_path=engine, int8_path=int8,
                        packed_check=packed, families_path=families, zoo_path=zoo, train_path=train,
-                       pretrain_path=pretrain, bench_path=bench, sp_path=sp),
+                       pretrain_path=pretrain, train_parallel_path=train_parallel, bench_path=bench, sp_path=sp),
                   f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

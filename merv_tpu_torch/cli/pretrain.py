@@ -16,8 +16,20 @@ intermediate checkpoint, skipping the batches it had consumed.
 
 Runs on the card unless ``--device cpu`` is given. The loss streams over
 blocks of ``LOSS_CHUNK_SIZE`` tokens (``merv_tpu`` takes the whole logits; the
-same loss up to fp32 summation order). Not ported: ``--mesh_seq`` and
-``--mesh_pipe`` above 1 (ROADMAP A12), which raise ``NotImplementedError``.
+same loss up to fp32 summation order).
+
+Many ranks: under ``torchrun`` (one process a rank, each on card
+``LOCAL_RANK % cards``) the recipe's strategy shards the train state over the
+mesh ``merv_tpu`` builds: every rank on ``fsdp`` by default,
+``MeshConfig(data=1, fsdp=-1, tensor=1, seq=--mesh_seq, pipe=--mesh_pipe)``
+with ``--mesh_seq N`` (the decoder's ring attention over N ranks) or
+``--mesh_pipe N`` (GPipe over N stages, ``--pp_microbatches`` micro-batches,
+0 for ``min(2 N, batch)``); the two are mutually exclusive, as in
+``merv_tpu``. ``--dist_backend`` names the process-group backend (NCCL by
+default on the card; two ranks on one card need gloo).
+
+    python -m torch.distributed.run --nproc_per_node 2 -m merv_tpu_torch.cli.pretrain \
+        --model.type merv-base --stage align --mesh_seq 2 --dist_backend gloo ...
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from merv_tpu_torch.conf import DatasetConfig, DatasetRegistry, ModelConfig, Mod
 from merv_tpu_torch.device import make_generator, resolve_device
 from merv_tpu_torch.models import get_llm_backbone_and_tokenizer, get_video_backbone_and_transform, get_vidlm
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel import MeshConfig, build_mesh, world
 from merv_tpu_torch.preprocessing.materialize import get_dataset_and_collator
 from merv_tpu_torch.training import Metrics, TrainingStrategy, get_train_strategy
 from merv_tpu_torch.training.checkpointing import load_stage_weights
@@ -64,10 +77,13 @@ class PretrainConfig:
     seed: int = 7
     device: Optional[str] = None                        # the card unless "cpu"
 
-    # merv_tpu's sequence and pipeline parallel training: not ported (ROADMAP A12); 1 = off
+    # sequence parallelism: the ring size over the LLM's sequence (the mesh's sp axis; 1 = off)
     mesh_seq: int = 1
+    # pipeline parallelism: GPipe stages over the LLM's depth (the mesh's pp axis; 1 = off; exclusive with mesh_seq);
+    # pp_microbatches = 0 picks min(2 pp, batch)
     mesh_pipe: int = 1
     pp_microbatches: int = 0
+    dist_backend: Optional[str] = None                  # process-group backend: nccl (card default) | gloo
 
     # HF Hub Credentials (accepted for merv_tpu's command lines; the port downloads nothing)
     hf_token: Union[str, Path] = Path(".hf_token")
@@ -103,20 +119,17 @@ class PretrainConfig:
         self.slurm_id = os.getenv("SLURM_JOB_ID", self.slurm_id)
 
 
-def refuse_unported(cfg: PretrainConfig) -> None:
-    """Raise for the options whose paths the port does not have yet."""
-    if cfg.mesh_seq > 1 or cfg.mesh_pipe > 1:
-        raise NotImplementedError("--mesh_seq / --mesh_pipe: sequence and pipeline parallel training are not "
-                                  "ported yet: the FSDP / DDP strategies, pretrain --mesh_seq and "
-                                  "parallel/pipeline.py (ROADMAP A12)")
-
-
 @draccus.wrap()
 def pretrain(cfg: PretrainConfig) -> TrainingStrategy:
     """Train one stage; returns the strategy (its ``vidlm`` holds the trained model)."""
     overwatch.info("MERV (PyTorch port) :: Pretraining")
-    refuse_unported(cfg)
+    if cfg.mesh_seq > 1 and cfg.mesh_pipe > 1:
+        raise ValueError("--mesh_seq and --mesh_pipe are mutually exclusive (pick one per run)")
     device = resolve_device(cfg.device)
+    mesh = None
+    if cfg.mesh_seq > 1 or cfg.mesh_pipe > 1 or world()[1] > 1:  # each rank takes its card first
+        mesh = build_mesh(MeshConfig(data=1, fsdp=-1, tensor=1, seq=cfg.mesh_seq, pipe=cfg.mesh_pipe),
+                          device_type=device.type, backend=cfg.dist_backend)
     worker_init_fn = set_global_seed(cfg.seed, get_worker_init_fn=True)
 
     model_id = cfg.model.model_id
@@ -136,8 +149,12 @@ def pretrain(cfg: PretrainConfig) -> TrainingStrategy:
         generator=generator,
     )
     overwatch.info(f"Loading LLM Backbone {cfg.model.llm_backbone_id}")
+    parallel = dict(sequence_parallel=True) if cfg.mesh_seq > 1 else {}  # the decoder's sp or pp path
+    if cfg.mesh_pipe > 1:
+        parallel = dict(pipeline_parallel=True, pp_microbatches=cfg.pp_microbatches)
     llm_backbone, tokenizer = get_llm_backbone_and_tokenizer(
         cfg.model.llm_backbone_id, llm_max_length=cfg.model.llm_max_length, device=device, generator=generator,
+        **parallel,
     )
     vidlm = get_vidlm(
         model_id, cfg.model.arch_specifier, cfg.model.feature_fusion, video_backbones, llm_backbone,
@@ -164,6 +181,7 @@ def pretrain(cfg: PretrainConfig) -> TrainingStrategy:
         worker_init_fn=worker_init_fn,
         save_checkpoint_after=cfg.save_checkpoint_after or 512,
         loss_chunk_size=LOSS_CHUNK_SIZE,
+        mesh=mesh,
     )
     strategy.run_setup(
         run_dir, n_train_examples=len(dataset), video_transforms=video_transforms,

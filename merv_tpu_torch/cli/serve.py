@@ -243,6 +243,7 @@ def serve(cfg: ServeConfig) -> None:
         "prefill_shapes": [list(p) for p in s.prefill_shapes], "prefix_rows": s.prefix_rows, "spec_steps": s.spec_steps,
         "tokens_per_step": s.tokens_per_step, "spec_disables": s.spec_disables, "spec_reenables": s.spec_reenables,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30 if dev.type == "cuda" else None,
         "launches": launches,
     }), flush=True)
 

@@ -91,6 +91,9 @@ class LLMBackbone(nn.Module):
         inference_mode: bool = False,
         spec: Optional[LLMSpec] = None,
         device: Optional[torch.device] = None,
+        sequence_parallel: bool = False,
+        pipeline_parallel: bool = False,
+        pp_microbatches: int = 0,
     ) -> None:
         super().__init__()
         if spec is None and llm_backbone_id not in LLM_SPECS:
@@ -100,11 +103,16 @@ class LLMBackbone(nn.Module):
         self.inference_mode = inference_mode
         self.spec = spec if spec is not None else LLM_SPECS[llm_backbone_id]
         self._tokenizer: Any = None
+        # the decoder's sp / pp paths (taken only under a mesh with the axis above 1; merv_tpu's pass-through)
+        self._parallel = dict(sequence_parallel=sequence_parallel, pipeline_parallel=pipeline_parallel,
+                              pp_microbatches=pp_microbatches)
         self.decoder = LlamaDecoder(self.decoder_config, device=resolve_device(device))
 
     @property
     def decoder_config(self) -> DecoderConfig:
         cfg = self.spec.decoder_config
+        if any(self._parallel.values()):
+            cfg = dataclasses.replace(cfg, **self._parallel)
         if self.inference_mode:
             cfg = dataclasses.replace(cfg, param_dtype=self.spec.half_precision_dtype)
         return cfg

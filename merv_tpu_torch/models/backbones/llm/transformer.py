@@ -54,8 +54,16 @@ taken only where the activation-mesh scope,
   which no key mask admits; attention is
   :func:`merv_tpu_torch.ops.ring_attention.cache_shard_attention` (each
   rank's rows with its LSE, merged by all-reduces).
-A tensor-parallel or pipeline axis raises: both wait for the training half of
-the mesh work (ROADMAP A12).
+Pipeline parallelism (``merv_tpu``'s ``DecoderConfig.pipeline_parallel``,
+taken only where the activation mesh holds a ``pp`` axis above 1, the layers
+tile it and a micro-batch count exists; otherwise the plain loop runs, as in
+``merv_tpu``): the no-cache forward runs its layers as a GPipe schedule
+(:func:`merv_tpu_torch.parallel.pipeline.pipeline_layer_scan`) over
+``pp_microbatches`` micro-batches. On a device mesh a rank keeps only its
+stage's layers (:meth:`LlamaDecoder.keep_stage`; the others are
+:class:`ForeignLayer` placeholders that hold no weights). Both axes at once
+raise ``merv_tpu``'s ``ValueError``. A tensor-parallel axis raises: tensor
+parallelism waits for ROADMAP A12 step 4.
 """
 
 from __future__ import annotations
@@ -101,6 +109,9 @@ class DecoderConfig:
     sequence_parallel: bool = False
     # the load-balanced causal ring (zigzag token layout), where the sequence tiles 2 sp
     sp_zigzag: bool = True
+    # GPipe over the mesh's pp axis (see the module's text); 0 micro-batches = min(2 pp, batch)
+    pipeline_parallel: bool = False
+    pp_microbatches: int = 0
 
     @property
     def q_dim(self) -> int:
@@ -178,8 +189,6 @@ def _refuse_unported_axes(mesh) -> None:
     if axis_size(mesh, TENSOR_AXIS) > 1:
         raise NotImplementedError("a tensor axis above 1: tensor parallelism and the packed layout are not ported yet "
                                   "(ROADMAP A12 step 4)")
-    if axis_size(mesh, PIPE_AXIS) > 1:
-        raise NotImplementedError("a pipeline axis above 1: parallel/pipeline.py is not ported yet (ROADMAP A12)")
 
 
 @dataclass
@@ -260,6 +269,16 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def require_right_padding(am: torch.Tensor) -> None:
+    """Raise unless every row of the [B, T] mask is [1]*n + [0]*pad (the no-cache forward's contract: it takes
+    positions from the mask and applies no key mask). Reads a bool back to the host."""
+    if not bool((am[:, 1:] <= am[:, :-1]).all()):
+        raise ValueError(
+            "decoder no-cache forward requires a right-padding prefix attention_mask "
+            "([1]*n + [0]*pad per row); other masks would silently attend masked keys"
+        )
 
 
 def _rope(cos_sin: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -405,6 +424,13 @@ class DecoderLayer(nn.Module):
         return h + self.mlp(self.post_attn_norm(h))
 
 
+class ForeignLayer(nn.Module):
+    """The place of a decoder layer that another pipeline stage holds: no weights."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this decoder layer belongs to another pipeline stage")
+
+
 class LlamaDecoder(nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None) -> None:
         super().__init__()
@@ -456,8 +482,9 @@ class LlamaDecoder(nn.Module):
         B, T, _ = h.shape
         dev = h.device
         mesh = get_activation_mesh()
-        if mesh is not None and c.sequence_parallel:
+        if mesh is not None and (c.sequence_parallel or c.pipeline_parallel):
             _refuse_unported_axes(mesh)
+        pp_mesh = self._pp_mesh(B) if kv_cache is None else None
 
         ring = None
         if kv_cache is not None:
@@ -498,14 +525,9 @@ class LlamaDecoder(nn.Module):
                 else:
                     positions = torch.arange(T, device=dev)[None].expand(B, T)
             if attention_mask is not None:
-                am = attention_mask.bool()
-                if not bool((am[:, 1:] <= am[:, :-1]).all()):
-                    raise ValueError(
-                        "decoder no-cache forward requires a right-padding prefix attention_mask "
-                        "([1]*n + [0]*pad per row); other masks would silently attend masked keys"
-                    )
+                require_right_padding(attention_mask.bool())
             kv_mask = None
-            ex = self._sp_exchange(mesh, T)
+            ex = None if pp_mesh is not None else self._sp_exchange(mesh, T)
             if ex is not None:
                 # the zigzag layout once for the whole stack, then this process's rows; positions travel with
                 # the tokens, so right padding keeps its pad keys after every valid query
@@ -520,7 +542,16 @@ class LlamaDecoder(nn.Module):
 
         cos_sin = _rope_tables(c, positions, h.dtype)
         remat = remat and torch.is_grad_enabled()
-        for li, layer in enumerate(self.layers):
+        if pp_mesh is not None:
+            from merv_tpu_torch.parallel.pipeline import pipeline_layer_scan, resolve_microbatches
+
+            pp = axis_size(pp_mesh, PIPE_AXIS)
+            h = pipeline_layer_scan(
+                lambda layer, x, cs: layer(x, cs, None, None, attn_impl), h, cos_sin, self.held_layers(pp_mesh),
+                pp_mesh, microbatches=resolve_microbatches(B, pp, c.pp_microbatches), remat=remat,
+                num_layers=c.num_layers,
+            )
+        for li, layer in enumerate(self.layers if pp_mesh is None else ()):
             cache = None if kv_cache is None else kv_cache.layer(li)
             if remat:
                 h = checkpoint(layer, h, cos_sin, kv_mask, cache, attn_impl, ring, use_reentrant=False)
@@ -538,6 +569,58 @@ class LlamaDecoder(nn.Module):
         if logits_indices is not None:
             h = h[torch.arange(B, device=dev), logits_indices.long()][:, None]
         return self.lm_head_apply(h), new_cache
+
+    def _pp_mesh(self, batch: int):
+        """The activation mesh when the no-cache forward runs GPipe
+        (``merv_tpu``'s ``_pp_mesh``): ``pipeline_parallel`` on, a pp axis
+        above 1, layers that tile it and a micro-batch count; else None (the
+        plain loop). With an sp axis above 1 under ``sequence_parallel`` too,
+        ``merv_tpu``'s ValueError."""
+        if not self.cfg.pipeline_parallel:
+            return None
+        from merv_tpu_torch.parallel.pipeline import resolve_microbatches
+
+        mesh = get_activation_mesh()
+        pp = axis_size(mesh, PIPE_AXIS)
+        if pp <= 1 or self.cfg.num_layers % pp != 0:
+            return None
+        if resolve_microbatches(batch, pp, self.cfg.pp_microbatches) is None:
+            return None
+        if self.cfg.sequence_parallel and axis_size(mesh, SEQ_AXIS) > 1:
+            raise ValueError(
+                "pipeline_parallel and sequence_parallel cannot both be active "
+                "on one mesh (pp>1 and sp>1): the GPipe shard_map cannot nest "
+                "the sp ring shard_map. Pick one per run."
+            )
+        return mesh
+
+    def stage_layers(self, pp: int, stage: int) -> range:
+        """The layer indices pipeline stage ``stage`` of ``pp`` holds."""
+        per = self.cfg.num_layers // pp
+        return range(stage * per, (stage + 1) * per)
+
+    def keep_stage(self, pp: int, stage: int) -> "LlamaDecoder":
+        """Keep only stage ``stage``'s layers (of ``pp``); the others become
+        :class:`ForeignLayer` placeholders and their weights are freed."""
+        if self.cfg.num_layers % pp != 0:
+            raise ValueError(f"num_layers {self.cfg.num_layers} not divisible by pp={pp}")
+        mine = self.stage_layers(pp, stage)
+        for i in range(self.cfg.num_layers):
+            if i not in mine:
+                self.layers[i] = ForeignLayer()
+        return self
+
+    def held_layers(self, mesh) -> List[nn.Module]:
+        """The layers this process runs in the pipeline: all of them on a
+        virtual mesh, its stage's on a device mesh."""
+        from merv_tpu_torch.parallel.mesh import VirtualMesh, axis_rank
+
+        if isinstance(mesh, VirtualMesh):
+            return list(self.layers)
+        layers = [self.layers[i] for i in self.stage_layers(axis_size(mesh, PIPE_AXIS), axis_rank(mesh, PIPE_AXIS))]
+        if any(isinstance(layer, ForeignLayer) for layer in layers):
+            raise RuntimeError("this rank does not hold its pipeline stage's layers")
+        return layers
 
     def _sp_exchange(self, mesh, seq_len: int):
         """The sp exchange when the no-cache forward runs the ring (``merv_tpu``'s

@@ -113,11 +113,15 @@ def get_llm_backbone_and_tokenizer(
     inference_mode: bool = False,
     device: Optional[torch.device] = None,
     generator: Optional[torch.Generator] = None,
+    sequence_parallel: bool = False,
+    pipeline_parallel: bool = False,
+    pp_microbatches: int = 0,
 ) -> Tuple[LLMBackbone, Any]:
     if llm_backbone_id not in LLM_BACKBONES:
         raise ValueError(f"unknown LLM backbone {llm_backbone_id!r}; known: {list(LLM_BACKBONES)}")
     llm = LLMBackbone(
-        llm_backbone_id, llm_max_length=llm_max_length, inference_mode=inference_mode, device=resolve_device(device)
+        llm_backbone_id, llm_max_length=llm_max_length, inference_mode=inference_mode, device=resolve_device(device),
+        sequence_parallel=sequence_parallel, pipeline_parallel=pipeline_parallel, pp_microbatches=pp_microbatches,
     )
     _maybe_init(llm, generator)
     return llm, llm.tokenizer

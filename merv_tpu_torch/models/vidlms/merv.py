@@ -74,6 +74,7 @@ from merv_tpu_torch.nn.projectors import (
     MLPProjector,
 )
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel.sharding import global_token_count
 from merv_tpu_torch.preprocessing.transforms import subsample_frames
 
 overwatch = initialize_overwatch(__name__)
@@ -836,7 +837,9 @@ def chunked_causal_lm_loss(
     token blocks, each projected through the lm_head with its fp32
     log-softmax NLL under ``torch.utils.checkpoint``, so the backward
     recomputes a block's logits instead of keeping them. Per-row math is that
-    of :func:`causal_lm_loss`; only the cross-block summation order differs."""
+    of :func:`causal_lm_loss`; only the cross-block summation order differs.
+    Under a training mesh the count is the whole micro-batch's
+    (:func:`~merv_tpu_torch.parallel.sharding.global_token_count`)."""
     B, T, _ = hidden.shape
     shifted = torch.cat([labels[:, 1:], torch.full((B, 1), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)], 1)
     nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -848,15 +851,17 @@ def chunked_causal_lm_loss(
         else:
             s, c = _block_nll(decoder, h_blk, l_blk)
         nll_sum, count = nll_sum + s, count + c
-    return nll_sum / count.clamp(min=1)
+    return nll_sum / global_token_count(count).clamp(min=1)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Next-token CE with IGNORE_INDEX masking (HF CausalLM loss semantics)."""
+    """Next-token CE with IGNORE_INDEX masking (HF CausalLM loss semantics);
+    under a training mesh, this rank's share of the mean over the whole
+    micro-batch (:func:`~merv_tpu_torch.parallel.sharding.global_token_count`)."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -logp.gather(-1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / global_token_count(valid.sum()).clamp(min=1)

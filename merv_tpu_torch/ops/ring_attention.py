@@ -133,6 +133,12 @@ class ProcessGroupRing:
         return x.chunk(self.n, dim)[self.rank].contiguous()
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's rows, in rank order; differentiable (:class:`GatherRows`)."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return GatherRows.apply(x, self, dim)
+        return self._all_gather(x, dim)
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         COLLECTIVES["all_gather"] += 1
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.n)]
@@ -160,6 +166,28 @@ class ProcessGroupRing:
         x = xs[0].contiguous()
         dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=self.group)
         return [x]
+
+
+class GatherRows(torch.autograd.Function):
+    """The decoder's gather of the sp ranks' rows before its final norm, as a
+    differentiable op. Its transpose hands each rank the gradient of its own
+    rows summed over the sp ranks. Every sp rank computes the same loss on
+    the gathered rows and backpropagates 1/sp of it (the train step's
+    ``TrainSharding.backward_scale``), so every rank holds the same incoming
+    gradient, and that sum is sp times the rank's own rows of it: the rows'
+    whole gradient, once, with no collective. (``torch.distributed.nn``'s
+    all-gather sums the ranks' gradients by a reduce-scatter; on a loss that
+    every rank backpropagates in full that is sp times too much.)"""
+
+    @staticmethod
+    def forward(ctx, x, ex, dim: int):
+        ctx.ex, ctx.dim = ex, dim
+        return ex._all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ex = ctx.ex
+        return grad.chunk(ex.n, ctx.dim)[ex.rank] * ex.n, None, None
 
 
 _RINGS: dict = {}

@@ -177,6 +177,42 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def axis_rank(mesh: Optional[Mesh], axis: str) -> int:
+    """This process's coordinate on ``axis`` (0 without a mesh, on a virtual mesh or without the axis)."""
+    if mesh is None or isinstance(mesh, VirtualMesh) or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def batch_size(mesh: Optional[Mesh]) -> int:
+    """The ranks the batch splits over: data x fsdp (``merv_tpu``'s batch axes)."""
+    return axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
+
+
+def batch_rank(mesh: Optional[Mesh]) -> int:
+    """This process's batch coordinate on data x fsdp: ranks that differ only
+    on ``tensor``, ``sp`` or ``pp`` share it, and so read the same examples."""
+    return axis_rank(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS) + axis_rank(mesh, FSDP_AXIS)
+
+
+_BATCH_GROUPS: dict = {}
+
+
+def batch_group(mesh: Optional[Mesh]):
+    """The process group over the batch axes (data x fsdp) of a device mesh;
+    None off mesh, on a virtual mesh, or where the batch has one rank."""
+    if mesh is None or isinstance(mesh, VirtualMesh) or batch_size(mesh) <= 1:
+        return None
+    if axis_size(mesh, DATA_AXIS) == 1:
+        return mesh.get_group(FSDP_AXIS)
+    if axis_size(mesh, FSDP_AXIS) == 1:
+        return mesh.get_group(DATA_AXIS)
+    key = id(mesh)
+    if key not in _BATCH_GROUPS:
+        _BATCH_GROUPS[key] = mesh[DATA_AXIS, FSDP_AXIS]._flatten().get_group()
+    return _BATCH_GROUPS[key]
+
+
 def batch_spec(mesh: Optional[Mesh]) -> Tuple[str, ...]:
     """The mesh dims a batch-leading activation shards over: ``data`` and
     ``fsdp`` where above 1 (``merv_tpu``'s ``PartitionSpec`` of them)."""

@@ -8,6 +8,13 @@ its own: one ``torch.save`` file, ``checkpoint.pt``, holding ``model`` (the
 state dicts of the trainable top-level modules, by module key) and
 ``optimizer`` (the optimizer's state dict).
 
+A sharded run (a mesh over several ranks: FSDP2's sharded parameters, or a
+pipeline stage's layers) writes the file a one-device run writes:
+:func:`full_trainable_state` gathers the trainable modules' full tensors and
+the AdamW moments, keyed as the one-device optimizer keys them, to rank 0,
+which writes them; the other ranks wait at a barrier. Such a checkpoint loads
+at any world size (:func:`load_sharded_state`).
+
 Saves block by default. ``save_checkpoint(..., blocking=False)`` (the
 strategy's periodic saves, as in ``merv_tpu``) copies the tensors to host
 memory, hands the write to a background thread and returns: at most one
@@ -107,31 +114,44 @@ def save_checkpoint(
     trainable_keys: List[str],
     optimizer: Optional[Any] = None,
     blocking: bool = True,
-) -> Path:
+    mesh: Any = None,
+) -> Optional[Path]:
     """Write ``checkpoints/step-...-loss=.../`` and point ``latest-checkpoint`` at it.
 
     ``blocking=False`` copies the state to host memory and writes on a
     background thread; meta.json and the pointer follow in
-    :func:`wait_for_checkpoints` or the next save."""
+    :func:`wait_for_checkpoints` or the next save. On a ``mesh`` of several
+    ranks every rank calls this (the gather is collective); rank 0 writes,
+    the others return None after a barrier."""
     global _pending
+    sharded = _ranks(mesh) > 1
+    t = time.perf_counter()
+    if sharded:
+        tree = full_trainable_state(model, trainable_keys, optimizer, mesh)
+        if tree is None:  # not rank 0
+            torch.distributed.barrier()
+            return None
     ckpt_root = Path(run_dir) / "checkpoints"
     ckpt_root.mkdir(parents=True, exist_ok=True)
     target = ckpt_root / f"step-{step:06d}-epoch-{epoch:02d}-loss={loss:.4f}"
-    modules = {k: m for k, m in model.named_children() if k in trainable_keys}
-    meta = {"step": step, "epoch": epoch, "loss": loss, "module_keys": sorted(modules)}
+    keys = sorted(tree["model"]) if sharded else sorted(k for k, _ in model.named_children() if k in trainable_keys)
+    meta = {"step": step, "epoch": epoch, "loss": loss, "module_keys": keys}
     # the save in flight first, in both modes: a blocking save racing it would
     # let its later finalize move the pointer backward
     wait_for_checkpoints()
     if target.exists():
         shutil.rmtree(target)
     target.mkdir()
-    t = time.perf_counter()
-    tree: Dict[str, Any] = {"model": {k: _host_copy(m.state_dict()) for k, m in modules.items()}}
-    if optimizer is not None:
-        tree["optimizer"] = _host_copy(optimizer.state_dict())
+    if not sharded:
+        modules = {k: m for k, m in model.named_children() if k in trainable_keys}
+        tree = {"model": {k: _host_copy(m.state_dict()) for k, m in modules.items()}}
+        if optimizer is not None:
+            tree["optimizer"] = _host_copy(optimizer.state_dict())
     if blocking:
         torch.save(tree, target / CKPT_FILE)
         _finalize(target, meta)
+        if sharded:
+            torch.distributed.barrier()
         return target
 
     record: Dict[str, Any] = {"checkpoint": target.name, "copy_s": time.perf_counter() - t}
@@ -150,6 +170,8 @@ def save_checkpoint(
     _pending = (target, meta, thread, errors, record)
     ASYNC_SAVES.append(record)
     overwatch.info(f"Async checkpoint {target} dispatched", ctx_level=1)
+    if sharded:
+        torch.distributed.barrier()
     return target
 
 
@@ -282,3 +304,169 @@ def load_stage_weights(model: Any, stage: str, run_dir: Path, pretrained_checkpo
         load("llm_backbone", restored)
         if model.feature_fusion is not None and "feature_fusion" in restored:
             load("feature_fusion", restored)
+
+
+# ---------------------------------------------------------------------------
+# Sharded state: gathered to rank 0 for a save, split again on a load
+# ---------------------------------------------------------------------------
+
+
+def _ranks(mesh: Any) -> int:
+    if mesh is None or not hasattr(mesh, "mesh_dim_names"):
+        return 1
+    return mesh.size()
+
+
+_LAYER = re.compile(r"^llm_backbone\.decoder\.layers\.(\d+)\.(.*)$")
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A parameter's (or moment's) whole tensor on the host: a sharded one is
+    gathered (collective over its mesh)."""
+    from merv_tpu_torch.parallel.sharding import full_tensor
+
+    return full_tensor(t.detach()).to("cpu", copy=True)
+
+
+def one_device_names(model: nn.Module, mesh: Any) -> List[str]:
+    """The model's parameter names in the order a one-device model lists
+    them: under ``pp`` the decoder's layers of every stage, in layer order
+    (each stage holds its own; the names of a layer are every layer's)."""
+    from merv_tpu_torch.parallel.mesh import PIPE_AXIS, axis_size
+
+    names = [n for n, _ in model.named_parameters()]
+    if axis_size(mesh, PIPE_AXIS) <= 1:
+        return names
+    local = [n for n in names if _LAYER.match(n)]
+    if not local:
+        return names
+    first = _LAYER.match(local[0]).group(1)
+    within = [_LAYER.match(n).group(2) for n in local if _LAYER.match(n).group(1) == first]
+    cut = names.index(local[0])
+    rest = [n for n in names if not _LAYER.match(n)]
+    n_layers = model.llm_backbone.decoder.cfg.num_layers
+    layers = [f"llm_backbone.decoder.layers.{i}.{w}" for i in range(n_layers) for w in within]
+    head = [n for n in rest if names.index(n) < cut]
+    return head + layers + [n for n in rest if names.index(n) > cut]
+
+
+def _adamw_order(dims: Dict[str, int], weight_decay: float) -> Tuple[List[str], int]:
+    """The parameter of each AdamW index in a one-device optimizer over
+    ``dims``' names (in the model's order), and how many lead in the decay
+    group (:class:`~merv_tpu_torch.training.optimizers.ClippedAdamW`'s groups:
+    decayed, then the rest)."""
+    decays = {n: weight_decay > 0 and d > 1 and n.rsplit(".", 1)[-1] != "bias" for n, d in dims.items()}
+    decayed = [n for n in dims if decays[n]]
+    return decayed + [n for n in dims if not decays[n]], len(decayed)
+
+
+def _trainable_dims(model: nn.Module, optimizer: Any, mesh: Any) -> Dict[str, int]:
+    """{one-device name: its number of dims} of the optimizer's parameters,
+    every pipeline stage's layers included (a layer's are every layer's)."""
+    dims = {n: p.dim() for n, p in optimizer.named_params.items()}
+    within = {_LAYER.match(n).group(2): d for n, d in dims.items() if _LAYER.match(n)}
+    keys = {n.split(".", 1)[0] for n in optimizer.named_params}
+    for n in one_device_names(model, mesh):
+        m = _LAYER.match(n)
+        if m and n not in dims and "llm_backbone" in keys and m.group(2) in within:
+            dims[n] = within[m.group(2)]
+    return {n: dims[n] for n in one_device_names(model, mesh) if n in dims}
+
+
+def _weight_decay(optimizer: Any) -> float:
+    return max([g["weight_decay"] for g in optimizer.adamw.param_groups] + [0.0])
+
+
+def full_trainable_state(model: nn.Module, trainable_keys: List[str], optimizer: Any, mesh: Any) -> Optional[dict]:
+    """Collective over the mesh: the trainable modules' state dicts and the
+    optimizer's, whole, on rank 0 (host tensors, in the one-device layout:
+    AdamW's indices as a one-device optimizer numbers them); None elsewhere."""
+    from merv_tpu_torch.parallel.mesh import PIPE_AXIS, axis_size
+
+    dist = torch.distributed
+    model_state = {n: _full(t) for n, t in list(model.named_parameters()) + list(model.named_buffers())
+                   if n.split(".", 1)[0] in trainable_keys}
+    opt_state = {}
+    if optimizer is not None:
+        by_id = {id(p): n for n, p in optimizer.named_params.items()}
+        for p, st in optimizer.adamw.state.items():
+            opt_state[by_id[id(p)]] = {k: _full(v) if v.dim() else v.detach().cpu().clone() for k, v in st.items()}
+    pp = axis_size(mesh, PIPE_AXIS)
+    if pp > 1:  # every stage's layers to rank 0
+        mine = ({n: v for n, v in model_state.items() if _LAYER.match(n)},
+                {n: v for n, v in opt_state.items() if _LAYER.match(n)})
+        gathered = [None] * pp
+        dist.all_gather_object(gathered, mine, group=mesh.get_group(PIPE_AXIS))
+        for m, o in gathered:
+            model_state.update(m)
+            opt_state.update(o)
+    if dist.get_rank() != 0:
+        return None
+    tree: Dict[str, Any] = {"model": {}}
+    for n, v in model_state.items():
+        key, rest = n.split(".", 1)
+        tree["model"].setdefault(key, {})[rest] = v
+    if optimizer is not None:
+        wd = _weight_decay(optimizer)
+        order, n_decay = _adamw_order(_trainable_dims(model, optimizer, mesh), wd)
+        index = {n: i for i, n in enumerate(order)}
+        hyper = {k: v for k, v in optimizer.adamw.param_groups[0].items() if k not in ("params", "weight_decay")}
+        groups = [dict(hyper, weight_decay=w, params=list(ix)) for w, ix in
+                  ((wd, range(n_decay)), (0.0, range(n_decay, len(order)))) if len(ix)]
+        tree["optimizer"] = {"count": optimizer.count,
+                             "adamw": {"state": {index[n]: st for n, st in opt_state.items()}, "param_groups": groups}}
+    return tree
+
+
+def _local_chunk(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The part of ``full`` a rank holds of a tensor laid out as ``like`` (an
+    FSDP2 ``DTensor``: ``torch.chunk`` per sharded mesh dim, empty past the
+    last chunk), or all of it."""
+    if not hasattr(like, "placements"):
+        return full
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard():
+            chunks = full.chunk(like.device_mesh.size(i), pl.dim)
+            r = like.device_mesh.get_local_rank(i)
+            full = chunks[r] if r < len(chunks) else full.narrow(pl.dim, 0, 0)
+    return full
+
+
+def load_sharded_state(model: nn.Module, optimizer: Any, restored: Dict[str, Any], mesh: Any) -> None:
+    """Load a one-device checkpoint (:func:`load_checkpoint`'s dict) into a
+    model and optimizer laid out on ``mesh`` (any world size): each rank
+    takes its part of every tensor it holds."""
+    params = dict(model.named_parameters())
+    tensors = dict(params, **dict(model.named_buffers()))
+    with torch.no_grad():
+        for key, sd in restored["model"].items():
+            for rest, full in sd.items():
+                name = f"{key}.{rest}"
+                if name not in tensors:
+                    if _LAYER.match(name):  # another pipeline stage's layer
+                        continue
+                    raise KeyError(f"checkpoint tensor {name} has no place in the model")
+                t = tensors[name]
+                local = t.to_local() if hasattr(t, "to_local") else t
+                local.copy_(_local_chunk(full, t).to(local.device, local.dtype))
+    if optimizer is None or "optimizer" not in restored:
+        return
+    opt = restored["optimizer"]
+    optimizer.count = int(opt["count"])
+    order, _ = _adamw_order(_trainable_dims(model, optimizer, mesh), _weight_decay(optimizer))
+    for i, st in opt["adamw"]["state"].items():
+        name = order[int(i)]
+        if name not in optimizer.named_params:  # another pipeline stage's layer
+            continue
+        p = optimizer.named_params[name]
+        new = {}
+        with torch.no_grad():
+            for k, v in st.items():
+                if v.dim() == 0:
+                    new[k] = v.clone()
+                    continue
+                z = torch.zeros_like(p)
+                zl = z.to_local() if hasattr(z, "to_local") else z
+                zl.copy_(_local_chunk(v, p).to(zl.device, zl.dtype))
+                new[k] = z
+        optimizer.adamw.state[p] = new

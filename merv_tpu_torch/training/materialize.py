@@ -1,7 +1,8 @@
 """Train-strategy factory (counterpart of ``merv_tpu/training/materialize.py``).
 
-All three strategy names are accepted; on one device each runs the same
-single-device loop (see :mod:`merv_tpu_torch.training.strategies.fsdp`).
+All three strategy names are accepted; each shards the train state over
+``mesh`` (by default every rank of a multi-process world on ``fsdp``; on one
+process the one-device step runs).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ def get_train_strategy(
     worker_init_fn: Optional[Callable[[int], None]] = None,
     save_checkpoint_after: int = 512,
     loss_chunk_size: Optional[int] = None,
+    mesh: Any = None,
 ) -> TrainingStrategy:
     if train_strategy not in TRAIN_STRATEGIES:
         raise ValueError(f"Train Strategy `{train_strategy}` is not supported!")
@@ -58,5 +60,6 @@ def get_train_strategy(
         worker_init_fn=worker_init_fn,
         save_checkpoint_after=save_checkpoint_after,
         loss_chunk_size=loss_chunk_size,
+        mesh=mesh,
         **entry["kwargs"],
     )

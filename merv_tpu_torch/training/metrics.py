@@ -4,8 +4,9 @@ The ``Tracker`` protocol; :class:`JSONLinesTracker` (``run-metrics.jsonl``
 with the hyperparameters, ``{run_id}.jsonl`` with one line per pushed step);
 :class:`WeightsBiasesTracker`, import-gated (an air-gapped run disables it);
 and :class:`Metrics`, with the smoothed loss over a 128-step window, the raw
-loss, the step time, the learning rate and the hours left. The port trains in
-one process, so every process is rank zero.
+loss, the step time, the learning rate and the hours left. In a multi-rank
+world the trackers write on rank zero only (``merv_tpu``'s ``rank_zero_only``):
+the loss every rank commits is the whole batch's.
 """
 
 from __future__ import annotations
@@ -19,8 +20,18 @@ from typing import Any, Dict, Optional, Protocol, Tuple, Union
 import numpy as np
 
 from merv_tpu_torch.overwatch import initialize_overwatch
+from merv_tpu_torch.parallel.mesh import world
 
 overwatch = initialize_overwatch(__name__)
+
+
+def rank_zero_only(fn):
+    """``fn`` runs on rank zero of the world (read at the call), other ranks get None."""
+
+    def wrapped(*args, **kwargs):
+        return fn(*args, **kwargs) if world()[0] == 0 else None
+
+    return wrapped
 
 
 class Tracker(Protocol):
@@ -35,10 +46,12 @@ class JSONLinesTracker:
     def __init__(self, run_id: str, run_dir: Path, hparams: Dict[str, Any]) -> None:
         self.run_id, self.run_dir, self.hparams = run_id, Path(run_dir), hparams
 
+    @rank_zero_only
     def write_hyperparameters(self) -> None:
         with open(self.run_dir / "run-metrics.jsonl", "w") as f:
             f.write(json.dumps({"run_id": self.run_id, "hparams": self.hparams}, sort_keys=True, default=str) + "\n")
 
+    @rank_zero_only
     def write(self, _: int, metrics: Dict[str, Union[int, float]]) -> None:
         with open(self.run_dir / f"{self.run_id}.jsonl", "a") as f:
             f.write(json.dumps(metrics, sort_keys=True, default=str) + "\n")
@@ -60,6 +73,8 @@ class WeightsBiasesTracker:
         self.run_id, self.run_dir, self.hparams = run_id, Path(run_dir), hparams
         self.project, self.entity, self.group = project, entity, group
         self._wandb = None
+        if world()[0] != 0:  # rank zero logs
+            return
         try:
             import wandb
 

@@ -10,12 +10,18 @@ and three points written out where torch's defaults differ from optax:
 - the global-norm clip has no epsilon: gradients become ``g / norm * max``
   when ``norm >= max`` (``clip_grad_norm_`` would add 1e-6 to the norm);
 - weight decay is decoupled and applies only to >=2-D, non-bias parameters.
+
+On a mesh the parameters may be FSDP2's sharded ones (``DTensor``): the
+global norm sums each rank's squares of its own shards, then over the groups
+whose ranks hold different parts (``norm_groups``, set by the strategy from
+``TrainSharding.sq_norm_groups``), so that it is the norm of the whole
+gradient, and the clip scales each local shard by it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -48,6 +54,11 @@ def build_schedule(
     raise ValueError(f"Learning Rate Schedule with type `{lr_scheduler_type}` is not supported!")
 
 
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor's local shard (the tensor itself otherwise)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def decay_mask(named_params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
     """Weight decay only on >=2-D parameters that are not biases."""
     return {name: p.dim() > 1 and name.rsplit(".", 1)[-1] != "bias" for name, p in named_params.items()}
@@ -77,12 +88,28 @@ class ClippedAdamW:
         groups = [g for g in groups if g["params"]]
         self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8, foreach=False)
         self.count = 0  # updates applied, as optax counts them
+        # parameter -> the process groups over which its gradient's squares add up (None: one device), and
+        # every value it can take, in the order all ranks sum them
+        self.norm_groups: Optional[Callable[[torch.Tensor], tuple]] = None
+        self.norm_keys: List[tuple] = []
 
     def global_norm(self) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        grads = [(p, local_shard(p.grad)) for p in self.params if p.grad is not None]
         if not grads:
             return torch.zeros((), dtype=torch.float32)
-        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+        if self.norm_groups is None:
+            return torch.sqrt(sum(g.float().square().sum() for _, g in grads))
+        dev = grads[0][1].device
+        by_groups = {key: torch.zeros((), dtype=torch.float32, device=dev) for key in self.norm_keys}
+        for p, g in grads:
+            by_groups[self.norm_groups(p)] += g.float().square().sum()
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for key in self.norm_keys:
+            part = by_groups[key]
+            for group in key:
+                torch.distributed.all_reduce(part, group=group)
+            total += part
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -91,7 +118,8 @@ class ClippedAdamW:
                 p.grad = torch.zeros_like(p)
         norm = self.global_norm()
         for p in self.params:
-            p.grad.copy_(torch.where(norm < self.max_grad_norm, p.grad, p.grad / norm * self.max_grad_norm))
+            g = local_shard(p.grad)
+            g.copy_(torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm))
         lr = self.schedule(self.count)
         for group in self.adamw.param_groups:
             group["lr"] = lr

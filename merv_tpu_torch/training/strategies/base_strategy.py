@@ -1,20 +1,29 @@
 """The training strategy and its loop (counterpart of
-``merv_tpu/training/strategies/base_strategy.py``), on one device.
+``merv_tpu/training/strategies/base_strategy.py``).
 
-What ``merv_tpu`` does, kept: the batch divisibility check and
+What ``merv_tpu`` does, kept: the mesh (by default every rank of the world on
+``fsdp``, ``build_mesh()``); the world size as data x fsdp, the ranks the
+batch splits over, and the batch divisibility check over it;
 ``grad_accumulation_steps``; the frozen towers cast to their half-precision
-dtype; the sampler by stage (:class:`SplitModalitySampler` for finetune, a
-seeded epoch permutation otherwise); epochs inflated to 100 under
-``max_steps``; the resume fast-forward over consumed batches; checkpoints
-every ``save_checkpoint_after`` steps, written in the background while
-training goes on (``blocking=False``), and at each epoch's end, blocking
-(recording the next epoch); every write done before :meth:`run_training`
-returns; the step's loss read one step late, so the host does not wait on the
-step it has just queued.
+dtype; the state sharded by the strategy (:func:`shard_train_state`) and the
+step run in the mesh's activation scope; the sampler by stage
+(:class:`SplitModalitySampler` for finetune, a seeded epoch permutation
+otherwise); epochs inflated to 100 under ``max_steps``; the resume
+fast-forward over consumed batches; checkpoints every
+``save_checkpoint_after`` steps, written in the background while training
+goes on (``blocking=False``), and at each epoch's end, blocking (recording
+the next epoch); every write done before :meth:`run_training` returns; the
+step's loss read one step late, so the host does not wait on the step it has
+just queued; metrics and trackers on rank zero.
 
 What differs: the step is :func:`make_train_step`'s eager loop, not a jitted
-program; the world is one device (the model's), so the sharding strategies
-differ only in name until multi-card training lands (ROADMAP A12).
+program. The port runs one process a rank, where one ``merv_tpu`` process
+spans every local device: the samplers take ``num_replicas`` = data x fsdp
+and the rank's batch coordinate (``merv_tpu`` takes the process count and
+index), so ranks that differ only in ``sp`` or ``pp`` read the same
+examples, and each rank's loader yields its own part of the global batch.
+Under ``pp`` each rank keeps only its stage's decoder layers. Without a mesh
+and in a world of one process, the one-device step runs (no process group).
 """
 
 from __future__ import annotations
@@ -26,10 +35,16 @@ import numpy as np
 import torch
 
 from merv_tpu_torch.overwatch import initialize_overwatch
-from merv_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint, wait_for_checkpoints
+from merv_tpu_torch.parallel.mesh import PIPE_AXIS, axis_rank, axis_size, batch_rank, batch_size, build_mesh, world
+from merv_tpu_torch.training.checkpointing import (
+    load_checkpoint,
+    load_sharded_state,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from merv_tpu_torch.training.metrics import Metrics
 from merv_tpu_torch.training.optimizers import build_optimizer, build_schedule
-from merv_tpu_torch.training.train_step import make_loss_fn, make_train_step
+from merv_tpu_torch.training.train_step import TrainSharding, make_loss_fn, make_train_step, shard_train_state
 from merv_tpu_torch.util.batching_utils import EpochShardSampler, SplitModalitySampler
 
 overwatch = initialize_overwatch(__name__)
@@ -58,6 +73,7 @@ class TrainingStrategy:
         worker_init_fn: Optional[Callable[[int], None]] = None,
         save_checkpoint_after: int = 512,
         loss_chunk_size: Optional[int] = None,
+        mesh: Any = None,
         **_: Any,
     ) -> None:
         self.vidlm, self.stage = vidlm, stage
@@ -69,18 +85,26 @@ class TrainingStrategy:
         self.worker_init_fn = worker_init_fn
         self.save_checkpoint_after = save_checkpoint_after
         self.loss_chunk_size = loss_chunk_size
-        self.world_size = 1
+        if mesh is None and world()[1] > 1:  # merv_tpu's default: every rank on fsdp
+            mesh = build_mesh(device_type=vidlm.device.type)
+        self.mesh = mesh
+        # the batch splits over data x fsdp only: tensor / sp / pp ranks split each example's work, not the batch
+        self.world_size = batch_size(mesh)
 
         assert self.global_batch_size % (self.per_device_batch_size * self.world_size) == 0, (
             f"global_bsz {global_batch_size} must be divisible by per_device_bsz {per_device_batch_size}"
             f" x world {self.world_size}"
         )
         self.grad_accumulation_steps = self.global_batch_size // self.per_device_batch_size // self.world_size
+        assert self.grad_accumulation_steps >= 1, (
+            f"global_bsz {global_batch_size} < per_device_bsz {per_device_batch_size} x world {self.world_size}"
+        )
         if not enable_mixed_precision_training:
             raise NotImplementedError("the port computes in bf16 only: there is no fp32 compute path yet")
         assert mixed_precision_dtype == torch.bfloat16, "Only bf16 mixed precision is supported!"
 
         # set by run_setup
+        self.sharding: Optional[TrainSharding] = None
         self.tx = None
         self.schedule = None
         self.step_fn: Optional[Callable] = None
@@ -104,19 +128,31 @@ class TrainingStrategy:
         self.total_steps = self.max_steps if self.max_steps is not None else steps_per_epoch * self.epochs
 
         for vb in self.vidlm.video_backbones:  # frozen towers in their half-precision dtype
-            vb.to(vb.half_precision_dtype)
+            if any(p.dtype != vb.half_precision_dtype for p in vb.parameters()):
+                vb.to(vb.half_precision_dtype)
 
+        module = self.vidlm
+        if self.mesh is not None:
+            pp = axis_size(self.mesh, PIPE_AXIS)
+            if pp > 1 and self.vidlm.llm_backbone.decoder.cfg.pipeline_parallel:
+                self.vidlm.llm_backbone.decoder.keep_stage(pp, axis_rank(self.mesh, PIPE_AXIS))
+            self.sharding = shard_train_state(self.vidlm, self.mesh, self.sharding_strategy)
+            module = self.sharding.module
         trainable = self.vidlm.trainable_mask()
         self.schedule = build_schedule(self.lr_scheduler_type, self.learning_rate, self.total_steps, self.warmup_ratio)
         self.tx = build_optimizer(dict(self.vidlm.named_parameters()), self.schedule, self.weight_decay,
                                   self.max_grad_norm, trainable_mask=trainable)
-        loss_fn = make_loss_fn(self.vidlm, remat=self.enable_gradient_checkpointing,
+        if self.sharding is not None:
+            self.tx.norm_groups, self.tx.norm_keys = self.sharding.sq_norm_groups, self.sharding.norm_keys
+        loss_fn = make_loss_fn(module, remat=self.enable_gradient_checkpointing,
                                video_transforms=video_transforms, loss_chunk_size=self.loss_chunk_size)
-        self.step_fn = make_train_step(loss_fn, self.tx, grad_accumulation_steps=self.grad_accumulation_steps)
+        self.step_fn = make_train_step(loss_fn, self.tx, grad_accumulation_steps=self.grad_accumulation_steps,
+                                       sharding=self.sharding)
 
         if resume_from_checkpoint is not None:
             self.load_checkpoint(resume_from_checkpoint)
-        overwatch.info(f"Strategy `{self.sharding_strategy}` ready: accum={self.grad_accumulation_steps}, "
+        shape = None if self.mesh is None else dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        overwatch.info(f"Strategy `{self.sharding_strategy}` ready: mesh={shape}, accum={self.grad_accumulation_steps}, "
                        f"total_steps={self.total_steps}")
 
     # -- checkpointing -----------------------------------------------------------
@@ -127,21 +163,27 @@ class TrainingStrategy:
     def save_checkpoint(self, run_dir: Path, global_step: int, epoch: int, train_loss: Optional[float] = None,
                         blocking: bool = True) -> None:
         save_checkpoint(run_dir, global_step, epoch, train_loss if train_loss is not None else 0.0,
-                        self.vidlm, self._trainable_keys(), optimizer=self.tx, blocking=blocking)
+                        self.vidlm, self._trainable_keys(), optimizer=self.tx, blocking=blocking, mesh=self.mesh)
 
     def load_checkpoint(self, checkpoint_path: Path) -> None:
-        restored = load_checkpoint(checkpoint_path, map_location=self.vidlm.device)
-        for key, state in restored["model"].items():
-            getattr(self.vidlm, key).load_state_dict(state, strict=True)
-        self.tx.load_state_dict(restored["optimizer"])
+        """Resume from a checkpoint written at any world size."""
+        if self.mesh is None:
+            restored = load_checkpoint(checkpoint_path, map_location=self.vidlm.device)
+            for key, state in restored["model"].items():
+                getattr(self.vidlm, key).load_state_dict(state, strict=True)
+            self.tx.load_state_dict(restored["optimizer"])
+        else:
+            restored = load_checkpoint(checkpoint_path)
+            load_sharded_state(self.vidlm, self.tx, restored, self.mesh)
         self._resume_step, self._resume_epoch = restored["step"], restored["epoch"]
         overwatch.info(f"Resumed from {checkpoint_path} at step {self._resume_step}")
 
     # -- the loop ------------------------------------------------------------------
 
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """The collated numpy batch as tensors on the model's device (ids and
-        labels as int64, videos as they come: uint8 frames)."""
+        """The rank's collated numpy batch (its sampler's part of the global
+        batch) as tensors on the model's device (ids and labels as int64,
+        videos as they come: uint8 frames)."""
         dev = self.vidlm.device
 
         def put(x, dtype=None):
@@ -153,6 +195,18 @@ class TrainingStrategy:
             labels=put(batch["labels"], torch.long), is_multimodal=put(batch["is_multimodal"]),
             video_values=[put(v) for v in batch["video_values"]],
         )
+
+    def sampler(self, dataset, stage: str, seed: int):
+        """The stage's sampler over the batch ranks: ``num_replicas`` data x
+        fsdp and this rank's batch coordinate, so that ranks differing only in
+        ``sp`` or ``pp`` read the same examples (one process a rank; ``merv_tpu``
+        takes the process count, one process holding every local device)."""
+        replicas, rank = self.world_size, batch_rank(self.mesh)
+        if "finetune" in stage:
+            return SplitModalitySampler(dataset, dataset.get_modality_lengths(),
+                                        global_batch_size=self.global_batch_size, num_replicas=replicas, rank=rank,
+                                        seed=seed)
+        return EpochShardSampler(dataset, num_replicas=replicas, rank=rank, seed=seed)
 
     def run_training(
         self,
@@ -167,18 +221,15 @@ class TrainingStrategy:
     ) -> None:
         """Train until ``max_steps`` or the last epoch. ``step_timings`` (a
         list) receives each step's phase split (``make_train_step``'s
-        ``timings``, with device syncs), its wall time ``step_s`` and its
-        ``loss`` (the mean over its micro-batches)."""
+        ``timings``, with device syncs), its wall time ``step_s``, its
+        ``loss`` (the mean over its micro-batches) and its ``grad_norm``."""
         import time
 
         import torch.utils.data as tud
 
-        if "finetune" in stage:
-            sampler = SplitModalitySampler(dataset, dataset.get_modality_lengths(),
-                                           global_batch_size=self.global_batch_size, seed=seed)
-        else:
-            sampler = EpochShardSampler(dataset, seed=seed)
-        dataloader = tud.DataLoader(dataset, batch_size=self.global_batch_size, sampler=sampler, collate_fn=collator,
+        sampler = self.sampler(dataset, stage, seed)
+        dataloader = tud.DataLoader(dataset, batch_size=self.global_batch_size // self.world_size, sampler=sampler,
+                                    collate_fn=collator,
                                     num_workers=num_workers, drop_last=True, worker_init_fn=self.worker_init_fn)
 
         steps_per_epoch = len(dataloader)
@@ -200,7 +251,7 @@ class TrainingStrategy:
             loss = float(p_loss)
             metrics.commit(global_step=p_step, lr=float(self.schedule(p_step)), update_step_time=True, loss=loss)
             status = metrics.push()
-            if p_step % 10 == 0:
+            if p_step % 10 == 0 and world()[0] == 0:
                 overwatch.info(status)
 
         for epoch in range(self._resume_epoch, epochs):
@@ -216,6 +267,7 @@ class TrainingStrategy:
                 if timings is not None:
                     timings["step_s"] = time.perf_counter() - t
                     timings["loss"] = float(step_metrics["loss"])
+                    timings["grad_norm"] = float(step_metrics["grad_norm"])
                     step_timings.append(timings)
 
                 drain_pending()

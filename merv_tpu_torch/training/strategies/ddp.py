@@ -1,5 +1,7 @@
-"""The DDP-named strategy (counterpart of ``merv_tpu/training/strategies/ddp.py``):
-the single-device loop, with the reference's restriction to zero weight decay."""
+"""The DDP strategy (counterpart of ``merv_tpu/training/strategies/ddp.py``):
+every rank holds the whole model, ``DistributedDataParallel`` sums the
+gradients over the batch ranks; with the reference's restriction to zero
+weight decay."""
 
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
-"""The FSDP-named strategies (counterpart of ``merv_tpu/training/strategies/fsdp.py``).
+"""The FSDP strategies (counterpart of ``merv_tpu/training/strategies/fsdp.py``).
 
-``fsdp-full-shard`` (ZeRO-3) and ``fsdp-shard-grad-op`` (ZeRO-2) are the
-names the recipes carry. On one device there is nothing to shard, so both
-run :class:`TrainingStrategy`'s single-device loop; sharding parameters and
-optimizer state across cards waits for ROADMAP A12.
+``fsdp-full-shard`` (ZeRO-3) and ``fsdp-shard-grad-op`` (ZeRO-2) shard the
+parameters, gradients and AdamW moments over the mesh's ``fsdp`` axis with
+FSDP2's ``fully_shard``, each parameter on the dim that carries
+``merv_tpu``'s ``fsdp`` axis: full-shard frees the gathered parameters after
+each unit's forward, shard-grad-op keeps them through the step's backward
+(:func:`~merv_tpu_torch.training.train_step.shard_train_state`). On one
+rank there is nothing to shard and the one-device step runs.
 """
 
 from __future__ import annotations

@@ -217,8 +217,13 @@ def test_stage_recipes_match_merv_tpu(stage):
 
 @pytest.mark.parametrize("flag", ["--mesh_seq", "--mesh_pipe"])
 def test_pretrain_refuses_the_parallel_options(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    """Each option trains under torchrun (tests/test_torch_parallel_training.py);
+    in one process an axis of 2 has no ranks to cover it, and both at once
+    raise merv_tpu's ValueError."""
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         cli.pretrain(args=["--stage", "align", flag, "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        cli.pretrain(args=["--stage", "align", "--mesh_seq", "2", "--mesh_pipe", "2", "--device", "cpu"])
 
 
 def test_pretrain_runs_on_the_card_unless_asked(monkeypatch, tmp_path):

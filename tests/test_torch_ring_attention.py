@@ -459,11 +459,16 @@ def test_decoder_sp_per_slot_cache_matches_unsharded(decoders):
 
 
 def test_decoder_refuses_tensor_and_pipe_axes(decoders):
+    """A tensor axis still raises (ROADMAP A12 step 4); a pipeline axis runs
+    GPipe (tests/test_torch_parallel_training.py), except beside an sp axis
+    with both paths on: merv_tpu's ValueError."""
     _, _, dec, _ = decoders
     ids = torch.from_numpy(_ids(5, 1, 8)).long()
-    for mesh, what in ((VirtualMesh(2, tensor=2), "ROADMAP A12 step 4"), (VirtualMesh(2, pipe=2), "pipeline.py")):
-        with activation_mesh(mesh), pytest.raises(NotImplementedError, match=what):
-            dec(input_ids=ids)
+    with activation_mesh(VirtualMesh(2, tensor=2)), pytest.raises(NotImplementedError, match="ROADMAP A12 step 4"):
+        dec(input_ids=ids)
+    both = LlamaDecoder(dataclasses.replace(dec.cfg, pipeline_parallel=True), device="cpu")
+    with activation_mesh(VirtualMesh(2, pipe=3)), pytest.raises(ValueError, match="cannot both be active"):
+        both(input_ids=ids)
 
 
 # ---------------------------------------------------------------------------

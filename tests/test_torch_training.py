@@ -372,6 +372,7 @@ def test_strategy_resume_matches_straight_run(tmp_path):
     straight, s1, timings = _train(tmp_path / "a", 3)
     assert s1.grad_accumulation_steps == 2 and len(timings) == 3
     assert all(t["step_s"] > 0 and {"towers_s", "llm_s", "optimizer_s"} <= set(t) for t in timings)
+    assert all(np.isfinite(t["loss"]) and t["grad_norm"] > 0 for t in timings)
     assert all(p.dtype == torch.bfloat16 for vb in straight.video_backbones for p in vb.parameters())
     logged = [json.loads(x) for x in (tmp_path / "a" / "run.jsonl").read_text().splitlines()]
     assert [m["Align/Step"] for m in logged] == [1, 2, 3] and all(np.isfinite(m["Align/Loss"]) for m in logged)

@@ -129,3 +129,154 @@ def serving_world(rank: int, world: int, port: int, inp_path: str, out_dir: str)
                                                   "--dist_backend", "gloo", "--device", "cpu"] + extra)
         res[f"eval/{label}"] = sorted(os.listdir(os.path.join(root, "tiny-run"))) if rank == 0 else None
     _finish(out_dir, rank, res)
+
+
+def _fp32_towers() -> None:
+    """Keep the towers in fp32 where the strategy casts them to their half
+    precision: the merv_tpu step they are held against runs fp32 towers."""
+    import torch
+
+    from merv_tpu_torch.models.backbones.video.base_video import VideoBackbone
+
+    VideoBackbone.half_precision_dtype = property(lambda self: torch.float32)
+
+
+def rank_rows(batch: dict, accum: int, coord: int, ranks: int) -> dict:
+    """A rank's part of a global batch: the rows of each of the ``accum``
+    micro-batches at its batch coordinate (merv_tpu's [accum, micro] layout
+    with micro sharded over the batch ranks)."""
+    import torch
+
+    n = next(v for v in batch.values() if not isinstance(v, list)).shape[0]
+    micro = n // accum
+    per = micro // ranks
+    rows = torch.cat([torch.arange(i * micro + coord * per, i * micro + (coord + 1) * per) for i in range(accum)])
+
+    def cut(x):
+        return [cut(e) for e in x] if isinstance(x, list) else x[rows]
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+class _Items:
+    """A dataset of ``n`` items with modality lengths (half multimodal) for the samplers."""
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get_modality_lengths(self):
+        return [(i % 2 == 0, 10 + i) for i in range(self.n)]
+
+
+def train_world(rank: int, world: int, port: int, inp_path: str, out_dir: str) -> None:
+    """One train step of the tiny MERV under each layout of ``inp["layouts"]``
+    on a world of ``world`` ranks: the strategy on its mesh, the rank's part of
+    the global batch, a checkpoint written from the sharded state; then the
+    checkpoint loaded back at this world size."""
+    _start(rank, world, port)
+    import copy
+    import dataclasses
+
+    import torch
+
+    from merv_tpu_torch.parallel import MeshConfig, build_mesh
+    from merv_tpu_torch.parallel.mesh import batch_rank, batch_size
+    from merv_tpu_torch.training import get_train_strategy
+    from merv_tpu_torch.training.checkpointing import latest_checkpoint, wait_for_checkpoints
+
+    _fp32_towers()
+    inp = torch.load(inp_path, weights_only=False)
+    res = {}
+    for name, lay in inp["layouts"].items():
+        model = copy.deepcopy(inp["model"])
+        dec = model.llm_backbone.decoder
+        dec.cfg = dataclasses.replace(dec.cfg, sequence_parallel=lay["sp"] > 1, pipeline_parallel=lay["pp"] > 1)
+        model.freeze_backbones("finetune")
+        mesh = build_mesh(MeshConfig(data=1, fsdp=-1, tensor=1, seq=lay["sp"], pipe=lay["pp"]), device_type="cpu")
+        strat = get_train_strategy(
+            lay["strategy"], model, stage="finetune", max_steps=1, global_batch_size=inp["global_batch"],
+            per_device_batch_size=lay["per_device"], learning_rate=inp["lr"], weight_decay=lay["wd"],
+            max_grad_norm=inp["clip"], lr_scheduler_type="constant", enable_gradient_checkpointing=lay["remat"],
+            mesh=mesh)
+        run_dir = os.path.join(inp["root"], name)
+        os.makedirs(run_dir, exist_ok=True)
+        strat.run_setup(run_dir, n_train_examples=inp["global_batch"])
+        b = rank_rows(inp["batch"], strat.grad_accumulation_steps, batch_rank(mesh), batch_size(mesh))
+        out = strat.step_fn(b)
+        strat.save_checkpoint(run_dir, 1, 0, float(out["loss"]))
+        wait_for_checkpoints()
+        torch.distributed.barrier()
+        reloaded = copy.deepcopy(inp["model"])  # the checkpoint back into a fresh copy laid out the same way
+        reloaded.llm_backbone.decoder.cfg = dec.cfg
+        reloaded.freeze_backbones("finetune")
+        again = get_train_strategy(
+            lay["strategy"], reloaded, stage="finetune", max_steps=1, global_batch_size=inp["global_batch"],
+            per_device_batch_size=lay["per_device"], learning_rate=inp["lr"], weight_decay=lay["wd"],
+            max_grad_norm=inp["clip"], lr_scheduler_type="constant", mesh=mesh)
+        again.run_setup(run_dir, n_train_examples=inp["global_batch"],
+                        resume_from_checkpoint=latest_checkpoint(run_dir))
+        same = all(torch.equal(a.full_tensor() if hasattr(a, "full_tensor") else a,
+                               b.full_tensor() if hasattr(b, "full_tensor") else b)
+                   for a, b in zip(model.parameters(), reloaded.parameters()))
+        sampled = {}
+        for stage in ("align", "finetune"):
+            sampler = strat.sampler(_Items(inp["global_batch"] * 2), stage, seed=3)
+            sampler.set_epoch(0)
+            sampled[stage] = list(sampler)
+        res[name] = dict(coords={a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}, sampled=sampled,
+                         loss=float(out["loss"]), grad_norm=float(out["grad_norm"]), accum=strat.grad_accumulation_steps,
+                         world_size=strat.world_size, reload_equal=same, count=again.tx.count,
+                         kinds=sorted({type(p).__name__ for p in model.parameters()}))
+    _finish(out_dir, rank, res)
+
+
+def cli_world(rank: int, world: int, port: int, inp_path: str, out_dir: str) -> None:
+    """``cli/pretrain.py`` on the tiny model at ``--mesh_seq 2`` (align) and
+    ``--mesh_pipe 2`` (finetune from that align checkpoint, then resumed from
+    its step-1 checkpoint), each 2 steps with a checkpoint a step."""
+    _start(rank, world, port)
+    import copy
+
+    import torch
+
+    import merv_tpu_torch.cli.pretrain as cli
+    from merv_tpu_torch.models.backbones.llm.base_llm import tiny_llm_backbone
+    from merv_tpu_torch.models.materialize import get_vidlm
+
+    inp = torch.load(inp_path, weights_only=False)
+
+    def towers(ids, strategy, num_frames, device=None, generator=None):
+        vbs = copy.deepcopy(inp["towers"])
+        return vbs, [vb.get_video_transform() for vb in vbs]
+
+    def llm(llm_id, llm_max_length=2048, device=None, generator=None, **parallel):
+        backbone = tiny_llm_backbone(compute_dtype=torch.float32, vocab_size=inp["vocab"], device="cpu", **parallel)
+        return backbone, backbone.tokenizer
+
+    def vidlm(*args, **kw):
+        model = get_vidlm(*args, **{**kw, "device": "cpu", "generator": None})
+        model.load_state_dict(inp["state"], strict=True)
+        return model
+
+    cli.get_video_backbone_and_transform, cli.get_llm_backbone_and_tokenizer, cli.get_vidlm = towers, llm, vidlm
+    cli.DATALOADER_WORKERS = 0
+    from merv_tpu_torch.ops.ring_attention import COLLECTIVES as RING
+    from merv_tpu_torch.parallel.pipeline import COLLECTIVES as PIPE
+
+    res = {}
+    for label, argv, resume_of in inp["runs"]:
+        if resume_of is not None:  # the step-1 checkpoint of an earlier run
+            ckpts = os.path.join(inp["root"], "runs", resume_of, "checkpoints")
+            argv = argv + ["--resume_from_checkpoint",
+                           os.path.join(ckpts, next(d for d in sorted(os.listdir(ckpts)) if d.startswith("step-000001")))]
+        for counts in (RING, PIPE):
+            for k in counts:
+                counts[k] = 0
+        strategy = cli.pretrain(args=argv + ["--dist_backend", "gloo", "--device", "cpu"])
+        res[label] = dict(resume_step=strategy._resume_step, count=strategy.tx.count, world_size=strategy.world_size,
+                          layers=[type(m).__name__ for m in strategy.vidlm.llm_backbone.decoder.layers],
+                          collectives={**RING, **PIPE})
+    _finish(out_dir, rank, res)
