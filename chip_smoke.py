@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
                            --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
-                           --families-only | --zoo-only | --pretrain-only | --train-parallel-only | --bench-only]
+                           --families-only | --zoo-only | --pretrain-only | --sp-only | --tp-only |
+                           --train-parallel-only | --bench-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
@@ -18,6 +19,9 @@ packed-layout check and phase 4g alone and writes them to
 ``chiprun_out/families.json``; ``--zoo-only`` runs K1's and B3's head-dim-72
 cases and phase 4h alone and writes them to ``chiprun_out/zoo.json``; ``--pretrain-only`` runs B6's head-dim-72 cases and
 phase 5b alone and writes them to ``chiprun_out/pretrain.json``;
+``--sp-only`` runs phases 4i and 4j (their ranks share one world) and writes
+them to ``chiprun_out/sp.json``; ``--tp-only`` runs phase 3's cases at 4j's
+shard shapes and phase 4j alone and writes them to ``chiprun_out/tp.json``;
 ``--train-parallel-only`` runs phase 5c alone and writes it to
 ``chiprun_out/train_parallel.json``; ``--bench-only`` runs phase 6 alone and
 writes it to ``chiprun_out/bench.json``.
@@ -74,7 +78,13 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    18,944) at 1, 4 and 36 rows; K5 at GQA groups 7, 8, 4 and 1 (decode) and at
    the verifies whose group x Tq rows cross a 16-row unit inside a head (21,
    35, 24, 20 rows), bf16 and int8; K2 at the 28 -> 4, 16 -> 2 and 40-head
-   prefills and Qwen-2.5-7B's 28 -> 4 suffix prefill, beside SDPA. K1 and B3
+   prefills and Qwen-2.5-7B's 28 -> 4 suffix prefill, beside SDPA. Then at
+   tensor-parallel serving's shard shapes (``tensor_kernel_cases``): K2 at a
+   tensor = 2 rank's 16 heads of Llama-2-7B's prefill, K4 at its unpacked
+   shards (q/k/v 2,048 x 4,096, o 4,096 x 2,048, gate/up 5,504 x 4,096, down
+   4,096 x 5,504, the lm_head's 16,032 columns; down at tensor = 4's 2,752
+   inputs) at 1 and 4 rows, K5 at 16 heads (bf16 and int8, decode, the
+   engine's slots, the verify at 3 rows). K1 and B3
    at SigLIP so400m's head dim 72 (``head_dim_72_cases``: [16, 16, 256, 72],
    ragged T = 229, T = 512, and B3's GQA [4, 16 -> 4, 256, 72]) beside SDPA,
    graph-timed, where a fault that ignores head-dim columns 64-71 (and, on
@@ -231,6 +241,31 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    decode step's logits too, up to the first token that differs (random
    weights leave near ties, and pick ids past the byte tokenizer's range,
    whose text is mostly empty: tokens are compared, not text).
+4j. tensor-parallel serving (``tensor_checks``; in 4i's world: its two ranks
+   go on to 4j once their eval runs are done, and this process runs 4j's
+   world-1 reference once its sp = 1 runs are done): merv-full's run
+   directory (4i's) loaded by ``load_vid(mesh=)`` at tensor = 2 over gloo
+   (packing off, the LLM quantized where asked and cut to the rank's Megatron
+   shards, towers, projectors and fusion whole), and in this process at world
+   1 unpacked; each serves ``MERV.generate`` (16 new tokens) on the demo
+   video and the engine (3 slots, the three ``TENSOR_QUESTIONS``, 8 new
+   tokens, one chunk, run eagerly on both sides so that each step's logits
+   can be read) at gamma 0 and 2, then the same run directory with
+   ``quantize_llm=True`` through the engine on the video's shared prefix.
+   World 1 also serves the first token three more times with o's and down's
+   GEMMs cut at half their input as tensor = 2 cuts them: the two bf16
+   partials added (the rounding the ranks' sums bring, a control) and two
+   planted faults (a skipped sum, the shards swapped). Fails unless each rank
+   holds ``TENSOR_SHARE`` of world 1's LLM weight bytes (bf16 and int8) and
+   decode cache bytes, one decode step makes 2 L + 1 sums and 1 gather, every
+   run's K1 / K2 / K4 / K5 launches are its counts' prediction (unpacked
+   Linears), the control reads below ``TENSOR_LOGITS_REL_TOL`` and each planted
+   fault above it, and in every run (the request, each engine run, the int8
+   engine against world 1's int8 engine) each request's first-token logits
+   and every decode or verify step's logits up to its first differing token
+   are within ``TENSOR_LOGITS_REL_TOL`` of world 1's; only rank 0 returns the
+   engine's results. Greedy agreements and the walls against world 1's are
+   reported (the ranks run eagerly: gloo's collectives cannot be captured).
 5. training path: merv-base's align stage at full width, Llama-2-7B cut to
    ``TRAIN_LLM_LAYERS`` = 16 of its 32 layers to keep the script within its
    time limit (phase 5b trains the align stage at full depth) (fp32
@@ -338,7 +373,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    4d's runs, ``launches_engine`` from each of 4e's, 4f's and 4g's serve runs,
    ``launches_families`` from each of 4g's requests, ``launches_zoo`` from
    each of 4h's, ``launches_pretrain`` from each of 5b's runs, ``launches_train_parallel`` from each rank
-   of each of 5c's runs, ``launches_bench`` from each of phase
+   of each of 5c's runs, ``launches_tp`` from each of 4j's runs on each rank,
+   ``launches_bench`` from each of phase
    6's processes (per serving phase and tower_attn implementation); B6's head-dim-72
    instance as ``fused_vit_attn_block_d72``, its launches from 5b's align run), and
    the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -1413,6 +1449,31 @@ FAMILY_FLASH_CASES = (
     ("llama2_13b_cache_prefill", 1, 40, 40, 1088, 1120, 128, True, 0, "prefill"),
     ("qwen25_7b_suffix_prefill", 8, 28, 4, 64, 1152, 128, True, 1024, "suffix"),
 )
+
+
+# ... and at tensor-parallel serving's shard shapes (phase 4j serves Llama-2-7B at tensor = 2): K2 at a rank's 16 of
+# the 32 heads of the prefill, K4 at a rank's unpacked Linears (N, K): q / k / v (4096 / 2 outputs), o (2048 inputs),
+# gate / up (11,008 / 2 outputs), down (5,504 inputs: 86 k-steps of 64), the lm_head's 16,032 of 32,064 columns (a
+# ragged last 128-column tile), and down at tensor = 4 (2,752 inputs: 43 k-steps, a prime), at 1 and 4 rows; K5 at
+# 16 heads, bf16 and int8, decode and the verify at 3 rows, B = 1 and the engine's 4 slots
+TENSOR_FLASH_CASES = (("llama2_7b_tp2_cache_prefill", 1, 16, 16, 1088, 1120, 128, True, 0, "prefill"),)
+TENSOR_K4_WEIGHTS = (("tp2_qkv", 2048, 4096), ("tp2_o", 4096, 2048), ("tp2_gate_up", 5504, 4096),
+                     ("tp2_down", 4096, 5504), ("tp2_lm_head", 16032, 4096), ("tp4_down", 4096, 2752))
+TENSOR_K4_SHAPES = tuple((f"{w}_m{m}", m, n, k) for w, n, k in TENSOR_K4_WEIGHTS for m in (1, 4))
+TENSOR_K5_CASES = (
+    ("tp2_b1_bf16", 1, 16, 16, 1, 1120, 128, False, (1100,), None),
+    ("tp2_b1_int8", 1, 16, 16, 1, 1120, 128, True, (1100,), None),
+    ("tp2_engine_int8", 4, 16, 16, 1, 2058, 128, True, ENGINE_LENGTHS, None),
+    ("tp2_verify3_bf16", 4, 16, 16, 3, 2058, 128, False, ENGINE_LENGTHS, "lengths"),
+)
+
+
+def tensor_kernel_cases(dev, seed: int):
+    """Phase 3 at tensor-parallel serving's shard shapes: K2 (TENSOR_FLASH_CASES),
+    K4 (TENSOR_K4_SHAPES) and K5 (TENSOR_K5_CASES), each held against its
+    plain version and timed beside its library call and its bound."""
+    return (kernel_cases(dev, seed + 9, k1=False, flash_cases=TENSOR_FLASH_CASES)
+            + int8_kernel_cases(dev, seed + 9, k4_shapes=TENSOR_K4_SHAPES, k5_cases=TENSOR_K5_CASES))
 
 
 def rotating(calls):
@@ -3050,9 +3111,13 @@ def sp_eval_run(label: str, extra: list, root: str, rec: SpRecorder) -> dict:
                 k5_lse_path_hold=rec.path_hold(), logits=rec.logits, step_logits=steps)
 
 
-def sp_worker(out_dir: str) -> int:
-    """One rank of phase 4i(c), started by ``torch.distributed.run`` (``--sp-worker``):
-    both eval runs at --mesh_seq 2 over gloo on the one card, results to ``out_dir``."""
+def sp_worker(out_dir: str, seed: int) -> int:
+    """One rank of phase 4i(c) and then of 4j, started by ``torch.distributed.run``
+    (``--sp-worker``): both eval runs at --mesh_seq 2 over gloo on the one
+    card, results to ``out_dir``; then, in the same world, 4j's tensor = 2
+    serving (``tensor_worker``)."""
+    import gc
+
     import torch
 
     from merv_tpu_torch.parallel.mesh import world
@@ -3069,32 +3134,11 @@ def sp_worker(out_dir: str) -> int:
         out[label] = r
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f, default=str)
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensor_worker(seed)
     return 0
-
-
-def sp_start_ranks(dev, seed: int):
-    """Phase 4i(c), first half: write merv-full's run directory (as 4d does)
-    and start the two ranks (``python -m torch.distributed.run
-    --nproc_per_node 2 chip_smoke.py --sp-worker``: both runs at --mesh_seq 2
-    over gloo on the one card), their output to ``chiprun_out/sp/ranks.log``.
-    Returns (process, its log file, start time)."""
-    import socket
-
-    write_run_dir(os.path.join("runs", SP_RUN), dev, seed)
-    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
-        os.environ.pop(name, None)
-    out_dir = os.path.join("chiprun_out", "sp")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    for label, _ in SP_EVAL_RUNS:
-        shutil.rmtree(os.path.join("eval_result", f"sp_{label}"), ignore_errors=True)
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(SP_RANKS), "--master_addr",
-           "localhost", "--master_port", str(port), os.path.abspath(__file__), "--sp-worker", out_dir]
-    logf = open(os.path.join(out_dir, "ranks.log"), "w")
-    return subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, text=True), logf, time.perf_counter()
 
 
 def first_divergence(a, b):
@@ -3102,7 +3146,7 @@ def first_divergence(a, b):
     return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def stepwise_logits(tok, ref_tok, first, ref_first, steps, ref_steps) -> dict:
+def stepwise_logits(tok, ref_tok, first, ref_first, steps, ref_steps, tol: float = LOGITS_REL_TOL) -> dict:
     """Two greedy decodes of the same batch, ``tok`` against ``ref_tok``
     [rows][tokens] (token 0 from the prefill's logits ``first`` [rows, V],
     token t >= 1 from ``steps[t - 1]`` [rows, V]), row by row: the first
@@ -3110,7 +3154,8 @@ def stepwise_logits(tok, ref_tok, first, ref_first, steps, ref_steps) -> dict:
     including that one (their inputs are still equal), over the entries
     finite in both (the EOS ban's -inf must sit on the same entries); and at
     that step the reference's margin between its token and the other's
-    against how far the logits of those two tokens moved."""
+    against how far the logits of those two tokens moved. ``ok``: every
+    step within ``tol``, and the same entries non-finite."""
     import torch
 
     rows, worst, agree, total = [], 0.0, 0, 0
@@ -3134,11 +3179,11 @@ def stepwise_logits(tok, ref_tok, first, ref_first, steps, ref_steps) -> dict:
                        logits_moved=(la - lb)[[ta[d], tb[d]]].abs().max().item())
         worst = max(worst, row["logits_rel_l2_max"])
         rows.append(row)
-    return dict(rows=rows, logits_rel_l2_max=worst, ok=worst <= LOGITS_REL_TOL and all(r["same_non_finite"] for r in rows),
+    return dict(rows=rows, logits_rel_l2_max=worst, ok=worst <= tol and all(r["same_non_finite"] for r in rows),
                 greedy_token_agreement=agree / total if total else None)
 
 
-def sp_entry_path(dev, seed: int, ranks_started) -> dict:
+def sp_entry_path(dev, seed: int, ranks_started, beside=None) -> dict:
     """Phase 4i(c), second half: ``eval_openended`` at sp = 1 here (group
     path, then ``--use_engine``; one load for both) while the ranks run, then
     the ranks' results. Fails unless each rank's counts show the sharded route
@@ -3146,7 +3191,9 @@ def sp_entry_path(dev, seed: int, ranks_started) -> dict:
     half the sp = 1 bytes), each rank's first K5 call with its LSE holds
     against the plain version on its own inputs, the first-token logits agree
     with sp = 1's and, on the group path, every decode step's logits agree
-    with sp = 1's up to the first token that differs."""
+    with sp = 1's up to the first token that differs. ``beside``: called once
+    the sp = 1 runs are done and their model freed, while the ranks run (4j's
+    world-1 reference); what it returns is ``result["beside"]``."""
     import gc
 
     import torch
@@ -3161,6 +3208,7 @@ def sp_entry_path(dev, seed: int, ranks_started) -> dict:
         del rec
         gc.collect()
         torch.cuda.empty_cache()
+        beside_out = None if beside is None else beside()
         rc = proc.wait(timeout=SP_WORKER_TIMEOUT_S)
         ranks_wall = time.perf_counter() - t_ranks
         logf.close()
@@ -3177,7 +3225,7 @@ def sp_entry_path(dev, seed: int, ranks_started) -> dict:
         for label, _ in SP_EVAL_RUNS:
             for prefix in ("sp1", "sp"):
                 shutil.rmtree(os.path.join("eval_result", f"{prefix}_{label}"), ignore_errors=True)
-    result = dict(ranks_process_wall_s=ranks_wall, runs={})
+    result = dict(ranks_process_wall_s=ranks_wall, runs={}, beside=beside_out)
     for label, _ in SP_EVAL_RUNS:
         base = sp1[label]
         got = torch.load(os.path.join(out_dir, f"logits_{label}.pt"))
@@ -3246,7 +3294,7 @@ def sp_path(dev, seed: int) -> dict:
     k5_cases, shard_checks = sp_k5_cases(dev, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    started = sp_start_ranks(dev, seed)
+    started = tensor_start_ranks(dev, seed, sp=True)
     try:
         ring = sp_ring_cases(dev, seed)
     except BaseException:
@@ -3256,11 +3304,495 @@ def sp_path(dev, seed: int) -> dict:
     # the ring's own launches (its blocks, forward and backward), not the whole-sequence comparisons beside them
     ring_launches = {"flash_attention_forward": sum(r["k2_launches"] for r in ring),
                      "flash_attention_backward": sum(r["k3_launches"] for r in ring)}
-    entry = sp_entry_path(dev, seed, started)
+    entry = sp_entry_path(dev, seed, started, beside=lambda: tensor_reference(dev, seed))
+    tensor = tensor_checks(*entry.pop("beside"))
+    tensor["ranks_process_wall_s"] = entry["ranks_process_wall_s"]
     wall = time.perf_counter() - t
-    log(f"[sp] phase 4i: {wall:.1f} s")
+    log(f"[sp] phases 4i and 4j: {wall:.1f} s")
     return dict(wall_s=wall, k5_cases=k5_cases, shard_checks=shard_checks, ring=ring, ring_launches=ring_launches,
-                entry=entry)
+                entry=entry, tensor=tensor)
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: tensor-parallel serving (two ranks over gloo on the one card, beside a world-1 reference)
+# ---------------------------------------------------------------------------
+
+TENSOR_RANKS = 2
+TENSOR_OUT = os.path.join("chiprun_out", "tp")  # the ranks' results and logs
+TENSOR_QUESTIONS = ("What is happening in this video?", "Describe the scene in one sentence.",
+                    "What color is the largest object?")
+TENSOR_MAX_NEW = 16  # MERV.generate's tokens
+TENSOR_ENGINE_NEW = 8  # each engine request's tokens: one chunk of steps_per_sync steps
+TENSOR_ENGINE = dict(slots=3, max_len=1280, length_bucket=64, steps_per_sync=8)  # one slot a question
+TENSOR_GAMMAS = (0, 2)
+# a rank's LLM weight bytes and decode-cache bytes against world 1's: half (the norms stay whole, 0.0001 of them)
+TENSOR_SHARE = (0.49, 0.51)
+# logits against world 1's, relative L2: each request's first token and every decode or verify step up to the first
+# differing token. The row-split Linears' two bf16 partials, summed, round otherwise than one whole GEMM, and random
+# weights carry that through 32 layers (2.900e-2 at the first token). The limit lies between world 1's control, which
+# adds the two partials itself, and the planted faults; every run checks both (PERF.md has the readings).
+TENSOR_LOGITS_REL_TOL = 1e-1
+# world 1's first token with o's and down's GEMMs cut at half their input: the two partials added (the control), the
+# first kept (a rank that skipped its sum), each half of the input on the other half of the weight (shards swapped)
+TENSOR_SPLIT_RUNS = ("control", "skipped_sum", "swapped_shards")
+TENSOR_WORKER_TIMEOUT_S = 600
+TENSOR_DEVICE = "cuda"  # the ranks' device type
+
+
+def tensor_prompts(llm) -> list:
+    out = []
+    for q in TENSOR_QUESTIONS:
+        builder = llm.prompt_builder_fn("merv")
+        builder.add_turn("human", q)
+        out.append(builder.get_prompt())
+    return out
+
+
+def tensor_step_collectives(decoder) -> dict:
+    """The tensor collectives of one T = 1 decode step of ``decoder`` (after a 4-token prefill)."""
+    import torch
+
+    from merv_tpu_torch.models.backbones.llm.transformer import KVCache
+    from merv_tpu_torch.parallel import tensor as TP
+
+    dev = next(decoder.parameters()).device
+    cache = KVCache.create(decoder.cfg, 1, 8, decoder.cfg.compute_dtype, dev, tp=decoder.tp)
+    with torch.inference_mode():
+        _, cache = decoder(input_ids=torch.ones(1, 4, dtype=torch.long, device=dev), kv_cache=cache)
+        TP.reset_counts()
+        decoder(input_ids=torch.ones(1, 1, dtype=torch.long, device=dev), kv_cache=cache)
+    return dict(TP.COUNTS)
+
+
+class EngineLogits:
+    """Wraps one engine run, which it makes run its chunks eagerly (a CUDA
+    graph's replay reads nothing back), and keeps the logits behind every
+    token it emits: each prefill's rows in admission order (slot i holds
+    request i: the requests fill the free slots in order) and each decode or
+    verify step's [slots, T, V] beside the tokens the step chose."""
+
+    def __init__(self):
+        self.first, self.chunks = [], []
+
+    @contextlib.contextmanager
+    def active(self):
+        import merv_tpu_torch.serving.engine as E
+
+        rec = self
+        prefill, prefill_prefix, plain, spec = E.prefill, E.prefill_with_prefix, E._decode_chunk, E._decode_chunk_spec
+
+        def first_of(fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                rec.first.append(out[0].float().cpu())
+                return out
+            return wrapped
+
+        def recording(decoder, steps):
+            def call(**kw):
+                logits, cache = decoder(**kw)
+                steps.append(logits.float().cpu())
+                return logits, cache
+            return call
+
+        def plain_chunk(decoder, st, cfg, num_steps, generator, toks):
+            steps = []
+            plain(recording(decoder, steps), st, cfg, num_steps, generator, toks)
+            rec.chunks.append((steps, toks.cpu()[:, :, None], None))
+
+        def spec_chunk(decoder, st, cfg, num_steps, gamma, ngram, generator, wins, emits):
+            steps = []
+            spec(recording(decoder, steps), st, cfg, num_steps, gamma, ngram, generator, wins, emits)
+            rec.chunks.append((steps, wins.cpu(), emits.cpu()))
+
+        with patched((E, "prefill", first_of(prefill)), (E, "prefill_with_prefix", first_of(prefill_prefix)),
+                     (E, "_decode_chunk", plain_chunk), (E, "_decode_chunk_spec", spec_chunk),
+                     (E._Chunk, "capture", lambda chunk, engine: None)):
+            yield
+
+    def by_request(self, tokens: dict, eos: int) -> dict:
+        """(first [rows, V], steps [T, rows, V], tokens [rows][...]): row i is
+        request i's (``tokens``: the engine's results by request id "i", cut
+        after the first ``eos``), steps[t - 1][i] the logits that chose its
+        token t. Fails unless the tokens the recorded steps chose are the
+        results'."""
+        import torch
+
+        rows = len(tokens)
+        first = torch.cat(self.first)[:rows]
+        chosen, logits = [[] for _ in range(rows)], [[] for _ in range(rows)]
+        for steps, toks, emits in self.chunks:
+            for i, lg in enumerate(steps):
+                for b in range(rows):
+                    n = 1 if emits is None else int(emits[i, b])
+                    chosen[b].extend(int(t) for t in toks[i, b, :n])
+                    logits[b].extend(lg[b, :n])
+        toks = []
+        for b in range(rows):
+            t = list(tokens[str(b)])
+            t = t[: t.index(eos) + 1] if eos in t else t
+            t = t[: len(chosen[b]) + 1]
+            if t[1:] != chosen[b][: len(t) - 1]:
+                raise RuntimeError(f"engine request {b}: the recorded steps chose {chosen[b]}, the engine returned "
+                                   f"{tokens[str(b)]}")
+            toks.append(t)
+        T = max(len(t) for t in toks) - 1
+        V = first.shape[-1]
+        steps = torch.stack([torch.stack([logits[b][t] if t < len(logits[b]) else torch.zeros(V)
+                                          for b in range(rows)]) for t in range(T)]) if T > 0 else torch.zeros(0, rows, V)
+        return dict(first=first, steps=steps, tokens=toks)
+
+
+def tensor_engine_run(vidlm, cfg, video, mesh, gamma: int, prefix: bool, int8: bool) -> tuple:
+    """One engine run of the three questions on ``video`` (or on its shared
+    prefix), eager (``EngineLogits``): (its launches against
+    ``engine_predicted_launches`` of its own counts (unpacked Linears), its
+    tokens (rank 0's), wall and slot cache; its logits by request, rank 0's)."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch.models.generation import GenerationConfig
+    from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    llm = vidlm.llm_backbone
+    gcfg = GenerationConfig(max_new_tokens=TENSOR_ENGINE_NEW, eos_token_id=llm.stop_token_id,
+                            pad_token_id=llm.pad_token_id)
+    engine = ContinuousBatchingEngine.for_vidlm(vidlm, config=gcfg, speculative_gamma=gamma, mesh=mesh,
+                                                **TENSOR_ENGINE)
+    rec = EngineLogits()
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t = time.perf_counter()
+    with rec.active():
+        if prefix:
+            engine.register_prefix_video("demo", video, num_frames=cfg.num_frames)
+        out = engine.run([Request(str(i), prompt_text=p, video=None if prefix else video,
+                                  max_new_tokens=TENSOR_ENGINE_NEW, prefix_id="demo" if prefix else None)
+                          for i, p in enumerate(tensor_prompts(llm))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    s = engine.stats
+    summary = dict(prefills=s.prefills, suffix_prefills=s.suffix_prefills, prefix_builds=int(prefix),
+                   prefill_shapes=list(s.prefill_shapes), decode_forwards=s.decode_forwards,
+                   prefix_rows=list(s.prefix_rows))
+    counts = A.launch_counts()
+    predicted = engine_predicted_launches(summary, quantized=int8, layers=llm.decoder.cfg.num_layers,
+                                          linears=UNPACKED_LINEARS)
+    wrong = {k: (counts.get(k, 0), n) for k, n in predicted.items() if counts.get(k, 0) != n}
+    tokens = {rid: r.token_ids.tolist() for rid, r in out.items()}
+    return (dict(tokens=tokens, wall_s=wall, summary=summary, launches={k: n for k, n in counts.items() if n},
+                 predicted_launches=predicted, wrong_launches=wrong, slot_cache=list(engine._state.k.shape),
+                 modes=sorted({"graph" if c.graph is not None else "eager" for c in engine._chunks.values()})),
+            rec.by_request(tokens, llm.stop_token_id) if tokens else None)
+
+
+def tensor_split_runs(vidlm, cfg, video, prompt) -> dict:
+    """World 1's first-token logits of ``MERV.generate`` on ``prompt`` for
+    each of ``TENSOR_SPLIT_RUNS``: every layer's o_proj and down_proj (bf16
+    GEMMs) computed from the halves of their input, as the tensor = 2 ranks
+    hold them, and the halves combined as the run's name says."""
+    import torch.nn.functional as F
+
+    def split(kind):
+        def hook(mod, args, out):
+            x = args[0]
+            w = mod.weight.to(x.dtype)
+            h = x.shape[-1] // 2
+            lo, hi = x[..., :h], x[..., h:]
+            if kind == "control":
+                return F.linear(lo, w[:, :h]) + F.linear(hi, w[:, h:])
+            if kind == "skipped_sum":
+                return F.linear(lo, w[:, :h])
+            return F.linear(hi, w[:, :h]) + F.linear(lo, w[:, h:])
+        return hook
+
+    out = {}
+    for kind in TENSOR_SPLIT_RUNS:
+        handles = [m.register_forward_hook(split(kind)) for layer in vidlm.llm_backbone.decoder.layers
+                   for m in (layer.attn.o_proj, layer.mlp.down_proj)]
+        rec = SpRecorder()
+        try:
+            with rec.active():
+                vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=1)
+        finally:
+            for h in handles:
+                h.remove()
+        out[kind] = rec.logits
+    return out
+
+
+def tensor_serving(vidlm, cfg, video, mesh) -> tuple:
+    """Phase 4j's serving on one model (a rank's shards, or world 1's whole
+    unpacked weights): ``MERV.generate`` with its launches, its tensor
+    collectives, its first-token logits and decode logits step by step
+    (``SpRecorder``), one decode step's collectives, the LLM's weight bytes
+    and the decode cache's; at world 1, ``tensor_split_runs``; then the engine
+    at each of ``TENSOR_GAMMAS``. Returns (results, logits)."""
+    import torch
+
+    import merv_tpu_torch.ops.attention as A
+    from merv_tpu_torch.parallel import tensor as TP
+
+    llm = vidlm.llm_backbone
+    dec = llm.decoder
+    L = dec.cfg.num_layers
+    prompt = tensor_prompts(llm)[0]
+    rec = SpRecorder()
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    TP.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t = time.perf_counter()
+    with rec.active():
+        vidlm.generate(video, prompt, num_frames=cfg.num_frames, max_new_tokens=TENSOR_MAX_NEW, mesh=mesh,
+                       timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = A.launch_counts()
+    collectives = dict(TP.COUNTS)
+    steps = timings["decode_steps"] + (2 if timings["decode_capture_s"] > 0 else 0)
+    predicted = request_launches(L, steps)
+    request = dict(
+        wall_s=wall, prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], decode_steps=timings["decode_steps"],
+        decode_capture_s=timings["decode_capture_s"], tokens=rec.tokens, modes=sorted(rec.modes),
+        launches={k: n for k, n in counts.items() if n}, predicted_launches=predicted,
+        wrong_launches={k: (counts.get(k, 0), n) for k, n in predicted.items() if counts.get(k, 0) != n},
+        collectives=collectives, peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        decode_cache_bytes=max(c["bytes"] for c in rec.caches))
+    logits = dict(first=rec.logits, steps=torch.stack(rec.step_logits).cpu() if rec.step_logits else None,
+                  split=None if mesh is not None else tensor_split_runs(vidlm, cfg, video, prompt), engine={})
+    out = dict(request=request, step_collectives=tensor_step_collectives(dec), layers=L,
+               llm_weight_bytes=sum(t.numel() * t.element_size() for t in list(dec.parameters()) + list(dec.buffers())),
+               packed="qkv_proj" in dec.layers[0].attn._modules,
+               tp=None if dec.tp is None else dict(n=dec.tp.n, rank=dec.tp.rank, num_heads=dec.tp.num_heads,
+                                                   kv_heads=dec.tp.kv_heads, vocab_range=list(dec.tp.vocab_range)),
+               engine={})
+    for g in TENSOR_GAMMAS:
+        out["engine"][f"gamma{g}"], logits["engine"][f"gamma{g}"] = tensor_engine_run(vidlm, cfg, video, mesh, g,
+                                                                                      False, False)
+    return out, logits
+
+
+def tensor_models(mesh, run_dir: str, seed: int) -> tuple:
+    """(bf16 results, int8 results, logits): phase 4j on ``run_dir`` loaded
+    by ``load_vid`` on ``mesh`` (the rank's Megatron shards; None: world 1
+    with the unpacked layout the ranks take), then again with
+    ``quantize_llm=True`` through the engine on a shared prefix (the demo
+    video's, registered once)."""
+    import gc
+
+    import torch
+
+    from merv_tpu_torch import load_vid
+
+    video = demo_video(seed)[0]
+    t = time.perf_counter()
+    vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True, pack_llm=False, mesh=mesh)
+    load_s = time.perf_counter() - t
+    bf16, logits = tensor_serving(vidlm, cfg, video, mesh)
+    bf16["load_s"] = load_s
+    del vidlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    vidlm, cfg = load_vid(run_dir, get_model_cfg=True, allow_random_weights=True, pack_llm=False,
+                          quantize_llm=True, mesh=mesh)
+    dec = vidlm.llm_backbone.decoder
+    engine, logits["engine"]["int8_prefix"] = tensor_engine_run(vidlm, cfg, video, mesh, 0, True, True)
+    int8 = dict(engine=engine,
+                llm_weight_bytes=sum(t.numel() * t.element_size() for t in list(dec.parameters()) + list(dec.buffers())))
+    del vidlm, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16, int8, logits
+
+
+def tensor_worker(seed: int) -> None:
+    """Phase 4j on one rank (started by ``torch.distributed.run``, after 4i's
+    runs in the same world, or alone under ``--tp-worker``): the tensor = 2
+    mesh over gloo, results to ``TENSOR_OUT``."""
+    import torch
+
+    from merv_tpu_torch.parallel import MeshConfig, build_mesh
+    from merv_tpu_torch.parallel.mesh import world
+
+    rank = world()[0]
+    mesh = build_mesh(MeshConfig(data=1, fsdp=1, tensor=TENSOR_RANKS), device_type=TENSOR_DEVICE, backend="gloo")
+    t = time.perf_counter()
+    bf16, int8, logits = tensor_models(mesh, os.path.join("runs", SP_RUN), seed)
+    if rank == 0:
+        torch.save(logits, os.path.join(TENSOR_OUT, "logits.pt"))
+    with open(os.path.join(TENSOR_OUT, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(bf16=bf16, int8=int8, wall_s=time.perf_counter() - t), f, default=str)
+
+
+def agreement_by_request(a: dict, b: dict):
+    """The share of equal tokens over the requests both hold, and each request's first differing token."""
+    same = [x == y for rid in b if rid in a for x, y in zip(a[rid], b[rid])]
+    return (sum(same) / len(same) if same else None), {rid: first_divergence(a.get(rid, []), b[rid]) for rid in b}
+
+
+def tensor_checks(ref: dict, ref_logits: dict) -> dict:
+    """The ranks' results against world 1's: fails unless each rank holds
+    ``TENSOR_SHARE`` of world 1's LLM weight bytes (bf16 and int8) and decode
+    cache bytes, one decode step makes 2 L + 1 sums and 1 gather, every run's
+    launches are its counts' prediction (world 1's request adds its graph
+    capture's warm-up steps to its own), world 1's split control reads below
+    TENSOR_LOGITS_REL_TOL and each planted fault above it, and in every run
+    (the request, each engine run, the int8 engine against world 1's) each
+    request's first-token logits and every step's up to its first differing
+    token are within TENSOR_LOGITS_REL_TOL of world 1's. Token agreements
+    (random weights: near ties) are reported. The ranks' logits file is
+    deleted once read."""
+    import torch
+
+    ranks = [json.load(open(os.path.join(TENSOR_OUT, f"rank{r}.json"))) for r in range(TENSOR_RANKS)]
+    path = os.path.join(TENSOR_OUT, "logits.pt")
+    got = torch.load(path)
+    os.remove(path)
+    L = ref["bf16"]["layers"]
+    tol = TENSOR_LOGITS_REL_TOL
+    bad, per_rank = {}, []
+    for r, x in enumerate(ranks):
+        b = x["bf16"]
+        row = dict(rank=r, tp=b["tp"], packed=b["packed"], load_s=b["load_s"],
+                   weight_share=b["llm_weight_bytes"] / ref["bf16"]["llm_weight_bytes"],
+                   int8_weight_share=x["int8"]["llm_weight_bytes"] / ref["int8"]["llm_weight_bytes"],
+                   cache_share=b["request"]["decode_cache_bytes"] / ref["bf16"]["request"]["decode_cache_bytes"],
+                   step_collectives=b["step_collectives"], request_collectives=b["request"]["collectives"],
+                   request=b["request"], engine=b["engine"], int8_engine=x["int8"]["engine"], wall_s=x["wall_s"])
+        per_rank.append(row)
+        lo, hi = TENSOR_SHARE
+        for key in ("weight_share", "int8_weight_share", "cache_share"):
+            if not lo <= row[key] <= hi:
+                bad[f"rank{r}/{key}"] = row[key]
+        if b["step_collectives"] != {"sum": 2 * L + 1, "gather": 1} or b["packed"]:
+            bad[f"rank{r}/step_collectives"] = (b["step_collectives"], b["packed"])
+        runs = dict(request=b["request"], **{f"engine_{k}": v for k, v in b["engine"].items()},
+                    int8_engine=x["int8"]["engine"])
+        for name, run in runs.items():
+            if run["wrong_launches"]:
+                bad[f"rank{r}/{name}/launches"] = run["wrong_launches"]
+    w1 = ref["bf16"]
+    for name, run in dict(request=w1["request"], **{f"engine_{k}": v for k, v in w1["engine"].items()},
+                          int8_engine=ref["int8"]["engine"]).items():
+        if run["wrong_launches"]:
+            bad[f"world1/{name}/launches"] = run["wrong_launches"]
+    # world 1's o and down GEMMs cut at half their input: the control's rounding, and two planted faults
+    split = {k: rel_l2(v, ref_logits["first"]) for k, v in ref_logits["split"].items()}
+    split["ranks_vs_control"] = rel_l2(got["first"], ref_logits["split"]["control"])
+    if not split["control"] < tol < min(split[k] for k in TENSOR_SPLIT_RUNS if k != "control"):
+        bad["split_runs"] = split
+    rel = rel_l2(got["first"], ref_logits["first"])
+    stepwise = stepwise_logits(ranks[0]["bf16"]["request"]["tokens"], w1["request"]["tokens"], got["first"],
+                               ref_logits["first"], got["steps"], ref_logits["steps"], tol)
+    if not rel <= tol:
+        bad["first_token_logits_rel_l2"] = rel
+    if not stepwise["ok"]:
+        bad["stepwise"] = stepwise
+    engine_logits = {}
+    for name, b in ref_logits["engine"].items():
+        a = got["engine"][name]
+        firsts = [rel_l2(a["first"][i], b["first"][i]) for i in range(len(b["tokens"]))]
+        steps = stepwise_logits(a["tokens"], b["tokens"], a["first"], b["first"], a["steps"], b["steps"], tol)
+        engine_logits[name] = dict(first_token_logits_rel_l2=firsts, stepwise=steps)
+        if not max(firsts) <= tol or not steps["ok"]:
+            bad[f"engine_{name}/logits"] = engine_logits[name]
+    agree = {g: agreement_by_request(ranks[0]["bf16"]["engine"][g]["tokens"], w1["engine"][g]["tokens"])
+             for g in w1["engine"]}
+    agree["int8_prefix"] = agreement_by_request(ranks[0]["int8"]["engine"]["tokens"], ref["int8"]["engine"]["tokens"])
+    if any(run["tokens"] for x in ranks[1:] for run in list(x["bf16"]["engine"].values()) + [x["int8"]["engine"]]):
+        bad["rank1_returned_results"] = True
+    result = dict(ranks=per_rank, world1=dict(request=w1["request"], engine=w1["engine"], int8_engine=ref["int8"]["engine"],
+                                              llm_weight_bytes=w1["llm_weight_bytes"],
+                                              int8_llm_weight_bytes=ref["int8"]["llm_weight_bytes"],
+                                              step_collectives=w1["step_collectives"], load_s=w1["load_s"]),
+                  first_token_logits_rel_l2=rel, stepwise=stepwise, split_runs=split, engine_logits=engine_logits,
+                  agreement=agree, request_wall_vs_world1=per_rank[0]["request"]["wall_s"] / w1["request"]["wall_s"],
+                  engine_wall_vs_world1={g: per_rank[0]["engine"][g]["wall_s"] / w1["engine"][g]["wall_s"]
+                                         for g in w1["engine"]},
+                  predicted=dict(sums_per_step=2 * L + 1, gathers_per_step=1, share=TENSOR_SHARE, logits_rel_tol=tol))
+    for r in per_rank:
+        log(f"[tp] rank {r['rank']} ({r['tp']}): LLM weights {r['weight_share']:.4f} of world 1's bytes (int8 "
+            f"{r['int8_weight_share']:.4f}), decode cache {r['cache_share']:.4f}; one decode step's collectives "
+            f"{r['step_collectives']} (2 L + 1 = {2 * L + 1} sums, 1 gather predicted); request wall "
+            f"{r['request']['wall_s']:.2f} s ({r['request']['modes']}), launches {r['request']['launches']} "
+            f"(predicted {r['request']['predicted_launches']}); engine walls "
+            f"{ {g: round(e['wall_s'], 2) for g, e in r['engine'].items()} } s, int8 {r['int8_engine']['wall_s']:.2f} s")
+    log(f"[tp] world 1: request wall {w1['request']['wall_s']:.2f} s ({w1['request']['modes']}), engine walls "
+        f"{ {g: round(e['wall_s'], 2) for g, e in w1['engine'].items()} } s (eager); first-token logits against "
+        f"world 1's whole GEMMs, relative L2: o and down cut in halves {split['control']:.3e} (the control; the ranks "
+        f"against it {split['ranks_vs_control']:.3e}), a skipped sum {split['skipped_sum']:.3e}, the shards swapped "
+        f"{split['swapped_shards']:.3e} (limit {tol}: above the control, below the faults)")
+    log(f"[tp] tensor = 2 against world 1 (limit {tol}): request first-token logits {rel:.3e}, decode steps <= "
+        f"{stepwise['logits_rel_l2_max']:.3e} up to the first differing token, greedy agreement "
+        f"{stepwise['greedy_token_agreement']}; engine runs: " + "; ".join(
+            f"{name} first tokens <= {max(e['first_token_logits_rel_l2']):.3e}, steps <= "
+            f"{e['stepwise']['logits_rel_l2_max']:.3e}, first differing token by request "
+            f"{[row['first_divergent_token'] for row in e['stepwise']['rows']]}, agreement {agree[name][0]}"
+            for name, e in engine_logits.items()))
+    if bad:
+        raise RuntimeError(f"phase 4j (tensor-parallel serving) failed: {bad}")
+    return result
+
+
+def tensor_start_ranks(dev, seed: int, sp: bool):
+    """Start the ranks of phase 4j (with ``sp``, 4i's too, in one world:
+    ``--sp-worker`` runs 4i's eval runs, then 4j), their output to
+    ``chiprun_out/sp/ranks.log`` (with ``sp``) or ``TENSOR_OUT/ranks.log``.
+    Writes merv-full's run directory first. Returns (process, log file, start time)."""
+    import socket
+
+    write_run_dir(os.path.join("runs", SP_RUN), dev, seed)
+    for name in ("MERV_TPU_TOWER_DIR", "MERV_TPU_LLM_DIR"):
+        os.environ.pop(name, None)
+    shutil.rmtree(TENSOR_OUT, ignore_errors=True)
+    os.makedirs(TENSOR_OUT)
+    out_dir = os.path.join("chiprun_out", "sp") if sp else TENSOR_OUT
+    if sp:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        for label, _ in SP_EVAL_RUNS:
+            shutil.rmtree(os.path.join("eval_result", f"sp_{label}"), ignore_errors=True)
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(TENSOR_RANKS), "--master_addr",
+           "localhost", "--master_port", str(port), os.path.abspath(__file__),
+           *(["--sp-worker", out_dir] if sp else ["--tp-worker"]), "--seed", str(seed)]
+    logf = open(os.path.join(out_dir, "ranks.log"), "w")
+    return subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, text=True), logf, time.perf_counter()
+
+
+def tensor_reference(dev, seed: int) -> tuple:
+    """Phase 4j's world-1 reference in this process (beside the ranks): (results, logits)."""
+    bf16, int8, logits = tensor_models(None, os.path.join("runs", SP_RUN), seed)
+    return dict(bf16=bf16, int8=int8), logits
+
+
+def tensor_path(dev, seed: int) -> dict:
+    """Phase 4j alone (``--tp-only``): phase 3's cases at its shard shapes,
+    then the ranks (``--tp-worker``) beside the world-1 reference, and the
+    checks. The run directory and the ranks' files under ``runs/`` are deleted."""
+    t = time.perf_counter()
+    cases = tensor_kernel_cases(dev, seed)
+    proc, logf, t_ranks = tensor_start_ranks(dev, seed, sp=False)
+    try:
+        ref, ref_logits = tensor_reference(dev, seed)
+        rc = proc.wait(timeout=TENSOR_WORKER_TIMEOUT_S)
+        logf.close()
+        if rc != 0:
+            raise RuntimeError(f"tp ranks failed (rc {rc}): {open(os.path.join(TENSOR_OUT, 'ranks.log')).read()[-3000:]}")
+        ranks_wall = time.perf_counter() - t_ranks
+        checks = tensor_checks(ref, ref_logits)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+        shutil.rmtree(os.path.join("runs", SP_RUN), ignore_errors=True)
+    checks["ranks_process_wall_s"] = ranks_wall
+    return dict(cases=cases, checks=checks, wall_s=time.perf_counter() - t)
 
 
 # ---------------------------------------------------------------------------
@@ -6527,6 +7059,11 @@ def main() -> int:
                          "ring on 8,192 tokens, eval_openended --mesh_seq 2 as two ranks) and print its numbers (no "
                          "result line)")
     ap.add_argument("--sp-worker", metavar="OUT_DIR", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then run only phase 3's cases at tensor-parallel serving's shard shapes and phase 4j "
+                         "(tensor = 2 serving as two ranks over gloo beside a world-1 reference) and print their "
+                         "numbers (no result line)")
+    ap.add_argument("--tp-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--train-parallel-only", action="store_true",
                     help="build, then run only phase 5c (multi-rank training: the gloo probe, fsdp-full-shard, "
                          "--mesh_seq 2 and --mesh_pipe 2 as two ranks on the card, the memory proof) and print its "
@@ -6542,8 +7079,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
         return 2
-    if args.sp_worker is not None:  # one rank of phase 4i(c), started by torch.distributed.run
-        return sp_worker(args.sp_worker)
+    if args.sp_worker is not None:  # one rank of phases 4i(c) and 4j, started by torch.distributed.run
+        return sp_worker(args.sp_worker, args.seed)
+    if args.tp_worker:  # one rank of phase 4j alone (--tp-only), started by torch.distributed.run
+        tensor_worker(args.seed)
+        return 0
     if args.train_parallel_worker is not None:  # one rank of phase 5c, started by torch.distributed.run
         return train_parallel_worker(args.train_parallel_worker)
     dev = torch.device("cuda")
@@ -6667,6 +7207,24 @@ def main() -> int:
         log(json.dumps({"sp_ring": sp["ring"]}, default=str))
         log(json.dumps({"sp_entry": sp["entry"]}, default=str))
         return 0
+    if args.tp_only:
+        with switches({}):
+            tp = tensor_path(dev, args.seed)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "tp.json"), "w") as f:
+            json.dump(dict(device=kind, nvidia_smi=smi, tensor_path=tp), f, indent=1, default=str)
+        keys = ("kernel", "case", "shape", "ms", "graph_ms", "cold_graph_ms", "plain_ms", "library_ms",
+                "library_graph_ms", "library_cold_graph_ms", "bound_ms", "bound_by", "worst_share_of_limit", "splits",
+                "cluster")
+        log(json.dumps({"tp_cases": [{k: c.get(k) for k in keys} for c in tp["cases"]]}))
+        c = tp["checks"]
+        log(json.dumps({"tp": {k: c[k] for k in ("first_token_logits_rel_l2", "agreement", "request_wall_vs_world1",
+                                                 "engine_wall_vs_world1", "ranks_process_wall_s")},
+                        "ranks": [{k: r[k] for k in ("weight_share", "int8_weight_share", "cache_share",
+                                                     "step_collectives")} for r in c["ranks"]],
+                        "stepwise": {k: c["stepwise"][k] for k in ("logits_rel_l2_max", "greedy_token_agreement")},
+                        "wall_s": tp["wall_s"]}, default=str))
+        return 0
     if args.train_parallel_only:
         with switches({}):
             tp = train_parallel_path(dev, args.seed)
@@ -6695,7 +7253,7 @@ def main() -> int:
     with switches({}):  # every phase sets the switches it runs under
         cases = []
         for fn in (kernel_cases, backward_cases, tower_kernel_cases, fused_d72_cases, head_dim_72_cases,
-                   int8_kernel_cases, family_kernel_cases):
+                   int8_kernel_cases, family_kernel_cases, tensor_kernel_cases):
             cases += timed(fn.__name__, fn, dev, args.seed)
         main = timed("main_path", main_path, dev, args.seed, args.max_new_tokens)
         loaded = timed("loaded_path", loaded_path, dev, args.seed, args.max_new_tokens,
@@ -6751,6 +7309,10 @@ def main() -> int:
             launches_sp={**{f"{label}_rank{r['rank']}": r["launches"].get(name, 0)
                             for label, run in sp["entry"]["runs"].items() for r in run["ranks"]},
                          "ring_blocks_in_process": sp["ring_launches"].get(name, 0)},
+            launches_tp={**{f"{run}_rank{r['rank']}": (r["request"] if run == "request" else r["int8_engine"]
+                                                       if run == "int8_engine" else r["engine"][run])["launches"]
+                            .get(name, 0) for r in sp["tensor"]["ranks"]
+                            for run in ("request", "gamma0", "gamma2", "int8_engine")}},
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"], cases=mine,

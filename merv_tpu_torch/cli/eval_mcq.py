@@ -157,7 +157,9 @@ def _clip(question):
 def load_model(cfg, mesh=None):
     """The run directory ``runs/<model_path>`` if it exists, else ``model_path``
     itself, loaded on ``cfg.device`` -> (vidlm, model_cfg); on a serving
-    ``mesh`` the decoder takes its sequence-parallel paths."""
+    ``mesh`` the decoder takes its sequence-parallel paths, and under a
+    ``tensor`` axis above 1 its rank's Megatron shards (``load_vid(mesh=)``;
+    the drivers build no such mesh themselves, as ``merv_tpu``'s do not)."""
     local_run = Path("runs") / str(cfg.model_path)
     src = str(local_run) if local_run.exists() else str(cfg.model_path)
     on_mesh = {} if mesh is None else {"mesh": mesh}

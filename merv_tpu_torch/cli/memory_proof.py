@@ -1,8 +1,10 @@
-"""Training-memory proof of the port, with no card (counterpart of ``scripts/memory_proof.py``).
+"""Training- and serving-memory proof of the port, with no card (counterpart of ``scripts/memory_proof.py``).
 
     python -m merv_tpu_torch.cli.memory_proof [--stage align|finetune|both] [--model merv-full] [--llm 7b|13b]
         [--llm-layers 0] [--seq-len 2048] [--pdbs 0] [--loss-chunk 256] [--devices 8] [--mesh-seq 1]
         [--mesh-pipe 1] [--budget-gib 79.65] [--json-out PATH]
+    python -m merv_tpu_torch.cli.memory_proof --stage serving [--llm 7b|13b] [--llm-layers 0] [--mesh-tensor 1]
+        [--slots 8] [--max-len 2048] [--prefill-bucket 2048] [--spec-gamma 0] [--no-int8-weights] [--int8-kv]
 
 ``merv_tpu`` lowers its sharded train step for a virtual mesh and reads the
 compiler's memory analysis. The port runs its own sharded train step, the
@@ -31,8 +33,25 @@ proof stores its LLM in bf16). The batch is the collator's: ``--seq-len``
 text tokens and uint8 frames at each tower's host geometry, normalised in
 the step.
 
-``--stage serving`` and ``--mesh-tensor`` above 1 (serving layouts and
-tensor parallelism) raise: they wait for ROADMAP A12 step 4.
+``--stage serving`` is the counterpart of ``merv_tpu``'s ``lower_serving``:
+the engine's own programs, its decode chunk (``serving/engine.py::_decode_chunk``,
+or ``_decode_chunk_spec`` at ``--spec-gamma``) and its bucket prefill
+(``_llm_prefill``), run on fake tensors for rank 0 of a fake world of
+``--mesh-tensor`` ranks, on the Llama-2 decoder at full depth in the serving
+layout: bf16, packed at ``--mesh-tensor 1`` and unpacked above it (the
+tensor-parallel rules key on the unpacked paths), int8 weights unless
+``--no-int8-weights``, and cut to the rank's Megatron shards
+(``parallel/sharding.py::shard_decoder``). The slot cache holds the rank's
+key/value heads. It reports the rank's weight bytes, its cache, and the peak
+of each program (the weights, the cache and the program's temporaries),
+against the card's 79.65 GiB; a decode chunk runs the engine's default
+number of steps. ``_PeakAllocations`` traces the temporaries, not
+``MemTracker``: ``MemTracker`` hooks every parameter's gradient, which a
+serving model's parameters refuse (they take none), and refuses a module
+called twice in one trace, where a decode chunk calls the decoder once a
+step. K4, K5 and K2 stand in by what they allocate (their outputs); above 64
+rows an int8 Linear runs its plain form, a bf16 copy of the weight and a
+GEMM, as it does on the card.
 """
 
 from __future__ import annotations
@@ -40,12 +59,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import json
 import sys
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.weak import WeakIdKeyDictionary
 
 GIB = 1024 ** 3
 CARD = "NVIDIA H100 80GB HBM3"
@@ -205,9 +229,150 @@ def trace_rank(args: argparse.Namespace, stage: str, rank: int) -> Dict[str, Any
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def serving_stand_ins():
+    """K4 (``int8_linear``, at most 64 rows) and K5 (``decode_attention``)
+    replaced by their outputs, on top of :func:`kernel_stand_ins` (K2)."""
+    import merv_tpu_torch.ops.decode_attention as K5
+    import merv_tpu_torch.ops.int8_linear as K4
+
+    def int8_linear(x, weight_q, scale, bias=None):
+        return x.new_empty(x.shape[:-1] + (weight_q.shape[0],))
+
+    def decode_attention(q, k, v, k_scale=None, v_scale=None, **kw):
+        o = torch.empty_like(q)
+        return (o, torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)) if kw.get("return_lse") else o
+
+    saved = (K4.int8_linear, K5.decode_attention)
+    K4.int8_linear, K5.decode_attention = int8_linear, decode_attention
+    try:
+        with kernel_stand_ins():
+            yield
+    finally:
+        K4.int8_linear, K5.decode_attention = saved
+
+
+class _PeakAllocations(TorchDispatchMode):
+    """The peak bytes of the storages that operators allocate while it is
+    active, each counted until it is freed, beside the ``held`` tensors (a serving program's temporaries;
+    parameters take no gradient hooks here, where ``MemTracker`` installs them)."""
+
+    def __init__(self, held=()) -> None:
+        super().__init__()
+        self.live = self.peak = 0
+        self.seen = WeakIdKeyDictionary()
+        for t in held:  # tensors that exist already (an in-place write to them allocates nothing)
+            self.seen[t.untyped_storage()] = 0
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                if st not in self.seen:
+                    self.seen[st] = n = st.nbytes()
+                    self.live += n
+                    weakref.finalize(st, self._free, n)
+                    self.peak = max(self.peak, self.live)
+        return out
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def serving_rank(args: argparse.Namespace) -> Dict[str, Any]:
+    """Rank 0 of a fake world of ``--mesh-tensor`` ranks: the serving decoder,
+    its slot cache, and the peaks of the decode chunk and the bucket prefill."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from merv_tpu_torch.models.backbones.llm.transformer import (
+        LLAMA2_7B, LLAMA2_13B, KVCache, LlamaDecoder, cache_dtype, pack_serving_params, round_to_compute_dtype,
+    )
+    from merv_tpu_torch.models.generation import GenerationConfig
+    from merv_tpu_torch.nn.quantization import quantize_tree
+    from merv_tpu_torch.parallel.mesh import MESH_AXES, MeshConfig
+    from merv_tpu_torch.parallel.sharding import shard_decoder
+    from merv_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, _decode_chunk, _decode_chunk_spec, _DecodeState, _llm_prefill,
+    )
+
+    n = args.mesh_tensor
+    base = LLAMA2_13B if args.llm == "13b" else LLAMA2_7B
+    cfg = dataclasses.replace(base, num_layers=args.llm_layers or base.num_layers, param_dtype=torch.bfloat16)
+    int8_weights = not args.no_int8_weights
+    gcfg = GenerationConfig(max_new_tokens=128, eos_token_id=2, pad_token_id=0,
+                            kv_cache_dtype="int8" if args.int8_kv else None)
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    try:
+        mesh = init_device_mesh("cpu", MeshConfig(data=1, fsdp=1, tensor=n).resolve(n), mesh_dim_names=MESH_AXES)
+        t = time.perf_counter()
+        with FakeTensorMode(), serving_stand_ins(), torch.inference_mode():
+            dec = LlamaDecoder(cfg, device="cpu")
+            if n <= 1:
+                pack_serving_params(dec)
+            if int8_weights:
+                quantize_tree(dec)
+            round_to_compute_dtype(dec)
+            shard_decoder(dec, mesh)
+            weights = list(dec.parameters()) + list(dec.buffers())
+            # the engine's rows: the spare verify rows and the per-slot scratch row
+            gamma, slots = args.spec_gamma, args.slots
+            rows = args.max_len + (max(gamma, 8) + 1 if gamma else 0) + 1
+            cache = KVCache.create(cfg, slots, rows, cache_dtype(gcfg.kv_cache_dtype, cfg.compute_dtype), "cpu",
+                                   tp=dec.tp)
+            state = dict(k=cache.k, v=cache.v, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                         length=torch.zeros(slots, dtype=torch.long), done=torch.zeros(slots, dtype=torch.bool),
+                         last_tok=torch.zeros(slots, dtype=torch.long))
+            if gamma:
+                hc = args.max_len + 2 * gamma + 2 + 8
+                state.update(hist=torch.zeros((slots, hc), dtype=torch.long), hist_len=torch.zeros(slots, dtype=torch.long))
+            st = _DecodeState(**state)
+            weight_bytes = _tensor_bytes(weights)
+            cache_bytes = _tensor_bytes((cache.k, cache.v, cache.k_scale, cache.v_scale))
+
+            def peak(fn) -> float:
+                """The weights, the cache and the peak of what ``fn`` allocates beside them (GiB)."""
+                tracker = _PeakAllocations(weights + [t for t in vars(st).values() if isinstance(t, torch.Tensor)])
+                with tracker:
+                    fn()
+                return (weight_bytes + cache_bytes + tracker.peak) / GIB
+
+            steps = inspect.signature(ContinuousBatchingEngine).parameters["steps_per_sync"].default
+            if gamma:
+                wins = torch.zeros((steps, slots, gamma + 1), dtype=torch.long)
+                emits = torch.zeros((steps, slots), dtype=torch.long)
+                decode_gib = peak(lambda: _decode_chunk_spec(dec, st, gcfg, steps, gamma, 2, None, wins, emits))
+            else:
+                toks = torch.zeros((steps, slots), dtype=torch.long)
+                decode_gib = peak(lambda: _decode_chunk(dec, st, gcfg, steps, None, toks))
+            ids = torch.ones((1, args.prefill_bucket), dtype=torch.long)
+            prefill_gib = peak(lambda: _llm_prefill(dec, gcfg, ids, torch.ones_like(ids), None))
+        worst = max(decode_gib, prefill_gib)
+        return {"stage": "serving", "llm": args.llm, "llm_layers": cfg.num_layers, "tensor": n, "rank": 0,
+                "packed": n <= 1, "int8_weights": int8_weights, "int8_kv": args.int8_kv, "slots": slots,
+                "max_len": args.max_len, "prefill_bucket": args.prefill_bucket, "spec_gamma": gamma,
+                "weights_bytes": weight_bytes, "weights_gib": weight_bytes / GIB, "cache_gib": cache_bytes / GIB,
+                "decode_chunk_gib": decode_gib, "prefill_gib": prefill_gib, "peak_gib": worst,
+                "fits": worst <= args.budget_gib, "trace_s": time.perf_counter() - t}
+    finally:
+        dist.destroy_process_group()
+
+
 def prove(args: argparse.Namespace) -> Dict[str, Any]:
-    if args.stage == "serving" or args.mesh_tensor > 1:
-        raise NotImplementedError("the serving layouts and tensor parallelism are not ported yet (ROADMAP A12 step 4)")
+    if args.stage == "serving":
+        r = serving_rank(args)
+        return {"card": CARD, "budget_gib": args.budget_gib, "devices": args.mesh_tensor, "llm": args.llm,
+                "stages": {"serving": dict(ranks=[r], peak_gib=r["peak_gib"], fits=r["fits"])}, "fits": r["fits"]}
+    if args.mesh_tensor > 1:
+        raise ValueError("--mesh-tensor is a serving layout (--stage serving): every training entry point runs "
+                         "tensor = 1, as merv_tpu's do")
     if args.mesh_seq > 1 and args.mesh_pipe > 1:
         raise ValueError("--mesh-seq and --mesh-pipe are mutually exclusive (pick one per run)")
     stages = ["align", "finetune"] if args.stage == "both" else [args.stage]
@@ -233,13 +398,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--devices", type=int, default=8, help="ranks of the fake world")
     ap.add_argument("--mesh-seq", type=int, default=1, help="sequence-parallel ring size (the sp axis)")
     ap.add_argument("--mesh-pipe", type=int, default=1, help="pipeline stages (the pp axis)")
-    ap.add_argument("--mesh-tensor", type=int, default=1, help="tensor parallelism: not ported yet")
+    ap.add_argument("--mesh-tensor", type=int, default=1, help="serving: tensor-parallel width (ranks of the fake world)")
+    ap.add_argument("--slots", type=int, default=8, help="serving: engine decode slots")
+    ap.add_argument("--max-len", type=int, default=2048, help="serving: per-slot prompt+output bound")
+    ap.add_argument("--prefill-bucket", type=int, default=2048, help="serving: largest prefill bucket")
+    ap.add_argument("--spec-gamma", type=int, default=0, help="serving: speculative draft length")
+    ap.add_argument("--no-int8-weights", action="store_true", help="serving: bf16 weights")
+    ap.add_argument("--int8-kv", action="store_true", help="serving: int8 KV cache")
     ap.add_argument("--budget-gib", type=float, default=CARD_GIB, help=f"per-rank budget (default: the {CARD}'s)")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     out = prove(args)
     for stage, s in out["stages"].items():
         for r in s["ranks"]:
+            if stage == "serving":
+                print(f"[memory_proof] serving rank 0 of tensor = {r['tensor']} (Llama-2-{r['llm']}, "
+                      f"{r['llm_layers']} layers, {'packed' if r['packed'] else 'unpacked'}, "
+                      f"{'int8' if r['int8_weights'] else 'bf16'} weights, {r['slots']} slots x {r['max_len']}): "
+                      f"weights {r['weights_gib']:.2f} GiB, cache {r['cache_gib']:.2f} GiB, decode chunk "
+                      f"{r['decode_chunk_gib']:.2f} GiB, prefill {r['prefill_gib']:.2f} GiB", file=sys.stderr)
+                continue
             print(f"[memory_proof] {stage} rank {r['rank']} (pp stage {r['pp_stage']}, {r['strategy']}, "
                   f"mesh {r['mesh']}, per-device batch {r['per_device_batch_size']}): peak {r['peak_gib']:.2f} GiB "
                   f"{ {k: round(v, 2) for k, v in r['peak_split_gib'].items()} }; kept between steps "

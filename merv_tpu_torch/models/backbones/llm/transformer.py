@@ -62,8 +62,25 @@ tile it and a micro-batch count exists; otherwise the plain loop runs, as in
 ``pp_microbatches`` micro-batches. On a device mesh a rank keeps only its
 stage's layers (:meth:`LlamaDecoder.keep_stage`; the others are
 :class:`ForeignLayer` placeholders that hold no weights). Both axes at once
-raise ``merv_tpu``'s ``ValueError``. A tensor-parallel axis raises: tensor
-parallelism waits for ROADMAP A12 step 4.
+raise ``merv_tpu``'s ``ValueError``. The cached path never takes GPipe: under
+a pp axis serving runs the plain loop on whole weights, as ``merv_tpu`` does.
+Tensor parallelism (``merv_tpu``'s Megatron splits,
+``llm_tensor_parallel_rules``): a decoder cut to its rank's shards by
+:func:`merv_tpu_torch.parallel.sharding.shard_decoder` carries a
+:class:`~merv_tpu_torch.parallel.tensor.TensorShards` (``decoder.tp``, and
+each layer's ``tp``) and takes its path on any mesh or none, since its
+weights are its rank's: each layer runs its ``num_heads / tp`` query heads
+and ``num_kv_heads / tp`` key/value heads (all of them, kept whole on every
+rank, where ``num_kv_heads`` does not split; its queries then attend their
+group's heads), sums ``o_proj``'s and ``down_proj``'s partial outputs over
+the tensor group before each residual add, looks its ids up in its vocab
+shard of the embedding, and gathers the head's vocab-split logits to the
+whole vocabulary (:mod:`merv_tpu_torch.parallel.tensor`). Its caches
+(``KVCache.create(..., tp=decoder.tp)``) hold its key/value heads, and they
+compose with the ``sp`` row split (``merv_tpu``'s ``P(None, None, tensor,
+sp, None)``). A decoder that is not cut (on a :class:`VirtualMesh`, whose
+ranks share one process) runs whole: the replicated layout, the same
+function.
 """
 
 from __future__ import annotations
@@ -81,8 +98,9 @@ from merv_tpu_torch.nn.core import Embed, Linear, RMSNorm
 from merv_tpu_torch.nn.quantization import INV_127
 from merv_tpu_torch.ops import decode_attention as K5
 from merv_tpu_torch.ops.attention import attention
-from merv_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size
+from merv_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS, axis_size
 from merv_tpu_torch.parallel.sharding import constrain_batch_dim, get_activation_mesh
+from merv_tpu_torch.parallel.tensor import TensorShards, embed_lookup, gather_logits, reduce_sum
 
 # the global position of a shard's scratch row: past every key mask's bound
 _SCRATCH_POS = 2 ** 62
@@ -181,14 +199,7 @@ def cache_shards(cfg: "DecoderConfig", max_len: int, mesh) -> Optional[CacheShar
     n = axis_size(mesh, SEQ_AXIS)
     if not cfg.sequence_parallel or n <= 1 or max_len % n != 0:
         return None
-    _refuse_unported_axes(mesh)
     return CacheShards(sp_exchange(mesh), max_len // n)
-
-
-def _refuse_unported_axes(mesh) -> None:
-    if axis_size(mesh, TENSOR_AXIS) > 1:
-        raise NotImplementedError("a tensor axis above 1: tensor parallelism and the packed layout are not ported yet "
-                                  "(ROADMAP A12 step 4)")
 
 
 @dataclass
@@ -212,7 +223,8 @@ class KVCache:
 
     ``sp`` (:class:`CacheShards`): a cache sharded on its rows over the
     ``sp`` axis; its buffers hold this process's shards, each with its own
-    scratch row, and ``max_len`` global positions."""
+    scratch row, and ``max_len`` global positions. A tensor-parallel
+    decoder's cache holds its rank's key/value heads (``create``'s ``tp``)."""
 
     k: torch.Tensor  # [L, B, H_kv, max_len, D] (sharded: [L, B, H_kv, sp.buffer_rows, D])
     v: torch.Tensor  # [L, B, H_kv, max_len, D]
@@ -223,13 +235,17 @@ class KVCache:
 
     @classmethod
     def create(
-        cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device, mesh=None
+        cls, cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype, device: torch.device, mesh=None,
+        tp: Optional[TensorShards] = None,
     ) -> "KVCache":
         """Zeros (int8 scales: ones) for ``max_len`` positions; on ``mesh``,
-        sharded on its rows where :func:`cache_shards` says so."""
+        sharded on its rows where :func:`cache_shards` says so; for a
+        tensor-parallel decoder (``tp``, its ``decoder.tp``), its rank's
+        key/value heads."""
         sp = None if mesh is None else cache_shards(cfg, max_len, mesh)
         rows = max_len if sp is None else sp.buffer_rows
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, rows, cfg.head_dim)
+        heads = cfg.num_kv_heads if tp is None else tp.kv_heads
+        shape = (cfg.num_layers, batch, heads, rows, cfg.head_dim)
         k, v = (torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
         if dtype != torch.int8:
             return cls(k, v, 0, sp=sp)
@@ -319,6 +335,11 @@ class _Attn(nn.Module):
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
 
+def _heads(t: torch.Tensor, span: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """[B, H, ...] -> its heads [lo, hi) (``span``, contiguous), or the tensor as it is."""
+    return t if t is None or span is None else t[:, span[0]:span[1]].contiguous()
+
+
 class _MLP(nn.Module):
     def __init__(self, c: DecoderConfig, device) -> None:
         super().__init__()
@@ -342,6 +363,7 @@ class DecoderLayer(nn.Module):
         self.mlp = _MLP(c, device)
         self.input_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
         self.post_attn_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
+        self.tp: Optional[TensorShards] = None  # this rank's shards where the decoder is cut (shard_decoder)
 
     def forward(
         self,
@@ -353,21 +375,23 @@ class DecoderLayer(nn.Module):
         ring: Optional[Tuple[Any, bool]] = None,
     ) -> torch.Tensor:
         """``ring``: (mesh, zigzag) when the no-cache forward runs sequence-parallel."""
-        c = self.cfg
+        c, tp = self.cfg, self.tp
         B, T, _ = h.shape
+        nh, nkv = (c.num_heads, c.num_kv_heads) if tp is None else (tp.num_heads, tp.kv_heads)
+        span = None if tp is None else tp.kv_attend  # whole k/v: the heads this rank's queries attend
         q, k, v = self.attn.qkv(self.input_norm(h))
-        q = q.view(B, T, c.num_heads, c.head_dim).transpose(1, 2)
-        k = k.view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
-        v = v.view(B, T, c.num_kv_heads, c.head_dim).transpose(1, 2)
+        q = q.view(B, T, nh, c.head_dim).transpose(1, 2)
+        k = k.view(B, T, nkv, c.head_dim).transpose(1, 2)
+        v = v.view(B, T, nkv, c.head_dim).transpose(1, 2)
         q = _rope(cos_sin, q).contiguous()
         k = _rope(cos_sin, k)
         if cache is None and ring is not None:
             from merv_tpu_torch.ops.ring_attention import ring_attention
 
-            out = ring_attention(q, k.contiguous(), v.contiguous(), ring[0], causal=True, zigzag=ring[1],
-                                 impl=attn_impl)
+            out = ring_attention(q, _heads(k, span).contiguous(), _heads(v, span).contiguous(), ring[0], causal=True,
+                                 zigzag=ring[1], impl=attn_impl)
         elif cache is None:
-            out = attention(q, k.contiguous(), v.contiguous(), causal=True, impl=attn_impl)
+            out = attention(q, _heads(k, span).contiguous(), _heads(v, span).contiguous(), causal=True, impl=attn_impl)
         else:
             # this layer's [B, H_kv, max_len, D] buffers, and [B, H_kv, max_len, 1] scales in int8 mode
             ck, cv, cks, cvs, start, sp = cache
@@ -404,6 +428,7 @@ class DecoderLayer(nn.Module):
                 put(cvs, vs)
             # T = 1: kv_mask already bounds the keys at kv_pos <= start, so the causal mask adds nothing
             causal, q_offset = (False, None) if T == 1 else (True, start)
+            ck, cv, cks, cvs = (_heads(t, span) for t in (ck, cv, cks, cvs))
             if sp is not None:
                 from merv_tpu_torch.ops.ring_attention import cache_shard_attention
 
@@ -420,8 +445,9 @@ class DecoderLayer(nn.Module):
                     k, v = ck.to(q.dtype), cv.to(q.dtype)
                 out = attention(q, k.contiguous(), v.contiguous(), causal=causal, kv_mask=kv_mask, q_offset=q_offset,
                                 impl=attn_impl)
-        h = h + self.attn.o_proj(out.transpose(1, 2).reshape(B, T, c.q_dim))
-        return h + self.mlp(self.post_attn_norm(h))
+        # tensor parallel: o_proj and down_proj are row-split, their partial outputs summed over the ranks
+        h = h + reduce_sum(self.attn.o_proj(out.transpose(1, 2).reshape(B, T, nh * c.head_dim)), tp)
+        return h + reduce_sum(self.mlp(self.post_attn_norm(h)), tp)
 
 
 class ForeignLayer(nn.Module):
@@ -440,8 +466,11 @@ class LlamaDecoder(nn.Module):
         self.final_norm = RMSNorm(c.hidden_size, eps=c.rms_norm_eps, param_dtype=c.param_dtype, device=device)
         if not c.tie_word_embeddings:
             self.lm_head = _linear(c, c.hidden_size, c.vocab_size, False, device)
+        self.tp: Optional[TensorShards] = None  # this rank's shards where the decoder is cut (shard_decoder)
 
     def embed_input_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:  # the vocab-split embedding
+            return embed_lookup(self.embed_tokens.weight, input_ids, self.tp, self.cfg.compute_dtype)
         return self.embed_tokens(input_ids, dtype=self.cfg.compute_dtype)
 
     def forward(
@@ -482,8 +511,6 @@ class LlamaDecoder(nn.Module):
         B, T, _ = h.shape
         dev = h.device
         mesh = get_activation_mesh()
-        if mesh is not None and (c.sequence_parallel or c.pipeline_parallel):
-            _refuse_unported_axes(mesh)
         pp_mesh = self._pp_mesh(B) if kv_cache is None else None
 
         ring = None
@@ -634,9 +661,12 @@ class LlamaDecoder(nn.Module):
         return sp_exchange(mesh)
 
     def lm_head_apply(self, h: torch.Tensor) -> torch.Tensor:
+        """The head's logits over the whole vocabulary (a tensor-parallel
+        decoder's vocab-split logits gathered; a tied head uses the
+        embedding's shard)."""
         if self.cfg.tie_word_embeddings:
-            return h @ self.embed_tokens.weight.to(h.dtype).T
-        return self.lm_head(h)
+            return gather_logits(h @ self.embed_tokens.weight.to(h.dtype).T, self.tp)
+        return gather_logits(self.lm_head(h), self.tp)
 
 
 def _packed_linear(parts) -> Linear:

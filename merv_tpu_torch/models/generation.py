@@ -33,6 +33,13 @@ the ranks' partials by all-reduces. A step whose exchange a CUDA graph cannot
 capture (gloo's collectives) runs eagerly: :attr:`DecodeRunner.mode` names
 which. Small caches (a prefix, the engine's admission prefills) stay whole
 on every rank and are copied into the shards (``CacheShards.copy_rows``).
+
+A tensor-parallel decoder (``decoder.tp``, cut by ``load_vid`` on a mesh with
+a ``tensor`` axis) makes every cache here with its rank's key/value heads, a
+prefix included, and its step sums and gathers over the tensor group (2 L + 1
+all-reduces and one all-gather): captured with the step under NCCL (written,
+not run on a machine with two cards), eager under gloo, as above. Every rank
+computes the same logits, so every rank draws the same tokens.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import gc
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -101,6 +108,14 @@ def _capturing(graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream"):
     finally:
         if enabled:
             gc.enable()
+
+
+def _graph_capturable(device: torch.device, sp: Any, tp: Any) -> bool:
+    """Whether a CUDA graph can hold a decode step on ``device``: a sharded
+    cache's merge (``sp``, its ``CacheShards``) and a tensor-parallel
+    decoder's sums and gathers (``tp``) must be capturable (NCCL's
+    collectives, or the in-process exchange), not gloo's."""
+    return device.type == "cuda" and (sp is None or sp.ex.capturable) and (tp is None or tp.capturable)
 
 
 def _filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
@@ -167,7 +182,8 @@ def prefill(
     B, T = inputs_embeds.shape[:2]
     dev = inputs_embeds.device
     if cache is None:
-        cache = KVCache.create(decoder.cfg, B, cache_len, cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype), dev)
+        cache = KVCache.create(decoder.cfg, B, cache_len, cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype), dev,
+                               tp=decoder.tp)
     elif (cache.k.shape[1], cache.max_len) != (B, cache_len):
         raise ValueError(f"prefill: cache of {tuple(cache.k.shape)} for batch {B} and {cache_len} positions")
     if attention_mask is not None:
@@ -211,7 +227,8 @@ class DecodeRunner:
         c = decoder.cfg
         self.config = config
         self.cache = KVCache.create(c, batch, max_len, cache_dtype(config.kv_cache_dtype, c.compute_dtype), device,
-                                    mesh=mesh)
+                                    mesh=mesh, tp=decoder.tp)
+        self.tp = decoder.tp
         self.token = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.zeros(batch, dtype=torch.long, device=device)
         self.length = torch.zeros((), dtype=torch.long, device=device)
@@ -227,10 +244,8 @@ class DecodeRunner:
 
     @property
     def capturable(self) -> bool:
-        """Whether a CUDA graph can hold the step: a sharded cache's merge must
-        be capturable (NCCL's collectives, or the in-process exchange)."""
-        sp = self.cache.sp
-        return self.token.device.type == "cuda" and (sp is None or sp.ex.capturable)
+        """Whether a CUDA graph can hold the step (:func:`_graph_capturable`)."""
+        return _graph_capturable(self.token.device, self.cache.sp, self.tp)
 
     @property
     def mode(self) -> str:
@@ -466,7 +481,7 @@ def prefill_prefix(
     if B != 1:
         raise ValueError(f"a shared prefix is per video (B=1), got B={B}")
     dtype = cache_dtype(kv_cache_dtype, decoder.cfg.compute_dtype)
-    cache = KVCache.create(decoder.cfg, 1, P, dtype, inputs_embeds.device)
+    cache = KVCache.create(decoder.cfg, 1, P, dtype, inputs_embeds.device, tp=decoder.tp)
     _, cache = decoder(inputs_embeds=inputs_embeds, kv_cache=cache)
     return cache
 

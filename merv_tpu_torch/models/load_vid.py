@@ -116,15 +116,17 @@ def load_vid(
     Every rank loads the whole model, so the weights are replicated; the
     memory a long context needs is the KV cache, which shards on its rows
     when the caller serves under an ``sp`` axis above 1 (and sets
-    ``vidlm.llm_backbone.sequence_parallel``). A ``tensor`` axis above 1
-    raises: ``merv_tpu``'s Megatron splits wait for the packed layout's
-    tensor parallelism (ROADMAP A12 step 4).
+    ``vidlm.llm_backbone.sequence_parallel``). Under a ``tensor`` axis above 1
+    the LLM takes ``merv_tpu``'s Megatron splits: packing is turned off (the
+    rules key on the unpacked paths; ``merv_tpu``'s info line), the LLM is
+    quantized whole where asked, and then cut to this rank's shards
+    (:func:`~merv_tpu_torch.parallel.sharding.shard_decoder`, on a device
+    mesh: one process a rank); towers, projectors and fusion stay whole. A
+    ``pp`` axis leaves every weight whole (serving runs the plain cached loop).
     """
     from merv_tpu_torch.parallel.mesh import TENSOR_AXIS, axis_size
+    from merv_tpu_torch.parallel.sharding import shard_decoder
 
-    if axis_size(mesh, TENSOR_AXIS) > 1:
-        raise NotImplementedError("load_vid on a mesh with a tensor axis above 1: tensor parallelism with the packed "
-                                  "layout is not ported yet (ROADMAP A12 step 4)")
     dev = resolve_device(device)
     if not os.path.isdir(model_id_or_path):
         if model_id_or_path in GLOBAL_REGISTRY:
@@ -194,11 +196,16 @@ def load_vid(
     # quantizing fp32 weights would give other int8 values), then round what is left to the compute dtype.
     # One layer, or one Linear, at a time, each part freed as its copy is made: the peak stays near the
     # half-precision model's.
-    if pack_llm:
+    if pack_llm and axis_size(mesh, TENSOR_AXIS) > 1:
+        overwatch.info("Mesh has tensor>1: disabling packed serving layout (TP rules key on unpacked paths)")
+    elif pack_llm:
         pack_serving_params(llm.decoder)
     if quantize_llm:
         quantize_tree(llm)
     round_to_compute_dtype(llm.decoder)
+    # merv_tpu's placement: the LLM's Megatron splits after quantizing the whole weights (a row-split shard
+    # keeps its rows' scales over the whole input dim), everything else whole
+    shard_decoder(llm.decoder, mesh)
 
     # projectors and fusion keep the checkpoint's dtype
     modules = {"projectors": vidlm.projectors}

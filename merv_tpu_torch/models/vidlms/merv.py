@@ -797,25 +797,18 @@ class MERV(VidLM):
         return picks
 
 
-def _no_mesh(mesh: Optional[Any]) -> None:
-    """Refuse the mesh axes the port does not serve on yet: tensor and pipeline."""
-    from merv_tpu_torch.parallel.mesh import PIPE_AXIS, TENSOR_AXIS, axis_size
-
-    if axis_size(mesh, TENSOR_AXIS) > 1 or axis_size(mesh, PIPE_AXIS) > 1:
-        raise NotImplementedError("serving over a tensor or pipeline mesh axis is not ported yet: tensor parallelism "
-                                  "with the packed layout and parallel/pipeline.py (ROADMAP A12)")
-
-
 def _mesh_scope(mesh: Optional[Any]):
     """``merv_tpu``'s ``activation_mesh(mesh)`` around a serving call (a
-    no-op without a mesh); refuses tensor and pipeline axes (:func:`_no_mesh`)."""
+    no-op without a mesh). Every axis serves: ``sp`` through the decoder's
+    sequence-parallel paths, ``tensor`` through a decoder cut to its rank's
+    shards (``load_vid(mesh=)``), ``pp`` on the plain cached loop over whole
+    weights, as ``merv_tpu``'s cached path never takes GPipe."""
     import contextlib
 
     from merv_tpu_torch.parallel.sharding import activation_mesh
 
     if mesh is None:
         return contextlib.nullcontext()
-    _no_mesh(mesh)
     return activation_mesh(mesh)
 
 

@@ -19,6 +19,13 @@ and ``scale`` fp32 ``[out]``, where ``merv_tpu`` stores ``kernel_q`` ``[in, out]
 and ``scale`` ``[1, out]`` (:mod:`merv_tpu_torch.bridge` maps one onto the
 other). No quality claims: an opt-in serving mode, and training always runs
 in full precision.
+
+Under tensor parallelism the whole weights are quantized first and the
+shards cut after (``merv_tpu``'s order: its ``load_vid`` quantizes, then
+places): a row-split shard (``o_proj``, ``down_proj``) keeps its rows' scales,
+computed over the whole input dim, and a column-split one its output
+channels' (:func:`merv_tpu_torch.parallel.sharding.shard_decoder`).
+Quantizing a shard would change the row-split scales.
 """
 
 from __future__ import annotations

@@ -40,6 +40,13 @@ prefills, the plain version where that route is plain), each with its LSE
 and 0 for a row with no valid key, and the partials merge by one all-reduce
 MAX and two all-reduce SUMs, as ``merv_tpu``'s ``pmax`` / ``psum``. GQA goes
 to the kernels as grouped heads.
+
+Under a ``tensor x sp`` mesh (``merv_tpu`` splits the ring's and the merge's
+heads over ``tensor`` where both head counts divide it) a tensor-parallel
+decoder hands each rank's ring and merge its own heads only: a rank's
+queries and its key/value heads (or, where those stay whole, the ones its
+queries attend), and ``sp_exchange`` gives the mesh's ``sp`` group of the
+rank, the ranks that share its tensor coordinate.
 """
 
 from __future__ import annotations

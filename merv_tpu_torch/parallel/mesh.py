@@ -66,8 +66,11 @@ class MeshConfig:
 class VirtualMesh:
     """``sp`` ranks simulated in one process: the sequence-parallel paths run
     every rank's body in turn and exchange blocks in memory
-    (:class:`~merv_tpu_torch.ops.ring_attention.VirtualRanks`). ``tensor``
-    and ``pipe`` only describe a mesh, for the paths that refuse those axes."""
+    (:class:`~merv_tpu_torch.ops.ring_attention.VirtualRanks`). ``pipe``
+    runs GPipe's stages in turn (:class:`~merv_tpu_torch.parallel.pipeline.VirtualStages`).
+    ``tensor`` describes the axis only: a decoder is cut to a rank's shards
+    on a device mesh (one process a rank), so on a virtual one its weights
+    stay whole, the replicated layout, which computes the same function."""
 
     sp: int
     tensor: int = 1
@@ -175,6 +178,17 @@ def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def axis_group(mesh: Optional[Mesh], axis: str):
+    """The process group over ``axis`` of a device mesh that holds this rank
+    (on a mesh with several axes above 1, the ranks that differ from it on
+    ``axis`` only: a ``tensor x sp`` mesh gives each rank the tensor group of
+    its sp coordinate and the sp group of its tensor coordinate); None off
+    mesh, on a virtual mesh, or where the axis is 1."""
+    if mesh is None or isinstance(mesh, VirtualMesh) or axis_size(mesh, axis) <= 1:
+        return None
+    return mesh.get_group(axis)
 
 
 def axis_rank(mesh: Optional[Mesh], axis: str) -> int:

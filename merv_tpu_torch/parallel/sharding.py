@@ -33,8 +33,15 @@ rank holds its own batch already, so it returns its input.
 is a token mean over the whole (batch-sharded) micro-batch, so the port's
 losses divide by the count summed over the mesh's batch ranks.
 
-``llm_tensor_parallel_rules`` (tensor parallelism, ROADMAP A12 step 4) is not
-ported yet.
+Tensor parallelism: :func:`llm_tensor_parallel_rules` is ``merv_tpu``'s
+Megatron table, matched through :func:`jax_leaves` (int8 ``weight_q`` /
+``scale`` buffers included, as ``kernel_q`` / ``scale``);
+:func:`tensor_split_dims` gives each port parameter its split dim in torch's
+``(out, in)`` layout (column-split: weight dim 0, the bias and the int8 scale;
+row-split: weight dim 1, the scale whole; the embedding and the head: dim 0,
+the vocabulary), and :func:`shard_decoder` cuts a decoder down to this rank's
+shards in place (:mod:`merv_tpu_torch.parallel.tensor` has the collectives
+its forward then issues).
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from merv_tpu_torch.parallel.mesh import FSDP_AXIS, PIPE_AXIS, axis_size, batch_group
+from merv_tpu_torch.parallel.mesh import FSDP_AXIS, PIPE_AXIS, TENSOR_AXIS, axis_group, axis_rank, axis_size, batch_group
 
 Spec = Tuple[Optional[str], ...]  # merv_tpu's PartitionSpec: an axis name (or None) per dim, trailing Nones dropped
 
@@ -113,7 +120,8 @@ class JaxLeaf:
 
 
 _LEAF = {"Linear": "kernel", "Embed": "embedding", "RMSNorm": "scale", "LayerNorm": "scale"}
-_STACK = re.compile(r"^(.*?)\.layers\.(\d+)\.(.*)$")  # matched against "<module path>."
+_INT8 = ("weight_q", "scale")  # a quantized Linear's buffers: merv_tpu's kernel_q [in, out] and scale [1, out]
+_STACK = re.compile(r"^(?:(.*?)\.)?layers\.(\d+)\.(.*)$")  # matched against "<module path>."
 
 
 def _jax_prefix(name: str) -> str:
@@ -133,17 +141,24 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
             stacks[mname] = len(mod)
     for mname, mod in model.named_modules():
         kind = type(mod).__name__
-        for pname, p in mod.named_parameters(recurse=False):
+        items = list(mod.named_parameters(recurse=False))
+        if kind == "Linear":  # weight-only int8 serving: the int8 weight and its scales are buffers
+            items += [(n, b) for n, b in mod.named_buffers(recurse=False) if n in _INT8]
+        for pname, p in items:
             name = f"{mname}.{pname}" if mname else pname
-            transposed = kind == "Linear" and pname == "weight" and p.dim() == 2
-            leaf = _LEAF.get(kind, pname) if pname == "weight" else pname
+            transposed = kind == "Linear" and pname in ("weight", "weight_q") and p.dim() == 2
+            leaf = _LEAF.get(kind, pname) if pname == "weight" else "kernel_q" if pname == "weight_q" else pname
             shape = tuple(p.shape[::-1]) if transposed else tuple(p.shape)
+            if kind == "Linear" and pname == "scale":
+                shape = (1,) + shape
             layer, jax_mod = None, _jax_prefix(mname)
             m = _STACK.match(f"{mname}.")
-            if m is not None and f"{m.group(1)}.layers" in stacks:  # one slice of merv_tpu's [L, ...] leaf
+            stack = None if m is None else f"{m.group(1)}.layers" if m.group(1) else "layers"
+            if stack in stacks:  # one slice of merv_tpu's [L, ...] leaf
                 layer = int(m.group(2))
-                shape = (stacks[f"{m.group(1)}.layers"],) + shape
-                jax_mod = f"{_jax_prefix(m.group(1))}.layers" + (f".{m.group(3)[:-1]}" if m.group(3) else "")
+                shape = (stacks[stack],) + shape
+                jax_mod = (f"{_jax_prefix(m.group(1))}." if m.group(1) else "") + "layers" + \
+                    (f".{m.group(3)[:-1]}" if m.group(3) else "")
             out[name] = JaxLeaf(path_str(f"{jax_mod}.{leaf}" if jax_mod else leaf), shape, layer, transposed)
     return out
 
@@ -196,6 +211,117 @@ def param_placement(leaf: JaxLeaf, spec: Spec) -> Optional[int]:
     if leaf.transposed:
         dims = dims[::-1]
     return dims.index(FSDP_AXIS) if FSDP_AXIS in dims else None
+
+
+def _port_dim(leaf: JaxLeaf, spec: Spec, axis: str, ndim: int) -> Optional[int]:
+    """The port dim of a parameter of ``ndim`` dims that carries ``spec``'s
+    ``axis`` (None where it does not): the layer dim dropped, a Linear
+    weight's dims reversed, and ``merv_tpu``'s leading 1 of an int8 scale
+    ``[1, out]`` dropped for the port's ``[out]``."""
+    dims = list(spec) + [None] * (len(leaf.shape) - len(spec))
+    if leaf.layer is not None:
+        dims = dims[1:]
+    if leaf.transposed:
+        dims = dims[::-1]
+    dims = dims[len(dims) - ndim:]
+    return dims.index(axis) if axis in dims else None
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def llm_tensor_parallel_rules() -> PartitionRules:
+    """``merv_tpu``'s Megatron column / row split of the decoder, on its
+    paths (layer kernels stacked ``[L, in, out]``): q/k/v and gate/up split
+    their output dim (with the q/k/v biases and the int8 scales), o and down
+    their input dim (their scales replicate), the embedding and the head the
+    vocabulary."""
+    T = TENSOR_AXIS
+    return PartitionRules(
+        [
+            (r"attn/(q|k|v)_proj/kernel(_q)?$", (None, None, T)),
+            (r"attn/(q|k|v)_proj/bias$", (None, T)),
+            (r"attn/o_proj/kernel(_q)?$", (None, T, None)),
+            (r"mlp/(gate|up)_proj/kernel(_q)?$", (None, None, T)),
+            (r"mlp/down_proj/kernel(_q)?$", (None, T, None)),
+            (r"attn/(q|k|v)_proj/scale$", (None, None, T)),
+            (r"mlp/(gate|up)_proj/scale$", (None, None, T)),
+            (r"embed_tokens/embedding$", (T, None)),
+            (r"lm_head/kernel(_q)?$", (None, T)),
+            (r"lm_head/scale$", (None, T)),
+        ],
+        default=None,
+    )
+
+
+def tensor_split_dims(model: nn.Module, leaves: Optional[Dict[str, JaxLeaf]] = None) -> Dict[str, Optional[int]]:
+    """{port parameter or int8 buffer name: the dim :func:`llm_tensor_parallel_rules`
+    splits over ``tensor``, in the port's layout, or None (whole)} for a
+    decoder, an LLM backbone or a MERV (whose towers, projectors and fusion
+    match no rule and stay whole)."""
+    rules = llm_tensor_parallel_rules()
+    leaves = jax_leaves(model) if leaves is None else leaves
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    out: Dict[str, Optional[int]] = {}
+    for name, leaf in leaves.items():
+        spec = rules.spec_for(leaf.path)
+        out[name] = None if spec is None else _port_dim(leaf, spec, TENSOR_AXIS, tensors[name].dim())
+    return out
+
+
+def shard_decoder(decoder: nn.Module, mesh) -> nn.Module:
+    """Cut ``decoder`` (a :class:`~merv_tpu_torch.models.backbones.llm.transformer.LlamaDecoder`,
+    unpacked, float or int8) down to this rank's shards over ``mesh``'s
+    ``tensor`` group, in place, and give it and its layers their
+    :class:`~merv_tpu_torch.parallel.tensor.TensorShards`. Quantize first:
+    a row-split shard keeps its rows' scales, computed over the whole input
+    dim (``merv_tpu``'s order, quantize then place). Key/value projections
+    whose heads do not split over the group stay whole (see
+    :func:`~merv_tpu_torch.parallel.tensor.tensor_shards`). A mesh without a
+    tensor axis above 1 leaves the decoder as it is."""
+    from merv_tpu_torch.models.generation import release_decode_runners
+    from merv_tpu_torch.parallel.tensor import split_range, tensor_shards
+
+    group = axis_group(mesh, TENSOR_AXIS)
+    if group is None:
+        return decoder
+    if decoder.tp is not None:
+        raise ValueError("shard_decoder: the decoder is cut already")
+    if any("qkv_proj" in layer.attn._modules for layer in decoder.layers if hasattr(layer, "attn")):
+        raise ValueError("shard_decoder: the tensor-parallel rules key on the unpacked q/k/v paths; "
+                         "load the decoder unpacked (load_vid turns packing off under a tensor axis)")
+    c = decoder.cfg
+    n, rank = axis_size(mesh, TENSOR_AXIS), axis_rank(mesh, TENSOR_AXIS)
+    tp = tensor_shards(c, group, n, rank)
+    release_decode_runners(decoder)  # a captured step would keep reading the whole weights
+    sizes = {"q_proj": c.q_dim, "k_proj": c.kv_dim, "v_proj": c.kv_dim, "gate_proj": c.intermediate_size,
+             "up_proj": c.intermediate_size, "down_proj": c.intermediate_size, "o_proj": c.q_dim,
+             "embed_tokens": c.vocab_size, "lm_head": c.vocab_size}
+    modules = dict(decoder.named_modules())
+    with torch.no_grad():
+        for name, dim in tensor_split_dims(decoder).items():
+            mname, _, pname = name.rpartition(".")
+            part = mname.rpartition(".")[2]
+            if dim is None or (part in ("k_proj", "v_proj") and tp.kv_attend is not None):
+                continue
+            lo, hi = tp.vocab_range if part in ("embed_tokens", "lm_head") else split_range(sizes[part], n, rank)
+            mod = modules[mname]
+            t = getattr(mod, pname)
+            piece = t.narrow(dim, lo, hi - lo).clone()
+            if isinstance(t, nn.Parameter):
+                t.data = piece
+            else:
+                mod._buffers[pname] = piece
+            if hasattr(mod, "in_dim"):
+                mod.in_dim, mod.out_dim = (hi - lo, mod.out_dim) if (dim == 1 and pname != "scale") else \
+                    (mod.in_dim, hi - lo)
+    decoder.tp = tp
+    for layer in decoder.layers:
+        layer.tp = tp
+    return decoder
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:

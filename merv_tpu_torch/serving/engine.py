@@ -47,8 +47,19 @@ replicated; an admission prefill stays whole on every rank and each rank
 copies the rows it owns into the slot. Each step merges the ranks' attention
 partials by all-reduces, so the chunk is captured only where the exchange can
 be (NCCL; gloo's collectives run eagerly). Only rank 0 returns results and
-calls ``result_callback``. A tensor or pipeline axis raises: both wait for
-the rest of ROADMAP A12.
+calls ``result_callback``.
+
+Tensor-parallel serving (a decoder cut by ``load_vid`` on a mesh with a
+``tensor`` axis above 1, ``merv_tpu``'s Megatron splits): the slot cache
+holds the rank's key/value heads (``KVCache.create(..., tp=)``: split where
+``num_kv_heads`` tiles the axis, whole otherwise, as ``merv_tpu``'s
+``P(None, None, tensor, sp, None)``, composing with the sp row split), and so
+does a registered prefix, which the decoder prefills head-split. Every rank
+runs the same requests (its sums and gathers give every rank the same logits
+and tokens; the verify step included), and rank 0 returns the results. The
+chunk is captured where the collectives can be (NCCL), and runs eagerly
+under gloo. Under a ``pp`` axis the engine serves the plain cached loop on
+whole weights, as ``merv_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from merv_tpu_torch.models.generation import (
     _capture_stream,
     _capturing,
     _filter_logits,
+    _graph_capturable,
     _ngram_propose,
     _sample_token,
     _spec_accept,
@@ -79,7 +91,7 @@ from merv_tpu_torch.models.generation import (
     prefill_with_prefix,
 )
 from merv_tpu_torch.overwatch import initialize_overwatch
-from merv_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size, world
+from merv_tpu_torch.parallel.mesh import SEQ_AXIS, axis_size, world
 
 overwatch = initialize_overwatch(__name__)
 
@@ -536,9 +548,8 @@ class ContinuousBatchingEngine:
     ``rng`` is a ``torch.Generator`` on the decoder's device (default: one
     seeded 0); it draws the prefills' first tokens and seeds each chunk's own
     generator. ``config.kv_cache_dtype == "int8"`` keeps the slot cache in
-    int8 with per-position scales. ``mesh``: sequence-parallel serving (see
-    the module's text); a tensor or pipeline axis raises
-    ``NotImplementedError``.
+    int8 with per-position scales. ``mesh``: sequence- and tensor-parallel
+    serving (see the module's text).
     """
 
     def __init__(
@@ -566,9 +577,6 @@ class ContinuousBatchingEngine:
     ) -> None:
         if config.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {config.kv_cache_dtype!r}")
-        if axis_size(mesh, TENSOR_AXIS) > 1 or axis_size(mesh, PIPE_AXIS) > 1:
-            raise NotImplementedError("serving over a tensor or pipeline mesh axis is not ported yet: tensor "
-                                      "parallelism with the packed layout and parallel/pipeline.py (ROADMAP A12)")
         self.mesh = mesh
         self.decoder = decoder
         self.device = next(decoder.parameters()).device
@@ -671,7 +679,7 @@ class ContinuousBatchingEngine:
         if sp > 1:  # rows sharded over sp: rounded up to tile it, each rank's share with a scratch row of its own
             rows = -(-(rows - 1) // sp) * sp
         self._cache_dtype = cache_dtype(config.kv_cache_dtype, c.compute_dtype)
-        cache = KVCache.create(c, slots, rows, self._cache_dtype, self.device, mesh=mesh)
+        cache = KVCache.create(c, slots, rows, self._cache_dtype, self.device, mesh=mesh, tp=decoder.tp)
         overwatch.info(f"engine KV cache: {slots} slots x {rows} rows = {_cache_gib(cache):.2f} GiB "
                        f"({_dtype_name(self._cache_dtype)})")
         state = dict(
@@ -692,8 +700,8 @@ class ContinuousBatchingEngine:
         # fires the moment a request finishes (errors too): frontends persist
         # results as they come, so a crash loses at most the in-flight slots
         self._result_callback = result_callback
-        # every rank of a sequence-parallel engine serves the same requests; rank 0 returns them
-        self._returns_results = cache.sp is None or world()[0] == 0
+        # every rank of a sequence- or tensor-parallel engine serves the same requests; rank 0 returns them
+        self._returns_results = (cache.sp is None and decoder.tp is None) or world()[0] == 0
         self.stats = EngineStats()
 
     # ------------------------------------------------------------------ api
@@ -784,7 +792,7 @@ class ContinuousBatchingEngine:
             self._chunks.popitem(last=False)[1].release()
         seed = int(torch.randint(0, 2**62, (1,), generator=self._rng, device=self._rng.device))
         chunk = _Chunk(self, gamma, seed)
-        if self.device.type == "cuda" and (self._state.sp is None or self._state.sp.ex.capturable):
+        if _graph_capturable(self.device, self._state.sp, self.decoder.tp):
             chunk.capture(self)
             self.stats.capture_s += chunk.capture_s
         self._chunks[gamma] = chunk

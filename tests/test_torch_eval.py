@@ -161,17 +161,29 @@ def test_eval_mcq_on_a_run_directory_matches_script(run_dir, monkeypatch, tmp_pa
     assert len(want) == 6 and _preds(pdir / "dummy_mcq_naive_pred_merge.jsonl") == want
 
 
-@pytest.mark.parametrize("module, axis, item", [(port_mcq, "tensor", "ROADMAP A12 step 4"),
-                                                (port_oe, "tensor", "ROADMAP A12 step 4")])
-def test_unported_flags_raise(module, axis, item, tmp_path):
-    """--mesh_seq serves now (tests/test_torch_sp_serving.py); what is left of
-    A12 still raises: a serving mesh with a tensor axis, refused by the
-    drivers' loader before any weight is read."""
+@pytest.mark.parametrize("module, axis", [(port_mcq, "tensor"), (port_oe, "tensor")])
+def test_unported_flags_raise(module, axis, run_dir, tmp_path, caplog):
+    """--mesh_seq serves (tests/test_torch_sp_serving.py), and so does a
+    serving mesh with a tensor axis: the drivers' loader turns packing off
+    under it with merv_tpu's info line (the rules key on the unpacked
+    paths). On a virtual mesh, whose ranks share one process, the weights
+    stay whole (a device mesh cuts them: tests/test_torch_tensor_parallel.py),
+    and the model answers as the loader's model without a mesh does."""
     from merv_tpu_torch.parallel import VirtualMesh
 
-    cfg = module.EvalConfig(**_common("dummy_mcq", tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        module.load_model(cfg, VirtualMesh(1, **{axis: 2}))
+    cfg = module.EvalConfig(**dict(_common("dummy_mcq", tmp_path), model_path=str(run_dir),
+                                   allow_random_weights=False), device="cpu")
+    with caplog.at_level(logging.INFO):
+        on_mesh, _ = module.load_model(cfg, VirtualMesh(1, **{axis: 2}))
+    assert any("disabling packed serving layout" in r.getMessage() for r in caplog.records)
+    plain, _ = module.load_model(cfg)
+    dec = on_mesh.llm_backbone.decoder
+    assert "qkv_proj" not in dec.layers[0].attn._modules and dec.tp is None
+    assert "qkv_proj" in plain.llm_backbone.decoder.layers[0].attn._modules
+    video = np.random.RandomState(3).randint(0, 256, size=(8, 40, 48, 3)).astype(np.uint8)
+    prompt = "In: what is in this video?\nOut: "
+    assert on_mesh.generate_batch([video], [prompt], max_new_tokens=MAX_NEW, mesh=VirtualMesh(1, **{axis: 2})) == \
+        plain.generate_batch([video], [prompt], max_new_tokens=MAX_NEW)
 
 
 @pytest.fixture(scope="module")

@@ -283,14 +283,20 @@ def test_int8_kv_prefix_and_batches_match_jax(pair):
 
 
 def test_mesh_is_refused(pair):
-    """An sp mesh serves now (tests/test_torch_sp_serving.py); a tensor or
-    pipeline axis still raises, naming what is left of ROADMAP A12."""
+    """Every mesh axis serves: an sp mesh (tests/test_torch_sp_serving.py), a
+    tensor axis (a model whose decoder is not cut, as on a virtual mesh,
+    computes with whole weights; a cut one: tests/test_torch_tensor_parallel.py)
+    and a pipeline axis, on merv_tpu's plain cached loop over whole weights:
+    the same picks and tokens as no mesh, bit for bit."""
     from merv_tpu_torch.parallel import VirtualMesh
 
     _, _, pm = pair
+    videos = _videos(2)
+    picks = pm.score_options(videos, PROMPTS[:2], [["A", "B"], ["A", "B", "C"]])
+    tokens = pm.generate_batch(videos, PROMPTS[:2], max_new_tokens=4)
     for mesh in (VirtualMesh(2, tensor=2), VirtualMesh(1, pipe=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            pm.score_options([_videos(1)[0]], PROMPTS[:1], [["A", "B"]], mesh=mesh)
+        assert pm.score_options(videos, PROMPTS[:2], [["A", "B"], ["A", "B", "C"]], mesh=mesh) == picks
+        assert pm.generate_batch(videos, PROMPTS[:2], max_new_tokens=4, mesh=mesh) == tokens
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from merv_tpu_torch.bridge import state_dict_from_jax
 from merv_tpu_torch.models.backbones.llm.base_llm import tiny_llm_backbone
 from merv_tpu_torch.models.backbones.llm.transformer import LlamaDecoder, tiny_decoder_config
 from merv_tpu_torch.models.vidlms import MERV
+from merv_tpu_torch.nn.core import init_weights
 from merv_tpu_torch.parallel import VirtualMesh, activation_mesh
 from merv_tpu_torch.training import get_train_strategy
 from merv_tpu_torch.training.checkpointing import latest_checkpoint, load_checkpoint
@@ -278,10 +279,18 @@ def test_decoder_pipeline_matches_merv_tpu(remat):
 
 
 def test_tensor_axis_still_raises():
+    """A tensor axis beside pp runs: a decoder that is not cut to tensor
+    shards (on a virtual mesh the weights stay whole) runs GPipe's stages and
+    computes what the plain loop does."""
     dec = LlamaDecoder(tiny_decoder_config(compute_dtype=torch.float32, pipeline_parallel=True), device=CPU)
-    with activation_mesh(VirtualMesh(1, tensor=2, pipe=2)), pytest.raises(NotImplementedError,
-                                                                        match="ROADMAP A12 step 4"):
-        dec(input_ids=torch.ones(2, 4, dtype=torch.long))
+    init_weights(dec, torch.Generator().manual_seed(4))
+    ids = torch.from_numpy(np.random.RandomState(4).randint(3, 256, (2, 4))).long()
+    with torch.no_grad():
+        plain = dec(input_ids=ids)[0]
+        with activation_mesh(VirtualMesh(1, tensor=2, pipe=2)):
+            got = dec(input_ids=ids)[0]
+    assert dec.tp is None
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +582,11 @@ def test_memory_proof_counts_the_placements_and_the_budget(monkeypatch, tmp_path
     assert rank0["kept_bytes"] == want
     assert rank0["peak_gib"] > sum(want.values()) / 2 ** 30 and rank0["mesh"]["fsdp"] == 4
     assert MP.main(argv + ["--budget-gib", "1e-9"]) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 step 4"):
-        MP.main(["--stage", "serving"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 step 4"):
+    # the serving stage runs (tests/test_torch_tensor_parallel.py holds its weights against merv_tpu's); a
+    # tensor axis is a serving layout only, as in merv_tpu, whose training entry points all run tensor = 1
+    serving = tmp_path / "serving.json"
+    assert MP.main(["--stage", "serving", "--mesh-tensor", "2", "--llm-layers", "1", "--slots", "1", "--max-len", "64",
+                    "--prefill-bucket", "32", "--json-out", str(serving)]) == 0
+    assert json.loads(serving.read_text())["stages"]["serving"]["ranks"][0]["tensor"] == 2
+    with pytest.raises(ValueError, match="--stage serving"):
         MP.main(["--mesh-tensor", "2"])

@@ -459,13 +459,18 @@ def test_decoder_sp_per_slot_cache_matches_unsharded(decoders):
 
 
 def test_decoder_refuses_tensor_and_pipe_axes(decoders):
-    """A tensor axis still raises (ROADMAP A12 step 4); a pipeline axis runs
-    GPipe (tests/test_torch_parallel_training.py), except beside an sp axis
-    with both paths on: merv_tpu's ValueError."""
-    _, _, dec, _ = decoders
+    """A tensor axis beside sp runs the ring: a decoder that is not cut to
+    tensor shards (on a virtual mesh its weights stay whole) computes what the
+    plain decoder does (a cut one runs the ring on its heads:
+    tests/test_torch_tensor_parallel.py). A pipeline axis runs GPipe
+    (tests/test_torch_parallel_training.py), except beside an sp axis with
+    both paths on: merv_tpu's ValueError."""
+    _, _, dec, plain = decoders
     ids = torch.from_numpy(_ids(5, 1, 8)).long()
-    with activation_mesh(VirtualMesh(2, tensor=2)), pytest.raises(NotImplementedError, match="ROADMAP A12 step 4"):
-        dec(input_ids=ids)
+    with torch.no_grad():
+        with activation_mesh(VirtualMesh(2, tensor=2)):
+            got = dec(input_ids=ids)[0]
+        torch.testing.assert_close(got, plain(input_ids=ids)[0], atol=1e-5, rtol=1e-5)
     both = LlamaDecoder(dataclasses.replace(dec.cfg, pipeline_parallel=True), device="cpu")
     with activation_mesh(VirtualMesh(2, pipe=3)), pytest.raises(ValueError, match="cannot both be active"):
         both(input_ids=ids)

@@ -418,14 +418,24 @@ def test_chunk_graphs_are_bounded(decoders, monkeypatch):
 
 
 def test_refusals(decoders):
-    """The sp mode serves (tests/test_torch_sp_serving.py); a tensor or
-    pipeline axis still raises, naming what is left of ROADMAP A12."""
+    """The sp mode serves (tests/test_torch_sp_serving.py), and so do a
+    tensor axis (an uncut decoder, whole weights; a cut one:
+    tests/test_torch_tensor_parallel.py) and a pipeline axis (merv_tpu's
+    plain cached loop on whole weights): the tokens of no mesh, bit for bit.
+    An unknown cache dtype still raises."""
     from merv_tpu_torch.parallel import VirtualMesh
 
     _, _, dec = decoders
+    cfg, _ = _configs(max_new_tokens=5)
+
+    def serve(mesh):
+        eng = ContinuousBatchingEngine(dec, config=cfg, slots=2, max_len=24, length_bucket=4, mesh=mesh)
+        out = eng.run([Request(f"r{i}", input_ids=p, max_new_tokens=5) for i, p in enumerate(_prompts([5, 3, 7]))])
+        return {k: r.token_ids.tolist() for k, r in out.items()}
+
+    want = serve(None)
     for mesh in (VirtualMesh(2, tensor=2), VirtualMesh(1, pipe=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            ContinuousBatchingEngine(dec, mesh=mesh)
+        assert serve(mesh) == want
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         ContinuousBatchingEngine(dec, config=GenerationConfig(kv_cache_dtype="fp8"))
 

@@ -280,3 +280,144 @@ def cli_world(rank: int, world: int, port: int, inp_path: str, out_dir: str) -> 
                           layers=[type(m).__name__ for m in strategy.vidlm.llm_backbone.decoder.layers],
                           collectives={**RING, **PIPE})
     _finish(out_dir, rank, res)
+
+
+def _tiny_load_vid(inp: dict) -> None:
+    """``load_vid``'s factories give copies of the parent's tiny towers (kept
+    in fp32) and LLM (the run directory's config names merv-full's ids); the
+    towers' files come from ``inp["tower_dir"]``."""
+    import copy
+
+    import merv_tpu_torch.models.load_vid as LV
+    from merv_tpu_torch.models.vidlms import MERV
+
+    _fp32_towers()
+    os.environ["MERV_TPU_TOWER_DIR"] = inp["tower_dir"]
+    os.environ.pop("MERV_TPU_LLM_DIR", None)
+    LV.get_video_backbone_and_transform = lambda *a, device=None, **k: ([copy.deepcopy(t) for t in inp["towers"]], [])
+    LV.get_llm_backbone_and_tokenizer = lambda *a, device=None, **k: (copy.deepcopy(inp["llm"]), None)
+    LV.get_vidlm = lambda model_id, arch, fusion, vbs, llm, device=None, **k: MERV(
+        model_id, vbs, llm, arch_specifier=arch, feature_fusion=fusion, device=device,
+        projector_token_length=k["projector_token_length"], visual_feature_length=k["visual_feature_length"],
+        text_embedding_dim=inp["text_embedding_dim"])
+
+
+def _decode_step_counts(pm) -> dict:
+    """The tensor collectives of one T = 1 decode step of ``pm``'s decoder."""
+    import torch
+
+    from merv_tpu_torch.models.backbones.llm.transformer import KVCache
+    from merv_tpu_torch.parallel import tensor as TP
+
+    dec = pm.llm_backbone.decoder
+    cache = KVCache.create(dec.cfg, 1, 8, dec.cfg.compute_dtype, "cpu", tp=dec.tp)
+    with torch.no_grad():
+        _, cache = dec(input_ids=torch.ones(1, 4, dtype=torch.long), kv_cache=cache)
+        TP.reset_counts()
+        dec(input_ids=torch.ones(1, 1, dtype=torch.long), kv_cache=cache)
+    return dict(TP.COUNTS)
+
+
+def tp_world(rank: int, world: int, port: int, inp_path: str, out_dir: str) -> None:
+    """The tiny MERV at tensor = world: ``load_vid`` from a run directory (bf16
+    and int8 weights), the prefill's logits, ``generate_batch``,
+    ``score_options``, the engine at gamma 0 and 2, a shared prefix, int8
+    weights through the engine, and one decode step's collectives."""
+    _start(rank, world, port)
+    import torch
+
+    from merv_tpu_torch import load_vid
+    from merv_tpu_torch.models.generation import GenerationConfig, prefill
+    from merv_tpu_torch.parallel import MeshConfig, build_mesh
+    from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    inp = torch.load(inp_path, weights_only=False)
+    _tiny_load_vid(inp)
+    mesh = build_mesh(MeshConfig(data=1, fsdp=1, tensor=world), device_type="cpu")
+    pm = load_vid(inp["run_dir"], device="cpu", mesh=mesh)
+    dec = pm.llm_backbone.decoder
+    res = {"state": {k: v.clone() for k, v in pm.state_dict().items()}, "kv_heads": dec.tp.kv_heads,
+           "packed": "qkv_proj" in dec.layers[0].attn._modules}
+    videos, prompts, nf = inp["videos"], inp["prompts"], inp["num_frames"]
+    with torch.no_grad():
+        ids, mask, vids, is_mm = pm._prepare_batch_inputs(videos, prompts, nf)
+        embeds, emask = pm.build_inputs_embeds(ids, mask, vids, is_mm)
+        res["prefill_logits"], cache, _ = prefill(dec, embeds, emask.long(), embeds.shape[1] + 4)
+    res["prefill_cache_heads"] = cache.k.shape[2]
+    res["generate"] = pm.generate_batch(videos, prompts, max_new_tokens=inp["max_new"], num_frames=nf, mesh=mesh)
+    res["score"] = pm.score_options(videos, prompts, inp["options"], num_frames=nf, mesh=mesh)
+    res["step_counts"] = _decode_step_counts(pm)
+    gcfg = GenerationConfig(max_new_tokens=inp["max_new"], eos_token_id=pm.llm_backbone.stop_token_id,
+                            pad_token_id=pm.llm_backbone.pad_token_id)
+
+    def serve(model, gamma, prefix=False):
+        engine = ContinuousBatchingEngine.for_vidlm(model, slots=2, max_len=inp["engine_max_len"], length_bucket=8,
+                                                    config=gcfg, speculative_gamma=gamma, mesh=mesh)
+        if prefix:
+            engine.register_prefix_video("v0", videos[0], num_frames=nf)
+        reqs = [Request(str(i), prompt_text=p, video=None if prefix else videos[0], max_new_tokens=inp["max_new"],
+                        prefix_id="v0" if prefix else None) for i, p in enumerate(prompts)]
+        out = engine.run(reqs)
+        return {k: r.token_ids.tolist() for k, r in out.items()}, tuple(engine._state.k.shape)
+
+    res["engine"] = {g: serve(pm, g) for g in (0, 2)}
+    res["prefix"] = serve(pm, 0, prefix=True)
+    del pm
+    pm8 = load_vid(inp["run_dir"], device="cpu", mesh=mesh, quantize_llm=True)
+    res["state8"] = {k: v.clone() for k, v in pm8.llm_backbone.decoder.state_dict().items()}
+    res["engine8"] = serve(pm8, 0)
+    _finish(out_dir, rank, res)
+
+
+def tp_world4(rank: int, world: int, port: int, inp_path: str, out_dir: str) -> None:
+    """A world of 4: (a) the tiny decoder at tensor 2 x sp 2 (the ring on each
+    rank's heads, the sequence-sharded cache of its key/value heads) and (b) a
+    Qwen-like tiny decoder (biases, tied head, 2 key/value heads, uneven
+    vocabulary and MLP shards) at tensor 4, its key/value heads whole."""
+    _start(rank, world, port)
+    import copy
+
+    import torch
+
+    from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder
+    from merv_tpu_torch.models.generation import GenerationConfig, generate
+    from merv_tpu_torch.parallel import MeshConfig, activation_mesh, build_mesh, shard_decoder
+    from merv_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    inp = torch.load(inp_path, weights_only=False)
+    res = {}
+    a = inp["ring"]
+    mesh = build_mesh(MeshConfig(data=1, fsdp=1, tensor=2, seq=2), device_type="cpu")
+    dec = LlamaDecoder(a["cfg"], device="cpu")
+    dec.load_state_dict(a["state"])
+    shard_decoder(dec, mesh)
+    ids, mask = a["ids"], a["mask"]
+    with torch.no_grad(), activation_mesh(mesh):
+        res["ring/no_cache"] = dec(input_ids=ids, attention_mask=mask)[0]
+        cache = KVCache.create(dec.cfg, 1, 16, torch.float32, "cpu", mesh=mesh, tp=dec.tp)
+        prefill, cache = dec(input_ids=ids[:1, :8], kv_cache=cache)
+        step, _ = dec(input_ids=ids[:1, 8:9], kv_cache=cache)
+    res["ring/cache"] = dict(prefill=prefill, step=step, shape=tuple(cache.k.shape), sharded=cache.sp is not None)
+
+    b = inp["kv_whole"]
+    mesh4 = build_mesh(MeshConfig(data=1, fsdp=1, tensor=4), device_type="cpu")
+    dec = LlamaDecoder(b["cfg"], device="cpu")
+    dec.load_state_dict(b["state"])
+    whole = copy.deepcopy(dec)
+    shard_decoder(dec, mesh4)
+    res["kv_whole/tp"] = dict(num_heads=dec.tp.num_heads, kv_heads=dec.tp.kv_heads, kv_attend=dec.tp.kv_attend,
+                              vocab_range=dec.tp.vocab_range, q_rows=dec.layers[0].attn.q_proj.weight.shape[0],
+                              k_rows=dec.layers[0].attn.k_proj.weight.shape[0],
+                              gate_rows=dec.layers[0].mlp.gate_proj.weight.shape[0])
+    gcfg = GenerationConfig(max_new_tokens=6, eos_token_id=1, pad_token_id=0)
+    with torch.no_grad():
+        res["kv_whole/logits"] = dec(input_ids=b["ids"])[0]
+    res["kv_whole/generate"] = generate(dec, input_ids=b["ids"], config=gcfg)
+    res["kv_whole/generate_whole"] = generate(whole, input_ids=b["ids"], config=gcfg)
+    served = {}
+    for name, d in (("tp", dec), ("whole", whole)):
+        engine = ContinuousBatchingEngine(d, config=gcfg, slots=2, max_len=32, length_bucket=4, speculative_gamma=2)
+        out = engine.run([Request(str(i), input_ids=row.numpy(), max_new_tokens=6) for i, row in enumerate(b["ids"])])
+        served[name] = ({k: r.token_ids.tolist() for k, r in out.items()}, tuple(engine._state.k.shape))
+    res["kv_whole/engine"] = served
+    _finish(out_dir, rank, res)
