@@ -44,7 +44,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None, help="the card unless 'cpu' (the tiny model)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    from merv_tpu_torch.models.generation import GenerationConfig, _sample_token, _sync, decode_runner, prefill
+    from merv_tpu_torch.models.generation import GenerationConfig, _sample_token, decode_runner, prefill
 
     layers = int(os.environ.get("BENCH_LLM_LAYERS", "16"))
     batch = int(os.environ.get("BENCH_BATCH", "1"))
@@ -90,7 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     def timed_decode(n: int) -> float:
         first, n_valid = prefill_first()
         runner.load(first, n_valid, cache_mask, total, None)
-        _sync(dev)
+        benchkit.sync(dev)
         t0 = time.perf_counter()
         for _ in range(n):
             if runner.graph is not None:

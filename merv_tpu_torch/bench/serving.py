@@ -99,7 +99,7 @@ class _Work:
 @torch.inference_mode()
 def _phase(phase: str, dev: torch.device) -> dict:
     """Run ONE measurement phase in this process and return its partials."""
-    from merv_tpu_torch.models.generation import GenerationConfig, _sync, generate
+    from merv_tpu_torch.models.generation import GenerationConfig, generate
     from merv_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
 
     layers = int(os.environ.get("BENCH_LLM_LAYERS", "16"))
@@ -137,7 +137,7 @@ def _phase(phase: str, dev: torch.device) -> dict:
             timings: Dict[str, float] = {}
             generate(decoder, input_ids=torch.from_numpy(ids).to(dev), attention_mask=torch.from_numpy(mask).to(dev),
                      config=cfg_g, timings=timings)
-            _sync(dev)
+            benchkit.sync(dev)
             work.prefill_lengths.append(plen)
             made = dev.type == "cuda" and timings["decode_capture_s"] > 0
             work.decode_forwards += timings["decode_steps"] + (2 if made else 0)
@@ -244,7 +244,7 @@ def _phase(phase: str, dev: torch.device) -> dict:
     elif phase == "engine":
         run_engine(0)  # warm
         engine_s, stats = min((run_engine(0) for _ in range(2)), key=lambda x: x[0])
-        ttft = sorted(stats.ttft_s)
+        ttft = sorted(stats.ttft_s.values())
         out.update(engine_s=engine_s, engine_decode_steps=stats.decode_steps,
                    engine_util=round(stats.slot_utilization, 3), engine_tok_s=round(total_tokens / engine_s, 2),
                    ttft_p50_ms=round(1e3 * ttft[len(ttft) // 2], 1) if ttft else None,
@@ -263,7 +263,6 @@ def _phase(phase: str, dev: torch.device) -> dict:
 def _spec_curve(decoder, gcfg, slots: int, K: int, gamma: int, dev: torch.device, work: _Work) -> dict:
     """The verify step's cost per gamma and its realized acceptance, on the
     engine's own chunk programs from one fixed state."""
-    from merv_tpu_torch.models.generation import _sync
     from merv_tpu_torch.serving.engine import ContinuousBatchingEngine
 
     ngram, live_p = 2, 24
@@ -309,7 +308,7 @@ def _spec_curve(decoder, gcfg, slots: int, K: int, gamma: int, dev: torch.device
         reset(hist0)
         chunk = eng._chunk(g)
         reset(hist0)  # a capture restores the state it found; start every run from the base
-        _sync(dev)
+        benchkit.sync(dev)
         if dev.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()

@@ -256,6 +256,12 @@ def run_child(args: Sequence[str], env: Optional[Dict[str, str]] = None, timeout
 # ---------------------------------------------------------------------------
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """ms per call of ``fn``: CUDA events around ``iters`` calls after ``warmup``."""
     for _ in range(warmup):

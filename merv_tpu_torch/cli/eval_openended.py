@@ -398,7 +398,8 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
             if p:
                 register_s.append(0.0)
             s = engine.stats
-            prev = (s.admit_s, s.decode_s, s.prefills, s.prefix_admissions, s.errors, len(s.ttft_s))
+            prev = (s.admit_s, s.decode_s, s.prefills, s.prefix_admissions, s.errors)
+            s.ttft_s.clear()  # keyed by request id, and every pass serves the same ids
             t0 = time.perf_counter()
             for key in order:
                 wave_keys.append(key)
@@ -410,7 +411,7 @@ def _engine_eval(cfg, vidlm, model_cfg, questions, answers_dict, benchmark_dir, 
     # the last pass's deltas: with extra passes the cumulative stats would count twice
     s = engine.stats
     prefills, prefix_admissions, errors = s.prefills - prev[2], s.prefix_admissions - prev[3], s.errors - prev[4]
-    ttft = sorted(s.ttft_s[prev[5]:])
+    ttft = sorted(s.ttft_s.values())
     wall = pass_walls[-1]
     served = len(questions) - errors
     if world()[0] != 0:

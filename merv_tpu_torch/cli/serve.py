@@ -224,7 +224,7 @@ def serve(cfg: ServeConfig) -> None:
         + (f", {s.errors} failed (finish_reason=error)" if s.errors else "")
         + (f", {s.tokens_per_step:.2f} tokens/verify-step" if cfg.speculative else "")
     )
-    ttft = sorted(s.ttft_s)
+    ttft = sorted(s.ttft_s.values())
     overwatch.info(
         f"Phases: admit {s.admit_s:.2f}s, decode {s.decode_s:.2f}s (chunk graph captures {s.capture_s:.2f}s), "
         f"prefill stall share {s.prefill_stall_share:.3f}"

@@ -57,6 +57,7 @@ import torch
 import merv_tpu_torch.ops.attention as A
 from merv_tpu_torch.models.backbones.llm.transformer import KVCache, LlamaDecoder, cache_dtype
 from merv_tpu_torch.parallel.sharding import get_activation_mesh
+from merv_tpu_torch.tracing import span
 
 # steps run between two reads of ``done`` (the early exit's host sync)
 DECODE_SYNC_EVERY = 16
@@ -157,12 +158,6 @@ def _ban_eos_below_min_length(logits: torch.Tensor, cur_len: torch.Tensor, cfg: 
     suppress = (cur_len < cfg.min_length)[:, None]
     is_eos = (torch.arange(logits.shape[-1], device=logits.device) == cfg.eos_token_id)[None, :]
     return logits.masked_fill(suppress & is_eos, float("-inf"))
-
-
-def _sync(device: torch.device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 @torch.inference_mode()
@@ -382,15 +377,13 @@ def release_decode_runners(decoder: LlamaDecoder) -> None:
 def _decode(decoder: LlamaDecoder, runner: DecodeRunner, made: bool, first: torch.Tensor, start_pos: torch.Tensor,
             cache_mask: torch.Tensor, length: int, generator: Optional[torch.Generator],
             timings: Optional[Dict[str, float]]) -> torch.Tensor:
-    dev = first.device
-    t0 = _sync(dev) if timings is not None else 0.0
-    runner.load(first, start_pos, cache_mask, length, generator)
-    steps = runner.decode(decoder)
-    if runner.config.do_sample and generator is not None:
-        generator.set_state(runner.generator.get_state())
-    out = runner.out.clone()
+    with span("generate.decode", device=first.device, timings=timings, key="decode_s"):
+        runner.load(first, start_pos, cache_mask, length, generator)
+        steps = runner.decode(decoder)
+        if runner.config.do_sample and generator is not None:
+            generator.set_state(runner.generator.get_state())
+        out = runner.out.clone()
     if timings is not None:
-        timings["decode_s"] = _sync(dev) - t0
         timings["decode_steps"] = steps
         timings["decode_capture_s"] = runner.capture_s if made else 0.0
     return out
@@ -431,13 +424,11 @@ def generate(
     cache_len = max_cache_len or (T + config.max_new_tokens)
     runner, made = decode_runner(decoder, B, cache_len, config, dev) if config.max_new_tokens > 1 else (None, False)
 
-    t0 = _sync(dev) if timings is not None else 0.0
-    last_logits, _, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len, attn_impl,
-                                      cache=None if runner is None else runner.cache,
-                                      kv_cache_dtype=config.kv_cache_dtype)
-    first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
-    if timings is not None:
-        timings["prefill_s"] = _sync(dev) - t0
+    with span("generate.prefill", device=dev, timings=timings, key="prefill_s"):
+        last_logits, _, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len, attn_impl,
+                                          cache=None if runner is None else runner.cache,
+                                          kv_cache_dtype=config.kv_cache_dtype)
+        first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
     if runner is None:
         if timings is not None:
             timings.update(decode_s=0.0, decode_steps=0, decode_capture_s=0.0)
@@ -714,13 +705,11 @@ def generate_speculative(
     max_new, pad_id, eos_id = config.max_new_tokens, config.pad_token_id, config.eos_token_id
     cache_len = max_cache_len or (T + max_new + gamma + 1)
 
-    t0 = _sync(dev) if timings is not None else 0.0
-    # one row past cache_len: the per-slot path's scratch row
-    last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len + 1, attn_impl,
-                                          kv_cache_dtype=config.kv_cache_dtype)
-    first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
-    if timings is not None:
-        timings["prefill_s"] = _sync(dev) - t0
+    with span("generate.prefill", device=dev, timings=timings, key="prefill_s"):
+        # one row past cache_len: the per-slot path's scratch row
+        last_logits, cache, n_valid = prefill(decoder, inputs_embeds, attention_mask, cache_len + 1, attn_impl,
+                                              kv_cache_dtype=config.kv_cache_dtype)
+        first = _sample_token(_ban_eos_below_min_length(last_logits, n_valid, config), config, generator)
     cache_mask = torch.ones((1, cache_len + 1), dtype=torch.bool, device=dev)
     if attention_mask is not None:
         cache_mask[:, :T] = attention_mask.bool()
@@ -744,36 +733,36 @@ def generate_speculative(
     steps_v = torch.arange(gamma + 1, device=dev)
     eos_vec = torch.arange(decoder.cfg.vocab_size, device=dev) == eos_id
 
-    t0 = _sync(dev) if timings is not None else 0.0
-    steps = 0
-    while not bool(done[0]) and int(n_out[0]) < max_new:  # the one host read per verify step
-        draft = _ngram_propose(hist, hist_len, gamma, ngram, pad_id)  # [1, gamma]
-        logits, _ = decoder(input_ids=torch.cat([tok[:, None], draft], dim=1), attention_mask=cache_mask,
-                            positions=pos[:, None] + steps_v[None], kv_cache=cache.at(length))
-        lg = logits[0].float()  # [gamma+1, V]
-        if config.min_length > 1:
-            lg = lg.masked_fill(((pos + 1 + steps_v) < config.min_length)[:, None] & eos_vec[None], float("-inf"))
-        if config.do_sample:
-            probs = torch.softmax(_filter_logits(lg, config), dim=-1)
-            w_all, nat_emit = _spec_accept(probs[None], draft, generator, pad_id)
-            w_all = w_all[0]
-        else:
-            w_all = lg.argmax(dim=-1)
-            nat_emit = (draft[0] == w_all[:gamma]).long().cumprod(0).sum()[None] + 1
-        is_eos = (w_all == eos_id) & (steps_v < nat_emit)
-        has_eos = is_eos.any()[None]
-        emit_n = torch.where(has_eos, is_eos.to(torch.uint8).argmax()[None] + 1, nat_emit)
-        window = torch.where(steps_v < emit_n, w_all, torch.full_like(w_all, pad_id))
-        out[0, n_out + steps_v] = window
-        hist[0, hist_len.clamp(max=Hc - gamma - 1) + steps_v] = window
-        tok = window[emit_n - 1]
-        length += emit_n
-        pos += emit_n
-        hist_len += emit_n
-        n_out += emit_n
-        done |= has_eos
-        steps += 1
+    with span("generate.decode", device=dev, timings=timings, key="decode_s"):
+        steps = 0
+        while not bool(done[0]) and int(n_out[0]) < max_new:  # the one host read per verify step
+            draft = _ngram_propose(hist, hist_len, gamma, ngram, pad_id)  # [1, gamma]
+            logits, _ = decoder(input_ids=torch.cat([tok[:, None], draft], dim=1), attention_mask=cache_mask,
+                                positions=pos[:, None] + steps_v[None], kv_cache=cache.at(length))
+            lg = logits[0].float()  # [gamma+1, V]
+            if config.min_length > 1:
+                lg = lg.masked_fill(((pos + 1 + steps_v) < config.min_length)[:, None] & eos_vec[None], float("-inf"))
+            if config.do_sample:
+                probs = torch.softmax(_filter_logits(lg, config), dim=-1)
+                w_all, nat_emit = _spec_accept(probs[None], draft, generator, pad_id)
+                w_all = w_all[0]
+            else:
+                w_all = lg.argmax(dim=-1)
+                nat_emit = (draft[0] == w_all[:gamma]).long().cumprod(0).sum()[None] + 1
+            is_eos = (w_all == eos_id) & (steps_v < nat_emit)
+            has_eos = is_eos.any()[None]
+            emit_n = torch.where(has_eos, is_eos.to(torch.uint8).argmax()[None] + 1, nat_emit)
+            window = torch.where(steps_v < emit_n, w_all, torch.full_like(w_all, pad_id))
+            out[0, n_out + steps_v] = window
+            hist[0, hist_len.clamp(max=Hc - gamma - 1) + steps_v] = window
+            tok = window[emit_n - 1]
+            length += emit_n
+            pos += emit_n
+            hist_len += emit_n
+            n_out += emit_n
+            done |= has_eos
+            steps += 1
     if timings is not None:
-        timings.update(decode_s=_sync(dev) - t0, decode_steps=steps, decode_capture_s=0.0)
+        timings.update(decode_steps=steps, decode_capture_s=0.0)
     keep = torch.arange(max_new, device=dev) < n_out
     return torch.where(keep, out[0, :max_new], torch.full_like(keep, pad_id, dtype=torch.long))[None]

@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import math
 import re
-import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -54,7 +53,6 @@ from merv_tpu_torch.models.backbones.video.base_video import VideoBackbone
 from merv_tpu_torch.models.generation import (
     GenerationConfig,
     VideoPrefix,
-    _sync,
     generate as _generate,
     generate_speculative,
     generate_with_prefix,
@@ -76,6 +74,7 @@ from merv_tpu_torch.nn.projectors import (
 from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.parallel.sharding import global_token_count
 from merv_tpu_torch.preprocessing.transforms import subsample_frames
+from merv_tpu_torch.tracing import span
 
 overwatch = initialize_overwatch(__name__)
 
@@ -229,10 +228,12 @@ class MERV(VidLM):
     # Forward pieces
     # ------------------------------------------------------------------------------
 
-    def encode_videos(self, video_values: Sequence[torch.Tensor], impl: str = "auto") -> List[torch.Tensor]:
+    def encode_videos(self, video_values: Sequence[torch.Tensor], impl: str = "auto",
+                      timings: Optional[Dict[str, float]] = None) -> List[torch.Tensor]:
         """Run every tower -> list of [B, num_patches_i, embed_dim_i], under
-        ``torch.no_grad``: the towers are frozen in every stage."""
-        with torch.no_grad():
+        ``torch.no_grad``: the towers are frozen in every stage. The ``towers``
+        span; ``timings`` (optional) adds its time to ``towers_s``."""
+        with torch.no_grad(), span("towers", device=True, timings=timings, key="towers_s"):
             return [vb(v, impl=impl) for vb, v in zip(self.video_backbones, video_values)]
 
     def project_and_fuse(
@@ -315,23 +316,23 @@ class MERV(VidLM):
         labels) streams the loss over token blocks through the lm_head and
         never materialises the [B, T, vocab] logits (``logits`` is None then).
         ``timings`` (optional) adds the towers' time, between two device
-        syncs, to ``towers_s``."""
-        t0 = _sync(input_ids.device) if timings is not None else 0.0
-        feats = self.encode_videos(video_values, attn_impl)
-        if timings is not None:
-            timings["towers_s"] = timings.get("towers_s", 0.0) + _sync(input_ids.device) - t0
-        visual, mixer = self.project_and_fuse(feats, attn_impl)
-        embeds, mask, fused_labels = self.embed_multimodal(input_ids, attention_mask, visual, labels, is_multimodal)
-        dec = self.llm_backbone.decoder
-        out = {"logits": None, "loss": None, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
-        if fused_labels is not None and loss_chunk_size:
-            hidden, _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat,
-                            return_hidden=True)
-            out["loss"] = chunked_causal_lm_loss(dec, hidden, fused_labels, block=loss_chunk_size)
-            return out
-        out["logits"], _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat)
-        if fused_labels is not None:
-            out["loss"] = causal_lm_loss(out["logits"], fused_labels)
+        syncs, to ``towers_s``. Spans: ``towers``, then ``train.forward``
+        (projectors, fusion, splice, the LLM's forward and the loss)."""
+        feats = self.encode_videos(video_values, attn_impl, timings)
+        with span("train.forward", device=True):
+            visual, mixer = self.project_and_fuse(feats, attn_impl)
+            embeds, mask, fused_labels = self.embed_multimodal(input_ids, attention_mask, visual, labels,
+                                                               is_multimodal)
+            dec = self.llm_backbone.decoder
+            out = {"logits": None, "loss": None, "mixer": mixer, "attention_mask": mask, "labels": fused_labels}
+            if fused_labels is not None and loss_chunk_size:
+                hidden, _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat,
+                                return_hidden=True)
+                out["loss"] = chunked_causal_lm_loss(dec, hidden, fused_labels, block=loss_chunk_size)
+                return out
+            out["logits"], _ = dec(inputs_embeds=embeds, attention_mask=mask, attn_impl=attn_impl, remat=remat)
+            if fused_labels is not None:
+                out["loss"] = causal_lm_loss(out["logits"], fused_labels)
         return out
 
     # ------------------------------------------------------------------------------
@@ -373,16 +374,10 @@ class MERV(VidLM):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Towers -> projectors -> fusion -> splice: (embeds [B, T+V, E], mask [B, T+V]).
         ``timings`` (optional) receives ``towers_s`` and ``project_fuse_s``."""
-        dev = input_ids.device
-        t0 = _sync(dev) if timings is not None else 0.0
-        feats = self.encode_videos(video_values, attn_impl)
-        if timings is not None:
-            t1 = _sync(dev)
-            timings["towers_s"] = t1 - t0
-        visual, _ = self.project_and_fuse(feats, attn_impl)
-        embeds, mask, _ = self.embed_multimodal(input_ids, attention_mask, visual, None, is_multimodal)
-        if timings is not None:
-            timings["project_fuse_s"] = _sync(dev) - t1
+        feats = self.encode_videos(video_values, attn_impl, timings)
+        with span("project_fuse", device=True, timings=timings, key="project_fuse_s"):
+            visual, _ = self.project_and_fuse(feats, attn_impl)
+            embeds, mask, _ = self.embed_multimodal(input_ids, attention_mask, visual, None, is_multimodal)
         return embeds, mask
 
     @torch.inference_mode()
@@ -500,10 +495,8 @@ class MERV(VidLM):
                 is_mm.append(False)
                 continue
             if isinstance(video, str) or hasattr(video, "__fspath__"):
-                t0 = time.perf_counter()
-                video = _load_media(video, max(num_frames), **clip_args[b])
-                if timings is not None:
-                    timings["decode_video_s"] = timings.get("decode_video_s", 0.0) + time.perf_counter() - t0
+                with span("prepare.decode_video", timings=timings, key="decode_video_s"):
+                    video = _load_media(video, max(num_frames), **clip_args[b])
             frames_all = torch.as_tensor(np.asarray(video)).to(dev)  # uint8 [T, H, W, C], one copy to the card
             for e, (vb, nf) in enumerate(zip(self.video_backbones, num_frames)):
                 per_encoder[e].append(vb.get_video_transform()(subsample_frames(frames_all, nf)))
@@ -540,14 +533,12 @@ class MERV(VidLM):
         ``[clip_start_sec, clip_end_sec]`` or up to ``end_frame``), a uint8
         [T, H, W, C] array, or None (text only). ``speculative_gamma > 0``
         and ``mesh``: see :meth:`generate_ids`."""
-        t0 = time.perf_counter()
-        input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
-            [video], [prompt_text], num_frames,
-            clip_args=[dict(clip_start_sec=clip_start_sec, clip_end_sec=clip_end_sec, end_frame=end_frame)],
-            timings=timings,
-        )
-        if timings is not None:
-            timings["prepare_s"] = _sync(self.device) - t0
+        with span("generate.prepare", device=True, timings=timings, key="prepare_s"):
+            input_ids, attention_mask, vids, is_mm = self._prepare_batch_inputs(
+                [video], [prompt_text], num_frames,
+                clip_args=[dict(clip_start_sec=clip_start_sec, clip_end_sec=clip_end_sec, end_frame=end_frame)],
+                timings=timings,
+            )
         tokens = self.generate_ids(
             input_ids, attention_mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
             do_sample=do_sample, temperature=temperature, top_p=top_p, top_k=top_k, min_length=min_length,

@@ -92,6 +92,7 @@ from merv_tpu_torch.models.generation import (
 )
 from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.parallel.mesh import SEQ_AXIS, axis_size, world
+from merv_tpu_torch.tracing import event, span
 
 overwatch = initialize_overwatch(__name__)
 
@@ -143,9 +144,9 @@ class EngineStats:
     spec_reenables: int = 0  # the monitor re-enabled (trailing estimate recovered)
     prefetch_hits: int = 0  # admissions whose host prep overlapped a decode chunk
     errors: int = 0  # requests that failed (corrupt media / over-budget / prep error)
-    # per-request time to first token: submit() -> the first sampled token on
+    # time to first token by request id: submit() -> the first sampled token on
     # the host (at placement when blocking, at the next chunk's sync when async)
-    ttft_s: List[float] = field(default_factory=list)
+    ttft_s: Dict[str, float] = field(default_factory=dict)
     batched_admissions: int = 0  # admissions that shared a prefill program with others
     prefix_admissions: int = 0  # admissions served suffix-only off a shared prefix
     admit_s: float = 0.0  # host wall time inside _admit (prefill stall: decode waits)
@@ -705,15 +706,9 @@ class ContinuousBatchingEngine:
         self.stats = EngineStats()
 
     # ------------------------------------------------------------------ api
-    @property
-    def ttft_p50(self) -> float:
-        """Median time to first token over finished requests (seconds)."""
-        if not self.stats.ttft_s:
-            return 0.0
-        return float(np.median(self.stats.ttft_s))
-
     def submit(self, request: Request) -> None:
         self._submit_t[request.request_id] = time.perf_counter()
+        event("request.submit", request=request.request_id)
         self._queue.append(request)
 
     def register_prefix(self, prefix_id: str, prefix: Any) -> None:
@@ -767,18 +762,20 @@ class ContinuousBatchingEngine:
         results keyed by request_id. Callable repeatedly: state persists."""
         for r in requests:
             self.submit(r)
-        t0 = time.perf_counter()
-        self._admit()
-        self.stats.admit_s += time.perf_counter() - t0
+        self._timed_admit()
         while any(s.request is not None for s in self._slots):
             t0 = time.perf_counter()
-            self._decode_one_chunk()
-            t1 = time.perf_counter()
-            self._admit()
-            t2 = time.perf_counter()
-            self.stats.decode_s += t1 - t0
-            self.stats.admit_s += t2 - t1
+            with span("engine.chunk"):
+                self._decode_one_chunk()
+            self.stats.decode_s += time.perf_counter() - t0
+            self._timed_admit()
         return dict(self._results) if self._returns_results else {}
+
+    def _timed_admit(self) -> None:
+        t0 = time.perf_counter()
+        with span("engine.admit"):
+            self._admit()
+        self.stats.admit_s += time.perf_counter() - t0
 
     # ------------------------------------------------------------ internals
     def _chunk(self, gamma: int) -> _Chunk:
@@ -901,7 +898,8 @@ class ContinuousBatchingEngine:
         if padded.shape[1] not in self.stats.prefill_buckets:
             self.stats.prefill_buckets.append(padded.shape[1])
         self.stats.admit_buckets.append(padded.shape[1])
-        small, first, n_valid = self._llm_prefill(padded, mask)
+        with span("admit.prefill", device=self.device):
+            small, first, n_valid = self._llm_prefill(padded, mask)
         return small, first, n_valid, ids  # ids = the speculative draft corpus
 
     # ------------------------------------------------------- admission prefetch
@@ -920,7 +918,8 @@ class ContinuousBatchingEngine:
 
         def work():
             try:
-                holder["payload"] = prep(req)
+                with span("prefetch.prepare", request=req.request_id):
+                    holder["payload"] = prep(req)
             except Exception as e:  # surfaced at admission
                 holder["error"] = e
 
@@ -933,7 +932,8 @@ class ContinuousBatchingEngine:
             return None
         _, t, holder = self._prefetched
         self._prefetched = None
-        t.join()
+        with span("admit.prefetch_wait", request=req.request_id):
+            t.join()
         if "error" in holder:
             raise holder["error"]
         self.stats.prefetch_hits += 1
@@ -946,6 +946,7 @@ class ContinuousBatchingEngine:
         overwatch.error(f"request {req.request_id} failed: {type(exc).__name__}: {exc}")
         self._submit_t.pop(req.request_id, None)
         self.stats.errors += 1
+        event("request.finish", request=req.request_id)
         res = RequestResult(
             req.request_id,
             np.full((max(req.max_new_tokens, 1),), self.config.pad_token_id, np.int32),
@@ -976,7 +977,8 @@ class ContinuousBatchingEngine:
             try:
                 if req.prefix_id is not None:
                     if prepared is None:
-                        prepared = self._prepare_suffix(req)
+                        with span("admit.prepare", request=req.request_id):
+                            prepared = self._prepare_suffix(req)
                     n = self._prefixes[req.prefix_id][1] + len(prepared[2])
                     if n + req.max_new_tokens > self.max_len:
                         raise ValueError(
@@ -986,7 +988,8 @@ class ContinuousBatchingEngine:
                     prefix_admits.append((free.pop(0), req, prepared))
                     continue
                 if prepared is None and self._prepare is not None:
-                    prepared = self._prepare(req)
+                    with span("admit.prepare", request=req.request_id):
+                        prepared = self._prepare(req)
                 if self._prepared_len is not None and prepared is not None:
                     n = self._prepared_len(req, prepared)
                     if n + req.max_new_tokens > self.max_len:
@@ -1021,16 +1024,19 @@ class ContinuousBatchingEngine:
                 cache, P, _bos = self._prefixes[pid]
                 ids, mask = self._pow2_rows(items)
                 self.stats.prefill_shapes.append(tuple(ids.shape))
-                small, first, n_valid = _prefix_suffix_prefill(
-                    self.decoder, self.config, cache, torch.as_tensor(ids, device=self.device),
-                    torch.as_tensor(mask, device=self.device), self._rng,
-                )
+                rids = tuple(it[1].request_id for it in items)
+                with span("admit.prefill", request=rids, device=self.device):
+                    small, first, n_valid = _prefix_suffix_prefill(
+                        self.decoder, self.config, cache, torch.as_tensor(ids, device=self.device),
+                        torch.as_tensor(mask, device=self.device), self._rng,
+                    )
                 self.stats.prefills += 1
                 self.stats.suffix_prefills += 1
                 self.stats.prefix_admissions += len(items)
                 if len(items) > 1:
                     self.stats.batched_admissions += len(items)
-                self._place_group(items, small, first, n_valid, P)
+                with span("admit.place", request=rids):
+                    self._place_group(items, small, first, n_valid, P)
         if not admits:
             return
 
@@ -1048,35 +1054,45 @@ class ContinuousBatchingEngine:
             for Tb, items in groups.items():
                 if Tb not in self.stats.prefill_buckets:
                     self.stats.prefill_buckets.append(Tb)
-                small, first, n_valid = self._llm_prefill(*self._pow2_rows(items))
+                rids = tuple(it[1].request_id for it in items)
+                with span("admit.prefill", request=rids, device=self.device):
+                    small, first, n_valid = self._llm_prefill(*self._pow2_rows(items))
                 self.stats.prefills += 1
                 if len(items) > 1:
                     self.stats.batched_admissions += len(items)
-                self._place_group(items, small, first, n_valid, 0)
+                with span("admit.place", request=rids):
+                    self._place_group(items, small, first, n_valid, 0)
         else:
             for slot_idx, req, prepared in admits:
-                try:
-                    out = self._prefill_request(req, prepared)
-                except Exception as e:
-                    self._fail(req, e)  # the slot stays free for the next _admit
-                    continue
-                small, first, n_valid = out[:3]
-                lookup = out[3] if len(out) > 3 else None
-                if self.spec_gamma and lookup is None:
-                    raise ValueError(
-                        "speculative mode needs the prefill fn to return the prompt token ids as a 4th element "
-                        "(the draft corpus)"
-                    )
-                self.stats.prefills += 1
-                if self._async_admission and self._prepared_len is not None and prepared is not None:
-                    # custom per-request prefills pipeline too when the frontend
-                    # gives a host-side length bound (for_vidlm does); otherwise
-                    # placement reads the prefill back so that the budget check
-                    # after it can run
-                    self._place_async(slot_idx, req, small, first, n_valid, 0,
-                                      self._prepared_len(req, prepared), lookup)
-                else:
-                    self._place(slot_idx, req, small, first, n_valid, 0, int(first[0]), int(n_valid[0]), lookup)
+                with span("admit.request", request=req.request_id):
+                    self._admit_one(slot_idx, req, prepared)
+
+    def _admit_one(self, slot_idx: int, req: Request, prepared: Any) -> None:
+        """One admission through the per-request prefill fn (``for_vidlm``'s
+        towers and prefill, or a custom fn), then its placement."""
+        try:
+            out = self._prefill_request(req, prepared)
+        except Exception as e:
+            self._fail(req, e)  # the slot stays free for the next _admit
+            return
+        small, first, n_valid = out[:3]
+        lookup = out[3] if len(out) > 3 else None
+        if self.spec_gamma and lookup is None:
+            raise ValueError(
+                "speculative mode needs the prefill fn to return the prompt token ids as a 4th element "
+                "(the draft corpus)"
+            )
+        self.stats.prefills += 1
+        with span("admit.place"):
+            if self._async_admission and self._prepared_len is not None and prepared is not None:
+                # custom per-request prefills pipeline too when the frontend
+                # gives a host-side length bound (for_vidlm does); otherwise
+                # placement reads the prefill back so that the budget check
+                # after it can run
+                self._place_async(slot_idx, req, small, first, n_valid, 0,
+                                  self._prepared_len(req, prepared), lookup)
+            else:
+                self._place(slot_idx, req, small, first, n_valid, 0, int(first[0]), int(n_valid[0]), lookup)
 
     def _pow2_rows(self, items: List[Tuple[int, Request, Any]]) -> Tuple[np.ndarray, np.ndarray]:
         """The admission batch's ids and mask, padded to a power of two rows
@@ -1132,7 +1148,8 @@ class ContinuousBatchingEngine:
             return
         t0 = self._submit_t.pop(req.request_id, None)
         if t0 is not None:
-            self.stats.ttft_s.append(time.perf_counter() - t0)
+            self.stats.ttft_s[req.request_id] = time.perf_counter() - t0
+        event("request.first_token", request=req.request_id)
         if req.max_new_tokens == 1 or first_i == self.config.eos_token_id:
             self._finish(req, [first_i], "eos" if first_i == self.config.eos_token_id else "budget")
             return
@@ -1181,9 +1198,11 @@ class ContinuousBatchingEngine:
             first_i = int(host[row])
             slot.pending_first = None
             slot.emitted = [first_i]
-            t0 = self._submit_t.pop(slot.request.request_id, None)
+            rid = slot.request.request_id
+            t0 = self._submit_t.pop(rid, None)
             if t0 is not None:
-                self.stats.ttft_s.append(time.perf_counter() - t0)
+                self.stats.ttft_s[rid] = time.perf_counter() - t0
+            event("request.first_token", request=rid)
             if first_i == self.config.eos_token_id:
                 slot.done = True
 
@@ -1191,17 +1210,28 @@ class ContinuousBatchingEngine:
     def _decode_one_chunk(self) -> None:
         spec_steps0, spec_emitted0 = self.stats.spec_steps, self.stats.spec_emitted
         self._state.done.copy_(torch.tensor([s.done for s in self._slots], device=self.device))
-        chunk = self._chunk(self.spec_gamma)
-        chunk.run(self)
+        with span("chunk.replay"):
+            chunk = self._chunk(self.spec_gamma)
+            chunk.run(self)
         self._start_prefetch()  # overlap the queue head's host prep with the running chunk
-        if self.spec_gamma:
-            # [K, B, gamma+1] windows + [K, B] counts: the one host sync per chunk
-            wins, emits = chunk.wins.cpu().numpy(), chunk.emits.cpu().numpy()
-            step_tokens = [[wins[k, b, : emits[k, b]] for b in range(self.num_slots)]
-                           for k in range(self.steps_per_sync)]
-        else:
-            toks = chunk.toks.cpu().numpy()  # [K, B]: the one host sync per chunk
-            step_tokens = [[toks[k, b : b + 1] for b in range(self.num_slots)] for k in range(self.steps_per_sync)]
+        with span("chunk.readback"):  # the one host sync per chunk
+            if self.spec_gamma:  # [K, B, gamma+1] windows + [K, B] counts
+                wins, emits = chunk.wins.cpu().numpy(), chunk.emits.cpu().numpy()
+            else:
+                toks = chunk.toks.cpu().numpy()  # [K, B]
+        with span("chunk.bookkeeping"):
+            if self.spec_gamma:
+                step_tokens = [[wins[k, b, : emits[k, b]] for b in range(self.num_slots)]
+                               for k in range(self.steps_per_sync)]
+            else:
+                step_tokens = [[toks[k, b : b + 1] for b in range(self.num_slots)]
+                               for k in range(self.steps_per_sync)]
+            self._consume_chunk(step_tokens, spec_steps0, spec_emitted0)
+
+    def _consume_chunk(self, step_tokens: List[List[np.ndarray]], spec_steps0: int, spec_emitted0: int) -> None:
+        """The chunk's tokens on the host: first tokens resolved, each slot's
+        tokens emitted up to its budget or EOS, finished requests retired, the
+        speculation monitor stepped."""
         self._resolve_pending_firsts()
         self.stats.decode_chunks += 1
         self.stats.decode_steps += self.steps_per_sync
@@ -1346,6 +1376,7 @@ class ContinuousBatchingEngine:
         st.hist_len.copy_(torch.as_tensor(hlen))
 
     def _finish(self, req: Request, emitted: List[int], reason: str) -> None:
+        event("request.finish", request=req.request_id)
         out = np.full((req.max_new_tokens,), self.config.pad_token_id, np.int32)
         out[: len(emitted)] = emitted[: req.max_new_tokens]
         res = RequestResult(req.request_id, out, reason)
@@ -1385,10 +1416,11 @@ class ContinuousBatchingEngine:
                 engine.stats.prefill_buckets.append(ids.shape[1])
             embeds, m2 = vidlm.build_inputs_embeds(ids, mask, vids, is_mm)
             engine.stats.prefill_shapes.append(tuple(embeds.shape[:2]))
-            logits, cache, n_valid = prefill(decoder, embeds, m2.long(), embeds.shape[1],
-                                             kv_cache_dtype=engine.config.kv_cache_dtype)
-            first = _sample_token(_ban_eos_below_min_length(logits, n_valid, engine.config), engine.config,
-                                  engine._rng)
+            with span("admit.prefill", device=engine.device):
+                logits, cache, n_valid = prefill(decoder, embeds, m2.long(), embeds.shape[1],
+                                                 kv_cache_dtype=engine.config.kv_cache_dtype)
+                first = _sample_token(_ban_eos_below_min_length(logits, n_valid, engine.config), engine.config,
+                                      engine._rng)
             # the text ids are the draft corpus
             return (cache.k, cache.v, cache.k_scale, cache.v_scale), first, n_valid, text_ids
 

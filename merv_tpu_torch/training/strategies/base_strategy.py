@@ -28,6 +28,7 @@ and in a world of one process, the one-device step runs (no process group).
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
@@ -36,6 +37,7 @@ import torch
 
 from merv_tpu_torch.overwatch import initialize_overwatch
 from merv_tpu_torch.parallel.mesh import PIPE_AXIS, axis_rank, axis_size, batch_rank, batch_size, build_mesh, world
+from merv_tpu_torch.tracing import ProfilerTrace, span
 from merv_tpu_torch.training.checkpointing import (
     load_checkpoint,
     load_sharded_state,
@@ -221,10 +223,14 @@ class TrainingStrategy:
     ) -> None:
         """Train until ``max_steps`` or the last epoch. ``step_timings`` (a
         list) receives each step's phase split (``make_train_step``'s
-        ``timings``, with device syncs), its wall time ``step_s``, its
-        ``loss`` (the mean over its micro-batches) and its ``grad_norm``."""
-        import time
+        ``timings``, with device syncs), its wall time ``step_s`` (the
+        ``train.batch`` span: the batch's upload and the step), its ``loss``
+        (the mean over its micro-batches) and its ``grad_norm``.
 
+        ``MERV_TPU_PROFILE=<dir>`` profiles steps 3-8 on rank zero into
+        ``<dir>/train_steps.json`` (:class:`~merv_tpu_torch.tracing.ProfilerTrace`:
+        the device's activity on the card, the host's operators on a CPU run,
+        and the program's spans)."""
         import torch.utils.data as tud
 
         sampler = self.sampler(dataset, stage, seed)
@@ -236,6 +242,14 @@ class TrainingStrategy:
         epochs = self.epochs
         if self.max_steps is not None and steps_per_epoch < self.max_steps:
             epochs = 100  # reference base_strategy.py:163-167
+
+        profile_dir = os.environ.get("MERV_TPU_PROFILE") if world()[0] == 0 else None
+        profiler: Optional[ProfilerTrace] = None
+
+        def stop_profile() -> None:
+            nonlocal profiler
+            if profiler is not None and profiler.prof is not None:
+                overwatch.info(f"profile of steps {self._resume_step + 4}-{global_step} -> {profiler.stop()}")
 
         global_step = self._resume_step
         loss = 0.0
@@ -260,12 +274,16 @@ class TrainingStrategy:
                 if epoch == self._resume_epoch and self._resume_step > 0:
                     if batch_idx < (self._resume_step % max(steps_per_epoch, 1)):
                         continue
+                if profile_dir and profiler is None and global_step == self._resume_step + 3:
+                    profiler = ProfilerTrace(Path(profile_dir) / "train_steps.json")
+                    profiler.start()
                 timings = None if step_timings is None else {}
-                t = time.perf_counter()
-                step_metrics = self.step_fn(self._put_batch(batch), timings)
+                with span("train.batch", timings=timings, key="step_s"):
+                    step_metrics = self.step_fn(self._put_batch(batch), timings)
                 global_step += 1
+                if global_step >= self._resume_step + 8:
+                    stop_profile()
                 if timings is not None:
-                    timings["step_s"] = time.perf_counter() - t
                     timings["loss"] = float(step_metrics["loss"])
                     timings["grad_norm"] = float(step_metrics["grad_norm"])
                     step_timings.append(timings)
@@ -287,4 +305,5 @@ class TrainingStrategy:
             if done:
                 break
         drain_pending()
+        stop_profile()
         wait_for_checkpoints()

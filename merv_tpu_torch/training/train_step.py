@@ -44,15 +44,14 @@ squares of every rank's shard once (:meth:`TrainSharding.sq_norm_groups`).
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from merv_tpu_torch.models.generation import _sync
 from merv_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, PIPE_AXIS, SEQ_AXIS, axis_size, batch_group, batch_size
 from merv_tpu_torch.parallel.sharding import activation_mesh
+from merv_tpu_torch.tracing import span
 from merv_tpu_torch.training.optimizers import ClippedAdamW, local_shard
 
 Batch = Dict[str, Any]
@@ -71,16 +70,14 @@ def make_loss_fn(
     uint8 frames at each tower's geometry ``[B, F, S, S, C]``, normalised on
     the card by ``VideoTransform.device_finish``. ``loss_chunk_size`` streams
     the loss over token blocks (:func:`chunked_causal_lm_loss`). ``attn_impl="plain"``
-    runs every attention call through the kernels' plain versions."""
+    runs every attention call through the kernels' plain versions. The
+    frames' normalisation is the ``train.frames`` span."""
 
     def loss_fn(batch: Batch, timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
         videos = batch["video_values"]
         if video_transforms is not None:
-            t = time.perf_counter()
-            videos = [tf.device_finish(v) for tf, v in zip(video_transforms, videos)]
-            if timings is not None:
-                _sync(videos[0].device)
-                timings["towers_s"] = timings.get("towers_s", 0.0) + time.perf_counter() - t
+            with span("train.frames", device=True, timings=timings, key="towers_s"):
+                videos = [tf.device_finish(v) for tf, v in zip(video_transforms, videos)]
         out = model(
             batch["input_ids"], batch["attention_mask"], videos, labels=batch["labels"],
             is_multimodal=batch.get("is_multimodal"), attn_impl=attn_impl, remat=remat,
@@ -123,7 +120,10 @@ def make_train_step(
 
     ``timings`` (a dict) adds a device sync at each boundary and fills
     ``towers_s`` (frame normalisation and the towers), ``llm_s`` (projectors,
-    fusion, LLM forward and backward, the loss) and ``optimizer_s``."""
+    fusion, LLM forward and backward, the loss) and ``optimizer_s``. Spans:
+    ``train.step``; ``train.micro`` (with its index) over
+    each micro-batch's forward (``train.frames``, ``towers``,
+    ``train.forward``) and ``train.backward``; ``train.optimizer``."""
     n = grad_accumulation_steps
     if n < 1:
         raise ValueError(f"grad_accumulation_steps must be >= 1, got {n}")
@@ -132,34 +132,29 @@ def make_train_step(
 
     def train_step(batch: Batch, timings: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
         device = tx.params[0].device
-        tx.zero_grad()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         if timings is not None:
-            timings.update(towers_s=0.0, llm_s=0.0)
-            _sync(device)
-        with scope():
-            for i in range(n):
-                t = time.perf_counter()
-                loss = loss_fn(micro_batch(batch, i, n) if n > 1 else batch, timings)
-                (loss * scale if scale != 1.0 else loss).backward()
-                loss_sum += loss.detach().float()
-                if timings is not None:
-                    _sync(device)
-                    timings["llm_s"] += time.perf_counter() - t
-        if timings is not None:
-            timings["llm_s"] -= timings["towers_s"]
-            t = time.perf_counter()
-        with torch.no_grad():
-            for p in tx.params:
-                if p.grad is not None and n > 1:
-                    p.grad.div_(n)
-        if sharding is not None:
-            sharding.sync_grads(tx.params)
-            loss_sum = sharding.batch_sum(loss_sum)
-        grad_norm = tx.step()
-        if timings is not None:
-            _sync(device)
-            timings["optimizer_s"] = time.perf_counter() - t
+            timings.update(towers_s=0.0, llm_s=0.0, optimizer_s=0.0)
+        with span("train.step", device=device):
+            tx.zero_grad()
+            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+            with scope():
+                for i in range(n):
+                    with span("train.micro", index=i, device=device, timings=timings, key="llm_s"):
+                        loss = loss_fn(micro_batch(batch, i, n) if n > 1 else batch, timings)
+                        with span("train.backward", device=device):
+                            (loss * scale if scale != 1.0 else loss).backward()
+                        loss_sum += loss.detach().float()
+            if timings is not None:
+                timings["llm_s"] -= timings["towers_s"]
+            with span("train.optimizer", device=device, timings=timings, key="optimizer_s"):
+                with torch.no_grad():
+                    for p in tx.params:
+                        if p.grad is not None and n > 1:
+                            p.grad.div_(n)
+                if sharding is not None:
+                    sharding.sync_grads(tx.params)
+                    loss_sum = sharding.batch_sum(loss_sum)
+                grad_norm = tx.step()
         return {"loss": loss_sum / n, "grad_norm": grad_norm, "step": tx.count}
 
     return train_step
