@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/H100 port (``merv_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--max-new-tokens 32] [--flash-only | --small-only | --tower-only |
-                           --int8-only | --decode-step-only | --engine-only | --int8-serving-only |
+                           --int8-only | --layer-norm-only | --decode-step-only | --engine-only | --int8-serving-only |
                            --families-only | --zoo-only | --pretrain-only | --sp-only | --tp-only |
                            --train-parallel-only | --bench-only]
 
 ``--flash-only`` stops after phase 3's K2 and K3 cases, ``--small-only``
 after its K1 and B3 cases, ``--tower-only`` after the towers' B3, B5 and B6
-cases, ``--int8-only`` after K4's and K5's; each prints them as one JSON
+cases, ``--int8-only`` after K4's and K5's, ``--layer-norm-only`` after
+K6's; each prints them as one JSON
 line, with no result line: a quick way to compare two versions of those
 kernels within one call. ``--engine-only`` and ``--int8-serving-only`` run
 phase 4e or 4f alone after the build and print their numbers the same way;
@@ -96,16 +97,21 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    stage, three planted faults caught (the q bias dropped, the scores
    unscaled, the softmax scale of head dim 64), timed by CUDA events and
    graph replay beside the default route's composed half-layer, and on
-   so400m's shape its device time by launch.
+   so400m's shape its device time by launch. K6 (``layer_norm``) at the
+   towers' LayerNorm shapes (``layer_norm_cases``: LanguageBind's rows at the
+   align micro-batch and at one served video, ViViT's at the micro-batch,
+   so400m's), held and within one bf16 ulp of its plain version, graph-timed
+   beside the plain formula, one ``F.layer_norm`` call and its bytes bound.
 4. serving path: merv-base at full width (four towers at 224 px with
    [16, 16, 32, 16] frames, 1024 visual tokens, Llama-2-7B with 32 layers in
    bf16) on random weights from a seeded generator on the card; serves 3
    requests through ``MERV.generate`` and one batched ``generate_ids``
    (B=2: one shorter prompt, one text-only row), with the kernels' launch
    counters zeroed just before and read just after; then reruns request 0's
-   prefill with ``impl="plain"`` and holds the spliced input embeddings and
-   the last-position logits against it, holds each kernel call of that
-   prefill against its plain version on the call's own inputs, compares the
+   prefill with ``impl="plain"`` and every norm on the plain formula
+   (``plain_norms``) and holds the spliced input embeddings and the
+   last-position logits against it, holds each kernel call of that prefill
+   (K1, K2, K6) against its plain version on the call's own inputs, compares the
    greedy tokens, and reports what both checks give for a few planted
    kernel faults. Every request decodes through its decode runner's CUDA
    graph (the T=1 step captured once per shape; ``decode_capture_s`` apart
@@ -117,9 +123,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the default route and under each of the towers' switches
    (``MERV_TPU_TOWER_ATTN=xla`` / ``xla_kt``, ``MERV_TPU_TEMPORAL_KERNEL=1``,
    ``MERV_TPU_FUSED_VIT_BLOCK=1``): ms per tower, the output against the same
-   route with ``impl="plain"``, every B3/B5/B6 call held against its plain
-   version (B6 stage by stage), launches per tower; planted B5 and B6 faults
-   must be caught.
+   route with ``impl="plain"`` and plain norms, every B3/B5/B6/K6 call held
+   against its plain version (B6 stage by stage), launches per tower;
+   planted B5 and B6 faults must be caught.
 4b. two more requests: request 0 served with ``MERV_TPU_TOWER_ATTN=xla`` and
    ``MERV_TPU_TEMPORAL_KERNEL=1`` (B3, B5, K2), and with
    ``MERV_TPU_FUSED_VIT_BLOCK=1`` (B6, K2), launches as predicted in
@@ -277,9 +283,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    read just after. Checks: finite losses; trainables unchanged by step 1
    (lr 0) and moved by step 3; towers and LLM bit-identical; launches per
    micro-step as predicted; on one micro-batch of 1, the loss and the
-   trainables' gradients against the all-plain path, every forward-kernel
-   call's output and log-sum-exp and every backward-kernel call held against
-   the plain versions on the call's own inputs, and three planted faults
+   trainables' gradients against the all-plain path (norms included),
+   every forward-kernel call's output and log-sum-exp, every backward-kernel
+   call and every K6 call held against the plain versions on the call's own
+   inputs, and three planted faults
    (two of the backward, one of the log-sum-exp) that these checks must
    catch. One more micro-step of the
    per-device batch runs under ``torch.profiler`` for the device time by
@@ -447,14 +454,23 @@ SUFFIX_LENGTHS = (64, 57, 49, 41, 36, 30, 23, 12)
 # B6's LN statistics against the plain version's, row by row: fp32 sums of
 # the same bf16 row in different orders (about 1e-7 relative)
 STATS_REL_TOL = 1e-5
+# K6 launches of one forward of each tower (one a LayerNorm call: bf16 activations of 768, 1,024 or 1,152 columns,
+# nothing to differentiate), on the default route and under MERV_TPU_FUSED_VIT_BLOCK=1, whose fused half-layer
+# applies norm1 itself: LanguageBind 23 run layers x (norm1, norm2, the temporal norm) + its pre-norm; DINOv2 and
+# SigLIP-B the penultimate tap's 23 / 11 layers x 2; ViViT 12 x 2 + the final norm; the pooled so400m 27 x 2 + the
+# final norm + the MAP head's; Hiera-B+ none (its stages are 112-896 wide). TOWER_LN: the merv set's, a video
+TOWER_NORMS = {"languagebind-video-noclass": (70, 47), "dinov2-video-all-tokens": (46, 23),
+               "vivit-google-b-all-no-cls-16frames": (25, 13), "siglip-vit-b16-224px-all-no-cls": (22, 11),
+               "siglip-vit-so400m": (56, 29), "hiera-base-plus-video": (0, 0)}
+TOWER_LN = sum(TOWER_NORMS[t][0] for t in MERV_FULL_MODEL["video_backbone_ids"])
 # training path (merv-base align stage): the recipe's global batch 32 over 3
 # steps (the first at lr 0, untimed), the streamed loss's token block, the
 # LLM's depth (16 of Llama-2-7B's 32 layers: the cut that keeps the script
 # within its time limit; phase 5b trains the align stage at full depth), the
 # kernel launches one micro-step makes (K1: 23 DINOv2 + 23 LanguageBind
 # layers; K2: 12 ViViT layers + the LLM's layers twice, the forward and its
-# recompute under remat; the backward: the LLM's layers), and the limits of the
-# kernels-vs-plain comparison on one micro-batch (relative difference of the
+# recompute under remat; the backward: the LLM's layers; K6: the towers'
+# norms), and the limits of the kernels-vs-plain comparison on one micro-batch (relative difference of the
 # loss, relative L2 difference of the projectors' and the fusion's gradients)
 TRAIN_GLOBAL_BATCH = 32
 TRAIN_STEPS = 3
@@ -464,7 +480,7 @@ TRAIN_LAUNCHES_PER_MICRO_STEP = {"small_attention_kt": 46, "flash_attention_forw
                                  "flash_attention_backward": TRAIN_LLM_LAYERS,
                                  "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
                                  "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0,
-                                 "decode_attention_lse": 0}
+                                 "decode_attention_lse": 0, "layer_norm": TOWER_LN}
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 0.1
 
@@ -484,6 +500,83 @@ def hold(out, ref, mag) -> dict:
     r["mean_share"] = r["mean_abs_err"] / r["mean_limit"]
     r["ok"] = r["worst_share_of_limit"] <= 1.0 and r["mean_share"] <= KERNEL_MEAN_SHARE
     return r
+
+
+def bf16_ulps(out, ref, mag) -> dict:
+    """Two bf16 tensors element by element: the share of them bit-equal and
+    the most |out - ref| in bf16 ulps of max(|ref|, mag) (the spacing of bf16
+    there, 2**(floor(log2 v) - 7); at 0 that of the smallest normal). ``mag``:
+    the magnitude of the terms whose sum was rounded (``layer_norm_terms``):
+    where they cancel, a few fp32 ulps of them are many bf16 ulps of the
+    result."""
+    import torch
+
+    ref32 = ref.float()
+    at = torch.maximum(ref32.abs(), mag.float()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(at)) - 7)
+    return dict(bit_equal_share=(out.view(torch.int16) == ref.view(torch.int16)).float().mean().item(),
+                max_ulps=((out.float() - ref32).abs() / ulp).max().item())
+
+
+def layer_norm_terms(x, w, b, eps):
+    """(|x - mean| + mean(|x|)) * rstd * |w| + |b| in fp32, the magnitude of
+    the terms of the plain version's sums: its statistics come from sums in
+    another order than the kernel's, so the two may differ by a few fp32 ulps
+    of these before the one rounding to bf16. The mean's own error, a few
+    ulps of its terms' magnitude mean(|x|), reaches every element of the row
+    through x - mean, those at the mean (an output near 0 where b is 0) too."""
+    import torch
+
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(xf.var(-1, keepdim=True, unbiased=False) + eps)
+    return ((xf - mean).abs() + xf.abs().mean(-1, keepdim=True)) * rstd * w.float().abs() + b.float().abs()
+
+
+def plain_norms():
+    """Every LayerNorm through the plain formula for the block: the plain
+    side of a kernels-vs-plain comparison, which K6 would otherwise take too
+    (``LayerNorm.forward`` has no ``impl`` switch)."""
+    import merv_tpu_torch.ops.layer_norm as LN
+    from merv_tpu_torch.nn.core import LayerNorm
+
+    return patched((LayerNorm, "forward", lambda m, x: LN.layer_norm_plain(x, m.weight, m.bias, m.eps)))
+
+
+def held_layer_norms(calls: list):
+    """Every K6 call in the block held against the plain formula on the
+    call's own inputs and appended to ``calls``: ``hold``'s result with
+    ``bf16_ulps``', ok when both hold (at most one bf16 ulp)."""
+    import torch
+
+    import merv_tpu_torch.ops.layer_norm as LN
+
+    one_pass = LN.layer_norm_one_pass
+
+    def held(x, w, b, eps):
+        out = one_pass(x, w, b, eps)
+        ref = LN.layer_norm_plain(x, w, b, eps)
+        h = hold(out, ref, torch.zeros_like(ref, dtype=torch.float32))
+        h.update(bf16_ulps(out, ref, layer_norm_terms(x, w, b, eps)), rows=x.numel() // x.shape[-1])
+        h["ok"] = h["ok"] and h["max_ulps"] <= 1.0
+        calls.append(h)
+        return out
+
+    return patched((LN, "layer_norm_one_pass", held))
+
+
+def held_summary(calls: list) -> dict:
+    """``hold`` results of one kernel's calls: calls, ok, the worst share of
+    the limit and of the mean limit; for K6 also the most bf16 ulps, the
+    least share bit-equal and the row counts seen."""
+    out = dict(calls=len(calls), ok=all(x["ok"] for x in calls),
+               worst_share_of_limit=max((x["worst_share_of_limit"] for x in calls), default=0.0),
+               worst_mean_share=max((x["mean_share"] for x in calls), default=0.0))
+    if calls and "max_ulps" in calls[0]:
+        out.update(max_ulps=max(x["max_ulps"] for x in calls),
+                   least_bit_equal_share=min(x["bit_equal_share"] for x in calls),
+                   rows=sorted({x["rows"] for x in calls}))
+    return out
 
 
 def hold_lse(lse, ref) -> dict:
@@ -1761,6 +1854,64 @@ def decode_step_probe(dev, seed: int, cache_rows: int = 1120, prompt: int = 1080
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: K6 (layer_norm), the towers' LayerNorm in one pass
+# ---------------------------------------------------------------------------
+
+# (case, rows, width, eps): LanguageBind-L's rows at the align cell's micro-batch of 16 videos (16 frames x 257
+# tokens each) and at one served video, ViViT-B's at 16 videos (3,137 tokens each), SigLIP so400m's at 16 frames of
+# 256 tokens; each tower's eps
+LAYER_NORM_CASES = (("align_languagebind", 65792, 1024, 1e-5), ("serve_languagebind", 4112, 1024, 1e-5),
+                    ("align_vivit", 50192, 768, 1e-6), ("so400m_frames", 4096, 1152, 1e-6))
+
+
+def layer_norm_cases(dev, seed: int, shapes=LAYER_NORM_CASES):
+    """K6 against its plain version (``ops.layer_norm.layer_norm_plain``) at
+    the towers' shapes, fp32 w and b as the towers store them: ``hold``, the
+    share of elements bit-equal and the most bf16 ulps between the two; CUDA
+    events and graph replay (``graph_ms``) of the kernel, the plain module's
+    formula (``plain_graph_ms``) and one ``F.layer_norm`` call (the library,
+    a yardstick the port never calls), beside the bytes bound (x read once, y
+    written once). A graph replays 20 calls on one input: at the serving shape
+    x and y (16 MB) stay in the 50 MB L2, so that reading is warm."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import merv_tpu_torch.ops.attention as A
+    import merv_tpu_torch.ops.layer_norm as LN
+
+    cases = []
+    rng = np.random.default_rng(seed + 6)
+    for name, rows, D, eps in shapes:
+        x = (_randn(rng, (rows, D), dev) * 2 + 0.5).contiguous()
+        w = torch.from_numpy(1 + 0.2 * rng.standard_normal(D).astype(np.float32)).to(dev)
+        b = torch.from_numpy(0.2 * rng.standard_normal(D).astype(np.float32)).to(dev)
+        before = A.launch_counts()
+        out = LN.layer_norm_one_pass(x, w, b, eps)
+        if A.launches_since(before) != {"layer_norm": 1}:
+            raise RuntimeError(f"layer_norm/{name}: one call counted {A.launches_since(before)}")
+        ref = LN.layer_norm_plain(x, w, b, eps)
+        ulps = bf16_ulps(out, ref, layer_norm_terms(x, w, b, eps))
+        plain = functools.partial(LN.layer_norm_plain, x, w, b, eps)
+        extra = dict(ulps, eps=eps, plain_graph_ms=graph_ms(plain))
+        record_case(cases, "layer_norm", name, [rows, D], out, ref, torch.zeros_like(ref),
+                    functools.partial(LN.layer_norm_one_pass, x, w, b, eps), plain,
+                    functools.partial(F.layer_norm, x, (D,), w.to(x.dtype), b.to(x.dtype), eps),
+                    bytes_moved=2 * 2 * rows * D + 2 * 4 * D, flops=8 * rows * D, extra=extra,
+                    graph=("kernel", "library"))
+        c = cases[-1]
+        c["roofline_share"] = c["bound_ms"] / c["graph_ms"]
+        log(f"[kernel] layer_norm {name}: bit-equal {ulps['bit_equal_share']:.6f}, at most {ulps['max_ulps']:.3f} "
+            f"bf16 ulps; graph {c['graph_ms']:.4f} ms against the bound {c['bound_ms']:.4f} ms "
+            f"({100 * c['roofline_share']:.1f} %), plain graph {c['plain_graph_ms']:.4f}, F.layer_norm graph "
+            f"{c['library_graph_ms']:.4f}")
+        if ulps["max_ulps"] > 1.0:
+            raise RuntimeError(f"layer_norm/{name}: {ulps['max_ulps']} bf16 ulps from the plain version")
+        del x, out, ref
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -1829,14 +1980,17 @@ def rel_l2(a, b) -> float:
 
 def show(held) -> str:
     return "; ".join(f"{name} {h['calls']} calls, worst/limit {h['worst_share_of_limit']:.3f}, "
-                     f"mean err/mean limit {h['worst_mean_share']:.4f}" for name, h in held.items())
+                     f"mean err/mean limit {h['worst_mean_share']:.4f}"
+                     + (f", at most {h['max_ulps']:.3f} bf16 ulps" if "max_ulps" in h else "")
+                     for name, h in held.items())
 
 
 def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_tokens: int):
     """(run, run_held, compare) for one request's prepared inputs: ``run(impl)``
     gives the spliced embeddings and the prefill's last-position logits through
-    the kernels (``"auto"``) or the plain versions; ``run_held()`` holds every
-    kernel call of ``run("auto")`` against its plain version; ``compare()``
+    the kernels (``"auto"``) or the plain versions (``"plain"``, every norm
+    through the plain formula too); ``run_held()`` holds every kernel call of
+    ``run("auto")`` (K1, K2 and K6) against its plain version; ``compare()``
     gives both runs' relative L2 difference and their greedy-token agreement."""
     import torch
 
@@ -1844,11 +1998,12 @@ def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_token
     from merv_tpu_torch.models.generation import prefill
 
     def run(impl):
-        embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm, attn_impl=impl)
-        if embeds.shape[1] != ids.shape[1] + visual_len:
-            raise RuntimeError(f"spliced stream has {embeds.shape[1]} positions")
-        logits, _, _ = prefill(vidlm.llm_backbone.decoder, embeds, emask.long(),
-                               embeds.shape[1] + max_new_tokens, attn_impl=impl)
+        with plain_norms() if impl == "plain" else contextlib.nullcontext():
+            embeds, emask = vidlm.build_inputs_embeds(ids, mask, vids, is_mm, attn_impl=impl)
+            if embeds.shape[1] != ids.shape[1] + visual_len:
+                raise RuntimeError(f"spliced stream has {embeds.shape[1]} positions")
+            logits, _, _ = prefill(vidlm.llm_backbone.decoder, embeds, emask.long(),
+                                   embeds.shape[1] + max_new_tokens, attn_impl=impl)
         if not (torch.isfinite(embeds).all() and torch.isfinite(logits).all()):
             raise RuntimeError(f"non-finite embeddings or prefill logits (impl={impl})")
         return embeds.float(), logits.float()
@@ -1856,7 +2011,7 @@ def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_token
     def run_held():
         """run("auto") with every kernel call held, by ``hold``, against the
         plain version (as the module holds it now) on the call's own inputs."""
-        calls = {name: [] for name in SERVING_KERNELS}
+        calls = {name: [] for name in SERVING_KERNELS + ("layer_norm",)}
         small, flash = A.small_attention_kt, A.flash_attention_forward
 
         def small_held(q, kt, v, scale):
@@ -1871,12 +2026,10 @@ def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_token
                                                          A.flash_attention_forward_plain(q, k, v.abs(), **kw)))
             return out
 
-        with patched((A, "small_attention_kt", small_held), (A, "flash_attention_forward", flash_held)):
+        with patched((A, "small_attention_kt", small_held), (A, "flash_attention_forward", flash_held)), \
+                held_layer_norms(calls["layer_norm"]):
             run("auto")
-        return {name: dict(calls=len(c), ok=all(x["ok"] for x in c),
-                           worst_share_of_limit=max((x["worst_share_of_limit"] for x in c), default=0.0),
-                           worst_mean_share=max((x["mean_abs_err"] / x["mean_limit"] for x in c), default=0.0))
-                for name, c in calls.items()}
+        return {name: held_summary(c) for name, c in calls.items()}
 
     def compare():
         """The request through the kernels and through the plain versions: the
@@ -1885,8 +2038,9 @@ def request_checks(vidlm, ids, mask, vids, is_mm, visual_len: int, max_new_token
         ref_embeds, ref_logits = run("plain")
         embeds, logits = run("auto")
         tok_auto = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens)
-        tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
-                                       attn_impl="plain")
+        with plain_norms():
+            tok_plain = vidlm.generate_ids(ids, mask, vids, is_multimodal=is_mm, max_new_tokens=max_new_tokens,
+                                           attn_impl="plain")
         return dict(embeds_rel_diff=rel_l2(embeds, ref_embeds), logits_rel_diff=rel_l2(logits, ref_logits),
                     greedy_agreement=(tok_auto == tok_plain).float().mean().item(),
                     first_token_equal=bool((tok_auto[:, 0] == tok_plain[:, 0]).all())), ref_embeds, ref_logits
@@ -2174,16 +2328,17 @@ def switches(env: dict):
 
 
 def held_tower_run(vb, video) -> dict:
-    """One tower forward with every B3, B5 and B6 call held against the plain
-    version (as the module holds it now) on the call's own inputs, by
-    ``hold`` (B6: ``hold_fused``, end to end and stage by stage); per kernel:
-    calls, ok, worst share, worst mean share (B6: and the worst per stage)."""
+    """One tower forward with every B3, B5, B6 and K6 call held against the
+    plain version (as the module holds it now) on the call's own inputs, by
+    ``hold`` (B6: ``hold_fused``, end to end and stage by stage; K6: also
+    ``bf16_ulps``); per kernel: calls, ok, worst share, worst mean share (B6:
+    and the worst per stage; K6: the most ulps)."""
     import torch
 
     import merv_tpu_torch.ops.attention as A
     import merv_tpu_torch.ops.fused_vit_block as TF
 
-    calls = {name: [] for name in TOWER_KERNELS}
+    calls = {name: [] for name in TOWER_KERNELS + ("layer_norm",)}
     small, packed = A.small_attention, A.packed_temporal_attention
 
     def small_held(q, k, v, scale):
@@ -2204,15 +2359,13 @@ def held_tower_run(vb, video) -> dict:
         return out
 
     with patched((A, "small_attention", small_held), (A, "packed_temporal_attention", packed_held),
-                 (TF, "fused_vit_attn_block", fused_held)), torch.no_grad():
+                 (TF, "fused_vit_attn_block", fused_held)), held_layer_norms(calls["layer_norm"]), torch.no_grad():
         vb(video)
     out = {}
     for name, c in calls.items():
         if not c:
             continue
-        out[name] = dict(calls=len(c), ok=all(x["ok"] for x in c),
-                         worst_share_of_limit=max(x["worst_share_of_limit"] for x in c),
-                         worst_mean_share=max(x["mean_share"] for x in c))
+        out[name] = held_summary(c)
         if name == "fused_vit_attn_block":  # hold_fused's stages, worst over the calls
             out[name]["stages"] = {k: dict(worst_share_of_limit=max(x["stages"][k]["worst_share_of_limit"] for x in c))
                                    for k in c[0]["stages"]}
@@ -2222,8 +2375,8 @@ def held_tower_run(vb, video) -> dict:
 def tower_routes(vidlm, vids) -> dict:
     """Each tower at merv-base's batch shapes under the default route and
     under each switch: ms per tower (CUDA events), the output against the same
-    route with impl="plain" (relative L2 <= EMBEDS_REL_TOL), every B3/B5/B6
-    call held against its plain version on its own inputs, and launches per
+    route with impl="plain" and plain norms (relative L2 <= EMBEDS_REL_TOL),
+    every B3/B5/B6/K6 call held against its plain version on its own inputs, and launches per
     tower. Then planted B5 and B6 faults, which the call-by-call check must
     catch (B3's kv-head fault needs GQA, which no tower has: its kernel case
     holds it)."""
@@ -2239,7 +2392,8 @@ def tower_routes(vidlm, vids) -> dict:
         rows = {}
         with switches(env), torch.no_grad():
             for vb, v in zip(vidlm.video_backbones, vids):
-                ref = vb(v, impl="plain")
+                with plain_norms():
+                    ref = vb(v, impl="plain")
                 A.reset_launch_counts()
                 got = vb(v)
                 torch.cuda.synchronize()
@@ -3831,9 +3985,10 @@ PACKED_LINEARS, UNPACKED_LINEARS = 4, 7
 
 
 def engine_launches(layers: int = LLM_LAYERS) -> dict:
-    """K1 / K2 launches of a full VidLM prefill and of a suffix-only prefill."""
-    return {"full": {"small_attention_kt": TOWER_K1, "flash_attention_forward": TOWER_K2 + layers},
-            "suffix": {"small_attention_kt": 0, "flash_attention_forward": layers}}
+    """K1 / K2 / K6 launches of a full VidLM prefill and of a suffix-only prefill."""
+    return {"full": {"small_attention_kt": TOWER_K1, "flash_attention_forward": TOWER_K2 + layers,
+                     "layer_norm": TOWER_LN},
+            "suffix": {"small_attention_kt": 0, "flash_attention_forward": layers, "layer_norm": 0}}
 
 
 def engine_predicted_launches(summary: dict, quantized: bool = False, layers: int = LLM_LAYERS,
@@ -4702,8 +4857,9 @@ ZOO_REQUESTS = (
 # and LanguageBind (23 each, the penultimate tap); K2 on ViViT's 12 layers; Hiera runs no kernel
 ZOO_TOWER_LAUNCHES = {"Z1": (27 + 23 + 23, 0), "Z2": (TOWER_K1, TOWER_K2)}
 ZOO_TIMED_TOWERS = ("hiera-base-plus-video", "siglip-vit-so400m")
-# so400m under MERV_TPU_FUSED_VIT_BLOCK=1: B6 at head dim 72 on each of its 27 layers (the K1 count of 4h's request)
-ZOO_SO400M_FUSED_LAUNCHES = {"fused_vit_attn_block_d72": 27}
+# so400m under MERV_TPU_FUSED_VIT_BLOCK=1: B6 at head dim 72 on each of its 27 layers (the K1 count of 4h's request),
+# K6 on the norms B6 leaves
+ZOO_SO400M_FUSED_LAUNCHES = {"fused_vit_attn_block_d72": 27, "layer_norm": TOWER_NORMS["siglip-vit-so400m"][1]}
 ZOO_RESAMPLERS = ("avg", "attntv", "conv", "3davg", "3dconv")
 ZOO_FUSIONS = ("concat", "concat_channel", "concat_channel_ln", "scalar", "cross_attention_avg_lq",
                "cross_attention_avg_lq_pe")
@@ -4714,7 +4870,7 @@ def zoo_tower_times(vidlm, vids) -> dict:
     MERV_TPU_TOWER_ATTN=xla, so400m also on MERV_TPU_FUSED_VIT_BLOCK=1 (B6 at
     head dim 72 on each of its 27 layers): ms per tower (CUDA events over 10
     runs), launches of one run, and the output against the same route with
-    impl="plain" and (so400m under the switch) against the default route's,
+    impl="plain" and plain norms and (so400m under the switch) against the default route's,
     within EMBEDS_REL_TOL (relative L2: the routes round to bf16 at other
     places)."""
     import torch
@@ -4731,7 +4887,8 @@ def zoo_tower_times(vidlm, vids) -> dict:
         default = None
         for route, env in routes:
             with switches(env), torch.no_grad():
-                ref = vb(v, impl="plain")
+                with plain_norms():
+                    ref = vb(v, impl="plain")
                 A.reset_launch_counts()
                 got = vb(v)
                 torch.cuda.synchronize()
@@ -5162,9 +5319,10 @@ def train_path(dev, seed: int, run_dir: str):
     def micro_step(impl):
         for _, p in named:
             p.grad = None
-        loss = make_loss_fn(vidlm, remat=True, video_transforms=transforms, loss_chunk_size=TRAIN_LOSS_CHUNK,
-                            attn_impl=impl)(batch1)
-        loss.backward()
+        with plain_norms() if impl == "plain" else contextlib.nullcontext():
+            loss = make_loss_fn(vidlm, remat=True, video_transforms=transforms, loss_chunk_size=TRAIN_LOSS_CHUNK,
+                                attn_impl=impl)(batch1)
+            loss.backward()
         grads = {key: torch.cat([p.grad.float().flatten() for n, p in named if n.startswith(key + ".")
                                  and p.grad is not None]) for key in vidlm.trainable_module_keys}
         return loss.item(), grads
@@ -5173,8 +5331,9 @@ def train_path(dev, seed: int, run_dir: str):
         """micro_step("auto") with every backward-kernel call held three ways:
         against the plain backward on the call's own inputs, its lse against
         the plain forward's, and against the plain backward on the plain
-        forward's o and lse."""
-        calls, kernel = [], A.flash_attention_backward
+        forward's o and lse; and every K6 call of the towers against the
+        plain formula on its own inputs (``held_layer_norms``)."""
+        calls, norms, kernel = [], [], A.flash_attention_backward
 
         def held(q, k, v, o, lse, do, **kw):
             grads = kernel(q, k, v, o, lse, do, **kw)
@@ -5182,20 +5341,24 @@ def train_path(dev, seed: int, run_dir: str):
                               **hold_from_plain_forward(q, k, v, lse, do, grads, **kw)))
             return grads
 
-        with patched((A, "flash_attention_backward", held)):
+        with patched((A, "flash_attention_backward", held)), held_layer_norms(norms):
             micro_step("auto")
         out = dict(calls=len(calls))
         for part in ("own", "lse", "backward"):
             out[part] = dict(ok=all(c[part]["ok"] for c in calls),
                              worst_share_of_limit=max(c[part]["worst_share_of_limit"] for c in calls))
         out["worst_mean_share"] = max(c[p]["worst_mean_share"] for c in calls for p in ("own", "backward"))
-        out["ok"] = all(out[part]["ok"] for part in ("own", "lse", "backward"))
+        out["layer_norm"] = held_summary(norms)
+        out["ok"] = all(out[part]["ok"] for part in ("own", "lse", "backward", "layer_norm"))
         return out
 
     def show(h):
+        ln = h["layer_norm"]
         return (f"own inputs worst/limit {h['own']['worst_share_of_limit']:.3f}; lse worst/limit "
                 f"{h['lse']['worst_share_of_limit']:.4f}; from the plain forward's o and lse worst/limit "
-                f"{h['backward']['worst_share_of_limit']:.3f}; mean err/mean limit {h['worst_mean_share']:.4f}")
+                f"{h['backward']['worst_share_of_limit']:.3f}; mean err/mean limit {h['worst_mean_share']:.4f}; "
+                f"K6 {ln['calls']} calls, worst/limit {ln['worst_share_of_limit']:.3f}, at most "
+                f"{ln.get('max_ulps', 0.0):.3f} bf16 ulps")
 
     ref_loss, ref_grads = micro_step("plain")
     loss, grads = micro_step("auto")
@@ -5209,6 +5372,9 @@ def train_path(dev, seed: int, run_dir: str):
         raise RuntimeError("the kernel path's loss or gradients differ from the plain path's beyond their limits")
     if held["calls"] != TRAIN_LAUNCHES_PER_MICRO_STEP["flash_attention_backward"] or not held["ok"]:
         raise RuntimeError(f"call-by-call backward check failed: {held}")
+    if held["layer_norm"]["calls"] != TRAIN_LAUNCHES_PER_MICRO_STEP["layer_norm"]:
+        raise RuntimeError(f"call-by-call check: {held['layer_norm']['calls']} K6 calls in the micro-step, predicted "
+                           f"{TRAIN_LAUNCHES_PER_MICRO_STEP['layer_norm']}")
 
     faults = {}
     for fname, fault in planted_backward_faults().items():
@@ -5248,8 +5414,12 @@ PRETRAIN_RUN_ARGS = ["--save_checkpoint_after", "1", "--trackers", "[jsonl]"]
 PRETRAIN_FINETUNE_LLM_LAYERS = 1  # full finetune at 7B needs ~108 GB for params, grads and AdamW: one card holds 1 layer's
 # kernel launches a micro-step under MERV_TPU_FUSED_VIT_BLOCK=1 (the counts of the configs): B6 at head dim 64 on
 # LanguageBind's and DINOv2's 23 run layers (the penultimate tap) and ViViT's 12, at 72 on so400m's 27 (all, for the
-# MAP head); K2 twice a decoder layer (the forward and its recompute under remat), K3 once
-PRETRAIN_TOWER_LAUNCHES = {"fused_vit_attn_block": 23 + 23 + 12, "fused_vit_attn_block_d72": 27}
+# MAP head); K6 on the norms B6 leaves in those four towers; K2 twice a decoder layer (the forward and its recompute
+# under remat), K3 once
+PRETRAIN_TOWER_LAUNCHES = {"fused_vit_attn_block": 23 + 23 + 12, "fused_vit_attn_block_d72": 27,
+                           "layer_norm": sum(TOWER_NORMS[t][1] for t in (
+                               "languagebind-video-noclass", "dinov2-video-all-tokens",
+                               "vivit-google-b-all-no-cls-16frames", "siglip-vit-so400m"))}
 PRETRAIN_LLM_LAYERS = 32
 PRETRAIN_DEVICE_ARGS = []  # the card (the CLI's default)
 PRETRAIN_D72_TOWER = "siglip-vit-so400m"  # the tower whose layers B6 runs at head dim 72
@@ -6356,7 +6526,7 @@ def tp_predicted(label: str, r: dict) -> dict:
     else:
         per_layer, layers = (2, 1), TP_FINETUNE_LAYERS
     per = {"small_attention_kt": 46, "flash_attention_forward": 12 + per_layer[0] * layers,
-           "flash_attention_backward": per_layer[1] * layers}
+           "flash_attention_backward": per_layer[1] * layers, "layer_norm": TOWER_LN}
     return {k: per[k] * micro for k in per if per[k]} | {k: 0 for k in A.launch_counts() if k not in per}
 
 
@@ -6604,34 +6774,38 @@ def llm_launches(prefill_lengths, decode_forwards: int, layers: int) -> dict:
 def bench_expected(kind: str, out: dict, layers: int = BENCH_LLM_LAYERS) -> dict:
     """The launches a bench's run must show, worked out from its shapes and
     the work its result line reports; the kernels not named, none."""
-    L, K1, K2 = layers, 2 * TOWER_LAYER_CALLS, VIVIT_LAYERS
+    L, K1, K2, LN = layers, 2 * TOWER_LAYER_CALLS, VIVIT_LAYERS, TOWER_LN
     if kind == "decode":
         n, fwd = out["prefills"], out["decode_steps"] + out["captured_steps"]
-        want = {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n, "decode_attention": L * fwd}
+        want = {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n, "decode_attention": L * fwd,
+                "layer_norm": LN * n}
         if out["int8"]:  # 4 packed Linears a layer and the lm_head a step; the prefill's lm_head on its 1 row
             want["int8_linear"] = (4 * L + 1) * fwd + n
         return want
     if kind == "train":  # the LLM's attention forward twice a step under remat, its backward once
         n = out["steps"]
         return {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + 2 * L) * n,
-                "flash_attention_backward": L * n}
+                "flash_attention_backward": L * n, "layer_norm": LN * n}
     if kind == "serving_phase":
         return llm_launches(out["work"]["prefill_lengths"], out["work"]["decode_forwards"], L)
     if kind == "breakdown":  # each tower's timed calls and encode_videos' one; the LLM prefill's calls
         per_tower = out["calls"]["towers"] // len(out["towers_ms"]) + 1
         return {"small_attention_kt": K1 * per_tower,
-                "flash_attention_forward": K2 * per_tower + L * out["calls"]["llm_prefill"]}
-    if kind == "tower_attn_row":
+                "flash_attention_forward": K2 * per_tower + L * out["calls"]["llm_prefill"], "layer_norm": LN * per_tower}
+    if kind == "tower_attn_row":  # LanguageBind and DINOv2 called alike
         name = TOWER_IMPL_KERNEL[out["impl"]]
-        return {name: TOWER_LAYER_CALLS * out["calls"]} if name else {}
+        norms = sum(TOWER_NORMS[t][out["impl"] == "fused_block"]
+                    for t in ("languagebind-video-noclass", "dinov2-video-all-tokens"))
+        return {**({name: TOWER_LAYER_CALLS * out["calls"]} if name else {}), "layer_norm": norms * out["calls"] // 2}
     if kind == "tower_ops":  # the tower's 23 layers a forward; the attention chain's one a layer of the config
         calls = out["calls"]
         chain = next(n for n in calls if n.startswith("attention chain"))
-        return {"small_attention_kt": TOWER_LAYER_CALLS * (calls["full tower"] + calls["full tower, fp32 input"])
-                + out["layers"] * calls[chain]}
+        tower = calls["full tower"] + calls["full tower, fp32 input"]
+        return {"small_attention_kt": TOWER_LAYER_CALLS * tower + out["layers"] * calls[chain],
+                "layer_norm": TOWER_NORMS["dinov2-video-all-tokens"][0] * tower}
     if kind == "loader":
         n = out["prefills"]
-        return {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n}
+        return {"small_attention_kt": K1 * n, "flash_attention_forward": (K2 + L) * n, "layer_norm": LN * n}
     raise ValueError(kind)
 
 
@@ -6889,12 +7063,13 @@ def bench_path(dev, seed: int) -> dict:
         elif kind == "vidlm_prefix":
             k = launches
             if not (k["small_attention_kt"] > 0 and k["small_attention_kt"] % (2 * TOWER_LAYER_CALLS) == 0
+                    and k["layer_norm"] == TOWER_LN * k["small_attention_kt"] // (2 * TOWER_LAYER_CALLS)
                     and all(k[n] > 0 for n in ("flash_attention_forward", "int8_linear", "decode_attention"))
                     and all(k[n] == 0 for n in ("flash_attention_backward", "small_attention",
                                                 "packed_temporal_attention", "fused_vit_attn_block",
                                                 "fused_vit_attn_block_d72"))):
-                raise RuntimeError(f"[bench] {label}: launches {k}: K1 a whole number of prefills, K2 / K4 / K5 "
-                                   "launched, nothing else")
+                raise RuntimeError(f"[bench] {label}: launches {k}: K1 and K6 a whole number of prefills, K2 / K4 / "
+                                   "K5 launched, nothing else")
             checked[label] = k
         else:
             checked[label] = check_launches(label, launches, bench_expected(kind, out))
@@ -6916,9 +7091,9 @@ def bench_launches(bench: dict, name: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
-# every kernel library: K2, K3, K1, B3, B6, B5, K4 and K5
+# every kernel library: K2, K3, K1, B3, B6, B5, K4, K5 and K6
 COMPILED_LIBS = ("flash_fwd", "flash_bwd", "small_attention_kt", "small_attention", "fused_vit_block",
-                 "packed_temporal", "int8_linear", "decode_attention")
+                 "packed_temporal", "int8_linear", "decode_attention", "layer_norm")
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
@@ -7018,6 +7193,10 @@ KERNELS = {
     # ops/ring_attention.py:462-483); its launches come from phase 4i's two-rank eval run
     "decode_attention_lse": dict(source="merv_tpu_torch/csrc/decode_attention.cu",
                                  replaces="merv_tpu/ops/ring_attention.py:470", main_case="b1_bf16_1120", sp=True),
+    # K6 replaces XLA's fused LayerNorm (merv_tpu leaves it to XLA), not a Pallas kernel; its launches come from the
+    # frozen towers of phase 5's align run
+    "layer_norm": dict(source="merv_tpu_torch/csrc/layer_norm.cu", replaces="merv_tpu/nn/core.py:168",
+                       main_case="align_languagebind"),
 }
 SERVING_KERNELS = ("small_attention_kt", "flash_attention_forward")
 
@@ -7069,6 +7248,9 @@ def main() -> int:
                          "--mesh_seq 2 and --mesh_pipe 2 as two ranks on the card, the memory proof) and print its "
                          "numbers (no result line)")
     ap.add_argument("--train-parallel-worker", metavar="OUT_DIR", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--layer-norm-only", action="store_true",
+                    help="build, then run only K6's kernel cases and print them (no result line): for comparing two "
+                         "versions of the LayerNorm kernel within one call")
     ap.add_argument("--tower-only", action="store_true",
                     help="build, then run only the towers' B3, B5 and B6 kernel cases and print them (no result "
                          "line): for comparing two versions of the towers' opt-in kernels within one call")
@@ -7235,6 +7417,12 @@ def main() -> int:
             "gloo_probe", "loss_rel", "norm_rel", "planted", "pp_loss_rel", "pp_norm_rel", "bytes_share",
             "pp_layer_share", "sp_grad_rel", "resume", "launches", "wall_s")}}, default=str))
         return 0
+    if args.layer_norm_only:
+        cases = layer_norm_cases(dev, args.seed)
+        keys = ("kernel", "case", "shape", "eps", "ms", "graph_ms", "plain_ms", "plain_graph_ms", "library_ms",
+                "library_graph_ms", "bound_ms", "roofline_share", "worst_share_of_limit", "bit_equal_share", "max_ulps")
+        log(json.dumps({"layer_norm_cases": [{k: c.get(k) for k in keys} for c in cases]}))
+        return 0
     if args.tower_only:
         cases = tower_kernel_cases(dev, args.seed, by_launch=True)
         keys = ("kernel", "case", "ms", "graph_ms", "library_ms", "library_graph_ms", "yardstick_ms",
@@ -7253,7 +7441,7 @@ def main() -> int:
     with switches({}):  # every phase sets the switches it runs under
         cases = []
         for fn in (kernel_cases, backward_cases, tower_kernel_cases, fused_d72_cases, head_dim_72_cases,
-                   int8_kernel_cases, family_kernel_cases, tensor_kernel_cases):
+                   int8_kernel_cases, family_kernel_cases, tensor_kernel_cases, layer_norm_cases):
             cases += timed(fn.__name__, fn, dev, args.seed)
         main = timed("main_path", main_path, dev, args.seed, args.max_new_tokens)
         loaded = timed("loaded_path", loaded_path, dev, args.seed, args.max_new_tokens,

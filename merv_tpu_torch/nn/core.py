@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from merv_tpu_torch.ops import int8_linear
+from merv_tpu_torch.ops.layer_norm import layer_norm
 
 # ---------------------------------------------------------------------------
 # Initializers (all draw from an explicit generator, in place)
@@ -139,7 +140,9 @@ class Embed(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics; output in the input dtype."""
+    """LayerNorm with fp32 statistics; output in the input dtype
+    (:func:`~merv_tpu_torch.ops.layer_norm.layer_norm`: one kernel where no
+    gradient is needed on the card, the plain formula elsewhere)."""
 
     def __init__(
         self, dim: int, eps: float = 1e-5, param_dtype: torch.dtype = torch.float32,
@@ -156,12 +159,7 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, keepdim=True, unbiased=False)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class RMSNorm(nn.Module):

@@ -53,12 +53,13 @@ from merv_tpu_torch.ops import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 # kernel launches per wrapper, counted where each launches its kernel (the
-# wrappers of fused_vit_attn_block, int8_linear and decode_attention live in
-# ops/fused_vit_block.py, ops/int8_linear.py and ops/decode_attention.py;
+# wrappers of fused_vit_attn_block, int8_linear, decode_attention and layer_norm live in
+# ops/fused_vit_block.py, ops/int8_linear.py, ops/decode_attention.py and ops/layer_norm.py;
 # fused_vit_attn_block counts head dims 64 and 72 apart, decode_attention its launches with an LSE output apart)
 _LAUNCHES = {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
              "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
-             "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0, "decode_attention_lse": 0}
+             "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0, "decode_attention_lse": 0,
+             "layer_norm": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -146,18 +146,21 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     out = TA.attention(q, k, v, causal=True)  # planned 'flash'
     ref = TA.attention_reference(q, k, v, causal=True)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=FP32_TOL, rtol=0)
-    # K4 and K5 (ops/int8_linear.py, ops/decode_attention.py) count in the same table
+    # K4, K5 and K6 (ops/int8_linear.py, ops/decode_attention.py, ops/layer_norm.py) count in the same table
     import merv_tpu_torch.ops.decode_attention as K5
     import merv_tpu_torch.ops.int8_linear as K4
+    import merv_tpu_torch.ops.layer_norm as K6
 
     w = torch.randint(-127, 128, (8, 64), dtype=torch.int8)
     assert torch.equal(K4.int8_linear(q[0, 0, :3], w, torch.ones(8)), K4.int8_linear_plain(q[0, 0, :3], w, torch.ones(8)))
     out = K5.decode_attention(q[:, :, :1], k, v, kv_mask=torch.ones((1, 261), dtype=torch.bool))
     np.testing.assert_allclose(out.numpy(), TA.attention_reference(q[:, :, :1], k, v).numpy(), atol=FP32_TOL, rtol=0)
+    x, ones = q.flatten()[: 32 * 768].reshape(32, 768).to(torch.bfloat16), torch.ones(768)
+    assert torch.equal(K6.layer_norm(x, ones, ones, 1e-6), K6.layer_norm_plain(x, ones, ones, 1e-6))
     assert TA.launch_counts() == {"small_attention_kt": 0, "flash_attention_forward": 0, "flash_attention_backward": 0,
                                   "small_attention": 0, "packed_temporal_attention": 0, "fused_vit_attn_block": 0,
                                   "fused_vit_attn_block_d72": 0, "int8_linear": 0, "decode_attention": 0,
-                                  "decode_attention_lse": 0}
+                                  "decode_attention_lse": 0, "layer_norm": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ Each output is held by ``chip_smoke.hold``, element by element and on the
 mean, under the limit stated there; the flash forward's log-sum-exp by
 ``chip_smoke.hold_lse``, row by row; the fused ViT block's with the
 magnitudes of ``chip_smoke.fused_block_mags`` and stage by stage by
-``chip_smoke.hold_fused``.
+``chip_smoke.hold_fused``; K6 (``layer_norm``) also within one bf16 ulp of
+its plain version, element by element, at the magnitude of the terms rounded
+(``chip_smoke.bf16_ulps``).
 """
 
 import ctypes
@@ -27,6 +29,7 @@ from chip_smoke import (
     LSE_PLANTED_OFFSET,
     SP_K5_CASES,
     backward_mags,
+    bf16_ulps,
     fused_args,
     fused_block_mags,
     fused_layer,
@@ -35,6 +38,7 @@ from chip_smoke import (
     hold_fused,
     hold_lse,
     k5_lse_hold,
+    layer_norm_terms,
     patched,
     planted_tower_faults,
     sp_k5_inputs,
@@ -616,3 +620,139 @@ def test_ring_matches_whole_sequence_kernels(cuda, n, zigzag, Hk):
     _assert_close(out.detach()[:, :, inv], o_ref, A.flash_attention_forward(q, k, v.abs(), causal=True))
     for leaf, ref, mag in zip(leaves, grads, backward_mags(q, k, v, lse_ref, do, causal=True)):
         _assert_close(leaf.grad[:, :, inv], ref, mag)
+
+
+# K6: the towers' LayerNorm shapes (one served video's LanguageBind rows, the align micro-batch's DINOv2 rows, ViViT's
+# 3,137 tokens, SigLIP's micro-batch, so400m's frames), rows that leave the last block's warps partly idle (257, 261),
+# a [B, S, D] input; eps 1e-5 and 1e-6; fp32 w and b as the towers store them, bf16 ones too
+LAYER_NORM_EDGES = [(4112, 1024, 1e-5, torch.float32), (66816, 1024, 1e-6, torch.float32),
+                    (3137, 768, 1e-6, torch.float32), (50176, 768, 1e-6, torch.float32),
+                    (4096, 1152, 1e-6, torch.float32), (257, 1024, 1e-5, torch.float32),
+                    (261, 768, 1e-6, torch.float32), (257, 1152, 1e-5, torch.float32),
+                    (261, 1024, 1e-6, torch.bfloat16), (257, 768, 1e-5, torch.bfloat16),
+                    ((16, 261, 1024), 1024, 1e-6, torch.float32)]
+
+
+def _ln_params(rng, D, dtype, dev):
+    w = torch.from_numpy(1 + 0.3 * rng.standard_normal(D).astype(np.float32)).to(dev, dtype)
+    b = torch.from_numpy(0.5 * rng.standard_normal(D).astype(np.float32)).to(dev, dtype)
+    return w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D,eps,wdtype", LAYER_NORM_EDGES)
+def test_layer_norm_matches_plain(cuda, rows, D, eps, wdtype):
+    import merv_tpu_torch.ops.layer_norm as LN
+
+    rng = np.random.default_rng(D + (rows if isinstance(rows, int) else 1))
+    shape = (rows, D) if isinstance(rows, int) else rows
+    x = _bf16(rng, shape, cuda) * 3 + 0.7  # a mean away from 0, which a one-pass variance would lose
+    w, b = _ln_params(rng, D, wdtype, cuda)
+    before = A.launch_counts()
+    out = LN.layer_norm_one_pass(x, w, b, eps)
+    assert A.launches_since(before) == {"layer_norm": 1}
+    ref = LN.layer_norm_plain(x, w, b, eps)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    _assert_close(out, ref, torch.zeros_like(ref))
+    ulps = bf16_ulps(out, ref, layer_norm_terms(x, w, b, eps))
+    print(f"layer_norm {shape} eps {eps} {wdtype}: bit-equal share {ulps['bit_equal_share']:.6f}, "
+          f"at most {ulps['max_ulps']:.3f} bf16 ulps")
+    assert ulps["max_ulps"] <= 1.0, ulps
+    assert torch.equal(LN.layer_norm_one_pass(x, w, b, eps), out)  # the same bits every call
+
+
+@pytest.mark.cuda
+def test_layer_norm_route_on_the_card(cuda):
+    """``layer_norm`` takes the kernel for bf16 x of its widths with nothing to
+    differentiate, and keeps the plain formula (nothing counted) for fp32 x,
+    other widths and calls that need a gradient."""
+    import merv_tpu_torch.ops.layer_norm as LN
+
+    rng = np.random.default_rng(3)
+    for D, dtype, grad, kernel in ((1024, torch.bfloat16, False, True), (768, torch.bfloat16, False, True),
+                                   (1024, torch.float32, False, False), (512, torch.bfloat16, False, False),
+                                   (1024, torch.bfloat16, True, False)):
+        x = _bf16(rng, (37, D), cuda).to(dtype)
+        w, b = _ln_params(rng, D, torch.float32, cuda)
+        w.requires_grad_(grad)
+        before = A.launch_counts()
+        out = LN.layer_norm(x, w, b, 1e-6)
+        assert A.launches_since(before) == ({"layer_norm": 1} if kernel else {})
+        assert (out.grad_fn is not None) is grad
+        _assert_close(out, LN.layer_norm_plain(x, w, b, 1e-6), torch.zeros_like(out, dtype=torch.float32))
+    # the kernel's wrapper raises on what the kernel does not take
+    w, b = _ln_params(rng, 1024, torch.float32, cuda)
+    misaligned = torch.empty(37 * 1024 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(37, 1024)
+    for x, wb in ((_bf16(rng, (37, 1024), cuda).float(), (w, b)), (_bf16(rng, (37, 512), cuda), (w[:512], b[:512])),
+                  (_bf16(rng, (37, 1024), cuda), (w, b.half())), (misaligned, (w, b))):
+        with pytest.raises(ValueError):
+            LN.layer_norm_one_pass(x, *wb, 1e-6)
+
+
+def _layer_norm_f64_stats(x, w, b, eps):
+    """The plain formula with its mean and variance taken in float64, then
+    rounded to fp32: as exact as the plain version, with other roundings in
+    its statistics."""
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True).float()
+    var = xd.var(-1, keepdim=True, unbiased=False).float()
+    return (((x.float() - mean) * torch.rsqrt(var + eps)) * w.float() + b.float()).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tower,sites", [("dinov2", 46), ("languagebind", 70)])
+def test_layer_norm_in_a_tower_matches_plain(cuda, tower, sites):
+    """A full-size tower at B = 1 (16 frames at 224 px) under ``no_grad``: one
+    K6 launch a norm site (DINOv2-L's penultimate-layer tap: 23 layers x 2;
+    LanguageBind-L: 23 x 3 with the temporal norm, and its pre-norm), each held
+    against the plain formula on its own input and within one bf16 ulp of it.
+    The tower's output against the same tower with every norm forced through
+    the plain formula: a one-ulp difference at a norm moves the layers after
+    it, as any other order of the statistics' sums does (on random weights
+    LanguageBind-L's output moves by ~1.4e-2 relative L2 under either, DINOv2's
+    by ~1e-8), so the distance is held against a control, the same tower with
+    its norms' statistics taken in float64: at most twice the control's, plus
+    1e-4 (a fortieth of a bf16 ulp)."""
+    import merv_tpu_torch.ops.layer_norm as LN
+    from chip_smoke import patched, rel_l2
+    from merv_tpu_torch.device import make_generator
+    from merv_tpu_torch.models.backbones.video import DinoV2VideoBackbone, LangBindVideoBackbone
+    from merv_tpu_torch.nn.core import LayerNorm, init_weights
+
+    cls, ident = ((DinoV2VideoBackbone, "dinov2-video-all-tokens") if tower == "dinov2"
+                  else (LangBindVideoBackbone, "languagebind-video-noclass"))
+    vb = cls(ident, "resize-naive", num_frames=16, device=cuda)
+    gen = make_generator(cuda, 11)
+    init_weights(vb, gen)
+    with torch.no_grad():
+        for m in vb.modules():
+            if isinstance(m, LayerNorm):
+                m.weight.normal_(1.0, 0.2, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+    video = torch.randn((1, *vb.default_video_resolution), generator=gen, device=cuda)
+    one_pass, held = LN.layer_norm_one_pass, []
+
+    def one_pass_held(x, w, b, eps):
+        out = one_pass(x, w, b, eps)
+        ref = LN.layer_norm_plain(x, w, b, eps)
+        held.append((hold(out, ref, torch.zeros_like(ref, dtype=torch.float32)),
+                     bf16_ulps(out, ref, layer_norm_terms(x, w, b, eps))))
+        return out
+
+    with torch.no_grad():
+        before = A.launch_counts()
+        with patched((LN, "layer_norm_one_pass", one_pass_held)):
+            out = vb(video)
+        assert A.launches_since(before).get("layer_norm") == sites
+        with patched((LayerNorm, "forward", lambda m, x: LN.layer_norm_plain(x, m.weight, m.bias, m.eps))):
+            ref = vb(video)
+        with patched((LayerNorm, "forward", lambda m, x: _layer_norm_f64_stats(x, m.weight, m.bias, m.eps))):
+            control = vb(video)
+    assert len(held) == sites
+    assert all(h["ok"] for h, _ in held), [h for h, _ in held if not h["ok"]][:2]
+    assert max(u["max_ulps"] for _, u in held) <= 1.0
+    share = sum(u["bit_equal_share"] for _, u in held) / sites
+    moved, control_moved = rel_l2(out.float(), ref.float()), rel_l2(control.float(), ref.float())
+    print(f"{tower}: {sites} norms, mean bit-equal share {share:.6f}; output moved {moved:.3e} (relative L2), "
+          f"the float64-statistics control {control_moved:.3e}")
+    assert moved <= 2 * control_moved + 1e-4
